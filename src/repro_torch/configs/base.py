@@ -1,0 +1,209 @@
+"""Architecture + shape + parallelism configuration.
+
+A copy of ``repro.configs.base`` (the port imports nothing of the JAX
+package), plus `single_stage`, which folds a uniform pattern into one
+pipeline stage so a whole model runs on one card.
+
+Every assigned architecture gets one module in ``repro_torch/configs`` exporting
+``CONFIG: ArchConfig``.  A stage's layer structure is a *stage-local pattern*
+(list of ``BlockSpec``), identical on every pipeline stage — the SPMD pipeline
+requires a uniform per-stage program; heterogeneity (jamba's mamba/attn
+interleave, whisper's enc/dec split) is expressed inside the pattern.
+DESIGN.md §3 records where this shifts a published layer order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from dataclasses import dataclass
+from typing import Tuple
+
+
+class BlockKind(enum.Enum):
+    ATTN_MLP = "attn_mlp"        # self-attention + dense MLP
+    ATTN_MOE = "attn_moe"        # self-attention + MoE FFN
+    MLA_MLP = "mla_mlp"          # multi-head latent attention + dense MLP
+    MAMBA_MLP = "mamba_mlp"      # mamba mixer + dense MLP
+    MAMBA_MOE = "mamba_moe"      # mamba mixer + MoE FFN
+    RWKV = "rwkv"                # rwkv6 time-mix + channel-mix
+    ENC_LAYER = "enc_layer"      # bidirectional self-attn + MLP (whisper enc)
+    DEC_LAYER = "dec_layer"      # causal self-attn + cross-attn + MLP
+
+
+@dataclass(frozen=True)
+class BlockSpec:
+    kind: BlockKind
+    repeat: int                  # stacked (scanned) repetitions per stage
+
+
+@dataclass(frozen=True)
+class ParallelPlan:
+    """How the production mesh maps onto this architecture.
+
+    ``pp * tp`` must equal the `model` axis size (16).  ``ep_over_data`` turns
+    on expert-parallelism over the `data` axis (kimi, jamba); otherwise MoE
+    experts are replicated over `data` and sharded over `tensor` only.
+    """
+
+    pp: int                      # pipeline stages (paper's #PP_depth)
+    tp: int                      # tensor-parallel degree inside a stage
+    ep_over_data: bool = False
+    # long-context decode: shard the KV sequence over `data` (flash-decode
+    # partial-softmax merge).  Only used by the long_500k shape.
+    seq_shard_kv: bool = False
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                  # dense | moe | vlm | audio | hybrid | ssm
+    num_layers: int              # published layer count (pre-padding)
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 128
+
+    # stage-local structure; len == layers per stage after padding
+    pattern: Tuple[BlockSpec, ...] = ()
+    plan: ParallelPlan = ParallelPlan(pp=4, tp=4)
+
+    # attention details
+    qkv_bias: bool = False
+    rope_theta: float = 1e6
+    mrope: bool = False                     # qwen2-vl 3-axis M-RoPE
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)
+    causal: bool = True
+
+    # MLA (minicpm3)
+    mla: bool = False
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_dim: int = 64
+    qk_rope_dim: int = 32
+    v_head_dim: int = 64
+
+    # MoE
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_d_ff: int = 0                       # per-expert hidden dim
+    num_shared_experts: int = 0
+    moe_capacity_factor: float = 1.25
+
+    # SSM (mamba / rwkv6)
+    mamba_d_state: int = 16
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+    rwkv_head_dim: int = 64
+
+    # encoder-decoder (whisper)
+    is_encoder_decoder: bool = False
+
+    # misc
+    norm: str = "rmsnorm"                   # rmsnorm | layernorm
+    act: str = "silu"                       # silu | gelu
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+
+    # which assigned shapes apply (DESIGN.md §3)
+    supports_long_context: bool = False     # run long_500k?
+
+    # ------------------------------------------------------------------ derived
+    @property
+    def layers_per_stage(self) -> int:
+        return sum(b.repeat for b in self.pattern)
+
+    @property
+    def padded_layers(self) -> int:
+        return self.layers_per_stage * self.plan.pp
+
+    @property
+    def layer_padding(self) -> int:
+        return self.padded_layers - self.num_layers
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded so the lm_head shards evenly over stage x tensor
+        (e.g. whisper 51865 -> 51872).  Token ids never reach the pad rows."""
+        m = max(16, self.plan.pp * self.plan.tp)
+        return (self.vocab_size + m - 1) // m * m
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    @property
+    def kv_cache_dim_per_token(self) -> int:
+        """KV bytes-per-token driver (per attention layer), in elements."""
+        if self.mla:
+            return self.kv_lora_rank + self.qk_rope_dim
+        return 2 * self.num_kv_heads * self.head_dim
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
+    def mamba_d_inner(self) -> int:
+        return self.mamba_expand * self.d_model
+
+    @property
+    def num_rwkv_heads(self) -> int:
+        return self.d_model // self.rwkv_head_dim
+
+    def with_plan(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, plan=dataclasses.replace(self.plan, **kw))
+
+
+def make_reduced(cfg: ArchConfig, *, d_model: int = 64, d_ff: int = 128,
+                 vocab: int = 256) -> ArchConfig:
+    """A tiny same-family variant for CPU smoke tests (one block per kind)."""
+    head_dim = 16
+    heads = max(2, d_model // head_dim)
+    kv_heads = min(cfg.num_kv_heads, heads) or heads
+    while heads % kv_heads:
+        kv_heads -= 1
+    pattern = tuple(BlockSpec(b.kind, 1) for b in cfg.pattern)
+    return dataclasses.replace(
+        cfg,
+        d_model=d_model,
+        d_ff=d_ff,
+        vocab_size=vocab,
+        num_heads=heads,
+        num_kv_heads=kv_heads,
+        head_dim=head_dim,
+        num_layers=len(pattern) * 2,
+        pattern=pattern,
+        plan=ParallelPlan(pp=2, tp=1, ep_over_data=cfg.plan.ep_over_data,
+                          seq_shard_kv=False),
+        num_experts=min(cfg.num_experts, 4),
+        num_experts_per_tok=min(cfg.num_experts_per_tok, 2),
+        moe_d_ff=min(cfg.moe_d_ff, 64) if cfg.moe_d_ff else 0,
+        num_shared_experts=min(cfg.num_shared_experts, 1),
+        q_lora_rank=32, kv_lora_rank=16, qk_nope_dim=16, qk_rope_dim=8,
+        v_head_dim=16,
+        mamba_d_state=8, mamba_d_conv=4, mamba_expand=2,
+        rwkv_head_dim=16,
+        mrope_sections=(4, 2, 2),
+    )
+
+
+def single_stage(cfg: ArchConfig) -> ArchConfig:
+    """Fold a uniform pattern into one pipeline stage at pp=1, tp=1.
+
+    qwen1.5-0.5b publishes pp=8 x 3 layers; on one card the whole depth is
+    one stage: ``BlockSpec(ATTN_MLP, 24)``.  Only single-kind patterns fold:
+    an interleaved pattern (jamba, whisper) raises."""
+    kinds = {b.kind for b in cfg.pattern}
+    if len(kinds) != 1:
+        raise ValueError(f"{cfg.name}: pattern {cfg.pattern} is not uniform")
+    return dataclasses.replace(
+        cfg, pattern=(BlockSpec(kinds.pop(), cfg.num_layers),),
+        plan=ParallelPlan(pp=1, tp=1))

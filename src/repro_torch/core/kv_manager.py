@@ -1,0 +1,271 @@
+"""Paged KV-cache manager (vLLM-style), shared across pipeline stages.
+
+The driver owns a single logical page table per request (the paper: "all the
+workers share the page tables like vLLM").  Physical cache arrays live on the
+devices, sharded over the `stage` mesh axis (each stage holds its own layers'
+pages); the *page ids* are global and identical on every stage, so one host-side
+allocator serves the whole pipeline.
+
+Supports: allocation/free, copy-on-extend block tables, preemption reclaim,
+optional prefix caching (hash-chained full pages with refcounts), the
+KV idle-rate signal consumed by Token Throttling's UT term, and per-request
+export/import for live migration across replicas (DESIGN.md §9): `export_kv`
+captures a request's resident token positions, `import_kv` re-maps them onto
+freshly-allocated slots of another manager (page geometries may differ —
+the mapping is per token, not per page).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+
+@dataclass(frozen=True)
+class KVExport:
+    """Portable description of one request's resident KV (host side).
+
+    `slots` is the source (page, slot) per resident token, in sequence
+    order — exactly the index list a device-side gather needs.  The actual
+    cache bytes are moved by the execution backend
+    (`ExecutionBackend.export_kv_pages`/`import_kv_pages`); this object only
+    carries the *addressing* so the destination can re-map slots.
+    """
+
+    request_id: str
+    num_tokens: int
+    page_size: int
+    slots: Tuple[Tuple[int, int], ...]
+
+
+def hash_page(parent_hash: int, token_ids: Tuple[int, ...]) -> int:
+    """Position-dependent content hash for prefix caching (hash chain)."""
+    return hash((parent_hash,) + token_ids)
+
+
+@dataclass
+class PageInfo:
+    page_id: int
+    ref_count: int = 0
+    prefix_hash: Optional[int] = None  # set only for frozen full pages
+
+
+class PagedKVManager:
+    """Host-side allocator for the paged KV cache.
+
+    Pages are identified by integer id in [0, num_pages).  `page_size` is in
+    tokens.  A request's block table maps token position p to page
+    `block_table[p // page_size]`, slot `p % page_size`.
+    """
+
+    def __init__(
+        self,
+        num_pages: int,
+        page_size: int,
+        enable_prefix_caching: bool = False,
+    ) -> None:
+        if num_pages <= 0 or page_size <= 0:
+            raise ValueError("num_pages and page_size must be positive")
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self.enable_prefix_caching = enable_prefix_caching
+
+        self._pages: List[PageInfo] = [PageInfo(i) for i in range(num_pages)]
+        self._free: List[int] = list(range(num_pages - 1, -1, -1))  # LIFO
+        # Evictable prefix-cache pages: hash -> page_id with ref_count == 0.
+        self._prefix_index: Dict[int, int] = {}
+        self._evictable: Dict[int, None] = {}  # ordered set (LRU) of page ids
+        self._block_tables: Dict[str, List[int]] = {}
+        # tokens with KV resident, per request (for slot computation)
+        self._num_tokens: Dict[str, int] = {}
+
+    # ------------------------------------------------------------------ state
+    @property
+    def num_free_pages(self) -> int:
+        return len(self._free) + len(self._evictable)
+
+    @property
+    def kv_free_rate(self) -> float:
+        """KV idle rate in [0,1] — the UT input of Token Throttling."""
+        return self.num_free_pages / self.num_pages
+
+    def block_table(self, request_id: str) -> List[int]:
+        return self._block_tables[request_id]
+
+    def num_tokens(self, request_id: str) -> int:
+        return self._num_tokens.get(request_id, 0)
+
+    def has_request(self, request_id: str) -> bool:
+        return request_id in self._block_tables
+
+    # ------------------------------------------------------------- allocation
+    def pages_needed(self, request_id: str, new_tokens: int) -> int:
+        cur = self._num_tokens.get(request_id, 0)
+        cur_pages = len(self._block_tables.get(request_id, ()))
+        need_pages = -(-(cur + new_tokens) // self.page_size)  # ceil div
+        return max(0, need_pages - cur_pages)
+
+    def can_allocate(self, request_id: str, new_tokens: int) -> bool:
+        return self.pages_needed(request_id, new_tokens) <= self.num_free_pages
+
+    def allocate(self, request_id: str, new_tokens: int) -> List[Tuple[int, int]]:
+        """Extend a request's KV by `new_tokens`; returns (page, slot) per token.
+
+        Raises MemoryError when out of pages — callers must check
+        `can_allocate` first (the scheduler preempts instead of failing).
+        """
+        need = self.pages_needed(request_id, new_tokens)
+        if need > self.num_free_pages:
+            raise MemoryError(
+                f"KV pool exhausted: need {need} pages, free {self.num_free_pages}"
+            )
+        table = self._block_tables.setdefault(request_id, [])
+        self._num_tokens.setdefault(request_id, 0)
+        for _ in range(need):
+            table.append(self._take_free_page())
+        start = self._num_tokens[request_id]
+        slots = [
+            (table[(start + i) // self.page_size], (start + i) % self.page_size)
+            for i in range(new_tokens)
+        ]
+        self._num_tokens[request_id] += new_tokens
+        return slots
+
+    def free(self, request_id: str) -> None:
+        """Release all pages of a request (finish or preemption)."""
+        table = self._block_tables.pop(request_id, None)
+        self._num_tokens.pop(request_id, None)
+        if table is None:
+            return
+        for pid in table:
+            self._release_page(pid)
+
+    # -------------------------------------------------------------- migration
+    def export_kv(self, request_id: str) -> KVExport:
+        """Addressing of a resident request's KV, for live migration."""
+        if request_id not in self._block_tables:
+            raise KeyError(f"request {request_id} has no resident KV")
+        table = self._block_tables[request_id]
+        n = self._num_tokens[request_id]
+        slots = tuple((table[i // self.page_size], i % self.page_size)
+                      for i in range(n))
+        return KVExport(request_id=request_id, num_tokens=n,
+                        page_size=self.page_size, slots=slots)
+
+    def import_kv(self, export: KVExport) -> List[Tuple[int, int]]:
+        """Allocate fresh pages for a migrated-in request and return the
+        destination (page, slot) per token — the scatter addresses matching
+        `export.slots` gather addresses one-to-one.  Raises MemoryError when
+        the pool cannot hold the request (callers should `can_allocate`
+        first and fall back to recompute)."""
+        rid = export.request_id
+        if self.has_request(rid):
+            raise ValueError(f"request {rid} already resident here")
+        return self.allocate(rid, export.num_tokens)
+
+    # ---------------------------------------------------------- prefix caching
+    def match_prefix(self, token_ids: Sequence[int]) -> Tuple[int, List[int]]:
+        """Longest cached prefix in *full pages*: (num_cached_tokens, page_ids).
+
+        Matched pages get their refcount bumped; caller must attach them via
+        `adopt_prefix` or release with `release_pages`.
+        """
+        if not self.enable_prefix_caching:
+            return 0, []
+        matched: List[int] = []
+        parent = 0
+        for i in range(0, len(token_ids) - self.page_size + 1, self.page_size):
+            chunk = tuple(token_ids[i : i + self.page_size])
+            h = hash_page(parent, chunk)
+            pid = self._prefix_index.get(h)
+            if pid is None:
+                break
+            self._pages[pid].ref_count += 1
+            self._evictable.pop(pid, None)
+            matched.append(pid)
+            parent = h
+        return len(matched) * self.page_size, matched
+
+    def peek_prefix(self, token_ids: Sequence[int]) -> int:
+        """Length (in tokens) of the longest cached prefix, without side
+        effects: refcounts and the LRU order are untouched.  The router's
+        cache-affinity probe — safe to call on every candidate replica per
+        routing decision."""
+        if not self.enable_prefix_caching:
+            return 0
+        matched = 0
+        parent = 0
+        for i in range(0, len(token_ids) - self.page_size + 1, self.page_size):
+            chunk = tuple(token_ids[i : i + self.page_size])
+            h = hash_page(parent, chunk)
+            if h not in self._prefix_index:
+                break
+            matched += 1
+            parent = h
+        return matched * self.page_size
+
+    def adopt_prefix(self, request_id: str, num_tokens: int, page_ids: List[int]) -> None:
+        """Attach matched prefix pages as the head of a fresh block table."""
+        assert request_id not in self._block_tables, "adopt before first allocate"
+        self._block_tables[request_id] = list(page_ids)
+        self._num_tokens[request_id] = num_tokens
+
+    def freeze_full_pages(self, request_id: str, token_ids: Sequence[int]) -> None:
+        """Register the request's full pages in the prefix index (post-prefill)."""
+        if not self.enable_prefix_caching:
+            return
+        table = self._block_tables.get(request_id, [])
+        parent = 0
+        for idx in range(len(token_ids) // self.page_size):
+            chunk = tuple(token_ids[idx * self.page_size : (idx + 1) * self.page_size])
+            h = hash_page(parent, chunk)
+            pid = table[idx]
+            info = self._pages[pid]
+            if info.prefix_hash is None and h not in self._prefix_index:
+                info.prefix_hash = h
+                self._prefix_index[h] = pid
+            parent = h
+
+    def release_pages(self, page_ids: Sequence[int]) -> None:
+        for pid in page_ids:
+            self._release_page(pid)
+
+    # -------------------------------------------------------------- internals
+    def _take_free_page(self) -> int:
+        if self._free:
+            pid = self._free.pop()
+        else:
+            # Evict the least-recently-freed cached prefix page.
+            pid, _ = next(iter(self._evictable.items()))
+            del self._evictable[pid]
+            info = self._pages[pid]
+            if info.prefix_hash is not None:
+                self._prefix_index.pop(info.prefix_hash, None)
+                info.prefix_hash = None
+        info = self._pages[pid]
+        assert info.ref_count == 0, f"allocating referenced page {pid}"
+        info.ref_count = 1
+        return pid
+
+    def _release_page(self, pid: int) -> None:
+        info = self._pages[pid]
+        assert info.ref_count > 0, f"double free of page {pid}"
+        info.ref_count -= 1
+        if info.ref_count == 0:
+            if info.prefix_hash is not None:
+                self._evictable[pid] = None  # cached: evictable, not free
+            else:
+                self._free.append(pid)
+
+    # ------------------------------------------------------------- invariants
+    def check_invariants(self) -> None:
+        """Debug/property-test hook: global page accounting must balance."""
+        referenced = sum(1 for p in self._pages if p.ref_count > 0)
+        in_tables = {pid for t in self._block_tables.values() for pid in t}
+        assert len(self._free) + len(self._evictable) + referenced == self.num_pages, (
+            len(self._free), len(self._evictable), referenced, self.num_pages
+        )
+        for pid in in_tables:
+            assert self._pages[pid].ref_count > 0, f"page {pid} in table but free"
+        free_set = set(self._free) | set(self._evictable)
+        assert not (free_set & in_tables), "page simultaneously free and mapped"

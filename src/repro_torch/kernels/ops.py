@@ -1,0 +1,20 @@
+"""Dispatch layer (``repro.kernels.ops``): a CUDA tensor goes to the Hopper
+kernel, a CPU tensor to the kernel's plain version.  There is no switch and
+no fallback: a CUDA input that the kernel refuses raises."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import paged_attention as pa
+
+
+def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
+                    block_tables: torch.Tensor, context_lens: torch.Tensor,
+                    q_positions: torch.Tensor) -> torch.Tensor:
+    """Decode/prefill paged attention over the pool."""
+    if q.is_cuda:
+        return pa.paged_flash_attention(q, kv_pages, block_tables,
+                                        context_lens, q_positions)
+    return pa.paged_flash_attention_ref(q, kv_pages, block_tables,
+                                        context_lens, q_positions)

@@ -1,0 +1,109 @@
+"""Serving launcher of the port (``repro.launch.serve``).
+
+On the card it builds the published width and depth of the arch (folded to
+one stage by `single_stage`, bf16, random weights from `--seed`):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+        --requests 16 --max-new 16
+
+``--reduced --device cpu`` runs the same path on the CPU at a tiny width,
+through the kernels' plain versions.  `build_engine` is the entry point
+`chip_smoke.py` and the tests call.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, make_reduced, single_stage
+from repro_torch.core import SamplingParams, ThrottleConfig
+from repro_torch.models.serve import ServeDims
+from repro_torch.models.transformer import init_params
+from repro_torch.runtime.engine import PipelineEngine, resolve_device
+
+# Full width on one H100: one prefill chunk of 512 tokens and 32 decode rows
+# per tick, 2048 pages of 16 tokens (launch/shapes.py's page) per layer.
+FULL_DIMS = ServeDims(Sp=1, C=512, Sd=32, pages=2048, page=16, Bp=128,
+                      Bd=128, slots=64)
+# Reduced mode: the JAX package's CPU-sized defaults (serving/build.py).
+REDUCED_DIMS = ServeDims(Sp=1, C=32, Sd=8, pages=512, page=8, Bp=64, Bd=64,
+                         slots=16)
+REDUCED_THROTTLE = dict(num_iters_T=4, max_prefill_tokens=32,
+                        min_prefill_tokens=4)
+
+
+def build_engine(arch: str = "qwen1.5-0.5b", *, reduced: bool = False,
+                 device: Optional[torch.device | str] = None,
+                 dtype: Optional[torch.dtype] = None,
+                 dims: Optional[ServeDims] = None,
+                 throttle: Optional[ThrottleConfig] = None,
+                 seed: int = 0) -> PipelineEngine:
+    """A ready engine for `arch`: full width and depth in one stage (bf16
+    by default), or the reduced CPU-sized variant (f32)."""
+    dev = resolve_device(device)
+    cfg = get_config(arch)
+    if reduced:
+        cfg = make_reduced(cfg).with_plan(pp=1, tp=1)
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        dims = dims or REDUCED_DIMS
+        throttle = throttle or ThrottleConfig(pipeline_depth=1,
+                                              **REDUCED_THROTTLE)
+    else:
+        cfg = single_stage(cfg)
+        dims = dims or FULL_DIMS
+        throttle = throttle or ThrottleConfig(pipeline_depth=1)
+    dtype = dtype or getattr(torch, cfg.dtype)
+    cfg = dataclasses.replace(cfg, dtype=str(dtype).split(".")[-1])
+    params = init_params(cfg, seed, dtype=dtype, device=dev)
+    return PipelineEngine(cfg, dims, params, throttle, device=dev,
+                          dtype=dtype, seed=seed)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--reduced", action="store_true",
+                    help="tiny same-family config (f32) instead of the "
+                    "published width and depth")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    ap.add_argument("--dtype", default=None, choices=["float32", "bfloat16"])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    dtype = getattr(torch, args.dtype) if args.dtype else None
+    eng = build_engine(args.arch, reduced=args.reduced, device=args.device,
+                       dtype=dtype, seed=args.seed)
+    cfg = eng.cfg
+    rng = np.random.default_rng(args.seed)
+    t0 = time.perf_counter()
+    reqs = []
+    for _ in range(args.requests):
+        n = int(np.clip(rng.lognormal(3.0, 0.8), 4, 300))
+        reqs.append(eng.add_request(
+            [int(t) for t in rng.integers(0, cfg.vocab_size, n)],
+            SamplingParams(max_new_tokens=args.max_new)))
+    eng.drain()
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = sum(r.num_output_tokens for r in reqs)
+    done = sum(r.is_finished for r in reqs)
+    st = eng.stats
+    print(f"[{cfg.name} | {eng.device} {cfg.dtype}] {done}/{len(reqs)} "
+          f"requests, {toks} tokens in {wall:.2f}s; ticks={st.ticks} "
+          f"host_s={st.host_s:.3f} device_s={st.device_s:.3f}")
+    if done != len(reqs):
+        raise SystemExit("not every request finished")
+
+
+if __name__ == "__main__":
+    main()

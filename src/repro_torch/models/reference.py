@@ -1,0 +1,67 @@
+"""Dense (non-pipelined, non-paged) reference forward and greedy generation
+(``repro.models.reference``): the oracle the serving engine is held to.
+
+Identical parameters and stage-ordered layer application (padded layers
+skipped), executed as one dense causal forward over the full sequence — no
+paged KV, no chunking.  Runs on the CPU and on the card.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer as tfm
+from repro_torch.models.transformer import _block_key
+
+
+def dense_hidden(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens [B, T] -> final hidden states [B, T, d] (before the head)."""
+    h = tfm.embed_apply(cfg, params, tokens)
+    Lps = cfg.layers_per_stage
+    for s in range(cfg.plan.pp):
+        off = 0
+        for i, bs in enumerate(cfg.pattern):
+            p = params["stages"][_block_key(i, bs)]
+            for r in range(bs.repeat):
+                if s * Lps + off + r < cfg.num_layers:
+                    pl = {k: v[s, r] for k, v in p.items()}
+                    h = tfm.block_apply_train(cfg, bs.kind, pl, h)
+            off += bs.repeat
+    return h
+
+
+@torch.no_grad()
+def dense_forward(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens [B, T] -> logits [B, T, V]."""
+    return tfm.head_apply(cfg, params, dense_hidden(cfg, params, tokens))
+
+
+@torch.no_grad()
+def greedy_trace(cfg: ArchConfig, params, prompt: Sequence[int],
+                 max_new_tokens: int) -> Tuple[List[int], List[float]]:
+    """Greedy decoding by full recompute each step.  Returns the tokens and,
+    per step, the gap between the two largest f32 logits (a gap near 0 is a
+    near-tie that summation order may flip)."""
+    device = params["embed"]["tok"].device
+    toks = list(prompt)
+    out: List[int] = []
+    gaps: List[float] = []
+    for _ in range(max_new_tokens):
+        ids = torch.tensor([toks], dtype=torch.long, device=device)
+        h = dense_hidden(cfg, params, ids)[:, -1]
+        logits = tfm.head_apply(cfg, params, h)[0].float()
+        top2 = torch.topk(logits, 2).values
+        nxt = int(torch.argmax(logits))
+        out.append(nxt)
+        gaps.append(float(top2[0] - top2[1]))
+        toks.append(nxt)
+    return out, gaps
+
+
+def greedy_generate(cfg: ArchConfig, params, prompt: Sequence[int],
+                    max_new_tokens: int) -> List[int]:
+    """Greedy decoding by full recompute each step (slow, exact)."""
+    return greedy_trace(cfg, params, prompt, max_new_tokens)[0]

@@ -1,0 +1,210 @@
+"""The stacked transformer (``repro.models.transformer``), ATTN_MLP blocks.
+
+Parameters are *stacked* as in the JAX package: every block leaf carries
+leading dims ``[S, R, ...]`` (S = pipeline stages, R = the block's repeat
+count inside a stage).  The tree is held as nested modules
+(`TransformerParams`: ``nn.ModuleDict`` of ``nn.ParameterDict``) whose keys
+are the JAX tree's keys, so ``params["stages"]["b0_attn_mlp"]["wq"]`` names
+the same array in both packages and carrying weights across needs no
+transposes (``x @ w``, ``w`` is ``[d_in, d_out]``).
+
+Train mode (`block_apply_train`) runs full sequences with a plain causal
+softmax; the dense reference (`models/reference.py`) is built on it.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig, BlockKind, BlockSpec
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import apply_norm, apply_rope, mlp_apply
+
+Leaf = Tuple[Tuple[int, ...], str]      # (shape, init kind)
+
+_PORTED_KINDS = (BlockKind.ATTN_MLP,)
+
+
+def _check_kind(kind: BlockKind) -> None:
+    if kind not in _PORTED_KINDS:
+        raise NotImplementedError(
+            f"block kind {kind.value} is not yet ported to repro_torch "
+            f"(ROADMAP Queue 1 item 8); ported: "
+            f"{[k.value for k in _PORTED_KINDS]}")
+
+
+def _norm_defs(cfg: ArchConfig, name: str) -> Dict[str, Leaf]:
+    d = {f"{name}_g": ((cfg.d_model,), "ones")}
+    if cfg.norm == "layernorm":
+        d[f"{name}_b"] = ((cfg.d_model,), "zeros")
+    return d
+
+
+def _mlp_defs(cfg: ArchConfig) -> Dict[str, Leaf]:
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.act == "gelu":
+        return {"w1": ((d, ff), "normal"), "b1": ((ff,), "zeros"),
+                "w2": ((ff, d), "residual"), "b2": ((d,), "zeros")}
+    return {"w_gate": ((d, ff), "normal"), "w_up": ((d, ff), "normal"),
+            "w_down": ((ff, d), "residual")}
+
+
+def _attn_defs(cfg: ArchConfig) -> Dict[str, Leaf]:
+    d, q, kv = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    out: Dict[str, Leaf] = {
+        "wq": ((d, q), "normal"), "wk": ((d, kv), "normal"),
+        "wv": ((d, kv), "normal"), "wo": ((q, d), "residual"),
+    }
+    if cfg.qkv_bias:
+        out["bq"] = ((q,), "zeros")
+        out["bk"] = ((kv,), "zeros")
+        out["bv"] = ((kv,), "zeros")
+    return out
+
+
+def block_param_defs(cfg: ArchConfig, kind: BlockKind) -> Dict[str, Leaf]:
+    _check_kind(kind)
+    defs: Dict[str, Leaf] = {}
+    defs.update(_norm_defs(cfg, "ln1"))
+    defs.update(_norm_defs(cfg, "ln2"))
+    defs.update(_attn_defs(cfg))
+    defs.update(_mlp_defs(cfg))
+    return defs
+
+
+def _block_key(i: int, spec: BlockSpec) -> str:
+    return f"b{i}_{spec.kind.value}"
+
+
+def model_param_defs(cfg: ArchConfig) -> Dict[str, Dict[str, Any]]:
+    """Full parameter tree of (shape, init) leaves, keyed as the JAX tree."""
+    S = cfg.plan.pp
+    stages = {
+        _block_key(i, bs): {k: ((S, bs.repeat) + shape, init)
+                            for k, (shape, init) in
+                            block_param_defs(cfg, bs.kind).items()}
+        for i, bs in enumerate(cfg.pattern)
+    }
+    V = cfg.padded_vocab
+    tree: Dict[str, Dict[str, Any]] = {
+        "embed": {"tok": ((V, cfg.d_model), "normal")},
+        "stages": stages,
+        "final_norm": {k.split("final_")[-1]: v
+                       for k, v in _norm_defs(cfg, "final").items()},
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = {"w": ((cfg.d_model, V), "normal")}
+    return tree
+
+
+class TransformerParams(nn.ModuleDict):
+    """The parameter tree as modules: a dict of tensors becomes an
+    ``nn.ParameterDict``, a dict of dicts an ``nn.ModuleDict``.  Parameters
+    do not require gradients (this package serves)."""
+
+    def __init__(self, tree: Mapping[str, Any]) -> None:
+        super().__init__({k: _as_module(v) for k, v in tree.items()})
+
+
+def _as_module(tree: Mapping[str, Any]) -> nn.Module:
+    if all(isinstance(v, torch.Tensor) for v in tree.values()):
+        return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                                 for k, v in tree.items()})
+    return nn.ModuleDict({k: _as_module(v) for k, v in tree.items()})
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, *,
+                dtype: Optional[torch.dtype] = None,
+                device: torch.device | str = "cpu") -> TransformerParams:
+    """Random weights from `seed`, drawn on `device` with an explicit
+    ``torch.Generator`` (the JAX package's scales: 0.02, and
+    0.02/sqrt(2L) for residual projections).  The draws differ from
+    ``jax.random``; tests carry the JAX weights across with
+    `repro_torch.models.convert.params_from_numpy` instead."""
+    dtype = dtype or getattr(torch, cfg.dtype)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def make(leaf: Leaf) -> torch.Tensor:
+        shape, init = leaf
+        if init == "zeros":
+            return torch.zeros(shape, dtype=dtype, device=device)
+        if init == "ones":
+            return torch.ones(shape, dtype=dtype, device=device)
+        scale = 0.02
+        if init == "residual":
+            scale = 0.02 / math.sqrt(max(1, 2 * cfg.num_layers))
+        elif init != "normal":
+            raise NotImplementedError(f"init {init!r} is not yet ported")
+        w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        return (w * scale).to(dtype)
+
+    def walk(tree):
+        if isinstance(tree, tuple):
+            return make(tree)
+        return {k: walk(v) for k, v in tree.items()}
+
+    return TransformerParams(walk(model_param_defs(cfg)))
+
+
+# ----------------------------------------------------------------------------
+# Embedding / head
+# ----------------------------------------------------------------------------
+
+def embed_apply(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"]["tok"][tokens]
+
+
+def head_apply(cfg: ArchConfig, params, h: torch.Tensor) -> torch.Tensor:
+    fn = params["final_norm"]
+    h = apply_norm(h, fn, "layernorm" if "b" in fn else "rmsnorm",
+                   cfg.norm_eps)
+    w = params["embed"]["tok"].T if cfg.tie_embeddings \
+        else params["lm_head"]["w"]
+    return h @ w
+
+
+# ----------------------------------------------------------------------------
+# Train-mode block application
+# ----------------------------------------------------------------------------
+
+def _heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    return x.reshape(x.shape[:-1] + (n, hd))
+
+
+def _attn_train(cfg: ArchConfig, p, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    """x [B, T, d] -> causal self-attention output [B, T, d]."""
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = apply_rope(_heads(q, cfg.num_heads, cfg.head_dim), positions,
+                   cfg.rope_theta)
+    k = apply_rope(_heads(k, cfg.num_kv_heads, cfg.head_dim), positions,
+                   cfg.rope_theta)
+    v = _heads(v, cfg.num_kv_heads, cfg.head_dim)
+    o = attn.causal_attention(q, k, v)
+    return o.reshape(o.shape[:-2] + (-1,)) @ p["wo"]
+
+
+def block_apply_train(cfg: ArchConfig, kind: BlockKind, p,
+                      x: torch.Tensor) -> torch.Tensor:
+    """One block over full sequences: x [B, T, d] -> x."""
+    _check_kind(kind)
+    positions = torch.arange(x.shape[1], device=x.device)
+
+    def norm(name, h):
+        keys = {"g": p[f"{name}_g"]}
+        if f"{name}_b" in p:
+            keys["b"] = p[f"{name}_b"]
+        return apply_norm(h, keys, cfg.norm, cfg.norm_eps)
+
+    x = x + _attn_train(cfg, p, norm("ln1", x), positions)
+    return x + mlp_apply(norm("ln2", x), p, cfg.act)
