@@ -3,6 +3,7 @@ of JAX or of the JAX package, its entry points run on CUDA unless asked for
 the CPU, and its launcher runs end to end on the CPU."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -85,3 +86,18 @@ def test_launcher_runs_reduced_on_cpu():
         env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert "3/3 requests, 12 tokens" in res.stdout
+
+
+def test_profile_launcher_runs_reduced_on_cpu():
+    """launch/profile.py (device time by kernel on the card) runs the same
+    code on the CPU and prints one JSON line; the CPU has no device rows."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.profile", "--reduced",
+         "--device", "cpu", "--requests", "2", "--max-new", "2"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    out = json.loads([l for l in res.stdout.splitlines()
+                      if l.startswith("{")][-1])
+    assert out["device"] == "cpu" and out["ticks"] > 0
+    assert out["device_idle_share"] is None and out["kernels_ms"] == []
