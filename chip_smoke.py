@@ -14,14 +14,18 @@ line; any failure raises and the script exits non-zero.
   kernel      the paged-attention kernel against its plain PyTorch version
               at the main path's shapes (qwen1.5-0.5b decode and prefill,
               one qwen2.5-14b decode), f32 and bf16, with dead pages
-              NaN-poisoned and one ctx=0 row; kernel, plain and library
-              (SDPA) times and the card's bound for the same work
+              NaN-poisoned and one ctx=0 row, within the kernel module's
+              TOLERANCE; a copy of the kernel built with a planted fault
+              (an off-by-one causal mask) must fail the same check; kernel,
+              plain and library (SDPA) times and the card's bound
   serve-f32   full-width, full-depth qwen1.5-0.5b (random weights from a
               seed) serves 8 requests; greedy tokens equal the port's dense
               reference up to a near-tie (top-2 logit gap < 1e-3); the kernel
               ran 2 phases x 24 layers on every tick
   serve-bf16  the same entry point in bf16 with 32 requests (4 sampled at
-              temperature 0.8): tokens/s, ticks, host/device time, memory
+              temperature 0.8): tokens/s, ticks, host/device time, memory;
+              then the same batch again under torch.profiler for the
+              device's busy time
 
 Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.
@@ -85,8 +89,22 @@ def phase_device() -> dict:
     return out
 
 
-def phase_build(build) -> None:
-    build.build_all(["paged_attention"])
+PLANTED = "paged_attention_planted"
+
+
+def planted_source(build) -> str:
+    """The kernel's source with one planted fault: the causal mask
+    ``kpos <= qpos`` becomes ``kpos < qpos``, so every row loses its own
+    key, on the CUDA-core and the tensor-core path alike."""
+    text = (build.CSRC / "paged_attention.cu").read_text()
+    if text.count("kpos <= qp[") != 3:
+        raise AssertionError("planted fault: the kernel's causal mask is no "
+                             "longer where chip_smoke.py looks for it")
+    return text.replace("kpos <= qp[", "kpos < qp[")
+
+
+def phase_build(build, planted: str) -> None:
+    build.build_all(["paged_attention", PLANTED], {PLANTED: planted})
     info = build.build_log["paged_attention"]
     kernels = []
     for block in info["log"].split("Compiling entry function")[1:]:
@@ -102,7 +120,10 @@ def phase_build(build) -> None:
             "spill_stores": int(spill.group(1)) if spill else None,
             "spill_loads": int(spill.group(2)) if spill else None})
     emit({"phase": "build", "kernel": "paged_attention",
-          "nvcc_seconds": round(info["seconds"], 3), "ptxas": kernels})
+          "nvcc_seconds": round(info["seconds"], 3),
+          "planted_nvcc_seconds": round(build.build_log[PLANTED]["seconds"],
+                                        3),
+          "ptxas": kernels})
 
 
 def _attention_case(S, TQ, H, KH, D, page, B, dtype, ctx, seed):
@@ -166,7 +187,7 @@ def _library_fn(q, clean, tables, ctx, qpos, page):
     return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask)
 
 
-def phase_kernel(pa) -> list:
+def phase_kernel(pa, planted_src: str) -> list:
     rng_ctx = np.random.default_rng(7)
     decode_ctx = [int(c) for c in rng_ctx.integers(1, 2049, 32)]
     decode_ctx[0], decode_ctx[1], decode_ctx[-1] = 2048, 1, 0
@@ -177,27 +198,39 @@ def phase_kernel(pa) -> list:
         ("qwen2.5-14b decode", 32, 1, 40, 8, 128, 16, 128, decode_ctx),
     ]
     results = []
-    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+    for dtype in (torch.float32, torch.bfloat16):
+        atol, rtol, vtol = pa.TOLERANCE[dtype]
         for name, S, TQ, H, KH, D, page, B, ctx in shapes:
             q, kv, clean, tables, ctx_t, qpos = _attention_case(
                 S, TQ, H, KH, D, page, B, dtype, ctx,
                 seed=len(results))
             out = pa.paged_flash_attention(q, kv, tables, ctx_t, qpos)
-            want = pa.paged_flash_attention_ref(q, clean, tables, ctx_t, qpos)
+            planted = pa.launch(PLANTED, q, kv, tables, ctx_t, qpos,
+                                source=planted_src)
             torch.cuda.synchronize()
+            plain = (q, clean, tables, ctx_t, qpos)
+            excess, err = pa.excess(out, *plain)
+            planted_excess, _ = pa.excess(planted, *plain)
             live = ctx_t > 0
-            err = float((out[live].float() - want[live].float()).abs().max())
             zeros = bool(torch.all(out[~live] == 0))
             finite = bool(torch.isfinite(out).all())
             row = {"phase": "kernel", "shape": name,
                    "dtype": str(dtype).split(".")[-1],
                    "S": S, "TQ": TQ, "H": H, "KH": KH, "D": D, "page": page,
                    "B": B, "max_ctx": max(ctx), "max_abs_err": err,
-                   "tol": tol, "ctx0_rows_zero": zeros, "finite": finite}
-            if not (err <= tol and zeros and finite):
+                   "atol": atol, "rtol": rtol, "vtol": vtol,
+                   "excess": excess,
+                   "planted_excess": planted_excess,
+                   "ctx0_rows_zero": zeros, "finite": finite}
+            if not (excess <= 1.0 and zeros and finite):
                 emit(row)
                 raise AssertionError(f"kernel disagrees with its plain "
                                      f"version at {name} {dtype}: {row}")
+            if not planted_excess > 1.0:
+                emit(row)
+                raise AssertionError(f"the check passes a kernel with an "
+                                     f"off-by-one causal mask at {name} "
+                                     f"{dtype}: {row}")
             args = (q, kv, tables, ctx_t, qpos)
             row["kernel_ms"] = time_ms(
                 lambda: pa.paged_flash_attention(*args), 20)
@@ -213,7 +246,7 @@ def phase_kernel(pa) -> list:
              row["flops"]) = _bound(q, kv, tables, ctx_t, qpos, page)
             emit(row)
             results.append(row)
-            del q, kv, clean, out, want
+            del q, kv, clean, out, planted, plain
             torch.cuda.empty_cache()
     return results
 
@@ -271,40 +304,63 @@ def _sampling(temperature):
     return SamplingParams(max_new_tokens=MAX_NEW, temperature=temperature)
 
 
-def phase_serve_bf16(pa, build_engine) -> dict:
+def _serve_batch(eng, prompts) -> list:
+    reqs = [eng.add_request(p, _sampling(0.8 if i % 8 == 7 else 0.0))
+            for i, p in enumerate(prompts)]
+    eng.drain()
+    torch.cuda.synchronize()
+    return reqs
+
+
+def phase_serve_bf16(pa, build_engine, device_time) -> dict:
+    """Serve the batch once for the numbers, then the same batch again on
+    the same engine under torch.profiler for the device's busy time."""
+    from torch.profiler import ProfilerActivity, profile
+
     eng = build_engine(ARCH, device=DEV, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     prompts = _prompts(12, 32, eng.cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
     pa.launches = 0
     t0 = time.perf_counter()
-    reqs = [eng.add_request(p, _sampling(0.8 if i % 8 == 7 else 0.0))
-            for i, p in enumerate(prompts)]
-    eng.drain()
-    torch.cuda.synchronize()
+    reqs = _serve_batch(eng, prompts)
     wall = time.perf_counter() - t0
     launches = pa.launches
     st = eng.stats
+    ticks, host_s, device_s = st.ticks, st.host_s, st.device_s
     for i, r in enumerate(reqs):
         if not (r.is_finished and r.num_output_tokens == MAX_NEW and all(
                 0 <= t < eng.cfg.vocab_size for t in r.output_token_ids)):
             raise AssertionError(f"serve-bf16: request {i} did not finish "
                                  f"with {MAX_NEW} valid tokens")
-    if launches != st.ticks * LAYERS * 2:
+    if launches != ticks * LAYERS * 2:
         raise AssertionError(f"serve-bf16: {launches} launches for "
-                             f"{st.ticks} ticks")
+                             f"{ticks} ticks")
     out_tokens = sum(r.num_output_tokens for r in reqs)
     prompt_tokens = sum(len(p) for p in prompts)
+    peak = torch.cuda.max_memory_allocated()
+
+    t1 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _serve_batch(eng, prompts)
+    profiled_wall = time.perf_counter() - t1
+    busy_us, _ = device_time(prof)
     out = {"phase": "serve-bf16", "arch": ARCH, "requests": len(reqs),
            "temperature_requests": sum(1 for i in range(len(reqs))
                                        if i % 8 == 7),
            "prompt_tokens": prompt_tokens, "output_tokens": out_tokens,
            "wall_s": wall, "output_tokens_per_s": out_tokens / wall,
            "total_tokens_per_s": (out_tokens + prompt_tokens) / wall,
-           "ticks": st.ticks, "ms_per_tick": wall / st.ticks * 1e3,
-           "host_s": st.host_s, "device_s": st.device_s,
-           "kernel_launches": launches,
-           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+           "ticks": ticks, "ms_per_tick": wall / ticks * 1e3,
+           "host_s": host_s, "device_s": device_s,
+           "kernel_launches": launches, "max_memory_allocated": peak,
+           "profiled_ticks": eng.stats.ticks - ticks,
+           "profiled_wall_s": profiled_wall,
+           "device_busy_s": busy_us / 1e6,
+           # busy time of the profiled rerun over the unprofiled wall time
+           # of the same batch (the profiler slows the host, not the device)
+           "device_idle_share": 1.0 - busy_us / 1e6 / wall}
     emit(out)
     del eng
     gc.collect()
@@ -322,6 +378,7 @@ def main() -> int:
     try:
         from repro_torch.kernels import build
         from repro_torch.kernels import paged_attention as pa
+        from repro_torch.launch.profile import device_time
         from repro_torch.launch.serve import build_engine
         from repro_torch.models.reference import greedy_trace
     except ImportError as exc:
@@ -330,10 +387,11 @@ def main() -> int:
         return 1
 
     device = phase_device()
-    phase_build(build)
-    shapes = phase_kernel(pa)
+    planted = planted_source(build)
+    phase_build(build, planted)
+    shapes = phase_kernel(pa, planted)
     phase_serve_f32(pa, build_engine, greedy_trace)
-    bf16 = phase_serve_bf16(pa, build_engine)
+    bf16 = phase_serve_bf16(pa, build_engine, device_time)
 
     main_row = next(r for r in shapes if r["shape"] == "qwen1.5 decode"
                     and r["dtype"] == "bfloat16")
@@ -344,12 +402,14 @@ def main() -> int:
         "jax": "src/repro/kernels/paged_attention.py:112",
         "checked": True,
         "launches": bf16["kernel_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in shapes),
         "shape": f"{main_row['shape']} {main_row['dtype']}",
+        "max_abs_err": main_row["max_abs_err"],
+        "max_abs_err_all_shapes": max(r["max_abs_err"] for r in shapes),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "shapes": [{k: r[k] for k in ("shape", "dtype", "max_abs_err",
+                                      "excess", "planted_excess",
                                       "kernel_ms", "plain_ms", "library_ms",
                                       "bound_ms", "bound_by")}
                    for r in shapes]}]})

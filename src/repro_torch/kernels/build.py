@@ -5,7 +5,10 @@ point (no PyTorch headers).  ``nvcc`` compiles it for Hopper (``sm_90a``)
 into a shared library under ``build/repro_torch/`` at the repository root
 (listed in ``.gitignore``), named by a hash of the source and the flags, and
 ``ctypes`` loads it.  Nothing is compiled at import, so the package imports
-on machines without ``nvcc``.
+on machines without ``nvcc``.  A library may also be built from CUDA text
+that has no file under ``csrc/`` (a variant of a kernel, such as the planted
+fault ``chip_smoke.py`` checks its comparison against); the text is written
+beside the library and compiled the same way.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Mapping, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -43,26 +46,39 @@ def nvcc() -> str:
                        "compiled at first use and need the CUDA toolkit")
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+def _source(name: str, text: Optional[str]) -> bytes:
+    return text.encode() if text is not None else (
+        CSRC / f"{name}.cu").read_bytes()
+
+
+def _target(name: str, src: bytes) -> Path:
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def build_all(names: Iterable[str]) -> None:
+def build_all(names: Iterable[str],
+              sources: Optional[Mapping[str, str]] = None) -> None:
     """Compile every listed kernel not yet built, all nvcc processes
-    started together, and record each one's time and ptxas report."""
+    started together, and record each one's time and ptxas report.
+    `sources` maps a name to its CUDA text where it has no file under
+    ``csrc/``."""
+    sources = sources or {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs: List[tuple] = []
     for name in names:
-        out = _target(name)
+        src = _source(name, sources.get(name))
+        out = _target(name, src)
         log = out.with_suffix(".log")
         if out.exists():
             build_log[name] = {"seconds": 0.0,
                                "log": log.read_text() if log.exists() else ""}
             continue
+        cu = CSRC / f"{name}.cu"
+        if name in sources:
+            cu = out.with_suffix(".cu")
+            cu.write_bytes(src)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(cu)]
         procs.append((name, out, tmp, log, time.perf_counter(),
                       subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)))
@@ -80,13 +96,14 @@ def build_all(names: Iterable[str]) -> None:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, built first if needed."""
+def load(name: str, source: Optional[str] = None) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, built first if needed from
+    ``csrc/<name>.cu``, or from the CUDA text `source` when given."""
     lib = _libs.get(name)
     if lib is None:
-        out = _target(name)
+        out = _target(name, _source(name, source))
         if not out.exists():
-            build_all([name])
+            build_all([name], {name: source} if source is not None else None)
         lib = ctypes.CDLL(str(out))
         _libs[name] = lib
     return lib

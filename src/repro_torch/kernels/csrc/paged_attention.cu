@@ -490,12 +490,30 @@ int launch_mma(const void* q, const void* kv, const void* tables,
   return (int)cudaGetLastError();
 }
 
+// Launch geometry of the TQ*G flattened rows of one (sequence, KV head):
+// few rows (decode) form one row group whose pages are split over the warps;
+// many rows (prefill) give each warp its own rows over every page, 16 of
+// them on the tensor cores (bf16), else 4 on the CUDA cores.
+struct Geometry {
+  bool mma;
+  int rows_per_warp, ksplit;
+};
+
+inline Geometry geometry(int M, bool bf16) {
+  if (M <= kMaxRows) return {false, M, 4};
+  if (M <= 2 * kMaxRows) return {false, (M + 1) / 2, 2};
+  if (bf16) return {true, kMmaRows, 1};
+  return {false, 4, 1};
+}
+
 template <typename T, int D, int PAGE>
 int launch(const void* q, const void* kv, const void* tables, const void* ctx,
            const void* qpos, void* out, int S, int TQ, int H, int KH, int B,
-           int rows_per_warp, int ksplit, float scale, cudaStream_t stream) {
+           float scale, cudaStream_t stream) {
+  const int M = TQ * (H / KH);
+  const Geometry g = geometry(M, std::is_same<T, __nv_bfloat16>::value);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (rows_per_warp == kMmaRows)
+    if (g.mma)
       return launch_mma<D, PAGE>(q, kv, tables, ctx, qpos, out, S, TQ, H, KH,
                                  B, scale, stream);
   }
@@ -504,26 +522,25 @@ int launch(const void* q, const void* kv, const void* tables, const void* ctx,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int tile_rows = (kWarps / ksplit) * rows_per_warp;
-  const int M = TQ * (H / KH);
+  const int tile_rows = (kWarps / g.ksplit) * g.rows_per_warp;
   dim3 grid((M + tile_rows - 1) / tile_rows, KH, S);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kv),
       static_cast<const int*>(tables), static_cast<const int*>(ctx),
       static_cast<const int*>(qpos), static_cast<T*>(out), TQ, H, KH, B,
-      rows_per_warp, ksplit, scale);
+      g.rows_per_warp, g.ksplit, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_dtype(const void* q, const void* kv, const void* tables,
                  const void* ctx, const void* qpos, void* out, int S, int TQ,
-                 int H, int KH, int D, int page, int B, int rows_per_warp,
-                 int ksplit, float scale, cudaStream_t stream) {
+                 int H, int KH, int D, int page, int B, float scale,
+                 cudaStream_t stream) {
 #define REPRO_PA_CASE(DD, PP)                                                  \
   if (D == DD && page == PP)                                                   \
     return launch<T, DD, PP>(q, kv, tables, ctx, qpos, out, S, TQ, H, KH, B,   \
-                             rows_per_warp, ksplit, scale, stream);
+                             scale, stream);
   REPRO_PA_CASE(64, 8)
   REPRO_PA_CASE(64, 16)
   REPRO_PA_CASE(128, 8)
@@ -534,26 +551,22 @@ int launch_dtype(const void* q, const void* kv, const void* tables,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 on success), or cudaErrorInvalidValue for a shape the kernel
-// does not take.  Launches on `stream` and does not synchronise.
+// dtype: 0 = float32, 1 = bfloat16.  Picks the launch geometry from TQ,
+// H/KH and dtype.  Returns cudaGetLastError() after the launch (0 on
+// success), or cudaErrorInvalidValue for a shape the kernel does not take.
+// Launches on `stream` and does not synchronise.
 extern "C" int paged_attention_launch(
     const void* q, const void* kv, const void* tables, const void* ctx,
     const void* qpos, void* out, int S, int TQ, int H, int KH, int D, int page,
-    int B, int dtype, int rows_per_warp, int ksplit, float scale,
-    void* stream) {
-  const bool mma = rows_per_warp == kMmaRows && ksplit == 1 && dtype == 1;
-  if (S <= 0 || TQ <= 0 || KH <= 0 || H % KH != 0 || B <= 0 ||
-      ((rows_per_warp < 1 || rows_per_warp > kMaxRows) && !mma) ||
-      (ksplit != 1 && ksplit != 2 && ksplit != 4))
+    int B, int dtype, float scale, void* stream) {
+  if (S <= 0 || TQ <= 0 || KH <= 0 || H % KH != 0 || B <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_dtype<float>(q, kv, tables, ctx, qpos, out, S, TQ, H, KH, D,
-                               page, B, rows_per_warp, ksplit, scale, st);
+                               page, B, scale, st);
   if (dtype == 1)
     return launch_dtype<__nv_bfloat16>(q, kv, tables, ctx, qpos, out, S, TQ,
-                                       H, KH, D, page, B, rows_per_warp,
-                                       ksplit, scale, st);
+                                       H, KH, D, page, B, scale, st);
   return (int)cudaErrorInvalidValue;
 }

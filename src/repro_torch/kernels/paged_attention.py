@@ -16,6 +16,7 @@ mean of V, where the kernel writes zeros; compare only ctx > 0 rows.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,25 +28,37 @@ launches = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _PAGES = (8, 16)
-_MAX_ROWS = 8          # rows a warp keeps in registers (kMaxRows)
-_MMA_ROWS = 16         # rows a warp owns on the tensor-core path (kMmaRows)
-_WARPS = 4
+
+# Kernel against plain version, elementwise on the rows with ctx > 0:
+#   |out - want| <= atol + rtol * |want| + vtol * sum_i p_i |v_i| / l
+# f32: the two differ only in summation order.  bf16: each rounds its f32
+# result to bf16 (one ulp apart at most, <= 2**-7 * |want|), and the
+# tensor-core path rounds P to bf16 before P.V, as the JAX flash path does
+# (|error| <= 2**-9 * sum_i p_i |v_i| / l; held at twice that).
+TOLERANCE = {torch.float32: (2e-5, 0.0, 0.0),
+             torch.bfloat16: (0.0, 2 ** -7, 2 ** -8)}
 
 
-def launch_geometry(TQ: int, G: int, tensor_cores: bool = False):
-    """(rows_per_warp, ksplit, tiles) for the TQ*G flattened rows of one
-    (sequence, KV head).  Few rows (decode): one row group whose pages are
-    split over the warps; many rows (prefill): each warp its own rows over
-    every page — 16 rows on the tensor cores (bf16), else 4."""
-    M = TQ * G
-    if M <= _MAX_ROWS:
-        rows_per_warp, ksplit = M, 4
-    elif M <= 2 * _MAX_ROWS:
-        rows_per_warp, ksplit = -(-M // 2), 2
-    else:
-        rows_per_warp, ksplit = (_MMA_ROWS if tensor_cores else 4), 1
-    tile = (_WARPS // ksplit) * rows_per_warp
-    return rows_per_warp, ksplit, -(-M // tile)
+def excess(out: torch.Tensor, q, kv_pages, block_tables, context_lens,
+           q_positions) -> Tuple[float, float]:
+    """(excess, max_abs_err) of the kernel's `out` against the plain
+    version on the same inputs, over the rows with ctx > 0: excess is the
+    largest |out - want| over its bound in `TOLERANCE`, at most 1 when the
+    two agree."""
+    atol, rtol, vtol = TOLERANCE[out.dtype]
+    live = context_lens > 0
+    if not bool(live.any()):
+        return 0.0, 0.0
+    args = (block_tables, context_lens, q_positions)
+    want = paged_flash_attention_ref(q, kv_pages, *args)[live].float()
+    bound = atol + rtol * want.abs()
+    if vtol:
+        abs_v = kv_pages.to(torch.float32, copy=True)
+        abs_v[:, :, 1] = abs_v[:, :, 1].abs()
+        scale = paged_flash_attention_ref(q.float(), abs_v, *args)[live]
+        bound = bound + vtol * scale
+    err = (out[live].float() - want).abs()
+    return float((err / bound).max()), float(err.max())
 
 
 def _check(q, kv_pages, block_tables, context_lens, q_positions) -> None:
@@ -87,16 +100,39 @@ def _check(q, kv_pages, block_tables, context_lens, q_positions) -> None:
                          "aligned")
 
 
-def _launcher():
-    """The C entry point, built and loaded at first use."""
-    from repro_torch.kernels import build
-
-    fn = build.load("paged_attention").paged_attention_launch
+def _entry_point(lib: ctypes.CDLL):
+    """The C entry point ``paged_attention_launch`` of a built library."""
+    fn = lib.paged_attention_launch
     if fn.argtypes is None:
         ptr = ctypes.c_void_p
-        fn.argtypes = [ptr] * 6 + [ctypes.c_int] * 10 + [ctypes.c_float, ptr]
+        fn.argtypes = [ptr] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
     return fn
+
+
+def launch(library: str, q, kv_pages, block_tables, context_lens,
+           q_positions, source: Optional[str] = None) -> torch.Tensor:
+    """Check the inputs, then launch the entry point of kernel library
+    `library` (built at first use from ``csrc/<library>.cu``, or from the
+    CUDA text `source`, see `build.load`) on the current stream.  Raises on
+    anything the kernel does not take or on a CUDA error.  Counts nothing:
+    `paged_flash_attention` is the counted path."""
+    from repro_torch.kernels import build
+
+    _check(q, kv_pages, block_tables, context_lens, q_positions)
+    fn = _entry_point(build.load(library, source))
+    S, TQ, H, D = q.shape
+    _, page, _, KH, _ = kv_pages.shape
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), kv_pages.data_ptr(), block_tables.data_ptr(),
+                 context_lens.data_ptr(), q_positions.data_ptr(),
+                 out.data_ptr(), S, TQ, H, KH, D, page,
+                 block_tables.shape[1], _DTYPES[q.dtype], D ** -0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention_launch failed: CUDA error {err}")
+    return out
 
 
 def paged_flash_attention(
@@ -109,22 +145,8 @@ def paged_flash_attention(
     """Launch the Hopper kernel; raises on anything it does not take.
     Block-table entries below the live page count must index the pool."""
     global launches
-    _check(q, kv_pages, block_tables, context_lens, q_positions)
-    S, TQ, H, D = q.shape
-    _, page, _, KH, _ = kv_pages.shape
-    out = torch.empty_like(q)
-    rows_per_warp, ksplit, _ = launch_geometry(
-        TQ, H // KH, tensor_cores=q.dtype == torch.bfloat16)
-    fn = _launcher()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), kv_pages.data_ptr(), block_tables.data_ptr(),
-                 context_lens.data_ptr(), q_positions.data_ptr(),
-                 out.data_ptr(), S, TQ, H, KH, D, page,
-                 block_tables.shape[1], _DTYPES[q.dtype], rows_per_warp,
-                 ksplit, D ** -0.5, stream)
-    if err != 0:
-        raise RuntimeError(f"paged_attention_launch failed: CUDA error {err}")
+    out = launch("paged_attention", q, kv_pages, block_tables, context_lens,
+                 q_positions)
     launches += 1
     return out
 

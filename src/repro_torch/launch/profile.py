@@ -37,14 +37,22 @@ def _serve(eng, rng, n: int, max_new: int) -> None:
         torch.cuda.synchronize()
 
 
-def _union_us(intervals) -> float:
-    total, end = 0.0, float("-inf")
-    for a, b in sorted(intervals):
+def device_time(prof):
+    """(busy_us, {kernel name: us}) of a finished `torch.profiler` run: the
+    union of the device's activity intervals, and the time by name."""
+    by_kernel = defaultdict(float)
+    spans = []
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[ev.name] += ev.time_range.end - ev.time_range.start
+            spans.append((ev.time_range.start, ev.time_range.end))
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
         if b <= end:
             continue
-        total += b - max(a, end)
+        busy += b - max(a, end)
         end = b
-    return total
+    return busy, by_kernel
 
 
 def main() -> None:
@@ -70,14 +78,7 @@ def main() -> None:
         _serve(eng, rng, args.requests, args.max_new)
     wall_us = (time.perf_counter() - t0) * 1e6
 
-    by_kernel = defaultdict(float)
-    spans = []
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            dur = ev.time_range.end - ev.time_range.start
-            by_kernel[ev.name] += dur
-            spans.append((ev.time_range.start, ev.time_range.end))
-    busy_us = _union_us(spans)
+    busy_us, by_kernel = device_time(prof)
     ticks = eng.stats.ticks - ticks0
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[: args.top]
     print(json.dumps({

@@ -80,12 +80,24 @@ def zero_meta(dims: ServeDims) -> Dict[str, np.ndarray]:
     return out
 
 
+def host_to_device(t: torch.Tensor, device: torch.device | str
+                   ) -> torch.Tensor:
+    """Copy host tensor `t` to `device`.  On CUDA the copy goes through
+    pinned memory and does not block the host: it queues behind the device's
+    earlier work instead of waiting for it."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def meta_to_device(meta: Mapping[str, np.ndarray], dims: ServeDims,
                    device: torch.device | str,
                    extra: Optional[Mapping[str, np.ndarray]] = None
                    ) -> Dict[str, torch.Tensor]:
     """Move one tick's metadata (plus `extra` int arrays, e.g. the fresh
-    token ids) to `device` in a single copy, as int32 views of one buffer.
+    token ids) to `device` in a single non-blocking copy, as int32 views of
+    one buffer.
 
     Adds ``p_rows``/``d_rows``: the flat indices of the rows that write KV
     (`attention.valid_rows`), computed here on the host."""
@@ -97,8 +109,9 @@ def meta_to_device(meta: Mapping[str, np.ndarray], dims: ServeDims,
                                        meta["d_slot_pages"], dims.pages)
     fields.update(extra or {})
     arrays = [np.asarray(a, np.int32) for a in fields.values()]
-    flat = torch.from_numpy(np.concatenate([a.reshape(-1) for a in arrays]))
-    flat = flat.to(device)
+    flat = host_to_device(
+        torch.from_numpy(np.concatenate([a.reshape(-1) for a in arrays])),
+        device)
     out, off = {}, 0
     for k, a in zip(fields, arrays):
         out[k] = flat[off:off + a.size].view(a.shape)

@@ -55,8 +55,8 @@ class ExecResult:
     synchronous results leave `pending` None and `resolve()` is a no-op.
     `ready` optionally carries a *non-blocking* probe for whether the
     deferred readback has already materialized (the engine wires it to
-    a CUDA event's `query()`); the async TickLoop uses it to retire a finished
-    batch before scheduling instead of a full tick later.
+    a CUDA event's `query()`).  The JAX package's async TickLoop reads it;
+    the port's loop resolves every result within its own tick.
     """
 
     tokens: List[int] = field(default_factory=list)
@@ -179,24 +179,13 @@ class TickLoop:
     scheduler's exclusion rule (one resident micro-batch per request) is
     built around.
 
-    **Async double-buffered mode** (`async_dispatch=True`, DESIGN.md §12):
-    the exiting batch's readback is *not* forced inside its own tick.
-    Instead the deferred `ExecResult` is parked in `_pending` and retired
-    one tick later — after the next tick's schedule/prepare host work has
-    already run and the next device tick has been dispatched — so host
-    metadata assembly for tick N+1 overlaps device execution of tick N
-    (asynchronous CUDA launches provide the overlap).  The completion lag is
-    invisible to outputs: a pending request is still in the scheduler's
-    in-flight set, so it simply becomes schedulable one tick later, and
-    greedy sampling makes per-request token streams independent of tick
-    placement (the Table-1 equivalence property).  Sync mode stays the
-    default — the simulator and trace replay/record paths depend on results
-    materializing within their own tick.
+    The JAX package's async double-buffered mode is not carried over: the
+    port's engine has no use for it yet.
     """
 
     def __init__(self, scheduler: PipelineScheduler, backend: ExecutionBackend,
-                 on_token: Optional[Callable[[Request, int], None]] = None,
-                 *, async_dispatch: bool = False) -> None:
+                 on_token: Optional[Callable[[Request, int], None]] = None
+                 ) -> None:
         self.scheduler = scheduler
         self.backend = backend
         backend.scheduler = scheduler
@@ -206,21 +195,12 @@ class TickLoop:
         self.on_token = on_token
         self.finished: List[Request] = []
         self.last_tick_empty = False
-        self.async_dispatch = async_dispatch
-        # async mode: the exiting batch of the *previous* tick, its readback
-        # still deferred — retired at the top of the next step
-        self._pending: Optional[Tuple[int, ExecResult]] = None
 
     # ------------------------------------------------------------------ state
     @property
-    def _ring_busy(self) -> bool:
-        return any(bid is not None for bid, _ in self.ring)
-
-    @property
     def busy(self) -> bool:
-        """True while any real micro-batch is in the ring or awaiting its
-        deferred retirement."""
-        return self._ring_busy or self._pending is not None
+        """True while any real micro-batch is in the ring."""
+        return any(bid is not None for bid, _ in self.ring)
 
     @property
     def has_work(self) -> bool:
@@ -231,18 +211,6 @@ class TickLoop:
         """One pipeline tick.  Returns requests finishing this tick."""
         if now is None:
             now = self.backend.clock()
-        finished_early: List[Request] = []
-        if (self.async_dispatch and self._pending is not None
-                and self._pending[1].is_ready()):
-            # The deferred readback already materialized on the device, so
-            # retiring it costs no wait — and doing it BEFORE scheduling
-            # makes its requests schedulable this very tick.  Without this,
-            # deferred retirement delays every completion by a full tick and
-            # the decode population freezes into two alternating disjoint
-            # cohorts, inflating the tick count (~51 vs 36 on the bench
-            # workload).  When the probe says "still running", the parked
-            # result waits as before and the overlap is preserved.
-            finished_early = self._retire_pending(now)
         batch = self.scheduler.schedule(now)
         if batch.is_empty:
             # nothing resident this tick: retire the empty batch immediately
@@ -251,11 +219,6 @@ class TickLoop:
         else:
             entry = (batch.batch_id, self.backend.prepare(batch))
         self.last_tick_empty = batch.is_empty
-        if (self.async_dispatch and batch.is_empty and not self._ring_busy
-                and self._pending is not None):
-            # nothing to execute — only the deferred batch remains; retire it
-            # without paying a bubble device tick
-            return finished_early + self._retire_pending(now)
         # Rotate: the new batch enters stage 0; the entry reaching the ring's
         # tail is the one executing its LAST stage this tick — its results
         # materialize when `execute` returns.  (For depth 1 that is this
@@ -264,19 +227,6 @@ class TickLoop:
         exiting_id, _ = self.ring[-1]
 
         result = self.backend.execute(tuple(self.ring), exiting_id, now)
-
-        if self.async_dispatch:
-            # This tick is now in flight on the device.  Retire the PREVIOUS
-            # tick's exiting batch — its readback has had a full device tick
-            # to complete, so the resolve below rarely blocks — and park this
-            # tick's exiting batch until the next step.
-            finished = (self._retire_pending(now)
-                        if self._pending is not None else [])
-            if exiting_id is not None:
-                self._pending = (exiting_id, result)
-            self.ring[-1] = (None, self.backend.prepare(None))
-            return finished_early + finished
-
         result.resolve()
         if exiting_id is None:
             return []
@@ -297,15 +247,6 @@ class TickLoop:
         return out
 
     # ----------------------------------------------------------------- retire
-    def _retire_pending(self, now: float) -> List[Request]:
-        """Force the deferred readback of the previous tick's exiting batch
-        and retire it.  `now` (resolve-time clock) is the completion time —
-        the tokens materialized no later than this."""
-        assert self._pending is not None
-        bid, result = self._pending
-        self._pending = None
-        return self._retire(bid, result.resolve(), now)
-
     def _retire(self, batch_id: int, tokens: Sequence[int],
                 now: float) -> List[Request]:
         batch = self.scheduler.get_batch(batch_id)
@@ -330,10 +271,6 @@ class TickLoop:
         if now is None:
             now = self.backend.clock()
         affected: List[Request] = []
-        if self._pending is not None:
-            bid, _ = self._pending
-            self._pending = None          # deferred readback never forced
-            affected.extend(self.scheduler.abort_batch(bid, now))
         for bid, _ in list(self.ring):
             if bid is not None:
                 affected.extend(self.scheduler.abort_batch(bid, now))

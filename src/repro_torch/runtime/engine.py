@@ -7,8 +7,10 @@ the parameters, the paged KV pool and the per-request host state.
 `TickLoop`, exactly as the JAX engine does.
 
 Per tick the host builds the metadata as numpy (`prepare`, one tick ahead),
-`execute` ships metadata and token ids to the device in one copy, embeds on
-the device, launches the tick and returns a deferred `ExecResult`: the
+`execute` ships metadata and token ids to the device in one non-blocking
+copy from pinned memory (so `host_s` counts host work, not waits for the
+device), embeds on the device, launches the tick and returns a deferred
+`ExecResult`: the
 readback (``tokens.cpu()``) lives in its `pending` thunk and `ready()` is a
 CUDA event's ``query()`` (always True on the CPU).  Bucketed shapes, CUDA
 graphs, migration hooks and tracing are later slices: the migration hooks
@@ -210,7 +212,8 @@ class TorchBackend(ExecutionBackend):
             temps[dims.Sp + j] = seq.request.sampling.temperature
         if not temps.any():
             return None
-        return {"temps": torch.from_numpy(temps).to(self.device),
+        return {"temps": serve_lib.host_to_device(torch.from_numpy(temps),
+                                                  self.device),
                 "generator": self._gen}
 
     def _build_meta(self, batch: ScheduledBatch) -> dict:
@@ -284,10 +287,7 @@ class PipelineEngine:
         throttle: ThrottleConfig,
         *,
         device: Optional[torch.device | str] = None,
-        num_pages: Optional[int] = None,
         dtype: Optional[torch.dtype] = None,
-        async_dispatch: bool = False,
-        enable_prefix_caching: bool = False,
         seed: int = 0,
     ) -> None:
         self.device = resolve_device(device)
@@ -298,8 +298,7 @@ class PipelineEngine:
         self.cfg = cfg
         self.dims = dims
         self.params = params
-        self.kv = PagedKVManager(num_pages or dims.pages, dims.page,
-                                 enable_prefix_caching=enable_prefix_caching)
+        self.kv = PagedKVManager(dims.pages, dims.page)
         self.scheduler = PipelineScheduler(
             throttle, self.kv,
             max_model_len=dims.page * max(dims.Bp, dims.Bd),
@@ -308,8 +307,7 @@ class PipelineEngine:
             max_decode_seqs=dims.Sd)
         self.backend = TorchBackend(cfg, dims, params, self.kv,
                                     device=self.device, dtype=dtype, seed=seed)
-        self.loop = TickLoop(self.scheduler, self.backend,
-                             async_dispatch=async_dispatch)
+        self.loop = TickLoop(self.scheduler, self.backend)
         # state slots are tied to residency: free them when the scheduler
         # evicts a request (preemption or batch abort), not only on finish
         self.scheduler.on_preempt = self.backend.release_resident_state

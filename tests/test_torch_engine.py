@@ -218,3 +218,52 @@ def test_engine_serves_temperature_requests():
     for r in reqs:
         assert r.is_finished and r.num_output_tokens == 4
         assert all(0 <= t < tcfg.vocab_size for t in r.output_token_ids)
+
+
+def test_meta_to_device_one_buffer_round_trip():
+    """One tick's metadata and token ids reach the device as int32 views of
+    one buffer, every field unchanged, plus the KV-writing rows."""
+    from repro_torch.models import serve as tserve
+    from repro_torch.models.attention import valid_rows
+    dims = ServeDims(**DIMS)
+    rng = np.random.default_rng(4)
+    meta = tserve.zero_meta(dims)
+    meta["p_chunk_lens"][0] = 5
+    meta["p_slot_pages"][0, :5] = rng.integers(0, dims.pages, 5)
+    meta["d_valid"][:2] = 1
+    meta["d_slot_pages"][:2] = rng.integers(0, dims.pages, 2)
+    meta["d_block_tables"][:] = rng.integers(0, dims.pages,
+                                             meta["d_block_tables"].shape)
+    extra = {"p_tok": rng.integers(0, 100, (dims.Sp, dims.C)),
+             "d_tok": rng.integers(0, 100, (dims.Sd,))}
+    out = tserve.meta_to_device(meta, dims, "cpu", extra=extra)
+    for k, a in {**meta, **extra}.items():
+        assert out[k].dtype == torch.int32
+        np.testing.assert_array_equal(out[k].numpy(), a)
+    assert len({t.untyped_storage().data_ptr() for t in out.values()}) == 1
+    p_valid = np.arange(dims.C)[None, :] < meta["p_chunk_lens"][:, None]
+    np.testing.assert_array_equal(
+        out["p_rows"].numpy(),
+        valid_rows(p_valid, meta["p_slot_pages"], dims.pages))
+    assert out["d_rows"].tolist() == [0, 1]
+
+
+def test_deferred_result_is_ready_on_cpu():
+    """Each tick's readback is deferred to `resolve()`; on the CPU its
+    `ready()` probe reports True before the readback is forced."""
+    _, tcfg = _cfgs("qwen1.5")
+    from repro_torch.models.transformer import init_params
+    eng = PipelineEngine(tcfg, ServeDims(**DIMS), init_params(tcfg, 0),
+                         ThrottleConfig(**THROTTLE), device="cpu")
+    eng.add_request([1, 2, 3], SamplingParams(max_new_tokens=2))
+    seen = []
+    execute = eng.backend.execute
+
+    def probe(*args):
+        res = execute(*args)
+        seen.append((res.pending is not None, res.is_ready()))
+        return res
+
+    eng.backend.execute = probe
+    eng.drain(max_ticks=20)
+    assert seen and all(s == (True, True) for s in seen)

@@ -5,9 +5,14 @@ This file imports no JAX, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernel_gpu.py
 
-Tolerances 2e-5 (f32; a different summation order) and 2e-2 (bf16: one
-rounding of outputs of magnitude ~1).  Dead pages are NaN-poisoned and the
-last sequence has ctx == 0, whose rows the kernel writes as exact zeros.
+Tolerance: the kernel module's ``TOLERANCE`` (f32 2e-5; bf16 one output
+ulp, 2**-7 * |want|, plus twice the bound of P's rounding to bf16,
+2**-8 * sum p|v| / l).  Dead pages are
+NaN-poisoned and, where there are several sequences, the last has
+ctx == 0, whose rows the kernel writes as exact zeros.  The kernel picks its launch geometry from the
+TQ * H/KH rows of one (sequence, KV head): the shapes cross each of its
+boundaries (8 and 16 rows, 64-row tensor-core tiles) so every tiling is
+held to the plain version.
 """
 
 import numpy as np
@@ -27,8 +32,13 @@ SHAPES = [
     (2, 37, 16, 16, 64, 16, 8),    # ragged prefill tile
     (2, 40, 8, 8, 128, 8, 16),     # prefill, page 8, D=128
     (1, 100, 10, 2, 64, 8, 32),    # prefill, page 8, G=5 rows across tiles
+    (2, 1, 8, 1, 64, 16, 8),       # 8 rows: one warp group, pages split 4 ways
+    (2, 3, 12, 4, 64, 16, 8),      # 9 rows: two row groups, pages split 2 ways
+    (2, 4, 16, 4, 128, 16, 8),     # 16 rows: the last split-page tile
+    (2, 17, 4, 4, 64, 16, 8),      # 17 rows: one row group per warp
+    (1, 65, 8, 8, 64, 16, 8),      # 65 rows: a 64-row tensor-core tile + 1
 ]
-DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _case(S, TQ, H, KH, D, page, B, seed, device):
@@ -38,7 +48,8 @@ def _case(S, TQ, H, KH, D, page, B, seed, device):
     kv = rng.normal(size=(P, page, 2, KH, D)).astype(np.float32)
     tables = rng.permutation(P)[: S * B].reshape(S, B).astype(np.int32)
     ctx = rng.integers(TQ, B * page + 1, S).astype(np.int32)
-    ctx[-1] = 0
+    if S > 1:
+        ctx[-1] = 0
     qpos = (np.maximum(ctx, TQ)[:, None] - TQ
             + np.arange(TQ)[None, :]).astype(np.int32)
     return [torch.from_numpy(a).to(device) for a in (q, kv, tables, ctx, qpos)]
@@ -56,7 +67,7 @@ def cuda_device():
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_kernel_matches_plain_on_card(cuda_device, shape, dtype):
-    tdtype, tol = DTYPES[dtype]
+    tdtype = DTYPES[dtype]
     q, kv, tables, ctx, qpos = _case(*shape, seed=sum(shape),
                                      device=cuda_device)
     q, kv = q.to(tdtype), kv.to(tdtype)
@@ -64,13 +75,9 @@ def test_kernel_matches_plain_on_card(cuda_device, shape, dtype):
     for s in range(shape[0]):               # poison every dead page
         kv[tables[s, live[s]:].long()] = float("nan")
     out = pa.paged_flash_attention(q, kv, tables, ctx, qpos)
-    want = pa.paged_flash_attention_ref(q, kv.nan_to_num(0.0), tables, ctx,
-                                        qpos)
-    torch.cuda.synchronize()
-    live_rows = ctx > 0
-    torch.testing.assert_close(out[live_rows].float(),
-                               want[live_rows].float(), atol=tol, rtol=0)
-    assert torch.all(out[~live_rows] == 0)
+    excess, err = pa.excess(out, q, kv.nan_to_num(0.0), tables, ctx, qpos)
+    assert excess <= 1.0, f"max abs err {err}"
+    assert torch.all(out[ctx == 0] == 0)
 
 
 @pytest.mark.gpu

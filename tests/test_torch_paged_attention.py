@@ -157,15 +157,36 @@ def test_kernel_module_imports_without_nvcc():
     assert res.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("tensor_cores", [False, True])
-@pytest.mark.parametrize("TQ,G", [(1, 1), (1, 5), (1, 8), (3, 5), (4, 4),
-                                  (512, 1), (512, 5), (17, 1)])
-def test_launch_geometry_covers_every_row(TQ, G, tensor_cores):
-    rows_per_warp, ksplit, tiles = pa.launch_geometry(TQ, G, tensor_cores)
-    assert ksplit in (1, 2, 4)
-    if tensor_cores and TQ * G > 16:
-        assert (rows_per_warp, ksplit) == (16, 1)
-    else:
-        assert 1 <= rows_per_warp <= 8
-    tile = (4 // ksplit) * rows_per_warp
-    assert tiles * tile >= TQ * G > (tiles - 1) * tile
+# chip_smoke.py's kernel shapes, decode cut to 8 sequences for the CPU
+CHIP_SHAPES = [
+    (8, 1, 16, 16, 64, 16, 128),   # qwen1.5-0.5b decode
+    (1, 512, 16, 16, 64, 16, 128),  # qwen1.5-0.5b prefill chunk
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES + CHIP_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tolerance_rejects_off_by_one_causal_mask(shape, dtype):
+    """The kernel-vs-plain check (`pa.excess` within `pa.TOLERANCE`) has the
+    power to catch a mask of kpos < qpos: the plain version at q positions
+    one lower is exactly that fault, and it must exceed the tolerance."""
+    args = _torch_args(_case(*shape, seed=sum(shape)), dtype)
+    q, kv, tables, ctx, qpos = args
+    want = pa.paged_flash_attention_ref(*args)
+    faulty = pa.paged_flash_attention_ref(q, kv, tables, ctx, qpos - 1)
+    assert pa.excess(want, *args) == (0.0, 0.0)
+    assert pa.excess(faulty, *args)[0] > 1.0
+
+
+@pytest.mark.parametrize("shape", SHAPES + CHIP_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tolerance_admits_one_bf16_ulp(shape):
+    """Kernel and plain version each round an f32 result to bf16, so they
+    may land one ulp apart; the bf16 tolerance admits that everywhere."""
+    args = _torch_args(_case(*shape, seed=sum(shape)), torch.bfloat16)
+    want = pa.paged_flash_attention_ref(*args)
+    nudged = (want.view(torch.int16) + 1).view(torch.bfloat16)
+    excess, err = pa.excess(nudged, *args)
+    assert 0.0 < excess <= 1.0 and err > 0.0
