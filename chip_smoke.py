@@ -10,7 +10,8 @@ in the checkout and drives the port end to end.  Each phase prints one JSON
 line; any failure raises and the script exits non-zero.
 
   device      card name and count, ``nvidia-smi`` name and power limit
-  build       nvcc wall time and the ``-Xptxas -v`` report per kernel
+  build       both kernels and their planted-fault copies, every nvcc
+              started at once: wall time and ``-Xptxas -v`` report per kernel
   kernel      the paged-attention kernel against its plain PyTorch version
               at the main path's shapes (qwen1.5-0.5b decode and prefill,
               one qwen2.5-14b decode), f32 and bf16, with dead pages
@@ -26,6 +27,22 @@ line; any failure raises and the script exits non-zero.
               temperature 0.8): tokens/s, ticks, host/device time, memory;
               then the same batch again under torch.profiler for the
               device's busy time
+  moe-kernel  the fused-MoE kernel against its plain version at
+              olmoe-1b-7b's serve shapes (E=64, C=88, d=2048, ff=1024), a
+              ragged C=24 and a small shape, f32 and bf16, within
+              moe_gemm.TOLERANCE; a copy whose ff loop stops one tile early
+              must fail the same check; kernel, plain and library (the
+              torch.bmm gate/up/silu-mul/down sequence) times and the bound
+  serve-olmoe-f32   full-width olmoe-1b-7b cut to 4 of 16 layers, dropless
+              capacity, 4 requests: greedy tokens equal the port's dense
+              reference (its expert FFN on the plain version) up to a
+              near-tie; the MoE kernel ran once and paged attention twice
+              per layer on every tick
+  serve-olmoe-bf16  full-width, full-depth olmoe-1b-7b in bf16 at the
+              config's capacity factor, the serve-bf16 batch: every request
+              finishes with valid tokens, launches = ticks x 16 (MoE) and
+              ticks x 32 (attention); tokens/s, host/device time, memory and
+              the device's idle share from a profiled rerun
 
 Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.
@@ -51,11 +68,20 @@ PEAK_FLOPS = {"float32": 67e12,           # f32 outside the tensor cores
               "bfloat16": 989e12}         # bf16 tensor cores, dense
 ARCH = "qwen1.5-0.5b"
 LAYERS = 24
+MOE_ARCH = "olmoe-1b-7b"
+MOE_F32_LAYERS = 4          # depth cut of the f32 serve (full: 16)
 MAX_NEW = 16
 NEAR_TIE = 1e-3
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase line also gets the seconds since the
+    script started (``t_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T0, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -103,11 +129,23 @@ def planted_source(build) -> str:
     return text.replace("kpos <= qp[", "kpos < qp[")
 
 
-def phase_build(build, planted: str) -> None:
-    build.build_all(["paged_attention", PLANTED], {PLANTED: planted})
-    info = build.build_log["paged_attention"]
+MOE_PLANTED = "moe_ffn_planted"
+MOE_MARK = "const int ff_tiles = ff / bk;"
+
+
+def moe_planted_source(build) -> str:
+    """The MoE kernel's source with one planted fault: the down
+    projection's depth loop, which walks ff, stops one tile early."""
+    text = (build.CSRC / "moe_ffn.cu").read_text()
+    if text.count(MOE_MARK) != 1:
+        raise AssertionError("planted fault: the MoE kernel's ff loop bound "
+                             "is no longer where chip_smoke.py looks for it")
+    return text.replace(MOE_MARK, "const int ff_tiles = ff / bk - 1;")
+
+
+def _ptxas(log: str) -> list:
     kernels = []
-    for block in info["log"].split("Compiling entry function")[1:]:
+    for block in log.split("Compiling entry function")[1:]:
         name = re.search(r"'(\S+)'", block)
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -119,11 +157,21 @@ def phase_build(build, planted: str) -> None:
             "static_smem": int(smem.group(1)) if smem else 0,
             "spill_stores": int(spill.group(1)) if spill else None,
             "spill_loads": int(spill.group(2)) if spill else None})
-    emit({"phase": "build", "kernel": "paged_attention",
-          "nvcc_seconds": round(info["seconds"], 3),
-          "planted_nvcc_seconds": round(build.build_log[PLANTED]["seconds"],
-                                        3),
-          "ptxas": kernels})
+    return kernels
+
+
+def phase_build(build, planted: dict) -> None:
+    """Every kernel and planted copy, all nvcc processes started at once."""
+    t0 = time.perf_counter()
+    build.build_all(["paged_attention", "moe_ffn", *planted], planted)
+    wall = time.perf_counter() - t0
+    for name in ("paged_attention", "moe_ffn"):
+        emit({"phase": "build", "kernel": name,
+              "nvcc_seconds": round(build.build_log[name]["seconds"], 3),
+              "ptxas": _ptxas(build.build_log[name]["log"])})
+    emit({"phase": "build", "wall_seconds": round(wall, 3),
+          "planted_nvcc_seconds": {
+              k: round(build.build_log[k]["seconds"], 3) for k in planted}})
 
 
 def _attention_case(S, TQ, H, KH, D, page, B, dtype, ctx, seed):
@@ -368,6 +416,260 @@ def phase_serve_bf16(pa, build_engine, device_time) -> dict:
     return out
 
 
+# ------------------------------------------------------------ MoE phases
+
+def _moe_case(E, C, d, ff, dtype, seed):
+    """Unit-variance rows (the normed hidden) and the serve path's weight
+    scale (0.02), on the card."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn(E, C, d, generator=g, device=DEV).to(dtype)
+    ws = [(torch.randn(*s, generator=g, device=DEV) * 0.02).to(dtype)
+          for s in ((E, d, ff), (E, d, ff), (E, ff, d))]
+    return [x] + ws
+
+
+def _moe_bound(x, w_gate, w_up, w_down):
+    """Least time the card could take: every input read once and the
+    output written once at the HBM rate, against 6*E*C*d*ff flops (every
+    row of these inputs is live) at the dtype's peak."""
+    E, C, d = x.shape
+    ff = w_gate.shape[2]
+    elt = x.element_size()
+    nbytes = (2 * x.numel() + w_gate.numel() + w_up.numel()
+              + w_down.numel()) * elt
+    flops = 6 * E * C * d * ff
+    dt = str(x.dtype).split(".")[-1]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dt] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, flops
+
+
+def _moe_library_fn(x, w_gate, w_up, w_down):
+    """The batched-GEMM sequence of the JAX package's non-kernel path
+    (models/moe.py: gate and up products, silu * mul, down product) as
+    torch.bmm calls in x's dtype; never called by the port."""
+    import torch.nn.functional as F
+
+    def run():
+        h = F.silu(torch.bmm(x, w_gate)) * torch.bmm(x, w_up)
+        return torch.bmm(h, w_down)
+    return run
+
+
+def phase_moe_kernel(mg, planted_src: str) -> list:
+    shapes = [
+        # name, E, C, d, ff
+        ("olmoe serve", 64, 88, 2048, 1024),
+        ("olmoe ragged C", 64, 24, 2048, 1024),
+        ("small", 8, 16, 256, 256),
+    ]
+    results = []
+    for dtype in (torch.float32, torch.bfloat16):
+        rtol, htol, acc = mg.TOLERANCE[dtype]
+        for name, E, C, d, ff in shapes:
+            args = _moe_case(E, C, d, ff, dtype, seed=100 + len(results))
+            out = mg.fused_moe_ffn(*args)
+            planted = mg.launch(MOE_PLANTED, *args, source=planted_src)
+            torch.cuda.synchronize()
+            excess, err = mg.excess(out, *args)
+            planted_excess, _ = mg.excess(planted, *args)
+            finite = bool(torch.isfinite(out).all())
+            row = {"phase": "moe-kernel", "shape": name,
+                   "dtype": str(dtype).split(".")[-1], "E": E, "C": C,
+                   "d": d, "ff": ff, "max_abs_err": err, "rtol": rtol,
+                   "htol": htol, "acc": acc, "excess": excess,
+                   "planted_excess": planted_excess, "finite": finite}
+            if not (excess <= 1.0 and finite):
+                emit(row)
+                raise AssertionError(f"MoE kernel disagrees with its plain "
+                                     f"version at {name} {dtype}: {row}")
+            if not planted_excess > 1.0:
+                emit(row)
+                raise AssertionError(f"the check passes an MoE kernel whose "
+                                     f"ff loop stops one tile early at "
+                                     f"{name} {dtype}: {row}")
+            row["kernel_ms"] = time_ms(lambda: mg.fused_moe_ffn(*args), 20)
+            row["plain_ms"] = time_ms(
+                lambda: mg.fused_moe_ffn_ref(*args), 3, warmup=1)
+            row["library_ms"] = time_ms(_moe_library_fn(*args), 20)
+            row["library"] = ("torch.bmm gate, torch.bmm up, silu * mul, "
+                              "torch.bmm down (a sequence of calls)")
+            (row["bound_ms"], row["bound_by"], row["bytes"],
+             row["flops"]) = _moe_bound(*args)
+            emit(row)
+            results.append(row)
+            del args, out, planted
+            torch.cuda.empty_cache()
+    return results
+
+
+def _moe_f32_engine():
+    """Full-width olmoe-1b-7b cut to MOE_F32_LAYERS layers, f32, dropless
+    (capacity factor = number of experts), smaller serve dims."""
+    import dataclasses
+
+    from repro_torch.configs import BlockSpec, get_config, single_stage
+    from repro_torch.core import ThrottleConfig
+    from repro_torch.models.serve import ServeDims
+    from repro_torch.models.transformer import init_params
+    from repro_torch.runtime.engine import PipelineEngine
+
+    cfg = single_stage(get_config(MOE_ARCH))
+    cfg = dataclasses.replace(
+        cfg, num_layers=MOE_F32_LAYERS, dtype="float32",
+        pattern=(BlockSpec(cfg.pattern[0].kind, MOE_F32_LAYERS),),
+        moe_capacity_factor=float(cfg.num_experts))
+    dims = ServeDims(Sp=1, C=128, Sd=8, pages=256, page=16, Bp=32, Bd=32,
+                     slots=16)
+    params = init_params(cfg, 0, dtype=torch.float32, device=DEV)
+    return PipelineEngine(cfg, dims, params, ThrottleConfig(pipeline_depth=1),
+                          device=DEV, dtype=torch.float32, seed=0)
+
+
+def phase_serve_olmoe_f32(pa, mg, greedy_trace) -> dict:
+    from repro_torch.core import SamplingParams
+    from repro_torch.models import moe as moe_lib
+
+    max_new = 8
+    t0 = time.perf_counter()
+    eng = _moe_f32_engine()
+    rng = np.random.default_rng(13)
+    lens = [16, 300] + [int(x) for x in rng.integers(16, 301, 2)]
+    prompts = [[int(t) for t in rng.integers(0, eng.cfg.vocab_size, L)]
+               for L in lens]
+    pa.launches = mg.launches = 0
+    reqs = [eng.add_request(p, SamplingParams(max_new_tokens=max_new))
+            for p in prompts]
+    eng.drain()
+    torch.cuda.synchronize()
+    attn_launches, moe_launches = pa.launches, mg.launches
+    ticks = eng.stats.ticks
+    serve_s = time.perf_counter() - t0
+    if moe_launches != ticks * MOE_F32_LAYERS or \
+            attn_launches != ticks * MOE_F32_LAYERS * 2:
+        raise AssertionError(
+            f"serve-olmoe-f32: {moe_launches} MoE and {attn_launches} "
+            f"attention launches for {ticks} ticks, want ticks x "
+            f"{MOE_F32_LAYERS} and ticks x {MOE_F32_LAYERS} x 2")
+    # the reference's expert FFN runs on the plain version, so the kernel
+    # is not held against itself
+    compared, near_ties = 0, []
+    kernel_ffn = moe_lib.expert_ffn
+    moe_lib.expert_ffn = mg.fused_moe_ffn_ref
+    try:
+        for i, (p, r) in enumerate(zip(prompts, reqs)):
+            if not (r.is_finished and r.num_output_tokens == max_new):
+                raise AssertionError(f"serve-olmoe-f32: request {i} did not "
+                                     f"finish")
+            want, gaps = greedy_trace(eng.cfg, eng.params, p, max_new)
+            stop = next((k for k, g in enumerate(gaps) if g < NEAR_TIE),
+                        max_new)
+            if stop < max_new:
+                near_ties.append({"request": i, "step": stop,
+                                  "gap": gaps[stop]})
+            if r.output_token_ids[:stop] != want[:stop]:
+                raise AssertionError(
+                    f"serve-olmoe-f32: request {i} (prompt {len(p)}) "
+                    f"{r.output_token_ids} != reference {want} (compared "
+                    f"{stop})")
+            compared += stop
+    finally:
+        moe_lib.expert_ffn = kernel_ffn
+    out = {"phase": "serve-olmoe-f32", "arch": MOE_ARCH,
+           "layers": MOE_F32_LAYERS,
+           "capacity_factor": eng.cfg.moe_capacity_factor,
+           "requests": len(reqs), "prompt_lens": lens,
+           "max_new_tokens": max_new, "ticks": ticks,
+           "moe_launches": moe_launches, "attention_launches": attn_launches,
+           "tokens_compared": compared, "near_ties": near_ties,
+           "serve_s": serve_s, "check_s": time.perf_counter() - t0 - serve_s}
+    emit(out)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_olmoe_bf16(pa, mg, build_engine, device_time) -> dict:
+    """serve-bf16's batch on full-width, full-depth olmoe-1b-7b; then the
+    same batch again under torch.profiler for the device's busy time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = build_engine(MOE_ARCH, device=DEV, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    layers = eng.cfg.num_layers
+    prompts = _prompts(12, 32, eng.cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    pa.launches = mg.launches = 0
+    t0 = time.perf_counter()
+    reqs = _serve_batch(eng, prompts)
+    wall = time.perf_counter() - t0
+    attn_launches, moe_launches = pa.launches, mg.launches
+    st = eng.stats
+    ticks, host_s, device_s = st.ticks, st.host_s, st.device_s
+    for i, r in enumerate(reqs):
+        if not (r.is_finished and r.num_output_tokens == MAX_NEW and all(
+                0 <= t < eng.cfg.vocab_size for t in r.output_token_ids)):
+            raise AssertionError(f"serve-olmoe-bf16: request {i} did not "
+                                 f"finish with {MAX_NEW} valid tokens")
+    if moe_launches != ticks * layers or attn_launches != ticks * layers * 2:
+        raise AssertionError(
+            f"serve-olmoe-bf16: {moe_launches} MoE and {attn_launches} "
+            f"attention launches for {ticks} ticks of {layers} layers")
+    out_tokens = sum(r.num_output_tokens for r in reqs)
+    prompt_tokens = sum(len(p) for p in prompts)
+    peak = torch.cuda.max_memory_allocated()
+
+    t1 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _serve_batch(eng, prompts)
+    profiled_wall = time.perf_counter() - t1
+    busy_us, by_kernel = device_time(prof)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    out = {"phase": "serve-olmoe-bf16", "arch": MOE_ARCH, "layers": layers,
+           "capacity_factor": eng.cfg.moe_capacity_factor,
+           "requests": len(reqs),
+           "temperature_requests": sum(1 for i in range(len(reqs))
+                                       if i % 8 == 7),
+           "prompt_tokens": prompt_tokens, "output_tokens": out_tokens,
+           "wall_s": wall, "output_tokens_per_s": out_tokens / wall,
+           "total_tokens_per_s": (out_tokens + prompt_tokens) / wall,
+           "ticks": ticks, "ms_per_tick": wall / ticks * 1e3,
+           "host_s": host_s, "device_s": device_s,
+           "moe_launches": moe_launches, "attention_launches": attn_launches,
+           "max_memory_allocated": peak,
+           "profiled_ticks": eng.stats.ticks - ticks,
+           "profiled_wall_s": profiled_wall,
+           "device_busy_s": busy_us / 1e6,
+           "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+           "device_ms_by_kernel": [{"name": k[:80], "ms": v / 1e3}
+                                   for k, v in top]}
+    emit(out)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _kernel_entry(name, source, replaces, launches, rows, main_row):
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "shape": f"{main_row['shape']} {main_row['dtype']}",
+        "max_abs_err": main_row["max_abs_err"],
+        "max_abs_err_all_shapes": max(r["max_abs_err"] for r in rows),
+        "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"],
+        "shapes": [{k: r[k] for k in ("shape", "dtype", "max_abs_err",
+                                      "excess", "planted_excess",
+                                      "kernel_ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by")}
+                   for r in rows]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -377,6 +679,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
         from repro_torch.kernels import build
+        from repro_torch.kernels import moe_gemm as mg
         from repro_torch.kernels import paged_attention as pa
         from repro_torch.launch.profile import device_time
         from repro_torch.launch.serve import build_engine
@@ -387,32 +690,34 @@ def main() -> int:
         return 1
 
     device = phase_device()
-    planted = planted_source(build)
+    planted = {PLANTED: planted_source(build),
+               MOE_PLANTED: moe_planted_source(build)}
     phase_build(build, planted)
-    shapes = phase_kernel(pa, planted)
+    shapes = phase_kernel(pa, planted[PLANTED])
     phase_serve_f32(pa, build_engine, greedy_trace)
     bf16 = phase_serve_bf16(pa, build_engine, device_time)
+    moe_shapes = phase_moe_kernel(mg, planted[MOE_PLANTED])
+    phase_serve_olmoe_f32(pa, mg, greedy_trace)
+    olmoe = phase_serve_olmoe_bf16(pa, mg, build_engine, device_time)
 
-    main_row = next(r for r in shapes if r["shape"] == "qwen1.5 decode"
-                    and r["dtype"] == "bfloat16")
-    emit({"kernels": [{
-        "name": "paged_flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-        "replaces": "src/repro/kernels/paged_attention.py:112",
-        "jax": "src/repro/kernels/paged_attention.py:112",
-        "checked": True,
-        "launches": bf16["kernel_launches"],
-        "shape": f"{main_row['shape']} {main_row['dtype']}",
-        "max_abs_err": main_row["max_abs_err"],
-        "max_abs_err_all_shapes": max(r["max_abs_err"] for r in shapes),
-        "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shapes": [{k: r[k] for k in ("shape", "dtype", "max_abs_err",
-                                      "excess", "planted_excess",
-                                      "kernel_ms", "plain_ms", "library_ms",
-                                      "bound_ms", "bound_by")}
-                   for r in shapes]}]})
+    pa_entry = _kernel_entry(
+        "paged_flash_attention",
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:112",
+        bf16["kernel_launches"], shapes,
+        next(r for r in shapes if r["shape"] == "qwen1.5 decode"
+             and r["dtype"] == "bfloat16"))
+    pa_entry["launches_by_path"] = {
+        "serve-bf16": bf16["kernel_launches"],
+        "serve-olmoe-bf16": olmoe["attention_launches"]}
+    moe_entry = _kernel_entry(
+        "fused_moe_ffn", "src/repro_torch/kernels/csrc/moe_ffn.cu",
+        "src/repro/kernels/moe_gemm.py:53", olmoe["moe_launches"],
+        moe_shapes,
+        next(r for r in moe_shapes if r["shape"] == "olmoe serve"
+             and r["dtype"] == "bfloat16"))
+    emit({"phase": "done"})
+    emit({"kernels": [pa_entry, moe_entry]})
     print(device["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
                                  "count": device["count"]}})

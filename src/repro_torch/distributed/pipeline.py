@@ -51,7 +51,7 @@ def build_serve_tick(cfg: ArchConfig, dims: ServeDims):
     if cfg.plan.pp != 1:
         raise NotImplementedError(
             f"{cfg.name}: pp={cfg.plan.pp}; repro_torch serves pp=1 so far — "
-            f"the multi-stage ring is ROADMAP Queue 1 item 9")
+            f"the multi-stage ring is ROADMAP Queue 1 item 6")
     Sp, Sd = dims.Sp, dims.Sd
 
     def tick(params, caches, meta: Mapping[str, torch.Tensor],

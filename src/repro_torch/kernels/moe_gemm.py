@@ -1,0 +1,175 @@
+"""Fused grouped-expert SwiGLU: the Hopper kernel's wrapper and its plain
+version.
+
+`fused_moe_ffn` launches ``csrc/moe_ffn.cu`` (CUDA C++ for ``sm_90a``, built
+at first use by `kernels.build`, bound with ctypes).  It replaces
+``repro/kernels/moe_gemm.py::fused_moe_ffn``, the Pallas TPU kernel of the
+MoE layer: per expert e over its capacity-padded rows,
+
+    out[e] = (silu(x[e] @ w_gate[e]) * (x[e] @ w_up[e])) @ w_down[e]
+
+with f32 accumulation and the hidden rounded to x's dtype before the down
+projection, as the Pallas kernel does.  The source's header says what bounds
+it on an H100 and what the design does about that.
+
+`fused_moe_ffn_ref` is the plain PyTorch version, mirroring
+``repro/kernels/ref.py::fused_moe_ffn_ref``: f32 einsums, cast at the end
+(the hidden is not rounded).  The CPU path uses it; on the card only the
+checks call it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+# Calls of `fused_moe_ffn` (each is two device launches) since the count was
+# last set to 0.
+launches = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MULTIPLE = 128          # d and ff: whole tiles of the kernel's loops
+
+# Largest |d silu(g) / dg| (at g ~ 2.4): how far an error in g moves h.
+_SILU_SLOPE = 1.1
+
+# Kernel against plain version, elementwise:
+#   |out - want| <= rtol * |want| + htol * hd + acc * (sqrt(ff) * hd + sqrt(d) * hsd)
+# where the plain version, run on absolute values, gives
+#   hd  = |h| @ |w_down|                       (scale of the down sum)
+#   hsd = (1.1 |u| (|x| @ |w_gate|) + |silu(g)| (|x| @ |w_up|)) @ |w_down|
+#         (scale of the error that g's and u's sums carry into out).
+# f32: the two differ only in summation order.  Each f32 sum of n terms is
+# off by at most lam * sqrt(n) * u * sum|terms| but with probability
+# ~exp(-lam^2 / 2) (Higham and Mary's probabilistic bound, lam = 8; the
+# worst case n * u is ~30x looser at these widths and would pass a kernel
+# that drops a tile of the ff loop); u = 2**-24 for both versions on the
+# CUDA cores, 2**-23 for the tensor cores' accumulation.  bf16 adds: each
+# version rounds its f32 result to bf16 (one ulp apart at most,
+# <= 2**-7 * |want|), and the kernel rounds the hidden to bf16 before the
+# down projection (|error| <= 2**-9 * hd; held at twice that).
+TOLERANCE = {torch.float32: (0.0, 0.0, 8 * 2 * 2 ** -24),
+             torch.bfloat16: (2 ** -7, 2 ** -8, 8 * (2 ** -23 + 2 ** -24))}
+
+
+def _parts(x, w_gate, w_up):
+    """f32 (u, silu(g)) of the plain version."""
+    xf = x.float()
+    g = torch.einsum("ecd,edf->ecf", xf, w_gate.float())
+    u = torch.einsum("ecd,edf->ecf", xf, w_up.float())
+    return u, F.silu(g)
+
+
+def excess(out: torch.Tensor, x, w_gate, w_up, w_down
+           ) -> Tuple[float, float]:
+    """(excess, max_abs_err) of the kernel's `out` against the plain version
+    on the same inputs: excess is the largest |out - want| over its bound in
+    `TOLERANCE`, at most 1 when the two agree."""
+    rtol, htol, acc = TOLERANCE[out.dtype]
+    d, ff = w_gate.shape[1], w_gate.shape[2]
+    u, s = _parts(x, w_gate, w_up)
+    wd = w_down.float()
+    want = torch.einsum("ecf,efd->ecd", s * u, wd).to(x.dtype).float()
+    ax, awd = x.float().abs(), wd.abs()
+    hd = torch.einsum("ecf,efd->ecd", (s * u).abs(), awd)
+    gs = torch.einsum("ecd,edf->ecf", ax, w_gate.float().abs())
+    us = torch.einsum("ecd,edf->ecf", ax, w_up.float().abs())
+    hs = _SILU_SLOPE * u.abs() * gs + s.abs() * us
+    del gs, us
+    hsd = torch.einsum("ecf,efd->ecd", hs, awd)
+    bound = (rtol * want.abs() + htol * hd
+             + acc * (ff ** 0.5 * hd + d ** 0.5 * hsd))
+    err = (out.float() - want).abs()
+    # all-zero rows (empty capacity slots) have a zero bound and must be 0
+    ratio = torch.where(err == 0, torch.zeros_like(err), err / bound)
+    return float(ratio.max()), float(err.max())
+
+
+def _check(x, w_gate, w_up, w_down) -> None:
+    tensors = (x, w_gate, w_up, w_down)
+    if not all(t.is_cuda and t.device == x.device for t in tensors):
+        raise ValueError("fused_moe_ffn: every input must lie on the same "
+                         "CUDA device")
+    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in tensors):
+        raise ValueError(f"fused_moe_ffn: dtypes "
+                         f"{[str(t.dtype) for t in tensors]}; the kernel "
+                         f"takes float32 or bfloat16, the same for all four")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("fused_moe_ffn: inputs must be contiguous")
+    if x.dim() != 3 or any(t.dim() != 3 for t in tensors):
+        raise ValueError("fused_moe_ffn: x [E, C, d], w_gate/w_up [E, d, ff] "
+                         "and w_down [E, ff, d] expected")
+    E, C, d = x.shape
+    ff = w_gate.shape[2]
+    if (tuple(w_gate.shape) != (E, d, ff) or tuple(w_up.shape) != (E, d, ff)
+            or tuple(w_down.shape) != (E, ff, d)):
+        raise ValueError(f"fused_moe_ffn: x {tuple(x.shape)}, w_gate "
+                         f"{tuple(w_gate.shape)}, w_up {tuple(w_up.shape)}, "
+                         f"w_down {tuple(w_down.shape)} do not fit "
+                         f"[E, C, d], [E, d, ff], [E, d, ff], [E, ff, d]")
+    if E < 1 or C < 1 or d % _MULTIPLE or ff % _MULTIPLE or d < 1 or ff < 1:
+        raise ValueError(f"fused_moe_ffn: E={E}, C={C}, d={d}, ff={ff}; the "
+                         f"kernel takes E, C >= 1 and d, ff multiples of "
+                         f"{_MULTIPLE}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("fused_moe_ffn: inputs must be 16-byte aligned")
+
+
+def _entry_point(lib: ctypes.CDLL):
+    """The C entry point ``moe_ffn_launch`` of a built library."""
+    fn = lib.moe_ffn_launch
+    if fn.argtypes is None:
+        ptr = ctypes.c_void_p
+        fn.argtypes = [ptr] * 6 + [ctypes.c_int] * 5 + [ptr]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(library: str, x, w_gate, w_up, w_down,
+           source: Optional[str] = None) -> torch.Tensor:
+    """Check the inputs, then launch the entry point of kernel library
+    `library` (built at first use from ``csrc/<library>.cu``, or from the
+    CUDA text `source`, see `build.load`) on the current stream.  Raises on
+    anything the kernel does not take or on a CUDA error.  Counts nothing:
+    `fused_moe_ffn` is the counted path."""
+    from repro_torch.kernels import build
+
+    _check(x, w_gate, w_up, w_down)
+    fn = _entry_point(build.load(library, source))
+    E, C, d = x.shape
+    ff = w_gate.shape[2]
+    hidden = torch.empty((E, C, ff), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+                 w_down.data_ptr(), hidden.data_ptr(), out.data_ptr(),
+                 E, C, d, ff, _DTYPES[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"moe_ffn_launch failed: CUDA error {err}")
+    return out
+
+
+def fused_moe_ffn(
+    x: torch.Tensor,         # [E, C, d] capacity-padded per-expert buffers
+    w_gate: torch.Tensor,    # [E, d, ff]
+    w_up: torch.Tensor,      # [E, d, ff]
+    w_down: torch.Tensor,    # [E, ff, d]
+) -> torch.Tensor:
+    """Launch the Hopper kernel; raises on anything it does not take."""
+    global launches
+    out = launch("moe_ffn", x, w_gate, w_up, w_down)
+    launches += 1
+    return out
+
+
+def fused_moe_ffn_ref(x: torch.Tensor, w_gate: torch.Tensor,
+                      w_up: torch.Tensor, w_down: torch.Tensor
+                      ) -> torch.Tensor:
+    """Plain version: f32 einsums, cast to x's dtype at the end."""
+    u, s = _parts(x, w_gate, w_up)
+    out = torch.einsum("ecf,efd->ecd", s * u, w_down.float())
+    return out.to(x.dtype)

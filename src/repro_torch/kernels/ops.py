@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import moe_gemm
 from repro_torch.kernels import paged_attention as pa
 
 
@@ -18,3 +19,11 @@ def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
                                         context_lens, q_positions)
     return pa.paged_flash_attention_ref(q, kv_pages, block_tables,
                                         context_lens, q_positions)
+
+
+def fused_moe_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                  w_down: torch.Tensor) -> torch.Tensor:
+    """Grouped-expert SwiGLU over capacity-padded buffers x [E, C, d]."""
+    if x.is_cuda:
+        return moe_gemm.fused_moe_ffn(x, w_gate, w_up, w_down)
+    return moe_gemm.fused_moe_ffn_ref(x, w_gate, w_up, w_down)

@@ -1,0 +1,163 @@
+"""Mixture-of-Experts at NS=1 (``repro.models.moe``): every expert on this
+device, no expert parallelism.
+
+Dispatch is sort-based with static capacity buffers, as in the JAX package:
+the T*top_k (row, expert) assignments are stably sorted by expert, each
+takes the next position of its expert's ``[capacity, d]`` buffer, and the
+ones past capacity drop.  The same rows drop as in JAX because the sort is
+stable and the group starts come from a left `searchsorted`.
+
+JAX's ``.at[...].set(mode="drop")`` silently drops out-of-range writes (the
+sentinel expert ``E`` of padding rows, positions past capacity); torch
+indexing would raise or wrap, so dropped assignments are sent to one extra
+dump row of the buffer, which is cut off.  Nothing here reads a device value
+on the host (no ``.item()``, ``nonzero`` or boolean-mask indexing): the
+capacity is a host function of the padded row count.  The combine is a sum
+over each row's top_k slots, which is deterministic where a CUDA
+``index_add_`` is not.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import swiglu
+
+
+def _round8(x: int) -> int:
+    return max(8, (x + 7) // 8 * 8)
+
+
+def capacity(rows: int, top_k: int, num_experts: int,
+             capacity_factor: float) -> int:
+    """Rows of each expert's buffer for `rows` (padded) token rows, as the
+    JAX package computes it at NS=1."""
+    return _round8(int(rows * top_k / num_experts * capacity_factor) + 1)
+
+
+def route(x: torch.Tensor, router_w: torch.Tensor, top_k: int
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Softmax-then-top-k routing with weight renormalization.
+
+    Returns (weights [T,K] f32, expert_ids [T,K] int32, aux_loss scalar)."""
+    logits = x.float() @ router_w.float()
+    probs = torch.softmax(logits, dim=-1)
+    w, idx = torch.topk(probs, top_k, dim=-1)
+    w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+    # GShard load-balancing auxiliary loss: E * mean_e(frac_tokens_e * mean_prob_e)
+    E = router_w.shape[-1]
+    me = probs.mean(dim=0)
+    fe = F.one_hot(idx[:, 0], E).float().mean(dim=0)
+    aux = E * torch.sum(fe * me)
+    return w, idx.to(torch.int32), aux
+
+
+def _group_rows(values: torch.Tensor, group_ids: torch.Tensor,
+                num_groups: int, capacity: int):
+    """Sort rows by group and scatter into [num_groups, capacity, ...]
+    buffers.
+
+    Returns (buffers, order, slot_group, slot_pos); rows beyond capacity
+    drop.  `group_ids` >= num_groups mark invalid rows (never stored)."""
+    n = group_ids.shape[0]
+    dev = group_ids.device
+    order = torch.argsort(group_ids, stable=True)
+    sg = group_ids[order]
+    starts = torch.searchsorted(
+        sg, torch.arange(num_groups, device=dev, dtype=sg.dtype))
+    pos = (torch.arange(n, device=dev)
+           - starts[torch.clamp(sg, max=num_groups - 1)])
+    pos = torch.where(sg < num_groups, pos, capacity)    # invalid -> dropped
+    dump = num_groups * capacity
+    slot = torch.where(pos < capacity, sg * capacity + pos, dump)
+    buf = values.new_zeros((dump + 1,) + values.shape[1:])
+    buf[slot] = values[order]          # dropped rows all land on the dump row
+    buf = buf[:dump].view((num_groups, capacity) + values.shape[1:])
+    return buf, order, sg, pos
+
+
+def _ungroup_rows(buffers: torch.Tensor, order: torch.Tensor,
+                  slot_group: torch.Tensor, slot_pos: torch.Tensor
+                  ) -> torch.Tensor:
+    """Inverse of `_group_rows`: read each row's result back (dropped -> 0)."""
+    num_groups, cap = buffers.shape[:2]
+    ok = slot_pos < cap
+    vals = buffers[torch.clamp(slot_group, max=num_groups - 1),
+                   torch.clamp(slot_pos, min=0, max=cap - 1)]
+    vals = torch.where(ok.view((-1,) + (1,) * (vals.dim() - 1)), vals,
+                       torch.zeros((), dtype=vals.dtype, device=vals.device))
+    out = torch.empty_like(vals)
+    out[order] = vals                  # order is a permutation
+    return out
+
+
+def expert_ffn(xb: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+               w_down: torch.Tensor) -> torch.Tensor:
+    """Grouped SwiGLU over padded per-expert buffers, every shape through
+    `ops.fused_moe_ffn`: the Hopper kernel for CUDA tensors (which raises on
+    a shape it does not take), the plain version on the CPU.
+
+    xb [E, C, d]; weights [E, d, ff] / [E, ff, d]."""
+    return ops.fused_moe_ffn(xb, w_gate, w_up, w_down)
+
+
+def moe_apply(
+    x: torch.Tensor,                     # [T, d] flattened tokens
+    params: Dict[str, torch.Tensor],
+    *,
+    top_k: int,
+    ep_axis: Optional[str] = None,
+    capacity_factor: float = 1.25,
+    row_valid: Optional[torch.Tensor] = None,   # [T] bool: padding rows opt out
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (output [T, d], aux_loss).  `params` holds:
+    router [d, E]; w_gate/w_up [E, d, ff]; w_down [E, ff, d]; optional
+    shared-expert s_gate/s_up [d, ffs], s_down [ffs, d].  Rows with
+    row_valid=False (static-tick bucket padding) are routed nowhere and
+    consume no expert capacity."""
+    if ep_axis is not None:
+        raise NotImplementedError(
+            f"moe_apply: expert parallelism (ep_axis={ep_axis!r}) is not yet "
+            f"ported to repro_torch (ROADMAP Queue 1 item 6)")
+    T, d = x.shape
+    E = params["w_gate"].shape[0]
+
+    w, idx, aux = route(x, params["router"], top_k)
+    N = T * top_k
+    flat_e = idx.reshape(N).long()
+    src = torch.arange(T, device=x.device).repeat_interleave(top_k)
+    if row_valid is not None:
+        flat_e = torch.where(row_valid[src], flat_e, E)  # invalid sentinel
+    xs = x[src]                                           # [N, d]
+
+    cap = capacity(T, top_k, E, capacity_factor)
+    ebuf, order, sg, pos = _group_rows(xs, flat_e, E, cap)
+    y = expert_ffn(ebuf, params["w_gate"], params["w_up"], params["w_down"])
+    ys = _ungroup_rows(y, order, sg, pos)                 # [N, d]
+
+    out = (ys.float().view(T, top_k, d) * w[..., None]).sum(dim=1)
+    if "s_gate" in params:
+        shared = swiglu(x, params["s_gate"], params["s_up"], params["s_down"])
+        out = out + shared.float()
+    return out.to(x.dtype), aux
+
+
+def moe_ref(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
+            top_k: int) -> torch.Tensor:
+    """Dense per-expert oracle (no capacity drops) for correctness tests."""
+    w, idx, _ = route(x, params["router"], top_k)
+    E = params["router"].shape[-1]
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in range(E):
+        ye = swiglu(x, params["w_gate"][e], params["w_up"][e],
+                    params["w_down"][e])
+        gate = torch.where(idx == e, w, torch.zeros_like(w)).sum(dim=-1)
+        out = out + gate[:, None] * ye.float()
+    if "s_gate" in params:
+        out = out + swiglu(x, params["s_gate"], params["s_up"],
+                           params["s_down"]).float()
+    return out.to(x.dtype)

@@ -1,6 +1,6 @@
 """Serve-mode model execution (``repro.models.serve``): one pipeline stage's
 forward over a micro-batch of prefill chunks and decode rows, with the paged
-KV cache, for ATTN_MLP blocks.
+KV cache, for ATTN_MLP and ATTN_MOE blocks.
 
 Layouts (per stage, as in the JAX package):
   prefill payload  xp [Sp, C, d]
@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, BlockKind
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import apply_norm, mlp_apply, rope_tables, rotate
 from repro_torch.models.transformer import _block_key, _check_kind, _heads
 
@@ -190,9 +191,11 @@ def block_apply_serve(cfg: ArchConfig, kind: BlockKind, p,
                       xp: torch.Tensor, xd: torch.Tensor,
                       cache: Dict[str, torch.Tensor],
                       meta: Mapping[str, torch.Tensor], dims: ServeDims):
-    """One ATTN_MLP block over the stage's micro-batch: xp [Sp, C, d]
-    prefill payload, xd [Sd, 1, d] decode rows.  Both phases run whenever
-    their bucket is non-empty (`dims.Sp`/`dims.Sd`), whatever rows are live.
+    """One ATTN_MLP or ATTN_MOE block over the stage's micro-batch: xp
+    [Sp, C, d] prefill payload, xd [Sd, 1, d] decode rows.  Both phases run
+    whenever their bucket is non-empty (`dims.Sp`/`dims.Sd`), whatever rows
+    are live.  The MoE FFN routes only the live rows (``meta["row_valid"]``,
+    see `stage_forward_serve`): padding rows consume no expert capacity.
     Returns (xp, xd, cache); the cache is updated in place."""
     _check_kind(kind)
 
@@ -220,7 +223,12 @@ def block_apply_serve(cfg: ArchConfig, kind: BlockKind, p,
     if Sd:
         parts.append(norm("ln2", xd).reshape(-1, cfg.d_model))
     flat = torch.cat(parts, dim=0) if len(parts) > 1 else parts[0]
-    y = mlp_apply(flat, p, cfg.act)
+    if kind == BlockKind.ATTN_MOE:
+        y, _ = moe_lib.moe_apply(flat, p, top_k=cfg.num_experts_per_tok,
+                                 capacity_factor=cfg.moe_capacity_factor,
+                                 row_valid=meta["row_valid"])
+    else:
+        y = mlp_apply(flat, p, cfg.act)
     n = Sp * xp.shape[1] if Sp else 0
     if Sp:
         xp = xp + y[:n].reshape(xp.shape)
@@ -239,7 +247,9 @@ def stage_forward_serve(cfg: ArchConfig, stage_params, caches, xp, xd, meta,
 
     The loop runs eagerly, one launch per op, so per-tick work that every
     layer shares is done once here: the RoPE tables of both phases (added
-    to `meta` as ``p_rope``/``d_rope``) and the per-layer views (one
+    to `meta` as ``p_rope``/``d_rope``), the MoE blocks' live-row mask
+    (``row_valid``: prefill rows inside their chunk, then live decode rows,
+    in the order the FFN flattens them) and the per-layer views (one
     ``unbind`` per leaf)."""
     head_dim, theta = cfg.head_dim, cfg.rope_theta
     meta = dict(meta)
@@ -248,6 +258,15 @@ def stage_forward_serve(cfg: ArchConfig, stage_params, caches, xp, xd, meta,
     if dims.Sd:
         meta["d_rope"] = rope_tables(meta["d_positions"][:, None], head_dim,
                                      theta)
+    if cfg.is_moe:
+        valid = []
+        if dims.Sp:
+            cols = torch.arange(xp.shape[1], device=xp.device)
+            valid.append((cols[None, :] < (dims.Te + meta["p_chunk_lens"])
+                          [:, None]).reshape(-1))
+        if dims.Sd:
+            valid.append(meta["d_valid"] > 0)
+        meta["row_valid"] = torch.cat(valid)
     off = 0
     for i, bs in enumerate(cfg.pattern):
         key = _block_key(i, bs)

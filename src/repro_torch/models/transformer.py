@@ -1,4 +1,5 @@
-"""The stacked transformer (``repro.models.transformer``), ATTN_MLP blocks.
+"""The stacked transformer (``repro.models.transformer``), ATTN_MLP and
+ATTN_MOE blocks.
 
 Parameters are *stacked* as in the JAX package: every block leaf carries
 leading dims ``[S, R, ...]`` (S = pipeline stages, R = the block's repeat
@@ -22,18 +23,19 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig, BlockKind, BlockSpec
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import apply_norm, apply_rope, mlp_apply
 
 Leaf = Tuple[Tuple[int, ...], str]      # (shape, init kind)
 
-_PORTED_KINDS = (BlockKind.ATTN_MLP,)
+_PORTED_KINDS = (BlockKind.ATTN_MLP, BlockKind.ATTN_MOE)
 
 
 def _check_kind(kind: BlockKind) -> None:
     if kind not in _PORTED_KINDS:
         raise NotImplementedError(
             f"block kind {kind.value} is not yet ported to repro_torch "
-            f"(ROADMAP Queue 1 item 8); ported: "
+            f"(ROADMAP Queue 1 item 5); ported: "
             f"{[k.value for k in _PORTED_KINDS]}")
 
 
@@ -66,13 +68,32 @@ def _attn_defs(cfg: ArchConfig) -> Dict[str, Leaf]:
     return out
 
 
+def _moe_defs(cfg: ArchConfig) -> Dict[str, Leaf]:
+    d, ff, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    out: Dict[str, Leaf] = {
+        "router": ((d, E), "normal"),
+        "w_gate": ((E, d, ff), "normal"),
+        "w_up": ((E, d, ff), "normal"),
+        "w_down": ((E, ff, d), "residual"),
+    }
+    if cfg.num_shared_experts:
+        ffs = ff * cfg.num_shared_experts
+        out["s_gate"] = ((d, ffs), "normal")
+        out["s_up"] = ((d, ffs), "normal")
+        out["s_down"] = ((ffs, d), "residual")
+    return out
+
+
 def block_param_defs(cfg: ArchConfig, kind: BlockKind) -> Dict[str, Leaf]:
     _check_kind(kind)
     defs: Dict[str, Leaf] = {}
     defs.update(_norm_defs(cfg, "ln1"))
     defs.update(_norm_defs(cfg, "ln2"))
     defs.update(_attn_defs(cfg))
-    defs.update(_mlp_defs(cfg))
+    if kind == BlockKind.ATTN_MOE:
+        defs.update(_moe_defs(cfg))
+    else:
+        defs.update(_mlp_defs(cfg))
     return defs
 
 
@@ -207,4 +228,11 @@ def block_apply_train(cfg: ArchConfig, kind: BlockKind, p,
         return apply_norm(h, keys, cfg.norm, cfg.norm_eps)
 
     x = x + _attn_train(cfg, p, norm("ln1", x), positions)
-    return x + mlp_apply(norm("ln2", x), p, cfg.act)
+    h = norm("ln2", x)
+    if kind == BlockKind.ATTN_MOE:
+        # the auxiliary load-balancing loss is for training; serving drops it
+        y, _ = moe_lib.moe_apply(h.reshape(-1, cfg.d_model), p,
+                                 top_k=cfg.num_experts_per_tok,
+                                 capacity_factor=cfg.moe_capacity_factor)
+        return x + y.reshape(x.shape)
+    return x + mlp_apply(h, p, cfg.act)

@@ -7,7 +7,11 @@ same prompts (one longer than the chunk, so prefill runs in several chunks)
 are served by both engines.  Greedy tokens must be equal to both the JAX
 engine's and JAX `greedy_generate`'s; the per-tick batch composition must be
 equal tick by tick; dense logits agree at atol 1e-4 (f32, different
-summation order).
+summation order).  The olmoe variant (ATTN_MOE) is dropless, as
+tests/test_engine_equivalence.py builds it: capacity drops depend on the
+batch, so a serving engine matches the dense reference only without them.
+At the config's capacity factor (1.25) the two engines still agree with
+each other, because both drop the same rows of the same batches.
 """
 
 import dataclasses
@@ -45,11 +49,17 @@ PROMPT_LENS = (7, 23, 12, 41)        # 23 and 41 exceed C=16
 MAX_NEW = 5
 
 
-def _cfgs(variant):
-    """(jax cfg, port cfg) for one of the three variants, f32 at pp=1."""
-    arch = "qwen2.5-14b" if variant == "gqa" else "qwen1.5-0.5b"
+def _cfgs(variant, capacity_factor=None):
+    """(jax cfg, port cfg) for one of the four variants, f32 at pp=1.  MoE
+    variants are dropless unless `capacity_factor` is given."""
+    arch = {"gqa": "qwen2.5-14b", "olmoe": "olmoe-1b-7b"}.get(
+        variant, "qwen1.5-0.5b")
     jcfg = jax_make_reduced(jax_get_config(arch))
     tcfg = make_reduced(get_config(arch))
+    if variant == "olmoe":
+        cf = capacity_factor or float(jcfg.num_experts)
+        jcfg = dataclasses.replace(jcfg, moe_capacity_factor=cf)
+        tcfg = dataclasses.replace(tcfg, moe_capacity_factor=cf)
     if variant == "stacked3":
         jcfg = dataclasses.replace(
             jcfg, pattern=(JBlockSpec(JBlockKind.ATTN_MLP, 3),), num_layers=3)
@@ -81,14 +91,15 @@ def _record_ticks(backend):
     return ticks
 
 
-@pytest.fixture(scope="module", params=["qwen1.5", "stacked3", "gqa"])
-def served(request):
-    jcfg, tcfg = _cfgs(request.param)
+def _serve_both(jcfg, tcfg, prompt_lens=PROMPT_LENS):
+    """Serve the same prompts on the JAX engine and the port's, from the
+    same parameters; returns (prompts, jparams, tparams, jreqs, treqs,
+    jticks, tticks, port engine)."""
     mesh = jax.make_mesh((1, 1, 1), ("data", "stage", "tensor"),
                          axis_types=(jax.sharding.AxisType.Auto,) * 3)
     rng = np.random.default_rng(42)
     prompts = [[int(t) for t in rng.integers(0, jcfg.vocab_size, n)]
-               for n in PROMPT_LENS]
+               for n in prompt_lens]
     with jax.set_mesh(mesh):
         jparams = jtfm.init_params(jcfg, jax.random.key(0), dtype=jnp.float32)
         jparams = jax.tree.map(
@@ -111,6 +122,15 @@ def served(request):
                               request_id=f"r{i}")
              for i, p in enumerate(prompts)]
     teng.drain(max_ticks=500)
+    return prompts, jparams, tparams, jreqs, treqs, jticks, tticks, teng
+
+
+@pytest.fixture(scope="module", params=["qwen1.5", "stacked3", "gqa",
+                                        "olmoe"])
+def served(request):
+    jcfg, tcfg = _cfgs(request.param)
+    (prompts, jparams, tparams, jreqs, treqs, jticks, tticks,
+     teng) = _serve_both(jcfg, tcfg)
 
     # JAX greedy_generate itself, with its dense_forward jitted (one
     # compile per length instead of op-by-op dispatch)
@@ -155,14 +175,73 @@ def test_dense_forward_logits_match(served):
 
 
 def test_kernel_counter_untouched_on_cpu(served):
+    from repro_torch.kernels import moe_gemm
     from repro_torch.kernels import paged_attention as pa
     assert served["teng"].stats.ticks == len(served["tticks"])
-    assert pa.launches == 0
+    assert pa.launches == 0 and moe_gemm.launches == 0
+
+
+def test_olmoe_engines_agree_at_config_capacity_factor(monkeypatch):
+    """At capacity factor 1.25 rows may drop; the drops are a function of
+    the batch, and both engines form the same batches, so their tokens and
+    per-tick compositions are equal.  Eight experts and ten prompts fill
+    the ticks enough that the capacity bites (counted on the port's side)."""
+    from repro_torch.models import moe
+    jcfg, tcfg = _cfgs("olmoe", capacity_factor=1.25)
+    assert get_config("olmoe-1b-7b").moe_capacity_factor == 1.25
+    jcfg = dataclasses.replace(jcfg, num_experts=8)
+    tcfg = dataclasses.replace(tcfg, num_experts=8)
+    dropped = []
+    group_rows = moe._group_rows
+
+    def counting(values, group_ids, num_groups, capacity):
+        out = group_rows(values, group_ids, num_groups, capacity)
+        sg, pos = out[2], out[3]
+        dropped.append(int(((pos >= capacity) & (sg < num_groups)).sum()))
+        return out
+
+    monkeypatch.setattr(moe, "_group_rows", counting)
+    _, _, _, jreqs, treqs, jticks, tticks, _ = _serve_both(
+        jcfg, tcfg, prompt_lens=(7, 23, 12, 41, 9, 30, 15, 5, 26, 11))
+    assert sum(dropped) > 0
+    assert tticks == jticks
+    for j, t in zip(jreqs, treqs):
+        assert j.is_finished and t.is_finished
+        assert t.output_token_ids == j.output_token_ids, t.request_id
 
 
 def _jax_tree(cfg):
     return jax.tree.map(np.asarray, jtfm.init_params(
         cfg, jax.random.key(1), dtype=jnp.float32))
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "kimi-k2-1t-a32b"])
+def test_params_from_numpy_carries_moe_tree(arch):
+    """Router, expert and (kimi-k2) shared-expert leaves carry across key
+    for key, unchanged.  kimi-k2's port config is built from the JAX one
+    (the arch itself is not yet ported; its MoE block is)."""
+    import repro_torch.configs.base as tbase
+    jcfg = jax_make_reduced(jax_get_config(arch)).with_plan(
+        pp=1, tp=1, ep_over_data=False)
+    jcfg = dataclasses.replace(jcfg, dtype="float32")
+    fields = {f.name: getattr(jcfg, f.name)
+              for f in dataclasses.fields(tbase.ArchConfig)}
+    fields["pattern"] = tuple(BlockSpec(BlockKind(b.kind.value), b.repeat)
+                              for b in jcfg.pattern)
+    fields["plan"] = tbase.ParallelPlan(pp=1, tp=1)
+    tcfg = tbase.ArchConfig(**fields)
+    tree = _jax_tree(jcfg)
+    got = params_from_numpy(tcfg, tree)
+    block = tree["stages"]["b0_attn_moe"]
+    want_keys = {"router", "w_gate", "w_up", "w_down"}
+    if jcfg.num_shared_experts:
+        want_keys |= {"s_gate", "s_up", "s_down"}
+    assert want_keys <= set(block)
+    for k, a in block.items():
+        np.testing.assert_array_equal(
+            got["stages"]["b0_attn_moe"][k].numpy(), a)
+    np.testing.assert_array_equal(got["embed"]["tok"].numpy(),
+                                  tree["embed"]["tok"])
 
 
 def test_params_from_numpy_raises_on_missing_key():

@@ -69,7 +69,7 @@ def test_unported_arch_and_pp_raise():
     from repro_torch.launch.serve import FULL_DIMS
 
     with pytest.raises(KeyError, match="not yet ported"):
-        get_config("olmoe-1b-7b")
+        get_config("rwkv6-3b")
     cfg = get_config("qwen1.5-0.5b")
     with pytest.raises(NotImplementedError, match="pp=8"):
         build_serve_tick(cfg, FULL_DIMS)
@@ -86,6 +86,26 @@ def test_launcher_runs_reduced_on_cpu():
         env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert "3/3 requests, 12 tokens" in res.stdout
+
+
+@pytest.mark.parametrize("launcher", ["serve", "profile"])
+def test_launchers_run_reduced_olmoe_on_cpu(launcher):
+    """--arch olmoe-1b-7b (ATTN_MOE blocks) runs end to end in both
+    launchers on the CPU."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", f"repro_torch.launch.{launcher}", "--arch",
+         "olmoe-1b-7b", "--reduced", "--device", "cpu", "--requests", "3",
+         "--max-new", "3"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    if launcher == "serve":
+        assert "[olmoe-1b-7b | cpu float32] 3/3 requests, 9 tokens" in \
+            res.stdout
+    else:
+        out = json.loads([l for l in res.stdout.splitlines()
+                          if l.startswith("{")][-1])
+        assert out["arch"] == "olmoe-1b-7b" and out["ticks"] > 0
 
 
 def test_profile_launcher_runs_reduced_on_cpu():

@@ -1,0 +1,286 @@
+"""MoE of the port (NS=1): routing, capacity dispatch and the grouped-expert
+FFN's plain version against the JAX package, the CPU/CUDA dispatch, and the
+power of the kernel check (`moe_gemm.TOLERANCE`).
+
+Inputs are made with numpy from a seed and handed to both packages.
+Tolerances: 1e-5 absolute for f32 (the same math in another summation
+order), as tests/test_moe.py and tests/test_kernels.py use.  The
+kernel-vs-plain checks on the card are in tests/test_torch_moe_gpu.py,
+which imports no JAX.
+"""
+
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import make_reduced as jax_make_reduced
+from repro.kernels import ref as jref
+from repro.kernels.moe_gemm import fused_moe_ffn as jax_kernel
+from repro.models import moe as jmoe
+from repro_torch.configs import get_config, make_reduced
+from repro_torch.kernels import moe_gemm, ops
+from repro_torch.models import moe
+
+ATOL = 1e-5
+
+
+def _moe_params(cfg, seed):
+    """numpy router/expert (and shared-expert) weights for `cfg`."""
+    rng = np.random.default_rng(seed)
+    d, E, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    p = {"router": rng.normal(size=(d, E)) * 0.5,
+         "w_gate": rng.normal(size=(E, d, ff)) * 0.1,
+         "w_up": rng.normal(size=(E, d, ff)) * 0.1,
+         "w_down": rng.normal(size=(E, ff, d)) * 0.1}
+    if cfg.num_shared_experts:
+        ffs = ff * cfg.num_shared_experts
+        p.update(s_gate=rng.normal(size=(d, ffs)) * 0.1,
+                 s_up=rng.normal(size=(d, ffs)) * 0.1,
+                 s_down=rng.normal(size=(ffs, d)) * 0.1)
+    return {k: v.astype(np.float32) for k, v in p.items()}
+
+
+def _both(arrays):
+    return ({k: jnp.asarray(v) for k, v in arrays.items()},
+            {k: torch.from_numpy(v) for k, v in arrays.items()})
+
+
+def _reduced(arch):
+    """The reduced config (JAX's registry: kimi-k2 is not yet ported)."""
+    return jax_make_reduced(jax_get_config(arch))
+
+
+def test_reduced_olmoe_config_matches_jax():
+    jcfg = _reduced("olmoe-1b-7b")
+    tcfg = make_reduced(get_config("olmoe-1b-7b"))
+    for f in ("d_model", "num_experts", "num_experts_per_tok", "moe_d_ff",
+              "num_shared_experts", "moe_capacity_factor", "num_layers"):
+        assert getattr(tcfg, f) == getattr(jcfg, f), f
+    assert get_config("olmoe-1b-7b").moe_capacity_factor == 1.25
+
+
+def test_route_matches_jax():
+    cfg = _reduced("olmoe-1b-7b")
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(40, cfg.d_model)).astype(np.float32)
+    router = _moe_params(cfg, 1)["router"]
+    jw, jidx, jaux = jmoe.route(jnp.asarray(x), jnp.asarray(router),
+                                cfg.num_experts_per_tok)
+    tw, tidx, taux = moe.route(torch.from_numpy(x), torch.from_numpy(router),
+                               cfg.num_experts_per_tok)
+    assert tidx.dtype == torch.int32
+    np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+    np.testing.assert_allclose(tw.numpy(), np.asarray(jw), atol=ATOL)
+    np.testing.assert_allclose(float(taux), float(jaux), atol=ATOL)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "kimi-k2-1t-a32b"])
+def test_moe_apply_matches_jax_with_row_valid(arch):
+    """At the config's capacity factor, with padding rows masked out: equal
+    outputs (padding rows get zeros, or the shared expert alone)."""
+    cfg = _reduced(arch)
+    rng = np.random.default_rng(2)
+    T = 40
+    x = rng.normal(size=(T, cfg.d_model)).astype(np.float32)
+    valid = rng.random(T) < 0.7
+    jp, tp = _both(_moe_params(cfg, 3))
+    kw = dict(top_k=cfg.num_experts_per_tok,
+              capacity_factor=cfg.moe_capacity_factor)
+    jout, _ = jmoe.moe_apply(jnp.asarray(x), jp, row_valid=jnp.asarray(valid),
+                             **kw)
+    tout, _ = moe.moe_apply(torch.from_numpy(x), tp,
+                            row_valid=torch.from_numpy(valid), **kw)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=ATOL)
+    if not cfg.num_shared_experts:
+        assert not np.any(tout.numpy()[~valid])
+
+
+def test_moe_apply_matches_dense_oracle_when_dropless():
+    cfg = _reduced("kimi-k2-1t-a32b")
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(32, cfg.d_model)).astype(np.float32))
+    _, tp = _both(_moe_params(cfg, 5))
+    k = cfg.num_experts_per_tok
+    out, _ = moe.moe_apply(x, tp, top_k=k,
+                           capacity_factor=float(cfg.num_experts))
+    torch.testing.assert_close(out, moe.moe_ref(x, tp, top_k=k), rtol=1e-4,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("top_k,cf,same_rows", [(2, 0.5, False),
+                                                (1, 0.05, True)])
+def test_same_rows_drop_as_in_jax(top_k, cf, same_rows):
+    """Under a tight capacity both packages keep and drop the same
+    (row, expert) assignments: equal group buffers and slot positions,
+    equal outputs, and equal all-zero (fully dropped) rows."""
+    cfg = _reduced("olmoe-1b-7b")
+    rng = np.random.default_rng(6)
+    T, E = 64, cfg.num_experts
+    x = rng.normal(size=(T, cfg.d_model)).astype(np.float32)
+    if same_rows:                    # identical rows: one expert takes all
+        x[:] = x[0]
+    valid = np.ones(T, bool)
+    valid[-5:] = False
+    jp, tp = _both(_moe_params(cfg, 7))
+
+    cap = moe.capacity(T, top_k, E, cf)
+    assert cap == jmoe._round8(int(T * top_k / E * cf) + 1)
+    _, idx, _ = moe.route(torch.from_numpy(x), tp["router"], top_k)
+    flat_e = idx.reshape(-1).long()
+    src = np.repeat(np.arange(T), top_k)
+    flat_e = torch.where(torch.from_numpy(valid[src]), flat_e, E)
+    xs = x[src]
+    jbuf, jorder, jsg, jpos = jmoe._group_rows(
+        jnp.asarray(xs), jnp.asarray(flat_e.numpy().astype(np.int32)), E, cap)
+    tbuf, torder, tsg, tpos = moe._group_rows(torch.from_numpy(xs), flat_e,
+                                              E, cap)
+    np.testing.assert_array_equal(tbuf.numpy(), np.asarray(jbuf))
+    np.testing.assert_array_equal(torder.numpy(), np.asarray(jorder))
+    np.testing.assert_array_equal(tpos.numpy(), np.asarray(jpos))
+    dropped = tpos.numpy() >= cap
+    assert dropped[np.asarray(tsg) < E].any()      # the capacity really bit
+
+    kw = dict(top_k=top_k, capacity_factor=cf)
+    jout, _ = jmoe.moe_apply(jnp.asarray(x), jp, row_valid=jnp.asarray(valid),
+                             **kw)
+    tout, _ = moe.moe_apply(torch.from_numpy(x), tp,
+                            row_valid=torch.from_numpy(valid), **kw)
+    jout = np.asarray(jout)
+    np.testing.assert_allclose(tout.numpy(), jout, atol=ATOL)
+    np.testing.assert_array_equal(np.all(tout.numpy() == 0, axis=-1),
+                                  np.all(jout == 0, axis=-1))
+    if same_rows:
+        assert np.all(jout == 0, axis=-1).sum() > T // 2
+
+
+def test_moe_apply_refuses_expert_parallelism():
+    cfg = _reduced("olmoe-1b-7b")
+    _, tp = _both(_moe_params(cfg, 8))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        moe.moe_apply(torch.zeros(4, cfg.d_model), tp, top_k=2,
+                      ep_axis="data")
+
+
+# tests/test_kernels.py::test_fused_moe_vs_oracle's shapes and Pallas tiles,
+# plus one with C = 24 (a ragged row edge for the Hopper kernel)
+SHAPES = [(4, 16, 32, 64, 8, 32), (2, 32, 64, 128, 16, 64),
+          (3, 8, 16, 32, 8, 16), (2, 24, 64, 128, 8, 64)]
+
+
+def _ffn_case(E, C, d, ff, seed, w_scale=0.1, x_scale=0.5):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=s).astype(np.float32) * sc for s, sc in (
+        ((E, C, d), x_scale), ((E, d, ff), w_scale), ((E, d, ff), w_scale),
+        ((E, ff, d), w_scale))]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_plain_matches_jax_oracle_and_pallas(shape):
+    E, C, d, ff, tb, fb = shape
+    arrs = _ffn_case(E, C, d, ff, seed=sum(shape))
+    got = moe_gemm.fused_moe_ffn_ref(*map(torch.from_numpy, arrs)).numpy()
+    jargs = [jnp.asarray(a) for a in arrs]
+    want_ref = np.asarray(jref.fused_moe_ffn_ref(*jargs))
+    want_pallas = np.asarray(jax_kernel(*jargs, token_block=tb, ff_block=fb,
+                                        interpret=True))
+    np.testing.assert_allclose(got, want_ref, atol=ATOL)
+    np.testing.assert_allclose(got, want_pallas, atol=ATOL)
+
+
+def test_ops_cpu_takes_plain_path_without_launching():
+    moe_gemm.launches = 0
+    args = [torch.from_numpy(a) for a in _ffn_case(2, 24, 64, 128, seed=1)]
+    out = ops.fused_moe_ffn(*args)
+    torch.testing.assert_close(out, moe_gemm.fused_moe_ffn_ref(*args),
+                               rtol=0, atol=0)
+    assert moe_gemm.launches == 0
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    args = [torch.from_numpy(a) for a in _ffn_case(2, 24, 128, 128, seed=1)]
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_gemm.fused_moe_ffn(*args)
+    assert moe_gemm.launches == 0
+
+
+def test_kernel_module_imports_without_nvcc():
+    """The MoE kernel builds at first use: its modules import in a process
+    with no nvcc on PATH and no CUDA_HOME, and build nothing."""
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    code = ("import repro_torch.kernels.moe_gemm, repro_torch.models.moe\n"
+            "from repro_torch.kernels import build\n"
+            "assert build._libs == {} and build.build_log == {}\n"
+            "try:\n    build.nvcc()\nexcept RuntimeError:\n    print('ok')\n")
+    env = {"PATH": "", "PYTHONPATH": src, "CUDA_HOME": "/nonexistent"}
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+# The kernel's ff tile: the depth of one step of its down-projection loop
+# (BK of `Tile` in csrc/moe_ffn.cu).  The planted fault stops that loop one
+# tile early.
+FF_TILE = {torch.float32: 16, torch.bfloat16: 32}
+
+# chip_smoke.py's moe-kernel shapes with E cut for the CPU, and the serve
+# path's weight scale (0.02) over unit-variance rows
+CHECK_SHAPES = [(2, 88, 2048, 1024), (4, 24, 256, 256), (2, 16, 128, 128)]
+
+
+def _simulated_kernel(x, w_gate, w_up, w_down, dropped=0):
+    """The kernel's arithmetic in plain PyTorch: f32 sums, the hidden rounded
+    to x's dtype, and optionally the last `dropped` ff rows of the down
+    projection left out (the planted fault)."""
+    xf = x.float()
+    g = torch.einsum("ecd,edf->ecf", xf, w_gate.float())
+    u = torch.einsum("ecd,edf->ecf", xf, w_up.float())
+    h = (torch.nn.functional.silu(g) * u).to(x.dtype).float()
+    keep = h.shape[-1] - dropped
+    out = torch.einsum("ecf,efd->ecd", h[..., :keep],
+                       w_down.float()[:, :keep])
+    return out.to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", CHECK_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tolerance_admits_kernel_arithmetic_and_rejects_dropped_ff_tile(
+        shape, dtype):
+    arrs = _ffn_case(*shape, seed=sum(shape), w_scale=0.02, x_scale=1.0)
+    args = [torch.from_numpy(a).to(dtype) for a in arrs]
+    faithful = _simulated_kernel(*args)
+    planted = _simulated_kernel(*args, dropped=FF_TILE[dtype])
+    assert moe_gemm.excess(faithful, *args)[0] <= 1.0
+    assert moe_gemm.excess(planted, *args)[0] > 1.0
+
+
+@pytest.mark.parametrize("shape", CHECK_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tolerance_admits_one_bf16_ulp(shape):
+    """Kernel and plain version each round an f32 result to bf16, so they
+    may land one ulp apart; the bf16 tolerance admits that everywhere."""
+    arrs = _ffn_case(*shape, seed=sum(shape), w_scale=0.02, x_scale=1.0)
+    args = [torch.from_numpy(a).to(torch.bfloat16) for a in arrs]
+    want = moe_gemm.fused_moe_ffn_ref(*args)
+    nudged = (want.view(torch.int16) + 1).view(torch.bfloat16)
+    excess, err = moe_gemm.excess(nudged, *args)
+    assert 0.0 < excess <= 1.0 and err > 0.0
+
+
+def test_excess_zero_rows_count_as_agreement():
+    """Empty capacity rows (x = 0) give exact zeros in both versions; their
+    bound is 0 and they must not turn the excess into NaN."""
+    arrs = _ffn_case(2, 16, 128, 128, seed=3)
+    arrs[0][:, 8:] = 0.0
+    args = [torch.from_numpy(a) for a in arrs]
+    assert moe_gemm.excess(moe_gemm.fused_moe_ffn_ref(*args), *args) == (
+        0.0, 0.0)
