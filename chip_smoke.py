@@ -10,7 +10,7 @@ in the checkout and drives the port end to end.  Each phase prints one JSON
 line; any failure raises and the script exits non-zero.
 
   device      card name and count, ``nvidia-smi`` name and power limit
-  build       both kernels and their planted-fault copies, every nvcc
+  build       the three kernels and their planted-fault copies, every nvcc
               started at once: wall time and ``-Xptxas -v`` report per kernel
   kernel      the paged-attention kernel against its plain PyTorch version
               at the main path's shapes (qwen1.5-0.5b decode and prefill,
@@ -25,8 +25,8 @@ line; any failure raises and the script exits non-zero.
               ran 2 phases x 24 layers on every tick
   serve-bf16  the same entry point in bf16 with 32 requests (4 sampled at
               temperature 0.8): tokens/s, ticks, host/device time, memory;
-              then the same batch again under torch.profiler for the
-              device's busy time
+              then the same batch again under torch.profiler (device
+              activity only) for the device's busy time
   moe-kernel  the fused-MoE kernel against its plain version at
               olmoe-1b-7b's serve shapes (E=64, C=88, d=2048, ff=1024), a
               ragged C=24 and a small shape, f32 and bf16, within
@@ -43,6 +43,25 @@ line; any failure raises and the script exits non-zero.
               finishes with valid tokens, launches = ticks x 16 (MoE) and
               ticks x 32 (attention); tokens/s, host/device time, memory and
               the device's idle share from a profiled rerun
+  rwkv-kernel the WKV6 kernel against its plain version at rwkv6-3b's
+              serve shapes (32 decode rows over a pool of 64 slots; one
+              512-token prefill chunk with 300 live tokens and a carried
+              state) and a small ragged one, f32 and bf16 inputs, with a
+              data-dependent decay, NaN-poisoned pool slots (fresh rows' and
+              unowned ones, which must come out bit-identical) and padding
+              rows on a live row's slot, within rwkv6_scan.TOLERANCE; a copy
+              that reads S_t in place of S_{t-1} must fail the same check;
+              kernel and plain times and the bound (no single library call
+              computes this function)
+  serve-rwkv-f32  full-width rwkv6-3b cut to 4 of 32 layers, two waves of
+              4 requests on one engine (the second wave reuses the first's
+              state slots): greedy tokens equal the port's dense reference
+              (its scan on the plain version) up to a near-tie; the kernel
+              ran 2 phases x 4 layers on every tick
+  serve-rwkv-bf16  full-width, full-depth rwkv6-3b in bf16, the serve-bf16
+              batch: every request finishes with valid tokens, launches =
+              ticks x 64; tokens/s, host/device time, memory and the
+              device's idle share from a profiled rerun
 
 Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.
@@ -70,6 +89,8 @@ ARCH = "qwen1.5-0.5b"
 LAYERS = 24
 MOE_ARCH = "olmoe-1b-7b"
 MOE_F32_LAYERS = 4          # depth cut of the f32 serve (full: 16)
+RWKV_ARCH = "rwkv6-3b"
+RWKV_F32_LAYERS = 4         # depth cut of the f32 serve (full: 32)
 MAX_NEW = 16
 NEAR_TIE = 1e-3
 
@@ -87,18 +108,30 @@ def emit(obj) -> None:
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of `fn` over `iters` back-to-back calls (CUDA
-    events, after `warmup` calls)."""
+    events, after `warmup` calls).  The calls queue behind a spin on the
+    card, so that the host has enqueued all of them before the card
+    reaches the first: a call shorter than its own launch overhead is then
+    timed on the card, not on the host.  The spin grows until the card is
+    still spinning when the host is done (at most ~2 s); a call that
+    synchronises (the WKV plain version picks its rows on the host) is
+    timed with the host in it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    spin = 1 << 21                        # clock cycles, ~1 ms
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        ahead = not start.query()         # the card is still spinning
+        end.synchronize()
+        if ahead or spin >= 1 << 32:
+            return start.elapsed_time(end) / iters
+        spin <<= 2
 
 
 # ---------------------------------------------------------------- phases
@@ -143,6 +176,24 @@ def moe_planted_source(build) -> str:
     return text.replace(MOE_MARK, "const int ff_tiles = ff / bk - 1;")
 
 
+RWKV_PLANTED = "rwkv6_scan_planted"
+RWKV_READ = ("      const float o = read_out(S, sm.r[t][q], vj, "
+             "sm.bonus[t][q]);\n")
+RWKV_STEP = "      advance_state(S, sm.w[t][q], sm.k[t][q], vj);\n"
+
+
+def rwkv_planted_source(build) -> str:
+    """The WKV kernel's source with one planted fault: the state advances
+    before the output reads it, so o_t reads S_t in place of S_{t-1} (the
+    recurrence's off-by-one)."""
+    text = (build.CSRC / "rwkv6_scan.cu").read_text()
+    if text.count(RWKV_READ + RWKV_STEP) != 1:
+        raise AssertionError("planted fault: the WKV kernel's read and "
+                             "update are no longer where chip_smoke.py looks "
+                             "for them")
+    return text.replace(RWKV_READ + RWKV_STEP, RWKV_STEP + RWKV_READ)
+
+
 def _ptxas(log: str) -> list:
     kernels = []
     for block in log.split("Compiling entry function")[1:]:
@@ -163,9 +214,10 @@ def _ptxas(log: str) -> list:
 def phase_build(build, planted: dict) -> None:
     """Every kernel and planted copy, all nvcc processes started at once."""
     t0 = time.perf_counter()
-    build.build_all(["paged_attention", "moe_ffn", *planted], planted)
+    kernels = ["paged_attention", "moe_ffn", "rwkv6_scan"]
+    build.build_all([*kernels, *planted], planted)
     wall = time.perf_counter() - t0
-    for name in ("paged_attention", "moe_ffn"):
+    for name in kernels:
         emit({"phase": "build", "kernel": name,
               "nvcc_seconds": round(build.build_log[name]["seconds"], 3),
               "ptxas": _ptxas(build.build_log[name]["log"])})
@@ -306,6 +358,26 @@ def _prompts(seed: int, n: int, vocab: int):
     return [[int(t) for t in rng.integers(0, vocab, L)] for L in lens]
 
 
+def _match_reference(phase, eng, prompts, reqs, max_new, greedy_trace):
+    """Every request finished with `max_new` tokens, equal to the port's
+    dense reference up to its first near-tie (top-2 logit gap below
+    NEAR_TIE).  Returns (tokens compared, near-ties)."""
+    compared, near_ties = 0, []
+    for i, (p, r) in enumerate(zip(prompts, reqs)):
+        if not (r.is_finished and r.num_output_tokens == max_new):
+            raise AssertionError(f"{phase}: request {i} did not finish")
+        want, gaps = greedy_trace(eng.cfg, eng.params, p, max_new)
+        stop = next((k for k, g in enumerate(gaps) if g < NEAR_TIE), max_new)
+        if stop < max_new:
+            near_ties.append({"request": i, "step": stop, "gap": gaps[stop]})
+        if r.output_token_ids[:stop] != want[:stop]:
+            raise AssertionError(f"{phase}: request {i} (prompt {len(p)}) "
+                                 f"{r.output_token_ids} != reference {want} "
+                                 f"(compared {stop})")
+        compared += stop
+    return compared, near_ties
+
+
 def phase_serve_f32(pa, build_engine, greedy_trace) -> dict:
     t0 = time.perf_counter()
     eng = build_engine(ARCH, device=DEV, dtype=torch.float32)
@@ -320,20 +392,8 @@ def phase_serve_f32(pa, build_engine, greedy_trace) -> dict:
     if launches != ticks * LAYERS * 2:
         raise AssertionError(f"serve-f32: {launches} kernel launches for "
                              f"{ticks} ticks, want ticks x {LAYERS} x 2")
-    compared, near_ties = 0, []
-    for i, (p, r) in enumerate(zip(prompts, reqs)):
-        if not (r.is_finished and r.num_output_tokens == MAX_NEW):
-            raise AssertionError(f"serve-f32: request {i} did not finish")
-        want, gaps = greedy_trace(eng.cfg, eng.params, p, MAX_NEW)
-        stop = next((k for k, g in enumerate(gaps) if g < NEAR_TIE), MAX_NEW)
-        if stop < MAX_NEW:
-            near_ties.append({"request": i, "step": stop, "gap": gaps[stop]})
-        got = r.output_token_ids[:stop]
-        if got != want[:stop]:
-            raise AssertionError(f"serve-f32: request {i} (prompt "
-                                 f"{len(p)}) {r.output_token_ids} != "
-                                 f"reference {want} (compared {stop})")
-        compared += stop
+    compared, near_ties = _match_reference("serve-f32", eng, prompts, reqs,
+                                           MAX_NEW, greedy_trace)
     out = {"phase": "serve-f32", "arch": ARCH, "layers": LAYERS,
            "requests": len(reqs), "prompt_lens": [len(p) for p in prompts],
            "max_new_tokens": MAX_NEW, "ticks": ticks,
@@ -360,60 +420,76 @@ def _serve_batch(eng, prompts) -> list:
     return reqs
 
 
-def phase_serve_bf16(pa, build_engine, device_time) -> dict:
-    """Serve the batch once for the numbers, then the same batch again on
-    the same engine under torch.profiler for the device's busy time."""
+def _serve_measured(eng, prompts, counted: dict, phase: str) -> dict:
+    """Serve `prompts` once for the numbers, every count of `counted` (name
+    -> kernel module) set to 0 just before and read just after; check that
+    every request finished with valid tokens; then serve the same batch
+    again on the same engine under torch.profiler, device activity only,
+    for the device's busy time (its idle share is over the unprofiled wall
+    time of the same batch: the profiler slows the host, not the device)."""
     from torch.profiler import ProfilerActivity, profile
 
-    eng = build_engine(ARCH, device=DEV, dtype=torch.bfloat16)
+    from repro_torch.launch.profile import device_time
+
     torch.cuda.synchronize()
-    prompts = _prompts(12, 32, eng.cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
-    pa.launches = 0
+    for mod in counted.values():
+        mod.launches = 0
     t0 = time.perf_counter()
     reqs = _serve_batch(eng, prompts)
     wall = time.perf_counter() - t0
-    launches = pa.launches
+    launches = {name: mod.launches for name, mod in counted.items()}
     st = eng.stats
     ticks, host_s, device_s = st.ticks, st.host_s, st.device_s
+    vocab = eng.cfg.vocab_size
     for i, r in enumerate(reqs):
         if not (r.is_finished and r.num_output_tokens == MAX_NEW and all(
-                0 <= t < eng.cfg.vocab_size for t in r.output_token_ids)):
-            raise AssertionError(f"serve-bf16: request {i} did not finish "
-                                 f"with {MAX_NEW} valid tokens")
-    if launches != ticks * LAYERS * 2:
-        raise AssertionError(f"serve-bf16: {launches} launches for "
-                             f"{ticks} ticks")
+                0 <= t < vocab for t in r.output_token_ids)):
+            raise AssertionError(f"{phase}: request {i} did not finish with "
+                                 f"{MAX_NEW} valid tokens")
     out_tokens = sum(r.num_output_tokens for r in reqs)
     prompt_tokens = sum(len(p) for p in prompts)
     peak = torch.cuda.max_memory_allocated()
 
     t1 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _serve_batch(eng, prompts)
     profiled_wall = time.perf_counter() - t1
-    busy_us, _ = device_time(prof)
-    out = {"phase": "serve-bf16", "arch": ARCH, "requests": len(reqs),
-           "temperature_requests": sum(1 for i in range(len(reqs))
-                                       if i % 8 == 7),
-           "prompt_tokens": prompt_tokens, "output_tokens": out_tokens,
-           "wall_s": wall, "output_tokens_per_s": out_tokens / wall,
-           "total_tokens_per_s": (out_tokens + prompt_tokens) / wall,
-           "ticks": ticks, "ms_per_tick": wall / ticks * 1e3,
-           "host_s": host_s, "device_s": device_s,
-           "kernel_launches": launches, "max_memory_allocated": peak,
-           "profiled_ticks": eng.stats.ticks - ticks,
-           "profiled_wall_s": profiled_wall,
-           "device_busy_s": busy_us / 1e6,
-           # busy time of the profiled rerun over the unprofiled wall time
-           # of the same batch (the profiler slows the host, not the device)
-           "device_idle_share": 1.0 - busy_us / 1e6 / wall}
+    busy_us, by_kernel = device_time(prof)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    return {"phase": phase, "arch": eng.cfg.name,
+            "layers": eng.cfg.num_layers, "requests": len(reqs),
+            "temperature_requests": sum(1 for i in range(len(reqs))
+                                        if i % 8 == 7),
+            "prompt_tokens": prompt_tokens, "output_tokens": out_tokens,
+            "wall_s": wall, "output_tokens_per_s": out_tokens / wall,
+            "total_tokens_per_s": (out_tokens + prompt_tokens) / wall,
+            "ticks": ticks, "ms_per_tick": wall / ticks * 1e3,
+            "host_s": host_s, "device_s": device_s, "launches": launches,
+            "max_memory_allocated": peak,
+            "profiled_ticks": eng.stats.ticks - ticks,
+            "profiled_wall_s": profiled_wall,
+            "device_busy_s": busy_us / 1e6,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "device_ms_by_kernel": [{"name": k[:80], "ms": v / 1e3}
+                                    for k, v in top]}
+
+
+def phase_serve_bf16(pa, build_engine) -> dict:
+    eng = build_engine(ARCH, device=DEV, dtype=torch.bfloat16)
+    prompts = _prompts(12, 32, eng.cfg.vocab_size)
+    out = _serve_measured(eng, prompts, {"paged_flash_attention": pa},
+                          "serve-bf16")
+    if out["launches"]["paged_flash_attention"] != out["ticks"] * LAYERS * 2:
+        emit(out)
+        raise AssertionError(f"serve-bf16: {out['launches']} launches for "
+                             f"{out['ticks']} ticks")
     emit(out)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
 
 
 # ------------------------------------------------------------ MoE phases
@@ -504,9 +580,10 @@ def phase_moe_kernel(mg, planted_src: str) -> list:
     return results
 
 
-def _moe_f32_engine():
-    """Full-width olmoe-1b-7b cut to MOE_F32_LAYERS layers, f32, dropless
-    (capacity factor = number of experts), smaller serve dims."""
+def _f32_engine(arch: str, layers: int):
+    """Full-width `arch` cut to `layers` layers, f32, smaller serve dims;
+    an MoE config is made dropless (capacity factor = number of experts),
+    so that the serve matches the dense reference."""
     import dataclasses
 
     from repro_torch.configs import BlockSpec, get_config, single_stage
@@ -515,11 +592,12 @@ def _moe_f32_engine():
     from repro_torch.models.transformer import init_params
     from repro_torch.runtime.engine import PipelineEngine
 
-    cfg = single_stage(get_config(MOE_ARCH))
+    cfg = single_stage(get_config(arch))
     cfg = dataclasses.replace(
-        cfg, num_layers=MOE_F32_LAYERS, dtype="float32",
-        pattern=(BlockSpec(cfg.pattern[0].kind, MOE_F32_LAYERS),),
-        moe_capacity_factor=float(cfg.num_experts))
+        cfg, num_layers=layers, dtype="float32",
+        pattern=(BlockSpec(cfg.pattern[0].kind, layers),),
+        moe_capacity_factor=(float(cfg.num_experts) if cfg.is_moe
+                             else cfg.moe_capacity_factor))
     dims = ServeDims(Sp=1, C=128, Sd=8, pages=256, page=16, Bp=32, Bd=32,
                      slots=16)
     params = init_params(cfg, 0, dtype=torch.float32, device=DEV)
@@ -533,7 +611,7 @@ def phase_serve_olmoe_f32(pa, mg, greedy_trace) -> dict:
 
     max_new = 8
     t0 = time.perf_counter()
-    eng = _moe_f32_engine()
+    eng = _f32_engine(MOE_ARCH, MOE_F32_LAYERS)
     rng = np.random.default_rng(13)
     lens = [16, 300] + [int(x) for x in rng.integers(16, 301, 2)]
     prompts = [[int(t) for t in rng.integers(0, eng.cfg.vocab_size, L)]
@@ -554,26 +632,11 @@ def phase_serve_olmoe_f32(pa, mg, greedy_trace) -> dict:
             f"{MOE_F32_LAYERS} and ticks x {MOE_F32_LAYERS} x 2")
     # the reference's expert FFN runs on the plain version, so the kernel
     # is not held against itself
-    compared, near_ties = 0, []
     kernel_ffn = moe_lib.expert_ffn
     moe_lib.expert_ffn = mg.fused_moe_ffn_ref
     try:
-        for i, (p, r) in enumerate(zip(prompts, reqs)):
-            if not (r.is_finished and r.num_output_tokens == max_new):
-                raise AssertionError(f"serve-olmoe-f32: request {i} did not "
-                                     f"finish")
-            want, gaps = greedy_trace(eng.cfg, eng.params, p, max_new)
-            stop = next((k for k, g in enumerate(gaps) if g < NEAR_TIE),
-                        max_new)
-            if stop < max_new:
-                near_ties.append({"request": i, "step": stop,
-                                  "gap": gaps[stop]})
-            if r.output_token_ids[:stop] != want[:stop]:
-                raise AssertionError(
-                    f"serve-olmoe-f32: request {i} (prompt {len(p)}) "
-                    f"{r.output_token_ids} != reference {want} (compared "
-                    f"{stop})")
-            compared += stop
+        compared, near_ties = _match_reference(
+            "serve-olmoe-f32", eng, prompts, reqs, max_new, greedy_trace)
     finally:
         moe_lib.expert_ffn = kernel_ffn
     out = {"phase": "serve-olmoe-f32", "arch": MOE_ARCH,
@@ -591,61 +654,213 @@ def phase_serve_olmoe_f32(pa, mg, greedy_trace) -> dict:
     return out
 
 
-def phase_serve_olmoe_bf16(pa, mg, build_engine, device_time) -> dict:
-    """serve-bf16's batch on full-width, full-depth olmoe-1b-7b; then the
-    same batch again under torch.profiler for the device's busy time."""
-    from torch.profiler import ProfilerActivity, profile
-
+def phase_serve_olmoe_bf16(pa, mg, build_engine) -> dict:
+    """serve-bf16's batch on full-width, full-depth olmoe-1b-7b."""
     eng = build_engine(MOE_ARCH, device=DEV, dtype=torch.bfloat16)
-    torch.cuda.synchronize()
     layers = eng.cfg.num_layers
     prompts = _prompts(12, 32, eng.cfg.vocab_size)
-    torch.cuda.reset_peak_memory_stats()
-    pa.launches = mg.launches = 0
-    t0 = time.perf_counter()
-    reqs = _serve_batch(eng, prompts)
-    wall = time.perf_counter() - t0
-    attn_launches, moe_launches = pa.launches, mg.launches
-    st = eng.stats
-    ticks, host_s, device_s = st.ticks, st.host_s, st.device_s
-    for i, r in enumerate(reqs):
-        if not (r.is_finished and r.num_output_tokens == MAX_NEW and all(
-                0 <= t < eng.cfg.vocab_size for t in r.output_token_ids)):
-            raise AssertionError(f"serve-olmoe-bf16: request {i} did not "
-                                 f"finish with {MAX_NEW} valid tokens")
-    if moe_launches != ticks * layers or attn_launches != ticks * layers * 2:
-        raise AssertionError(
-            f"serve-olmoe-bf16: {moe_launches} MoE and {attn_launches} "
-            f"attention launches for {ticks} ticks of {layers} layers")
-    out_tokens = sum(r.num_output_tokens for r in reqs)
-    prompt_tokens = sum(len(p) for p in prompts)
-    peak = torch.cuda.max_memory_allocated()
+    out = _serve_measured(eng, prompts, {"paged_flash_attention": pa,
+                                         "fused_moe_ffn": mg},
+                          "serve-olmoe-bf16")
+    out["capacity_factor"] = eng.cfg.moe_capacity_factor
+    n, ticks = out["launches"], out["ticks"]
+    if n["fused_moe_ffn"] != ticks * layers or \
+            n["paged_flash_attention"] != ticks * layers * 2:
+        emit(out)
+        raise AssertionError(f"serve-olmoe-bf16: {n} launches for {ticks} "
+                             f"ticks of {layers} layers")
+    emit(out)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
-    t1 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _serve_batch(eng, prompts)
-    profiled_wall = time.perf_counter() - t1
-    busy_us, by_kernel = device_time(prof)
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
-    out = {"phase": "serve-olmoe-bf16", "arch": MOE_ARCH, "layers": layers,
-           "capacity_factor": eng.cfg.moe_capacity_factor,
-           "requests": len(reqs),
-           "temperature_requests": sum(1 for i in range(len(reqs))
-                                       if i % 8 == 7),
-           "prompt_tokens": prompt_tokens, "output_tokens": out_tokens,
-           "wall_s": wall, "output_tokens_per_s": out_tokens / wall,
-           "total_tokens_per_s": (out_tokens + prompt_tokens) / wall,
-           "ticks": ticks, "ms_per_tick": wall / ticks * 1e3,
-           "host_s": host_s, "device_s": device_s,
-           "moe_launches": moe_launches, "attention_launches": attn_launches,
-           "max_memory_allocated": peak,
-           "profiled_ticks": eng.stats.ticks - ticks,
-           "profiled_wall_s": profiled_wall,
-           "device_busy_s": busy_us / 1e6,
-           "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-           "device_ms_by_kernel": [{"name": k[:80], "ms": v / 1e3}
-                                   for k, v in top]}
+
+# ----------------------------------------------------------- RWKV phases
+
+def _rwkv_case(S, T, H, lens, fresh, n_slots, dtype, seed):
+    """Unit-normal r, k, v in `dtype`, u uniform in [0, 1), decay
+    w = exp(-exp(U(-6, 3))) (from ~2e-9 to ~0.998), on the card.  Live rows
+    hold distinct slots, and where there are padding rows (lens 0) they sit
+    on slot 0, which a live row holds.  The pool is NaN except the slots of
+    the live rows that carry a state."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    D = 64
+    r, k, v = (torch.randn(S, T, H, D, generator=g, device=DEV).to(dtype)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.rand(S, T, H, D, generator=g, device=DEV)
+                             * 9.0 - 6.0))
+    u = torch.rand(H, D, generator=g, device=DEV)
+    rng = np.random.default_rng(seed)
+    live = [s for s in range(S) if lens[s] > 0]
+    slots = np.zeros(S, np.int32)
+    chosen = rng.choice(np.arange(1, n_slots), len(live), replace=False)
+    if len(live) < S:
+        chosen[0] = 0
+    slots[live] = chosen
+    state = torch.full((n_slots, H, D, D), float("nan"), device=DEV)
+    for s in live:
+        if not fresh[s]:
+            state[int(slots[s])] = 3.0 * torch.randn(
+                H, D, D, generator=g, device=DEV)
+    ints = [torch.tensor(a, dtype=torch.int32, device=DEV)
+            for a in (slots, lens, fresh)]
+    return [r, k, v, w, u, state, *ints]
+
+
+def _rwkv_bound(r, lens, fresh):
+    """Least time the card could take, from this run's live tokens: r, k,
+    v, w of the live tokens, u, the state of the live rows that carry one
+    read once, every live row's state written once, the output and the
+    row metadata, at the HBM rate; against ~5 D^2 f32 operations per live
+    token and head (o = r.S, and S = w S + k v) at the f32 peak (the
+    recurrence runs in f32 whatever the inputs' type)."""
+    S, T, H, D = r.shape
+    lens_h = lens.cpu().clamp(0, T)
+    live = lens_h > 0
+    tokens = int(lens_h.sum())
+    state_bytes = H * D * D * 4
+    reads = int((live & (fresh.cpu() == 0)).sum())
+    nbytes = (tokens * H * D * (3 * r.element_size() + 4) + H * D * 4
+              + (reads + int(live.sum())) * state_bytes
+              + S * T * H * D * 4 + 3 * S * 4)
+    flops = tokens * H * 5 * D * D
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, flops
+
+
+def phase_rwkv_kernel(wkv, planted_src: str) -> list:
+    shapes = [
+        # name, S, T, H, lens, fresh, slots in the pool
+        ("rwkv6-3b decode", 32, 1, 40, [1] * 28 + [0] * 4, [0] * 32, 64),
+        ("rwkv6-3b prefill", 1, 512, 40, [300], [0], 64),
+        ("small ragged", 3, 70, 2, [70, 33, 0], [1, 0, 0], 4),
+    ]
+    results = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, S, T, H, lens, fresh, n in shapes:
+            args = _rwkv_case(S, T, H, lens, fresh, n, dtype,
+                              seed=200 + len(results))
+            before = args[5]
+            rows = args[6:]
+            kstate, pstate = before.clone(), before.clone()
+            out = wkv.rwkv6_chunked_scan(*args[:5], kstate, *rows)
+            planted = wkv.launch(RWKV_PLANTED, *args[:5], pstate, *rows,
+                                 source=planted_src)
+            torch.cuda.synchronize()
+            excess, err = wkv.excess(out, kstate, *args[:5], before, *rows)
+            planted_excess, _ = wkv.excess(planted, pstate, *args[:5],
+                                           before, *rows)
+            finite = bool(torch.isfinite(out).all())
+            row = {"phase": "rwkv-kernel", "shape": name,
+                   "dtype": str(dtype).split(".")[-1], "S": S, "T": T,
+                   "H": H, "D": 64, "live_rows": sum(1 for x in lens if x),
+                   "live_tokens": sum(lens), "fresh_rows": sum(fresh),
+                   "slots": n, "max_abs_err": err,
+                   "acc": wkv.TOLERANCE[dtype], "excess": excess,
+                   "planted_excess": planted_excess, "finite": finite}
+            if not (excess <= 1.0 and finite):
+                emit(row)
+                raise AssertionError(f"WKV kernel disagrees with its plain "
+                                     f"version at {name} {dtype}: {row}")
+            if not planted_excess > 1.0:
+                emit(row)
+                raise AssertionError(f"the check passes a WKV kernel that "
+                                     f"reads S_t for o_t at {name} {dtype}: "
+                                     f"{row}")
+            row["kernel_ms"] = time_ms(
+                lambda: wkv.rwkv6_chunked_scan(*args[:5], kstate, *rows), 20)
+            row["plain_ms"] = time_ms(
+                lambda: wkv.rwkv6_scan_ref(*args[:5], pstate, *rows), 3,
+                warmup=1)
+            row["library_ms"] = None
+            row["library"] = "none: no single PyTorch call computes WKV6"
+            (row["bound_ms"], row["bound_by"], row["bytes"],
+             row["flops"]) = _rwkv_bound(args[0], args[7], args[8])
+            emit(row)
+            results.append(row)
+            del args, before, kstate, pstate, out, planted
+            torch.cuda.empty_cache()
+    return results
+
+
+def phase_serve_rwkv_f32(wkv, greedy_trace) -> dict:
+    """Two waves of 4 requests on one engine: the second wave's requests
+    take over the first's state slots, so they hold the port to starting a
+    request from zero state."""
+    from repro_torch.core import SamplingParams
+    from repro_torch.kernels import ops
+
+    max_new = 8
+    t0 = time.perf_counter()
+    eng = _f32_engine(RWKV_ARCH, RWKV_F32_LAYERS)
+    rng = np.random.default_rng(17)
+    vocab = eng.cfg.vocab_size
+    lens = [16, 300] + [int(x) for x in rng.integers(16, 301, 6)]
+    prompts = [[int(t) for t in rng.integers(0, vocab, L)] for L in lens]
+    taken = []
+    get = eng.slots.get
+
+    def record(request_id):
+        slot = get(request_id)
+        taken.append((request_id, slot))
+        return slot
+
+    eng.slots.get = record
+    wkv.launches = 0
+    reqs = []
+    for wave in (prompts[:4], prompts[4:]):
+        reqs += [eng.add_request(p, SamplingParams(max_new_tokens=max_new))
+                 for p in wave]
+        eng.drain()
+    torch.cuda.synchronize()
+    launches, ticks = wkv.launches, eng.stats.ticks
+    serve_s = time.perf_counter() - t0
+    first = {s for rid, s in taken if rid in {r.request_id
+                                             for r in reqs[:4]}}
+    second = {s for rid, s in taken if rid in {r.request_id
+                                              for r in reqs[4:]}}
+    if launches != ticks * RWKV_F32_LAYERS * 2 or not second <= first:
+        raise AssertionError(
+            f"serve-rwkv-f32: {launches} launches for {ticks} ticks, want "
+            f"ticks x {RWKV_F32_LAYERS} x 2; slots {first} then {second}")
+    # the reference's scan runs on the plain version, so the kernel is not
+    # held against itself
+    kernel_scan = ops.rwkv6_scan
+    ops.rwkv6_scan = wkv.rwkv6_scan_ref
+    try:
+        compared, near_ties = _match_reference(
+            "serve-rwkv-f32", eng, prompts, reqs, max_new, greedy_trace)
+    finally:
+        ops.rwkv6_scan = kernel_scan
+    out = {"phase": "serve-rwkv-f32", "arch": RWKV_ARCH,
+           "layers": RWKV_F32_LAYERS, "requests": len(reqs),
+           "prompt_lens": lens, "max_new_tokens": max_new, "ticks": ticks,
+           "kernel_launches": launches,
+           "slots_first_wave": sorted(first),
+           "slots_second_wave": sorted(second),
+           "tokens_compared": compared, "near_ties": near_ties,
+           "serve_s": serve_s, "check_s": time.perf_counter() - t0 - serve_s}
+    emit(out)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_rwkv_bf16(wkv, build_engine) -> dict:
+    """serve-bf16's batch on full-width, full-depth rwkv6-3b."""
+    eng = build_engine(RWKV_ARCH, device=DEV, dtype=torch.bfloat16)
+    layers = eng.cfg.num_layers
+    prompts = _prompts(12, 32, eng.cfg.vocab_size)
+    out = _serve_measured(eng, prompts, {"rwkv6_chunked_scan": wkv},
+                          "serve-rwkv-bf16")
+    if out["launches"]["rwkv6_chunked_scan"] != out["ticks"] * layers * 2:
+        emit(out)
+        raise AssertionError(f"serve-rwkv-bf16: {out['launches']} launches "
+                             f"for {out['ticks']} ticks of {layers} layers")
     emit(out)
     del eng
     gc.collect()
@@ -681,7 +896,7 @@ def main() -> int:
         from repro_torch.kernels import build
         from repro_torch.kernels import moe_gemm as mg
         from repro_torch.kernels import paged_attention as pa
-        from repro_torch.launch.profile import device_time
+        from repro_torch.kernels import rwkv6_scan as wkv
         from repro_torch.launch.serve import build_engine
         from repro_torch.models.reference import greedy_trace
     except ImportError as exc:
@@ -691,33 +906,47 @@ def main() -> int:
 
     device = phase_device()
     planted = {PLANTED: planted_source(build),
-               MOE_PLANTED: moe_planted_source(build)}
+               MOE_PLANTED: moe_planted_source(build),
+               RWKV_PLANTED: rwkv_planted_source(build)}
     phase_build(build, planted)
     shapes = phase_kernel(pa, planted[PLANTED])
     phase_serve_f32(pa, build_engine, greedy_trace)
-    bf16 = phase_serve_bf16(pa, build_engine, device_time)
+    bf16 = phase_serve_bf16(pa, build_engine)
     moe_shapes = phase_moe_kernel(mg, planted[MOE_PLANTED])
     phase_serve_olmoe_f32(pa, mg, greedy_trace)
-    olmoe = phase_serve_olmoe_bf16(pa, mg, build_engine, device_time)
+    olmoe = phase_serve_olmoe_bf16(pa, mg, build_engine)
+    rwkv_shapes = phase_rwkv_kernel(wkv, planted[RWKV_PLANTED])
+    phase_serve_rwkv_f32(wkv, greedy_trace)
+    rwkv = phase_serve_rwkv_bf16(wkv, build_engine)
 
     pa_entry = _kernel_entry(
         "paged_flash_attention",
         "src/repro_torch/kernels/csrc/paged_attention.cu",
         "src/repro/kernels/paged_attention.py:112",
-        bf16["kernel_launches"], shapes,
+        bf16["launches"]["paged_flash_attention"], shapes,
         next(r for r in shapes if r["shape"] == "qwen1.5 decode"
              and r["dtype"] == "bfloat16"))
     pa_entry["launches_by_path"] = {
-        "serve-bf16": bf16["kernel_launches"],
-        "serve-olmoe-bf16": olmoe["attention_launches"]}
+        "serve-bf16": bf16["launches"]["paged_flash_attention"],
+        "serve-olmoe-bf16": olmoe["launches"]["paged_flash_attention"]}
     moe_entry = _kernel_entry(
         "fused_moe_ffn", "src/repro_torch/kernels/csrc/moe_ffn.cu",
-        "src/repro/kernels/moe_gemm.py:53", olmoe["moe_launches"],
-        moe_shapes,
+        "src/repro/kernels/moe_gemm.py:53",
+        olmoe["launches"]["fused_moe_ffn"], moe_shapes,
         next(r for r in moe_shapes if r["shape"] == "olmoe serve"
              and r["dtype"] == "bfloat16"))
+    moe_entry["launches_by_path"] = {
+        "serve-olmoe-bf16": olmoe["launches"]["fused_moe_ffn"]}
+    rwkv_entry = _kernel_entry(
+        "rwkv6_chunked_scan", "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        "src/repro/kernels/rwkv6_scan.py:78",
+        rwkv["launches"]["rwkv6_chunked_scan"], rwkv_shapes,
+        next(r for r in rwkv_shapes if r["shape"] == "rwkv6-3b decode"
+             and r["dtype"] == "bfloat16"))
+    rwkv_entry["launches_by_path"] = {
+        "serve-rwkv-bf16": rwkv["launches"]["rwkv6_chunked_scan"]}
     emit({"phase": "done"})
-    emit({"kernels": [pa_entry, moe_entry]})
+    emit({"kernels": [pa_entry, moe_entry, rwkv_entry]})
     print(device["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
                                  "count": device["count"]}})

@@ -16,17 +16,19 @@ from repro_torch.configs.base import (
     single_stage,
 )
 
-# Archs whose block kinds the port runs (ATTN_MLP dense, ATTN_MOE at NS=1).
+# Archs whose block kinds the port runs (ATTN_MLP dense, ATTN_MOE at NS=1,
+# RWKV).
 _MODULES: Dict[str, str] = {
     "qwen1.5-0.5b": "qwen1_5_0_5b",
     "qwen2.5-14b": "qwen2_5_14b",
     "olmoe-1b-7b": "olmoe_1b_7b",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 # Archs of the JAX package's registry that later slices of the port add.
 _NOT_YET_PORTED = (
     "qwen2-vl-7b", "kimi-k2-1t-a32b", "minicpm3-4b",
-    "internlm2-1.8b", "whisper-small", "jamba-1.5-large-398b", "rwkv6-3b",
+    "internlm2-1.8b", "whisper-small", "jamba-1.5-large-398b",
     "qwen2.5-32b", "llama3.1-100b",
 )
 

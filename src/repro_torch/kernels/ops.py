@@ -8,6 +8,7 @@ import torch
 
 from repro_torch.kernels import moe_gemm
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import rwkv6_scan as wkv
 
 
 def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
@@ -27,3 +28,16 @@ def fused_moe_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     if x.is_cuda:
         return moe_gemm.fused_moe_ffn(x, w_gate, w_up, w_down)
     return moe_gemm.fused_moe_ffn_ref(x, w_gate, w_up, w_down)
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
+               slots: torch.Tensor, lens: torch.Tensor,
+               fresh: torch.Tensor) -> torch.Tensor:
+    """WKV6 recurrence over rows r, k, v, w [S, T, H, D] from (and back
+    into) the state pool at `slots`; returns o [S, T, H, D] f32
+    (`rwkv6_scan.rwkv6_chunked_scan` states the contract)."""
+    if r.is_cuda:
+        return wkv.rwkv6_chunked_scan(r, k, v, w, u, state, slots, lens,
+                                      fresh)
+    return wkv.rwkv6_scan_ref(r, k, v, w, u, state, slots, lens, fresh)

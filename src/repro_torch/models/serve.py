@@ -1,16 +1,19 @@
 """Serve-mode model execution (``repro.models.serve``): one pipeline stage's
 forward over a micro-batch of prefill chunks and decode rows, with the paged
-KV cache, for ATTN_MLP and ATTN_MOE blocks.
+KV cache (ATTN_MLP and ATTN_MOE blocks) or per-sequence recurrent state
+slots (RWKV blocks).
 
 Layouts (per stage, as in the JAX package):
   prefill payload  xp [Sp, C, d]
   decode payload   xd [Sd, 1, d]
   paged KV         [S, R, pages, page, 2, KH, hd] (S stages, R block repeat)
+  RWKV state       tm_x, cm_x [S, R, slots, d]; wkv [S, R, slots, H, hd, hd]
 
 The tick's metadata is built on the host as numpy (`zero_meta`, the JAX
 field names and shapes) and reaches the device in one copy
 (`meta_to_device`).  The KV pool is updated in place: each layer works on the
-contiguous view ``cache[s, r]`` (the JAX version donates the buffer).
+contiguous view ``cache[s, r]`` (the JAX version donates the buffer), and
+so are the RWKV state slots.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, BlockKind
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import apply_norm, mlp_apply, rope_tables, rotate
 from repro_torch.models.transformer import _block_key, _check_kind, _heads
 
@@ -100,14 +104,28 @@ def meta_to_device(meta: Mapping[str, np.ndarray], dims: ServeDims,
     token ids) to `device` in a single non-blocking copy, as int32 views of
     one buffer.
 
-    Adds ``p_rows``/``d_rows``: the flat indices of the rows that write KV
-    (`attention.valid_rows`), computed here on the host."""
+    Adds, computed here on the host: ``p_rows``/``d_rows``, the flat
+    indices of the rows that write KV (`attention.valid_rows`); for the
+    recurrent state, ``p_live``/``d_live``, the live rows of each phase,
+    and ``p_live_slots``/``d_live_slots``, their state slots (only these
+    are written back: padding rows carry slot 0, which a live row may
+    hold); and ``p_fresh``/``d_fresh``, 1 where a row's state starts from
+    zero (a prefill chunk at position 0: a new request, or a recompute
+    after preemption, on a slot another request may have left state in)."""
     fields = dict(meta)
     p_valid = np.arange(dims.C)[None, :] < meta["p_chunk_lens"][:, None]
     fields["p_rows"] = attn.valid_rows(p_valid, meta["p_slot_pages"],
                                        dims.pages)
     fields["d_rows"] = attn.valid_rows(meta["d_valid"] > 0,
                                        meta["d_slot_pages"], dims.pages)
+    p_live = meta["p_chunk_lens"] > 0
+    fields["p_live"] = np.flatnonzero(p_live)
+    fields["p_live_slots"] = meta["p_state_slots"][p_live]
+    fields["p_fresh"] = p_live & (meta["p_positions"][:, 0] == 0)
+    d_live = meta["d_valid"] > 0
+    fields["d_live"] = np.flatnonzero(d_live)
+    fields["d_live_slots"] = meta["d_state_slots"][d_live]
+    fields["d_fresh"] = np.zeros(dims.Sd, np.int32)
     fields.update(extra or {})
     arrays = [np.asarray(a, np.int32) for a in fields.values()]
     flat = host_to_device(
@@ -124,26 +142,41 @@ def meta_to_device(meta: Mapping[str, np.ndarray], dims: ServeDims,
 # Cache construction
 # ----------------------------------------------------------------------------
 
+def block_cache_defs(cfg: ArchConfig, kind: BlockKind, dims: ServeDims,
+                     repeat: int) -> Dict[str, Tuple[int, ...]]:
+    """Shape per cache array of one block group (no stage dim)."""
+    _check_kind(kind)
+    R = repeat
+    if kind == BlockKind.RWKV:
+        H, hd = cfg.num_rwkv_heads, cfg.rwkv_head_dim
+        return {"tm_x": (R, dims.slots, cfg.d_model),
+                "cm_x": (R, dims.slots, cfg.d_model),
+                "wkv": (R, dims.slots, H, hd, hd)}
+    return {"kv": (R, dims.pages, dims.page, 2, max(1, cfg.num_kv_heads),
+                   cfg.head_dim)}
+
+
 def cache_defs(cfg: ArchConfig, dims: ServeDims) -> Dict[str, Dict[str, tuple]]:
     """Cache tree of shapes with the leading stage dim (same leaf names as
     the JAX package)."""
     S = cfg.plan.pp
-    tree = {}
-    for i, bs in enumerate(cfg.pattern):
-        _check_kind(bs.kind)
-        tree[_block_key(i, bs)] = {
-            "kv": (S, bs.repeat, dims.pages, dims.page, 2,
-                   max(1, cfg.num_kv_heads), cfg.head_dim)}
-    return tree
+    return {_block_key(i, bs): {
+        name: (S,) + shape for name, shape in
+        block_cache_defs(cfg, bs.kind, dims, bs.repeat).items()}
+        for i, bs in enumerate(cfg.pattern)}
+
+
+F32_STATE_LEAVES = ("wkv",)      # recurrent states carry in f32
 
 
 def init_caches(cfg: ArchConfig, dims: ServeDims,
                 dtype: Optional[torch.dtype] = None,
                 device: torch.device | str = "cpu"):
     dtype = dtype or getattr(torch, cfg.dtype)
-    return {gk: {name: torch.zeros(shape, dtype=dtype, device=device)
-                 for name, shape in grp.items()}
-            for gk, grp in cache_defs(cfg, dims).items()}
+    return {gk: {name: torch.zeros(
+        shape, dtype=torch.float32 if name in F32_STATE_LEAVES else dtype,
+        device=device) for name, shape in grp.items()}
+        for gk, grp in cache_defs(cfg, dims).items()}
 
 
 # ----------------------------------------------------------------------------
@@ -187,17 +220,53 @@ def _paged_self_attention(cfg: ArchConfig, p, xs: torch.Tensor,
     return o.reshape(o.shape[:-2] + (-1,)) @ p["wo"], cache
 
 
+# ----------------------------------------------------------------------------
+# Serve-mode RWKV
+# ----------------------------------------------------------------------------
+
+def _rwkv_serve(cfg: ArchConfig, p, xs: torch.Tensor,
+                cache: Dict[str, torch.Tensor],
+                meta: Mapping[str, torch.Tensor], phase: str) -> torch.Tensor:
+    """One RWKV block over one phase's rows (`phase` "p" or "d"), from and
+    back into the rows' state slots.  Fresh rows start from zero state
+    whatever their slot holds; the WKV pool is advanced in place by the
+    scan (live tokens only); the shift states are written back for the live
+    rows only (`meta_to_device`).  Padding positions come out as zeros, as
+    the JAX mask makes them."""
+    slots, fresh = meta[f"{phase}_state_slots"], meta[f"{phase}_fresh"]
+    lens = meta["p_chunk_lens"] if phase == "p" else meta["d_valid"]
+    valid = meta[f"{phase}_mask"]
+    zero = (fresh > 0)[:, None]
+    state = ssm_lib.RWKVState(tm_x=cache["tm_x"][slots].masked_fill(zero, 0),
+                              cm_x=cache["cm_x"][slots].masked_fill(zero, 0),
+                              wkv=cache["wkv"], slots=slots, fresh=fresh)
+    out, new = ssm_lib.rwkv_block(xs, p, head_dim=cfg.rwkv_head_dim,
+                                  norm_eps=cfg.norm_eps, state=state,
+                                  valid=valid, chunk_lens=lens)
+    live, live_slots = meta[f"{phase}_live"], meta[f"{phase}_live_slots"]
+    cache["tm_x"][live_slots] = new.tm_x[live]
+    cache["cm_x"][live_slots] = new.cm_x[live]
+    return out.masked_fill(~valid[..., None], 0)
+
+
 def block_apply_serve(cfg: ArchConfig, kind: BlockKind, p,
                       xp: torch.Tensor, xd: torch.Tensor,
                       cache: Dict[str, torch.Tensor],
                       meta: Mapping[str, torch.Tensor], dims: ServeDims):
-    """One ATTN_MLP or ATTN_MOE block over the stage's micro-batch: xp
-    [Sp, C, d] prefill payload, xd [Sd, 1, d] decode rows.  Both phases run
-    whenever their bucket is non-empty (`dims.Sp`/`dims.Sd`), whatever rows
-    are live.  The MoE FFN routes only the live rows (``meta["row_valid"]``,
-    see `stage_forward_serve`): padding rows consume no expert capacity.
+    """One block over the stage's micro-batch: xp [Sp, C, d] prefill
+    payload, xd [Sd, 1, d] decode rows.  Both phases run whenever their
+    bucket is non-empty (`dims.Sp`/`dims.Sd`), whatever rows are live.  An
+    RWKV block runs prefill first, and decode reads the state prefill left.
+    The MoE FFN routes only the live rows (``meta["row_valid"]``, see
+    `stage_forward_serve`): padding rows consume no expert capacity.
     Returns (xp, xd, cache); the cache is updated in place."""
     _check_kind(kind)
+    if kind == BlockKind.RWKV:
+        if dims.Sp:
+            xp = _rwkv_serve(cfg, p, xp, cache, meta, "p")
+        if dims.Sd:
+            xd = _rwkv_serve(cfg, p, xd, cache, meta, "d")
+        return xp, xd, cache
 
     def norm(name, h):
         keys = {"g": p[f"{name}_g"]}
@@ -250,14 +319,24 @@ def stage_forward_serve(cfg: ArchConfig, stage_params, caches, xp, xd, meta,
     to `meta` as ``p_rope``/``d_rope``), the MoE blocks' live-row mask
     (``row_valid``: prefill rows inside their chunk, then live decode rows,
     in the order the FFN flattens them) and the per-layer views (one
-    ``unbind`` per leaf)."""
+    ``unbind`` per leaf).  RWKV blocks use no RoPE; they share each
+    phase's [rows, T] live-position mask (``p_mask``/``d_mask``)."""
     head_dim, theta = cfg.head_dim, cfg.rope_theta
     meta = dict(meta)
-    if dims.Sp:
-        meta["p_rope"] = rope_tables(meta["p_positions"], head_dim, theta)
-    if dims.Sd:
-        meta["d_rope"] = rope_tables(meta["d_positions"][:, None], head_dim,
-                                     theta)
+    kinds = {bs.kind for bs in cfg.pattern}
+    if kinds - {BlockKind.RWKV}:
+        if dims.Sp:
+            meta["p_rope"] = rope_tables(meta["p_positions"], head_dim,
+                                         theta)
+        if dims.Sd:
+            meta["d_rope"] = rope_tables(meta["d_positions"][:, None],
+                                         head_dim, theta)
+    if BlockKind.RWKV in kinds:
+        if dims.Sp:
+            cols = torch.arange(dims.C, device=xp.device)
+            meta["p_mask"] = cols[None, :] < meta["p_chunk_lens"][:, None]
+        if dims.Sd:
+            meta["d_mask"] = (meta["d_valid"] > 0)[:, None]
     if cfg.is_moe:
         valid = []
         if dims.Sp:
@@ -272,12 +351,14 @@ def stage_forward_serve(cfg: ArchConfig, stage_params, caches, xp, xd, meta,
         key = _block_key(i, bs)
         layers = {name: t[stage].unbind(0)
                   for name, t in stage_params[key].items()}
-        kv = caches[key]["kv"][stage].unbind(0)
+        states = {name: t[stage].unbind(0)
+                  for name, t in caches[key].items()}
         for r in range(bs.repeat):
             if stage * cfg.layers_per_stage + off + r >= cfg.num_layers:
                 continue
             pr = {name: views[r] for name, views in layers.items()}
-            xp, xd, _ = block_apply_serve(cfg, bs.kind, pr, xp, xd,
-                                          {"kv": kv[r]}, meta, dims)
+            cr = {name: views[r] for name, views in states.items()}
+            xp, xd, _ = block_apply_serve(cfg, bs.kind, pr, xp, xd, cr,
+                                          meta, dims)
         off += bs.repeat
     return xp, xd, caches

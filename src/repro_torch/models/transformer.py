@@ -1,5 +1,5 @@
-"""The stacked transformer (``repro.models.transformer``), ATTN_MLP and
-ATTN_MOE blocks.
+"""The stacked transformer (``repro.models.transformer``): ATTN_MLP,
+ATTN_MOE and RWKV blocks.
 
 Parameters are *stacked* as in the JAX package: every block leaf carries
 leading dims ``[S, R, ...]`` (S = pipeline stages, R = the block's repeat
@@ -24,11 +24,12 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig, BlockKind, BlockSpec
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import apply_norm, apply_rope, mlp_apply
 
 Leaf = Tuple[Tuple[int, ...], str]      # (shape, init kind)
 
-_PORTED_KINDS = (BlockKind.ATTN_MLP, BlockKind.ATTN_MOE)
+_PORTED_KINDS = (BlockKind.ATTN_MLP, BlockKind.ATTN_MOE, BlockKind.RWKV)
 
 
 def _check_kind(kind: BlockKind) -> None:
@@ -84,8 +85,36 @@ def _moe_defs(cfg: ArchConfig) -> Dict[str, Leaf]:
     return out
 
 
+def _rwkv_defs(cfg: ArchConfig) -> Dict[str, Leaf]:
+    d, ff = cfg.d_model, cfg.d_ff
+    lora = 64
+    return {
+        "ln1_g": ((d,), "ones"), "ln1_b": ((d,), "zeros"),
+        "ln2_g": ((d,), "ones"), "ln2_b": ((d,), "zeros"),
+        "mu_r": ((d,), "mu"), "mu_k": ((d,), "mu"),
+        "mu_v": ((d,), "mu"), "mu_g": ((d,), "mu"),
+        "mu_w": ((d,), "mu"),
+        "w_r": ((d, d), "normal"),
+        "w_k": ((d, d), "normal"),
+        "w_v": ((d, d), "normal"),
+        "w_g": ((d, d), "normal"),
+        "w_o": ((d, d), "residual"),
+        "w0": ((d,), "decay"),
+        "w_lora_a": ((d, lora), "normal"),
+        "w_lora_b": ((lora, d), "zeros"),
+        "u": ((d,), "mu"),
+        "ln_x_g": ((d,), "ones"),
+        "cm_mu_k": ((d,), "mu"), "cm_mu_r": ((d,), "mu"),
+        "cm_k": ((d, ff), "normal"),
+        "cm_v": ((ff, d), "residual"),
+        "cm_r": ((d, d), "normal"),
+    }
+
+
 def block_param_defs(cfg: ArchConfig, kind: BlockKind) -> Dict[str, Leaf]:
     _check_kind(kind)
+    if kind == BlockKind.RWKV:
+        return _rwkv_defs(cfg)
     defs: Dict[str, Leaf] = {}
     defs.update(_norm_defs(cfg, "ln1"))
     defs.update(_norm_defs(cfg, "ln2"))
@@ -142,8 +171,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
                 dtype: Optional[torch.dtype] = None,
                 device: torch.device | str = "cpu") -> TransformerParams:
     """Random weights from `seed`, drawn on `device` with an explicit
-    ``torch.Generator`` (the JAX package's scales: 0.02, and
-    0.02/sqrt(2L) for residual projections).  The draws differ from
+    ``torch.Generator`` (the JAX package's kinds: normal at 0.02,
+    0.02/sqrt(2L) for residual projections, RWKV's mixing coefficients
+    uniform in [0, 1) and decay base -1).  The draws differ from
     ``jax.random``; tests carry the JAX weights across with
     `repro_torch.models.convert.params_from_numpy` instead."""
     dtype = dtype or getattr(torch, cfg.dtype)
@@ -156,6 +186,11 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
             return torch.zeros(shape, dtype=dtype, device=device)
         if init == "ones":
             return torch.ones(shape, dtype=dtype, device=device)
+        if init == "mu":
+            return torch.rand(shape, generator=gen, dtype=torch.float32,
+                              device=device).to(dtype)
+        if init == "decay":
+            return torch.full(shape, -1.0, dtype=dtype, device=device)
         scale = 0.02
         if init == "residual":
             scale = 0.02 / math.sqrt(max(1, 2 * cfg.num_layers))
@@ -219,6 +254,10 @@ def block_apply_train(cfg: ArchConfig, kind: BlockKind, p,
                       x: torch.Tensor) -> torch.Tensor:
     """One block over full sequences: x [B, T, d] -> x."""
     _check_kind(kind)
+    if kind == BlockKind.RWKV:
+        x, _ = ssm_lib.rwkv_block(x, p, head_dim=cfg.rwkv_head_dim,
+                                  norm_eps=cfg.norm_eps)
+        return x
     positions = torch.arange(x.shape[1], device=x.device)
 
     def norm(name, h):

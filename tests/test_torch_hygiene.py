@@ -39,8 +39,8 @@ def test_port_imports_no_jax_and_no_repro(path):
 
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
-    assert {"paged_attention.py", "engine.py", "serve.py",
-            "chip_smoke.py"} <= names
+    assert {"paged_attention.py", "moe_gemm.py", "rwkv6_scan.py", "ssm.py",
+            "engine.py", "serve.py", "chip_smoke.py"} <= names
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -69,7 +69,7 @@ def test_unported_arch_and_pp_raise():
     from repro_torch.launch.serve import FULL_DIMS
 
     with pytest.raises(KeyError, match="not yet ported"):
-        get_config("rwkv6-3b")
+        get_config("jamba-1.5-large-398b")
     cfg = get_config("qwen1.5-0.5b")
     with pytest.raises(NotImplementedError, match="pp=8"):
         build_serve_tick(cfg, FULL_DIMS)
@@ -106,6 +106,25 @@ def test_launchers_run_reduced_olmoe_on_cpu(launcher):
         out = json.loads([l for l in res.stdout.splitlines()
                           if l.startswith("{")][-1])
         assert out["arch"] == "olmoe-1b-7b" and out["ticks"] > 0
+
+
+@pytest.mark.parametrize("launcher", ["serve", "profile"])
+def test_launchers_run_reduced_rwkv_on_cpu(launcher):
+    """--arch rwkv6-3b (RWKV blocks, state slots, the WKV scan's plain
+    version) runs end to end in both launchers on the CPU."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", f"repro_torch.launch.{launcher}", "--arch",
+         "rwkv6-3b", "--reduced", "--device", "cpu", "--requests", "3",
+         "--max-new", "3"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    if launcher == "serve":
+        assert "[rwkv6-3b | cpu float32] 3/3 requests, 9 tokens" in res.stdout
+    else:
+        out = json.loads([l for l in res.stdout.splitlines()
+                          if l.startswith("{")][-1])
+        assert out["arch"] == "rwkv6-3b" and out["ticks"] > 0
 
 
 def test_profile_launcher_runs_reduced_on_cpu():
