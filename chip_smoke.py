@@ -10,7 +10,7 @@ in the checkout and drives the port end to end.  Each phase prints one JSON
 line; any failure raises and the script exits non-zero.
 
   device      card name and count, ``nvidia-smi`` name and power limit
-  build       the three kernels and their planted-fault copies, every nvcc
+  build       the four kernels and their planted-fault copies, every nvcc
               started at once: wall time and ``-Xptxas -v`` report per kernel
   kernel      the paged-attention kernel against its plain PyTorch version
               at the main path's shapes (qwen1.5-0.5b decode and prefill,
@@ -62,6 +62,36 @@ line; any failure raises and the script exits non-zero.
               batch: every request finishes with valid tokens, launches =
               ticks x 64; tokens/s, host/device time, memory and the
               device's idle share from a profiled rerun
+  mamba-kernel  the Mamba selective-scan kernel against its plain version
+              at jamba-1.5-large-398b's serve shapes (di=16384, ds=16: 32
+              decode rows over a pool of 64 slots, 28 live; one 512-token
+              prefill chunk with 300 live tokens and a carried state) and a
+              small ragged one, f32 and bf16 x, step sizes from 1e-3 to 3,
+              NaN-poisoned pool slots (fresh rows' and unowned ones, which
+              must come out bit-identical) and padding rows on a live row's
+              slot, within mamba_scan.TOLERANCE; a copy that reads h_{t-1}
+              in place of h_t for y_t must fail the same check; kernel and
+              plain times and the bound (no single library call computes
+              the selective scan)
+  serve-jamba-f32  full-width jamba-1.5-large-398b cut to its first
+              MAMBA_MLP and ATTN_MOE layers (47.7 GB in f32), dropless, two
+              waves of 4 requests on one engine (the second wave reuses the
+              first's state slots): greedy tokens equal the port's dense
+              reference (its scan and expert FFN on the plain versions) up
+              to a near-tie; per tick the Mamba kernel ran 2 times, paged
+              attention 2 and the MoE kernel once
+  serve-jamba-bf16  full-width jamba-1.5-large-398b cut to its first
+              MAMBA_MLP, MAMBA_MOE and ATTN_MOE layers (44.0 GB in bf16) at
+              the config's capacity factor, the serve-bf16 batch: every
+              request finishes with valid tokens, launches = ticks x 4
+              (Mamba), ticks x 2 (MoE) and ticks x 2 (attention); tokens/s,
+              host/device time, memory and the device's idle share from a
+              profiled rerun
+
+The kernel and moe-kernel phases also hold their kernels at jamba's shapes:
+paged attention decode with 64 query heads over 8 KV heads of 128, and the
+fused MoE (bf16) at E=16, C=88, d=8192, ff=24576, where the planted MoE
+fault drops 32 of the down sum's 24,576 terms and must fail as elsewhere.
 
 Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.
@@ -85,14 +115,28 @@ DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, data sheet
 PEAK_FLOPS = {"float32": 67e12,           # f32 outside the tensor cores
               "bfloat16": 989e12}         # bf16 tensor cores, dense
+# special-function units (exp2, the core of expf): 16 results per SM and
+# clock (CUDA C Programming Guide, throughput table, compute capability
+# 9.0) x 132 SMs x 1.98 GHz (H100 SXM boost clock)
+SFU_PER_S = 16 * 132 * 1.98e9
 ARCH = "qwen1.5-0.5b"
 LAYERS = 24
 MOE_ARCH = "olmoe-1b-7b"
 MOE_F32_LAYERS = 4          # depth cut of the f32 serve (full: 16)
 RWKV_ARCH = "rwkv6-3b"
 RWKV_F32_LAYERS = 4         # depth cut of the f32 serve (full: 32)
+JAMBA_ARCH = "jamba-1.5-large-398b"
+# depth cuts of jamba (72 layers, 870 GB in bf16): the first layer of each
+# kind; the f32 serve drops the MAMBA_MOE layer to fit (47.7 GB)
+JAMBA_KINDS = ("mamba_mlp", "mamba_moe", "attn_moe")
+JAMBA_F32_KINDS = ("mamba_mlp", "attn_moe")
 MAX_NEW = 16
 NEAR_TIE = 1e-3
+# the device functions of the port's kernels (csrc/*.cu), as the profiler
+# names them
+PORT_KERNELS = ("::paged_attention_kernel<", "::paged_attention_mma_kernel<",
+                "::grouped_gemm_kernel<", "::wkv6_kernel<",
+                "::mamba_scan_kernel<")
 
 
 T0 = time.perf_counter()
@@ -194,6 +238,23 @@ def rwkv_planted_source(build) -> str:
     return text.replace(RWKV_READ + RWKV_STEP, RWKV_STEP + RWKV_READ)
 
 
+MAMBA_PLANTED = "mamba_scan_planted"
+MAMBA_STEP = "        h[i] = fmaf(dA, h[i], __fmul_rn(dtx, sm.b[t][s]));\n"
+MAMBA_READ = "        y = fmaf(sm.c[t][s], h[i], y);\n"
+
+
+def mamba_planted_source(build) -> str:
+    """The Mamba kernel's source with one planted fault: the read-out
+    comes before the update, so y_t reads h_{t-1} in place of h_t (the
+    recurrence's off-by-one)."""
+    text = (build.CSRC / "mamba_scan.cu").read_text()
+    if text.count(MAMBA_STEP + MAMBA_READ) != 1:
+        raise AssertionError("planted fault: the Mamba kernel's update and "
+                             "read-out are no longer where chip_smoke.py "
+                             "looks for them")
+    return text.replace(MAMBA_STEP + MAMBA_READ, MAMBA_READ + MAMBA_STEP)
+
+
 def _ptxas(log: str) -> list:
     kernels = []
     for block in log.split("Compiling entry function")[1:]:
@@ -214,7 +275,7 @@ def _ptxas(log: str) -> list:
 def phase_build(build, planted: dict) -> None:
     """Every kernel and planted copy, all nvcc processes started at once."""
     t0 = time.perf_counter()
-    kernels = ["paged_attention", "moe_ffn", "rwkv6_scan"]
+    kernels = list(build.KERNELS)
     build.build_all([*kernels, *planted], planted)
     wall = time.perf_counter() - t0
     for name in kernels:
@@ -292,18 +353,19 @@ def phase_kernel(pa, planted_src: str) -> list:
     decode_ctx = [int(c) for c in rng_ctx.integers(1, 2049, 32)]
     decode_ctx[0], decode_ctx[1], decode_ctx[-1] = 2048, 1, 0
     shapes = [
-        # name, S, TQ, H, KH, D, page, B, ctx
-        ("qwen1.5 decode", 32, 1, 16, 16, 64, 16, 128, decode_ctx),
-        ("qwen1.5 prefill", 1, 512, 16, 16, 64, 16, 128, [2000]),
-        ("qwen2.5-14b decode", 32, 1, 40, 8, 128, 16, 128, decode_ctx),
+        # name, S, TQ, H, KH, D, page, B, ctx, seeds (f32, bf16)
+        ("qwen1.5 decode", 32, 1, 16, 16, 64, 16, 128, decode_ctx, (0, 3)),
+        ("qwen1.5 prefill", 1, 512, 16, 16, 64, 16, 128, [2000], (1, 4)),
+        ("qwen2.5-14b decode", 32, 1, 40, 8, 128, 16, 128, decode_ctx,
+         (2, 5)),
+        ("jamba decode", 32, 1, 64, 8, 128, 16, 128, decode_ctx, (6, 7)),
     ]
     results = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for d_idx, dtype in enumerate((torch.float32, torch.bfloat16)):
         atol, rtol, vtol = pa.TOLERANCE[dtype]
-        for name, S, TQ, H, KH, D, page, B, ctx in shapes:
+        for name, S, TQ, H, KH, D, page, B, ctx, seeds in shapes:
             q, kv, clean, tables, ctx_t, qpos = _attention_case(
-                S, TQ, H, KH, D, page, B, dtype, ctx,
-                seed=len(results))
+                S, TQ, H, KH, D, page, B, dtype, ctx, seed=seeds[d_idx])
             out = pa.paged_flash_attention(q, kv, tables, ctx_t, qpos)
             planted = pa.launch(PLANTED, q, kv, tables, ctx_t, qpos,
                                 source=planted_src)
@@ -456,7 +518,10 @@ def _serve_measured(eng, prompts, counted: dict, phase: str) -> dict:
         _serve_batch(eng, prompts)
     profiled_wall = time.perf_counter() - t1
     busy_us, by_kernel = device_time(prof)
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1])
+    # the six largest, and the port's own kernels wherever they rank
+    top = ranked[:6] + [kv for kv in ranked[6:]
+                        if any(k in kv[0] for k in PORT_KERNELS)]
     return {"phase": phase, "arch": eng.cfg.name,
             "layers": eng.cfg.num_layers, "requests": len(reqs),
             "temperature_requests": sum(1 for i in range(len(reqs))
@@ -533,23 +598,38 @@ def _moe_library_fn(x, w_gate, w_up, w_down):
     return run
 
 
+def _moe_excess(mg, out, args, experts: int = 4):
+    """`moe_gemm.excess` a few experts at a time (each expert's rows depend
+    on its own weights only), so that the check's f32 copies of jamba's
+    weights stay a few GB: (worst excess, max abs err) over all."""
+    E = out.shape[0]
+    parts = [mg.excess(out[e:e + experts], *(a[e:e + experts] for a in args))
+             for e in range(0, E, experts)]
+    return max(p[0] for p in parts), max(p[1] for p in parts)
+
+
 def phase_moe_kernel(mg, planted_src: str) -> list:
     shapes = [
         # name, E, C, d, ff
         ("olmoe serve", 64, 88, 2048, 1024),
         ("olmoe ragged C", 64, 24, 2048, 1024),
         ("small", 8, 16, 256, 256),
+        # bf16 only: 19.3 GB of weights (38.7 GB in f32).  The planted
+        # fault drops one ff tile, 32 of the down sum's 24,576 terms
+        ("jamba serve", 16, 88, 8192, 24576),
     ]
     results = []
     for dtype in (torch.float32, torch.bfloat16):
         rtol, htol, acc = mg.TOLERANCE[dtype]
         for name, E, C, d, ff in shapes:
+            if E * d * ff > 1 << 30 and dtype != torch.bfloat16:
+                continue
             args = _moe_case(E, C, d, ff, dtype, seed=100 + len(results))
             out = mg.fused_moe_ffn(*args)
             planted = mg.launch(MOE_PLANTED, *args, source=planted_src)
             torch.cuda.synchronize()
-            excess, err = mg.excess(out, *args)
-            planted_excess, _ = mg.excess(planted, *args)
+            excess, err = _moe_excess(mg, out, args)
+            planted_excess, _ = _moe_excess(mg, planted, args)
             finite = bool(torch.isfinite(out).all())
             row = {"phase": "moe-kernel", "shape": name,
                    "dtype": str(dtype).split(".")[-1], "E": E, "C": C,
@@ -580,22 +660,34 @@ def phase_moe_kernel(mg, planted_src: str) -> list:
     return results
 
 
-def _f32_engine(arch: str, layers: int):
-    """Full-width `arch` cut to `layers` layers, f32, smaller serve dims;
-    an MoE config is made dropless (capacity factor = number of experts),
-    so that the serve matches the dense reference."""
+def _f32_engine(arch: str, layers: int = 0, kinds=()):
+    """Full-width `arch` cut to its first `layers` layers (a uniform
+    pattern) or to the first layer of each of `kinds` (`cut_to_kinds`), f32,
+    smaller serve dims; an MoE config is made dropless (capacity factor =
+    number of experts), so that the serve matches the dense reference."""
     import dataclasses
 
-    from repro_torch.configs import BlockSpec, get_config, single_stage
+    from repro_torch.configs import (
+        BlockKind,
+        BlockSpec,
+        cut_to_kinds,
+        get_config,
+        single_stage,
+    )
     from repro_torch.core import ThrottleConfig
     from repro_torch.models.serve import ServeDims
     from repro_torch.models.transformer import init_params
     from repro_torch.runtime.engine import PipelineEngine
 
     cfg = single_stage(get_config(arch))
+    if kinds:
+        cfg = cut_to_kinds(cfg, [BlockKind(k) for k in kinds])
+    else:
+        cfg = dataclasses.replace(
+            cfg, num_layers=layers,
+            pattern=(BlockSpec(cfg.pattern[0].kind, layers),))
     cfg = dataclasses.replace(
-        cfg, num_layers=layers, dtype="float32",
-        pattern=(BlockSpec(cfg.pattern[0].kind, layers),),
+        cfg, dtype="float32",
         moe_capacity_factor=(float(cfg.num_experts) if cfg.is_moe
                              else cfg.moe_capacity_factor))
     dims = ServeDims(Sp=1, C=128, Sd=8, pages=256, page=16, Bp=32, Bd=32,
@@ -786,17 +878,15 @@ def phase_rwkv_kernel(wkv, planted_src: str) -> list:
     return results
 
 
-def phase_serve_rwkv_f32(wkv, greedy_trace) -> dict:
-    """Two waves of 4 requests on one engine: the second wave's requests
-    take over the first's state slots, so they hold the port to starting a
-    request from zero state."""
+def _two_waves(eng, seed: int, max_new: int):
+    """Serve two waves of 4 requests (prompts 16-300 tokens, two of them 16
+    and 300) on `eng`, the second after the first has drained, so that the
+    second wave's requests take over the first's state slots.  Returns
+    (prompt lengths, prompts, requests, slots of the first wave, slots of
+    the second)."""
     from repro_torch.core import SamplingParams
-    from repro_torch.kernels import ops
 
-    max_new = 8
-    t0 = time.perf_counter()
-    eng = _f32_engine(RWKV_ARCH, RWKV_F32_LAYERS)
-    rng = np.random.default_rng(17)
+    rng = np.random.default_rng(seed)
     vocab = eng.cfg.vocab_size
     lens = [16, 300] + [int(x) for x in rng.integers(16, 301, 6)]
     prompts = [[int(t) for t in rng.integers(0, vocab, L)] for L in lens]
@@ -809,19 +899,32 @@ def phase_serve_rwkv_f32(wkv, greedy_trace) -> dict:
         return slot
 
     eng.slots.get = record
-    wkv.launches = 0
     reqs = []
     for wave in (prompts[:4], prompts[4:]):
         reqs += [eng.add_request(p, SamplingParams(max_new_tokens=max_new))
                  for p in wave]
         eng.drain()
     torch.cuda.synchronize()
-    launches, ticks = wkv.launches, eng.stats.ticks
-    serve_s = time.perf_counter() - t0
     first = {s for rid, s in taken if rid in {r.request_id
                                              for r in reqs[:4]}}
     second = {s for rid, s in taken if rid in {r.request_id
                                               for r in reqs[4:]}}
+    return lens, prompts, reqs, first, second
+
+
+def phase_serve_rwkv_f32(wkv, greedy_trace) -> dict:
+    """Two waves of 4 requests on one engine: the second wave's requests
+    take over the first's state slots, so they hold the port to starting a
+    request from zero state."""
+    from repro_torch.kernels import ops
+
+    max_new = 8
+    t0 = time.perf_counter()
+    eng = _f32_engine(RWKV_ARCH, RWKV_F32_LAYERS)
+    wkv.launches = 0
+    lens, prompts, reqs, first, second = _two_waves(eng, 17, max_new)
+    launches, ticks = wkv.launches, eng.stats.ticks
+    serve_s = time.perf_counter() - t0
     if launches != ticks * RWKV_F32_LAYERS * 2 or not second <= first:
         raise AssertionError(
             f"serve-rwkv-f32: {launches} launches for {ticks} ticks, want "
@@ -868,6 +971,205 @@ def phase_serve_rwkv_bf16(wkv, build_engine) -> dict:
     return out
 
 
+# ---------------------------------------------------------- Mamba phases
+
+def _mamba_case(S, T, di, ds, lens, fresh, n_slots, dtype, seed):
+    """Unit-normal x (in `dtype`), B and C; step sizes dt log-uniform in
+    [1e-3, 3] (decays exp(dt A) from ~1 to ~1e-21); A = -exp(log(1..ds) +
+    0.3 N), on the card.  Live rows hold distinct slots, and where there
+    are padding rows (lens 0) they sit on slot 0, which a live row holds.
+    The pool is NaN except the slots of the live rows that carry a
+    state."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    lo, hi = np.log(1e-3), np.log(3.0)
+    dt = torch.exp(torch.rand(S, T, di, generator=g, device=DEV) * (hi - lo)
+                   + lo)
+    x = torch.randn(S, T, di, generator=g, device=DEV).to(dtype)
+    B = torch.randn(S, T, ds, generator=g, device=DEV)
+    C = torch.randn(S, T, ds, generator=g, device=DEV)
+    A = -torch.exp(torch.log(torch.arange(1, ds + 1, device=DEV).float())
+                   + 0.3 * torch.randn(di, ds, generator=g, device=DEV))
+    rng = np.random.default_rng(seed)
+    live = [s for s in range(S) if lens[s] > 0]
+    slots = np.zeros(S, np.int32)
+    chosen = rng.choice(np.arange(1, n_slots), len(live), replace=False)
+    if len(live) < S:
+        chosen[0] = 0
+    slots[live] = chosen
+    state = torch.full((n_slots, di, ds), float("nan"), device=DEV)
+    for s in live:
+        if not fresh[s]:
+            state[int(slots[s])] = 3.0 * torch.randn(
+                di, ds, generator=g, device=DEV)
+    ints = [torch.tensor(a, dtype=torch.int32, device=DEV)
+            for a in (slots, lens, fresh)]
+    return [dt, x, B, C, A, state, *ints]
+
+
+def _mamba_bound(x, A, lens, fresh):
+    """Least time the card could take, from this run's live tokens: dt and
+    x of the live tokens, B and C of the live tokens, A, the state of the
+    live rows that carry one read once, every live row's state written
+    once, the output and the row metadata, at the HBM rate; against the
+    operations: 6 f32 operations per live token, channel and state (dt*A,
+    (dt*x)*B, the update's fma, the read-out's fma) at the f32 peak, and
+    one exponential per live token, channel and state on the
+    special-function units."""
+    S, T, di = x.shape
+    ds = A.shape[1]
+    lens_h = lens.cpu().clamp(0, T)
+    live = lens_h > 0
+    tokens = int(lens_h.sum())
+    state_bytes = di * ds * 4
+    reads = int((live & (fresh.cpu() == 0)).sum())
+    nbytes = (tokens * di * (4 + x.element_size()) + tokens * ds * 8
+              + di * ds * 4 + (reads + int(live.sum())) * state_bytes
+              + S * T * di * 4 + 3 * S * 4)
+    flops = 6 * tokens * di * ds
+    exps = tokens * di * ds
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(flops / PEAK_FLOPS["float32"], exps / SFU_PER_S) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, flops, exps
+
+
+def phase_mamba_kernel(s6, planted_src: str) -> list:
+    shapes = [
+        # name, S, T, di, ds, lens, fresh, slots in the pool
+        ("jamba decode", 32, 1, 16384, 16, [1] * 28 + [0] * 4, [0] * 32,
+         64),
+        ("jamba prefill", 1, 512, 16384, 16, [300], [0], 64),
+        ("small ragged", 3, 70, 200, 16, [70, 33, 0], [1, 0, 0], 4),
+    ]
+    results = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, S, T, di, ds, lens, fresh, n in shapes:
+            args = _mamba_case(S, T, di, ds, lens, fresh, n, dtype,
+                               seed=300 + len(results))
+            before = args[5]
+            rows = args[6:]
+            kstate, pstate = before.clone(), before.clone()
+            out = s6.mamba_chunked_scan(*args[:5], kstate, *rows)
+            planted = s6.launch(MAMBA_PLANTED, *args[:5], pstate, *rows,
+                                source=planted_src)
+            torch.cuda.synchronize()
+            excess, err = s6.excess(out, kstate, *args[:5], before, *rows)
+            planted_excess, _ = s6.excess(planted, pstate, *args[:5],
+                                          before, *rows)
+            finite = bool(torch.isfinite(out).all())
+            zeros = all(not out[r, L:].any() for r, L in enumerate(lens))
+            row = {"phase": "mamba-kernel", "shape": name,
+                   "dtype": str(dtype).split(".")[-1], "S": S, "T": T,
+                   "di": di, "ds": ds,
+                   "live_rows": sum(1 for L in lens if L),
+                   "live_tokens": sum(lens), "fresh_rows": sum(fresh),
+                   "slots": n, "max_abs_err": err,
+                   "acc": s6.TOLERANCE[dtype], "excess": excess,
+                   "planted_excess": planted_excess, "finite": finite,
+                   "zeros_past_lens": zeros}
+            if not (excess <= 1.0 and finite and zeros):
+                emit(row)
+                raise AssertionError(f"Mamba kernel disagrees with its plain "
+                                     f"version at {name} {dtype}: {row}")
+            if not planted_excess > 1.0:
+                emit(row)
+                raise AssertionError(f"the check passes a Mamba kernel that "
+                                     f"reads h_(t-1) for y_t at {name} "
+                                     f"{dtype}: {row}")
+            row["kernel_ms"] = time_ms(
+                lambda: s6.mamba_chunked_scan(*args[:5], kstate, *rows), 20)
+            row["plain_ms"] = time_ms(
+                lambda: s6.mamba_scan_ref(*args[:5], pstate, *rows), 3,
+                warmup=1)
+            row["library_ms"] = None
+            row["library"] = ("none: no single PyTorch call computes the "
+                              "selective scan")
+            (row["bound_ms"], row["bound_by"], row["bytes"], row["flops"],
+             row["exps"]) = _mamba_bound(args[1], args[4], args[7], args[8])
+            emit(row)
+            results.append(row)
+            del args, before, kstate, pstate, out, planted
+            torch.cuda.empty_cache()
+    return results
+
+
+def phase_serve_jamba_f32(pa, mg, s6, greedy_trace) -> dict:
+    """Full-width jamba cut to its first MAMBA_MLP and ATTN_MOE layers,
+    f32, dropless, two waves of 4 requests on one engine: the second
+    wave's requests take over the first's state slots."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as moe_lib
+
+    max_new = 8
+    t0 = time.perf_counter()
+    eng = _f32_engine(JAMBA_ARCH, kinds=JAMBA_F32_KINDS)
+    pa.launches = mg.launches = s6.launches = 0
+    lens, prompts, reqs, first, second = _two_waves(eng, 19, max_new)
+    n = {"mamba_chunked_scan": s6.launches,
+         "paged_flash_attention": pa.launches, "fused_moe_ffn": mg.launches}
+    ticks = eng.stats.ticks
+    serve_s = time.perf_counter() - t0
+    want = {"mamba_chunked_scan": ticks * 2,
+            "paged_flash_attention": ticks * 2, "fused_moe_ffn": ticks}
+    if n != want or not second <= first:
+        raise AssertionError(f"serve-jamba-f32: launches {n} for {ticks} "
+                             f"ticks, want {want}; slots {first} then "
+                             f"{second}")
+    # the reference's scan and expert FFN run on the plain versions, so no
+    # kernel is held against itself
+    kernel_scan, kernel_ffn = ops.mamba_scan, moe_lib.expert_ffn
+    ops.mamba_scan = s6.mamba_scan_ref
+    moe_lib.expert_ffn = mg.fused_moe_ffn_ref
+    try:
+        compared, near_ties = _match_reference(
+            "serve-jamba-f32", eng, prompts, reqs, max_new, greedy_trace)
+    finally:
+        ops.mamba_scan, moe_lib.expert_ffn = kernel_scan, kernel_ffn
+    out = {"phase": "serve-jamba-f32", "arch": JAMBA_ARCH,
+           "kinds": [b.kind.value for b in eng.cfg.pattern],
+           "layers": eng.cfg.num_layers,
+           "capacity_factor": eng.cfg.moe_capacity_factor,
+           "requests": len(reqs), "prompt_lens": lens,
+           "max_new_tokens": max_new, "ticks": ticks, "launches": n,
+           "slots_first_wave": sorted(first),
+           "slots_second_wave": sorted(second),
+           "tokens_compared": compared, "near_ties": near_ties,
+           "serve_s": serve_s, "check_s": time.perf_counter() - t0 - serve_s}
+    emit(out)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_jamba_bf16(pa, mg, s6, build_engine) -> dict:
+    """serve-bf16's batch on full-width jamba cut to one layer of each
+    block kind, at the config's capacity factor."""
+    from repro_torch.configs import BlockKind
+
+    eng = build_engine(JAMBA_ARCH, device=DEV, dtype=torch.bfloat16,
+                       cut=[BlockKind(k) for k in JAMBA_KINDS])
+    prompts = _prompts(12, 32, eng.cfg.vocab_size)
+    out = _serve_measured(eng, prompts, {"paged_flash_attention": pa,
+                                         "fused_moe_ffn": mg,
+                                         "mamba_chunked_scan": s6},
+                          "serve-jamba-bf16")
+    out["kinds"] = [b.kind.value for b in eng.cfg.pattern]
+    out["capacity_factor"] = eng.cfg.moe_capacity_factor
+    n, ticks = out["launches"], out["ticks"]
+    want = {"paged_flash_attention": ticks * 2, "fused_moe_ffn": ticks * 2,
+            "mamba_chunked_scan": ticks * 4}
+    if n != want:
+        emit(out)
+        raise AssertionError(f"serve-jamba-bf16: launches {n} for {ticks} "
+                             f"ticks, want {want}")
+    emit(out)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, rows, main_row):
     return {
         "name": name, "route": "cuda", "source": source,
@@ -894,6 +1196,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
         from repro_torch.kernels import build
+        from repro_torch.kernels import mamba_scan as s6
         from repro_torch.kernels import moe_gemm as mg
         from repro_torch.kernels import paged_attention as pa
         from repro_torch.kernels import rwkv6_scan as wkv
@@ -907,7 +1210,8 @@ def main() -> int:
     device = phase_device()
     planted = {PLANTED: planted_source(build),
                MOE_PLANTED: moe_planted_source(build),
-               RWKV_PLANTED: rwkv_planted_source(build)}
+               RWKV_PLANTED: rwkv_planted_source(build),
+               MAMBA_PLANTED: mamba_planted_source(build)}
     phase_build(build, planted)
     shapes = phase_kernel(pa, planted[PLANTED])
     phase_serve_f32(pa, build_engine, greedy_trace)
@@ -918,6 +1222,9 @@ def main() -> int:
     rwkv_shapes = phase_rwkv_kernel(wkv, planted[RWKV_PLANTED])
     phase_serve_rwkv_f32(wkv, greedy_trace)
     rwkv = phase_serve_rwkv_bf16(wkv, build_engine)
+    mamba_shapes = phase_mamba_kernel(s6, planted[MAMBA_PLANTED])
+    phase_serve_jamba_f32(pa, mg, s6, greedy_trace)
+    jamba = phase_serve_jamba_bf16(pa, mg, s6, build_engine)
 
     pa_entry = _kernel_entry(
         "paged_flash_attention",
@@ -928,7 +1235,8 @@ def main() -> int:
              and r["dtype"] == "bfloat16"))
     pa_entry["launches_by_path"] = {
         "serve-bf16": bf16["launches"]["paged_flash_attention"],
-        "serve-olmoe-bf16": olmoe["launches"]["paged_flash_attention"]}
+        "serve-olmoe-bf16": olmoe["launches"]["paged_flash_attention"],
+        "serve-jamba-bf16": jamba["launches"]["paged_flash_attention"]}
     moe_entry = _kernel_entry(
         "fused_moe_ffn", "src/repro_torch/kernels/csrc/moe_ffn.cu",
         "src/repro/kernels/moe_gemm.py:53",
@@ -936,7 +1244,8 @@ def main() -> int:
         next(r for r in moe_shapes if r["shape"] == "olmoe serve"
              and r["dtype"] == "bfloat16"))
     moe_entry["launches_by_path"] = {
-        "serve-olmoe-bf16": olmoe["launches"]["fused_moe_ffn"]}
+        "serve-olmoe-bf16": olmoe["launches"]["fused_moe_ffn"],
+        "serve-jamba-bf16": jamba["launches"]["fused_moe_ffn"]}
     rwkv_entry = _kernel_entry(
         "rwkv6_chunked_scan", "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         "src/repro/kernels/rwkv6_scan.py:78",
@@ -945,8 +1254,16 @@ def main() -> int:
              and r["dtype"] == "bfloat16"))
     rwkv_entry["launches_by_path"] = {
         "serve-rwkv-bf16": rwkv["launches"]["rwkv6_chunked_scan"]}
+    mamba_entry = _kernel_entry(
+        "mamba_chunked_scan", "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "src/repro/kernels/mamba_scan.py:60",
+        jamba["launches"]["mamba_chunked_scan"], mamba_shapes,
+        next(r for r in mamba_shapes if r["shape"] == "jamba decode"
+             and r["dtype"] == "bfloat16"))
+    mamba_entry["launches_by_path"] = {
+        "serve-jamba-bf16": jamba["launches"]["mamba_chunked_scan"]}
     emit({"phase": "done"})
-    emit({"kernels": [pa_entry, moe_entry, rwkv_entry]})
+    emit({"kernels": [pa_entry, moe_entry, rwkv_entry, mamba_entry]})
     print(device["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
                                  "count": device["count"]}})

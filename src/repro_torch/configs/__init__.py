@@ -12,24 +12,25 @@ from repro_torch.configs.base import (
     BlockKind,
     BlockSpec,
     ParallelPlan,
+    cut_to_kinds,
     make_reduced,
     single_stage,
 )
 
 # Archs whose block kinds the port runs (ATTN_MLP dense, ATTN_MOE at NS=1,
-# RWKV).
+# RWKV, MAMBA_MLP and MAMBA_MOE).
 _MODULES: Dict[str, str] = {
     "qwen1.5-0.5b": "qwen1_5_0_5b",
     "qwen2.5-14b": "qwen2_5_14b",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "rwkv6-3b": "rwkv6_3b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 # Archs of the JAX package's registry that later slices of the port add.
 _NOT_YET_PORTED = (
     "qwen2-vl-7b", "kimi-k2-1t-a32b", "minicpm3-4b",
-    "internlm2-1.8b", "whisper-small", "jamba-1.5-large-398b",
-    "qwen2.5-32b", "llama3.1-100b",
+    "internlm2-1.8b", "whisper-small", "qwen2.5-32b", "llama3.1-100b",
 )
 
 
@@ -52,6 +53,7 @@ __all__ = [
     "BlockKind",
     "BlockSpec",
     "ParallelPlan",
+    "cut_to_kinds",
     "get_config",
     "list_archs",
     "make_reduced",

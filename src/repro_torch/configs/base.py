@@ -1,8 +1,9 @@
 """Architecture + shape + parallelism configuration.
 
 A copy of ``repro.configs.base`` (the port imports nothing of the JAX
-package), plus `single_stage`, which folds a uniform pattern into one
-pipeline stage so a whole model runs on one card.
+package), plus the port's one-card helpers: `single_stage`, which folds the
+pipeline into one stage so a whole model runs on one card, and
+`cut_to_kinds`, a depth cut for a model whose weights do not fit one card.
 
 Every assigned architecture gets one module in ``repro_torch/configs`` exporting
 ``CONFIG: ArchConfig``.  A stage's layer structure is a *stage-local pattern*
@@ -195,15 +196,49 @@ def make_reduced(cfg: ArchConfig, *, d_model: int = 64, d_ff: int = 128,
     )
 
 
+def _layer_kinds(cfg: ArchConfig) -> Tuple[BlockKind, ...]:
+    """The kind of every layer in stage order, padding layers dropped."""
+    stage = tuple(b.kind for b in cfg.pattern for _ in range(b.repeat))
+    return (stage * cfg.plan.pp)[:cfg.num_layers]
+
+
+def _merged(kinds) -> Tuple[BlockSpec, ...]:
+    """Runs of one kind as one `BlockSpec` each."""
+    out = []
+    for kind in kinds:
+        if out and out[-1].kind == kind:
+            out[-1] = BlockSpec(kind, out[-1].repeat + 1)
+        else:
+            out.append(BlockSpec(kind, 1))
+    return tuple(out)
+
+
 def single_stage(cfg: ArchConfig) -> ArchConfig:
-    """Fold a uniform pattern into one pipeline stage at pp=1, tp=1.
+    """Fold the pipeline into one stage at pp=1, tp=1, layer order kept.
 
     qwen1.5-0.5b publishes pp=8 x 3 layers; on one card the whole depth is
-    one stage: ``BlockSpec(ATTN_MLP, 24)``.  Only single-kind patterns fold:
-    an interleaved pattern (jamba, whisper) raises."""
-    kinds = {b.kind for b in cfg.pattern}
-    if len(kinds) != 1:
-        raise ValueError(f"{cfg.name}: pattern {cfg.pattern} is not uniform")
-    return dataclasses.replace(
-        cfg, pattern=(BlockSpec(kinds.pop(), cfg.num_layers),),
-        plan=ParallelPlan(pp=1, tp=1))
+    one stage: ``BlockSpec(ATTN_MLP, 24)``.  An interleaved pattern becomes
+    the stage-local pattern repeated pp times (jamba: 72 single-layer
+    entries); runs of one kind merge into one entry."""
+    return dataclasses.replace(cfg, pattern=_merged(_layer_kinds(cfg)),
+                               plan=ParallelPlan(pp=1, tp=1))
+
+
+def cut_to_kinds(cfg: ArchConfig, kinds) -> ArchConfig:
+    """A depth cut that fits one card: the first layer of each kind in
+    `kinds`, in the folded layer order, as one stage (`single_stage`).
+    jamba with (MAMBA_MLP, MAMBA_MOE, ATTN_MOE) keeps its layers 0, 1 and 8:
+    ``(MAMBA_MLP, 1), (MAMBA_MOE, 1), (ATTN_MOE, 1)``, ``num_layers=3``.
+    Widths and expert counts stay; the model computes what those layers
+    compute."""
+    want = set(kinds)
+    order = _layer_kinds(cfg)
+    missing = want - set(order)
+    if missing:
+        raise ValueError(f"{cfg.name} has no layer of kind "
+                         f"{sorted(k.value for k in missing)}")
+    kept = tuple(k for i, k in enumerate(order)
+                 if k in want and k not in order[:i])
+    return dataclasses.replace(cfg, pattern=_merged(kept),
+                               num_layers=len(kept),
+                               plan=ParallelPlan(pp=1, tp=1))

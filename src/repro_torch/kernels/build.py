@@ -25,6 +25,9 @@ from typing import Dict, Iterable, List, Mapping, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
+# Every kernel of the port, by the name of its source under ``csrc/``.
+KERNELS = ("paged_attention", "moe_ffn", "rwkv6_scan", "mamba_scan")
+
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

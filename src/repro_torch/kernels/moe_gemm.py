@@ -37,22 +37,32 @@ _MULTIPLE = 128          # d and ff: whole tiles of the kernel's loops
 _SILU_SLOPE = 1.1
 
 # Kernel against plain version, elementwise:
-#   |out - want| <= rtol * |want| + htol * hd + acc * (sqrt(ff) * hd + sqrt(d) * hsd)
-# where the plain version, run on absolute values, gives
+#   |out - want| <= rtol * |want| + htol * h2 + acc * (sqrt(ff) * hd + sqrt(d) * hs2)
+# where the plain version, run on absolute values and squares, gives
 #   hd  = |h| @ |w_down|                       (scale of the down sum)
-#   hsd = (1.1 |u| (|x| @ |w_gate|) + |silu(g)| (|x| @ |w_up|)) @ |w_down|
-#         (scale of the error that g's and u's sums carry into out).
+#   h2  = sqrt(h**2 @ w_down**2)
+#   hs2 = sqrt(hs**2 @ w_down**2), hs = 1.1 |u| (|x| @ |w_gate|)
+#         + |silu(g)| (|x| @ |w_up|)  (scale of the error that g's and u's
+#         sums carry into h).
 # f32: the two differ only in summation order.  Each f32 sum of n terms is
 # off by at most lam * sqrt(n) * u * sum|terms| but with probability
 # ~exp(-lam^2 / 2) (Higham and Mary's probabilistic bound, lam = 8; the
 # worst case n * u is ~30x looser at these widths and would pass a kernel
 # that drops a tile of the ff loop); u = 2**-24 for both versions on the
-# CUDA cores, 2**-23 for the tensor cores' accumulation.  bf16 adds: each
-# version rounds its f32 result to bf16 (one ulp apart at most,
-# <= 2**-7 * |want|), and the kernel rounds the hidden to bf16 before the
-# down projection (|error| <= 2**-9 * hd; held at twice that).
+# CUDA cores, 2**-23 for the tensor cores' accumulation.  An error e_f in
+# h[f] reaches out through e_f * w_down[f]: the e_f depend on x, w_gate and
+# w_up only, and w_down's signs are independent of them and symmetric (as
+# in every check's random weights), so their sum over f is bounded by lam
+# times its root-square scale (Hoeffding), not by the sum of |e_f w_down[f]|
+# that grows linearly in ff: that gives hs2 with the g and u sums' own
+# sqrt(d) * u.  bf16 adds: each version rounds its f32 result to bf16 (one
+# ulp apart at most, <= 2**-7 * |want|), and the kernel rounds the hidden to
+# bf16 before the down projection (|error| <= 2**-8 * |h| for each f,
+# carried into out as above: lam * 2**-8 * h2).  Held linearly, as
+# 2**-8 * hd, that rounding allows 0.3 of a typical output at jamba's
+# ff = 24576 and passes a kernel that drops 32 of the 24,576 terms.
 TOLERANCE = {torch.float32: (0.0, 0.0, 8 * 2 * 2 ** -24),
-             torch.bfloat16: (2 ** -7, 2 ** -8, 8 * (2 ** -23 + 2 ** -24))}
+             torch.bfloat16: (2 ** -7, 8 * 2 ** -8, 8 * (2 ** -23 + 2 ** -24))}
 
 
 def _parts(x, w_gate, w_up):
@@ -71,17 +81,19 @@ def excess(out: torch.Tensor, x, w_gate, w_up, w_down
     rtol, htol, acc = TOLERANCE[out.dtype]
     d, ff = w_gate.shape[1], w_gate.shape[2]
     u, s = _parts(x, w_gate, w_up)
-    wd = w_down.float()
-    want = torch.einsum("ecf,efd->ecd", s * u, wd).to(x.dtype).float()
-    ax, awd = x.float().abs(), wd.abs()
-    hd = torch.einsum("ecf,efd->ecd", (s * u).abs(), awd)
+    wd, h = w_down.float(), s * u
+    want = torch.einsum("ecf,efd->ecd", h, wd).to(x.dtype).float()
+    ax, awd, wd2 = x.float().abs(), wd.abs(), wd * wd
+    hd = torch.einsum("ecf,efd->ecd", h.abs(), awd)
+    h2 = torch.einsum("ecf,efd->ecd", h * h, wd2).sqrt()
+    del h
     gs = torch.einsum("ecd,edf->ecf", ax, w_gate.float().abs())
     us = torch.einsum("ecd,edf->ecf", ax, w_up.float().abs())
     hs = _SILU_SLOPE * u.abs() * gs + s.abs() * us
     del gs, us
-    hsd = torch.einsum("ecf,efd->ecd", hs, awd)
-    bound = (rtol * want.abs() + htol * hd
-             + acc * (ff ** 0.5 * hd + d ** 0.5 * hsd))
+    hs2 = torch.einsum("ecf,efd->ecd", hs * hs, wd2).sqrt()
+    bound = (rtol * want.abs() + htol * h2
+             + acc * (ff ** 0.5 * hd + d ** 0.5 * hs2))
     err = (out.float() - want).abs()
     # all-zero rows (empty capacity slots) have a zero bound and must be 0
     ratio = torch.where(err == 0, torch.zeros_like(err), err / bound)

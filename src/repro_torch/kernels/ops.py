@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import mamba_scan as s6
 from repro_torch.kernels import moe_gemm
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import rwkv6_scan as wkv
@@ -41,3 +42,16 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return wkv.rwkv6_chunked_scan(r, k, v, w, u, state, slots, lens,
                                       fresh)
     return wkv.rwkv6_scan_ref(r, k, v, w, u, state, slots, lens, fresh)
+
+
+def mamba_scan(dt: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
+               C: torch.Tensor, A: torch.Tensor, state: torch.Tensor,
+               slots: torch.Tensor, lens: torch.Tensor,
+               fresh: torch.Tensor) -> torch.Tensor:
+    """Mamba selective scan over rows dt, x [S, T, di] from (and back into)
+    the state pool at `slots`; returns y [S, T, di] f32
+    (`mamba_scan.mamba_chunked_scan` states the contract)."""
+    if dt.is_cuda:
+        return s6.mamba_chunked_scan(dt, x, B, C, A, state, slots, lens,
+                                     fresh)
+    return s6.mamba_scan_ref(dt, x, B, C, A, state, slots, lens, fresh)

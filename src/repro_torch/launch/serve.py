@@ -7,24 +7,38 @@ one stage by `single_stage`, bf16, random weights from `--seed`):
         --requests 16 --max-new 16
 
 ``--reduced --device cpu`` runs the same path on the CPU at a tiny width,
-through the kernels' plain versions.  `build_engine` is the entry point
-`chip_smoke.py` and the tests call.
+through the kernels' plain versions.  A model whose weights do not fit the
+card is served as a depth cut, the first layer of each named block kind
+(`configs.cut_to_kinds`); jamba-1.5-large-398b at full width is 870 GB in
+bf16, its cut to one layer of each kind 44 GB:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-1.5-large-398b --cut mamba_mlp,mamba_moe,attn_moe
+
+`build_engine` is the entry point `chip_smoke.py` and the tests call.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, make_reduced, single_stage
+from repro_torch.configs import (
+    BlockKind,
+    cut_to_kinds,
+    get_config,
+    make_reduced,
+    single_stage,
+)
 from repro_torch.core import SamplingParams, ThrottleConfig
 from repro_torch.models.serve import ServeDims
-from repro_torch.models.transformer import init_params
+from repro_torch.models.transformer import init_params, model_param_defs
 from repro_torch.runtime.engine import PipelineEngine, resolve_device
 
 # Full width on one H100: one prefill chunk of 512 tokens and 32 decode rows
@@ -38,14 +52,27 @@ REDUCED_THROTTLE = dict(num_iters_T=4, max_prefill_tokens=32,
                         min_prefill_tokens=4)
 
 
+def weight_bytes(cfg, dtype: torch.dtype) -> int:
+    """Bytes of `cfg`'s parameters in `dtype`."""
+    def walk(tree) -> int:
+        if isinstance(tree, tuple):
+            return math.prod(tree[0])
+        return sum(walk(v) for v in tree.values())
+    return walk(model_param_defs(cfg)) * dtype.itemsize
+
+
 def build_engine(arch: str = "qwen1.5-0.5b", *, reduced: bool = False,
                  device: Optional[torch.device | str] = None,
                  dtype: Optional[torch.dtype] = None,
                  dims: Optional[ServeDims] = None,
                  throttle: Optional[ThrottleConfig] = None,
+                 cut: Optional[Sequence[BlockKind]] = None,
                  seed: int = 0) -> PipelineEngine:
     """A ready engine for `arch`: full width and depth in one stage (bf16
-    by default), or the reduced CPU-sized variant (f32)."""
+    by default), or the reduced CPU-sized variant (f32).  `cut` names block
+    kinds: the model is then cut in depth to the first layer of each
+    (`cut_to_kinds`).  On the card, weights that exceed its memory raise
+    before anything is allocated."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
@@ -58,8 +85,19 @@ def build_engine(arch: str = "qwen1.5-0.5b", *, reduced: bool = False,
         cfg = single_stage(cfg)
         dims = dims or FULL_DIMS
         throttle = throttle or ThrottleConfig(pipeline_depth=1)
+    if cut:
+        cfg = cut_to_kinds(cfg, cut)
     dtype = dtype or getattr(torch, cfg.dtype)
     cfg = dataclasses.replace(cfg, dtype=str(dtype).split(".")[-1])
+    if dev.type == "cuda":
+        need = weight_bytes(cfg, dtype)
+        have = torch.cuda.get_device_properties(dev).total_memory
+        if need > have:
+            raise ValueError(
+                f"{cfg.name}: {cfg.num_layers} layers need {need:,} bytes "
+                f"of {cfg.dtype} weights, more than the card's {have:,}; "
+                f"serve a depth cut (cut=, --cut), e.g. one layer of each "
+                f"block kind: {sorted({b.kind.value for b in cfg.pattern})}")
     params = init_params(cfg, seed, dtype=dtype, device=dev)
     return PipelineEngine(cfg, dims, params, throttle, device=dev,
                           dtype=dtype, seed=seed)
@@ -76,12 +114,18 @@ def main() -> None:
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--dtype", default=None, choices=["float32", "bfloat16"])
+    ap.add_argument("--cut", default=None,
+                    help="comma-separated block kinds (e.g. "
+                    "mamba_mlp,mamba_moe,attn_moe): serve the first layer "
+                    "of each")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
     dtype = getattr(torch, args.dtype) if args.dtype else None
+    cut = ([BlockKind(k) for k in args.cut.split(",")] if args.cut
+           else None)
     eng = build_engine(args.arch, reduced=args.reduced, device=args.device,
-                       dtype=dtype, seed=args.seed)
+                       dtype=dtype, cut=cut, seed=args.seed)
     cfg = eng.cfg
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()

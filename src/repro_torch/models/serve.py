@@ -1,19 +1,21 @@
 """Serve-mode model execution (``repro.models.serve``): one pipeline stage's
 forward over a micro-batch of prefill chunks and decode rows, with the paged
 KV cache (ATTN_MLP and ATTN_MOE blocks) or per-sequence recurrent state
-slots (RWKV blocks).
+slots (RWKV, MAMBA_MLP and MAMBA_MOE blocks); one engine holds both for a
+hybrid model (jamba).
 
 Layouts (per stage, as in the JAX package):
   prefill payload  xp [Sp, C, d]
   decode payload   xd [Sd, 1, d]
   paged KV         [S, R, pages, page, 2, KH, hd] (S stages, R block repeat)
   RWKV state       tm_x, cm_x [S, R, slots, d]; wkv [S, R, slots, H, hd, hd]
+  Mamba state      conv [S, R, slots, dc-1, di]; ssm [S, R, slots, di, ds]
 
 The tick's metadata is built on the host as numpy (`zero_meta`, the JAX
 field names and shapes) and reaches the device in one copy
 (`meta_to_device`).  The KV pool is updated in place: each layer works on the
 contiguous view ``cache[s, r]`` (the JAX version donates the buffer), and
-so are the RWKV state slots.
+so are the recurrent state slots.
 """
 
 from __future__ import annotations
@@ -29,7 +31,16 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import apply_norm, mlp_apply, rope_tables, rotate
-from repro_torch.models.transformer import _block_key, _check_kind, _heads
+from repro_torch.models.transformer import (
+    MAMBA_KINDS,
+    MOE_KINDS,
+    _block_key,
+    _check_kind,
+    _heads,
+)
+
+ATTN_KINDS = (BlockKind.ATTN_MLP, BlockKind.ATTN_MOE)
+STATE_KINDS = (BlockKind.RWKV,) + MAMBA_KINDS
 
 
 @dataclass(frozen=True)
@@ -152,6 +163,10 @@ def block_cache_defs(cfg: ArchConfig, kind: BlockKind, dims: ServeDims,
         return {"tm_x": (R, dims.slots, cfg.d_model),
                 "cm_x": (R, dims.slots, cfg.d_model),
                 "wkv": (R, dims.slots, H, hd, hd)}
+    if kind in MAMBA_KINDS:
+        di = cfg.mamba_d_inner
+        return {"conv": (R, dims.slots, cfg.mamba_d_conv - 1, di),
+                "ssm": (R, dims.slots, di, cfg.mamba_d_state)}
     return {"kv": (R, dims.pages, dims.page, 2, max(1, cfg.num_kv_heads),
                    cfg.head_dim)}
 
@@ -166,7 +181,7 @@ def cache_defs(cfg: ArchConfig, dims: ServeDims) -> Dict[str, Dict[str, tuple]]:
         for i, bs in enumerate(cfg.pattern)}
 
 
-F32_STATE_LEAVES = ("wkv",)      # recurrent states carry in f32
+F32_STATE_LEAVES = ("wkv", "ssm")      # recurrent states carry in f32
 
 
 def init_caches(cfg: ArchConfig, dims: ServeDims,
@@ -199,8 +214,9 @@ def _qkv_rows(cfg: ArchConfig, p, x: torch.Tensor, rope):
 
 def _paged_self_attention(cfg: ArchConfig, p, xs: torch.Tensor,
                           cache: torch.Tensor, meta: Mapping[str, torch.Tensor],
-                          is_prefill: bool):
-    """Project, write pages (in place), attend.  Returns (attn_out, cache)."""
+                          is_prefill: bool) -> torch.Tensor:
+    """Project, write pages (in place), attend.  Returns the attention
+    output."""
     if is_prefill:
         positions = meta["p_positions"]
         tables, ctx = meta["p_block_tables"], meta["p_context_lens"]
@@ -217,7 +233,7 @@ def _paged_self_attention(cfg: ArchConfig, p, xs: torch.Tensor,
     new_kv = torch.stack([k, v], dim=2)                   # [S, T, 2, KH, hd]
     attn.write_kv_pages(cache, new_kv, pages, offs, rows)
     o = attn.paged_attention(q, cache, tables, ctx, positions)
-    return o.reshape(o.shape[:-2] + (-1,)) @ p["wo"], cache
+    return o.reshape(o.shape[:-2] + (-1,)) @ p["wo"]
 
 
 # ----------------------------------------------------------------------------
@@ -249,14 +265,38 @@ def _rwkv_serve(cfg: ArchConfig, p, xs: torch.Tensor,
     return out.masked_fill(~valid[..., None], 0)
 
 
+def _mamba_serve(cfg: ArchConfig, p, xs: torch.Tensor,
+                 cache: Dict[str, torch.Tensor],
+                 meta: Mapping[str, torch.Tensor], phase: str) -> torch.Tensor:
+    """One Mamba mixer over one phase's rows (`phase` "p" or "d"), from and
+    back into the rows' state slots.  Fresh rows start from zero conv and
+    scan state whatever their slot holds; the scan advances the `ssm` pool
+    in place (live tokens only); the conv state is written back for the
+    live rows only (`meta_to_device`).  Padding positions come out as
+    zeros, as the JAX mask makes them."""
+    slots, fresh = meta[f"{phase}_state_slots"], meta[f"{phase}_fresh"]
+    lens = meta["p_chunk_lens"] if phase == "p" else meta["d_valid"]
+    valid = meta[f"{phase}_mask"]
+    conv = cache["conv"][slots].masked_fill((fresh > 0)[:, None, None], 0)
+    state = ssm_lib.MambaState(conv=conv, ssm=cache["ssm"], slots=slots,
+                               fresh=fresh)
+    out, new_conv = ssm_lib.mamba_mixer(
+        xs, p, d_state=cfg.mamba_d_state, d_conv=cfg.mamba_d_conv,
+        state=state, chunk_lens=lens)
+    live, live_slots = meta[f"{phase}_live"], meta[f"{phase}_live_slots"]
+    cache["conv"][live_slots] = new_conv[live]
+    return out.masked_fill(~valid[..., None], 0)
+
+
 def block_apply_serve(cfg: ArchConfig, kind: BlockKind, p,
                       xp: torch.Tensor, xd: torch.Tensor,
                       cache: Dict[str, torch.Tensor],
                       meta: Mapping[str, torch.Tensor], dims: ServeDims):
     """One block over the stage's micro-batch: xp [Sp, C, d] prefill
     payload, xd [Sd, 1, d] decode rows.  Both phases run whenever their
-    bucket is non-empty (`dims.Sp`/`dims.Sd`), whatever rows are live.  An
-    RWKV block runs prefill first, and decode reads the state prefill left.
+    bucket is non-empty (`dims.Sp`/`dims.Sd`), whatever rows are live.  A
+    recurrent block runs prefill first, and decode reads the state prefill
+    left.
     The MoE FFN routes only the live rows (``meta["row_valid"]``, see
     `stage_forward_serve`): padding rows consume no expert capacity.
     Returns (xp, xd, cache); the cache is updated in place."""
@@ -275,15 +315,18 @@ def block_apply_serve(cfg: ArchConfig, kind: BlockKind, p,
         return apply_norm(h, keys, cfg.norm, cfg.norm_eps)
 
     Sp, Sd = dims.Sp, dims.Sd
-    kvc = cache["kv"]
-    if Sp:
-        o, kvc = _paged_self_attention(cfg, p, norm("ln1", xp), kvc, meta,
-                                       True)
-        xp = xp + o
-    if Sd:
-        o, kvc = _paged_self_attention(cfg, p, norm("ln1", xd), kvc, meta,
-                                       False)
-        xd = xd + o
+    if kind in MAMBA_KINDS:
+        if Sp:
+            xp = xp + _mamba_serve(cfg, p, norm("ln1", xp), cache, meta, "p")
+        if Sd:
+            xd = xd + _mamba_serve(cfg, p, norm("ln1", xd), cache, meta, "d")
+    else:
+        if Sp:
+            xp = xp + _paged_self_attention(cfg, p, norm("ln1", xp),
+                                            cache["kv"], meta, True)
+        if Sd:
+            xd = xd + _paged_self_attention(cfg, p, norm("ln1", xd),
+                                            cache["kv"], meta, False)
 
     # ffn over all rows (flattened)
     parts = []
@@ -292,7 +335,7 @@ def block_apply_serve(cfg: ArchConfig, kind: BlockKind, p,
     if Sd:
         parts.append(norm("ln2", xd).reshape(-1, cfg.d_model))
     flat = torch.cat(parts, dim=0) if len(parts) > 1 else parts[0]
-    if kind == BlockKind.ATTN_MOE:
+    if kind in MOE_KINDS:
         y, _ = moe_lib.moe_apply(flat, p, top_k=cfg.num_experts_per_tok,
                                  capacity_factor=cfg.moe_capacity_factor,
                                  row_valid=meta["row_valid"])
@@ -303,7 +346,7 @@ def block_apply_serve(cfg: ArchConfig, kind: BlockKind, p,
         xp = xp + y[:n].reshape(xp.shape)
     if Sd:
         xd = xd + y[n:].reshape(xd.shape)
-    return xp, xd, {"kv": kvc}
+    return xp, xd, cache
 
 
 def stage_forward_serve(cfg: ArchConfig, stage_params, caches, xp, xd, meta,
@@ -319,19 +362,21 @@ def stage_forward_serve(cfg: ArchConfig, stage_params, caches, xp, xd, meta,
     to `meta` as ``p_rope``/``d_rope``), the MoE blocks' live-row mask
     (``row_valid``: prefill rows inside their chunk, then live decode rows,
     in the order the FFN flattens them) and the per-layer views (one
-    ``unbind`` per leaf).  RWKV blocks use no RoPE; they share each
-    phase's [rows, T] live-position mask (``p_mask``/``d_mask``)."""
+    ``unbind`` per leaf).  Recurrent blocks (RWKV, Mamba) use no RoPE; they
+    share each phase's [rows, T] live-position mask (``p_mask``/``d_mask``).
+    The RoPE tables are built only when the pattern has an attention
+    block."""
     head_dim, theta = cfg.head_dim, cfg.rope_theta
     meta = dict(meta)
     kinds = {bs.kind for bs in cfg.pattern}
-    if kinds - {BlockKind.RWKV}:
+    if kinds & set(ATTN_KINDS):
         if dims.Sp:
             meta["p_rope"] = rope_tables(meta["p_positions"], head_dim,
                                          theta)
         if dims.Sd:
             meta["d_rope"] = rope_tables(meta["d_positions"][:, None],
                                          head_dim, theta)
-    if BlockKind.RWKV in kinds:
+    if kinds & set(STATE_KINDS):
         if dims.Sp:
             cols = torch.arange(dims.C, device=xp.device)
             meta["p_mask"] = cols[None, :] < meta["p_chunk_lens"][:, None]

@@ -1,13 +1,14 @@
-"""Linear-recurrence mixers (``repro.models.ssm``): RWKV6 (Finch).  The
-Mamba half comes with its slice.
+"""State-space / linear-recurrence mixers (``repro.models.ssm``): Mamba
+(jamba) and RWKV6 (Finch).
 
-The entry point operates on [B, T, d] with an optional recurrent state:
+Each entry point operates on [B, T, d] with an optional recurrent state:
 train (the dense reference) runs each row from a zero state over its whole
-length; serve passes the rows' state and live lengths.  The WKV recurrence
-goes through `ops.rwkv6_scan`: the Hopper kernel for CUDA tensors, its
-plain version on the CPU.  Unlike the JAX package, which returns a new WKV
-state per row, the port keeps the state in the layer's slot pool and the
-scan advances it in place (`RWKVState`).
+length; serve passes the rows' state and live lengths.  The recurrences go
+through `ops.mamba_scan` and `ops.rwkv6_scan`: the Hopper kernel for CUDA
+tensors, its plain version on the CPU.  Unlike the JAX package, which
+returns a new scan state per row, the port keeps that state (Mamba's `ssm`,
+RWKV's `wkv`) in the layer's slot pool and the scan advances it in place
+(`MambaState`, `RWKVState`).
 """
 
 from __future__ import annotations
@@ -21,6 +22,94 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import layernorm
 
 GROUP_NORM_EPS = 64e-5
+
+
+# ----------------------------------------------------------------------------
+# Mamba (S6, selective SSM)  [arXiv:2312.00752]
+# ----------------------------------------------------------------------------
+
+class MambaState(NamedTuple):
+    """Recurrent state of B rows of one Mamba layer."""
+
+    conv: torch.Tensor    # [B, d_conv - 1, d_inner]  last conv inputs
+    ssm: torch.Tensor     # [slots, d_inner, d_state] f32 pool, in place
+    slots: torch.Tensor   # [B] int32: each row's slot in `ssm`
+    fresh: torch.Tensor   # [B] int32: 1 = the row's scan state starts at 0
+
+
+def mamba_init_state(batch: int, d_inner: int, d_state: int, d_conv: int,
+                     dtype: torch.dtype = torch.bfloat16,
+                     device: torch.device | str = "cpu") -> MambaState:
+    """Zero state for `batch` rows, one pool slot each."""
+    return MambaState(
+        conv=torch.zeros(batch, d_conv - 1, d_inner, dtype=dtype,
+                         device=device),
+        ssm=torch.zeros(batch, d_inner, d_state, dtype=torch.float32,
+                        device=device),
+        slots=torch.arange(batch, dtype=torch.int32, device=device),
+        fresh=torch.ones(batch, dtype=torch.int32, device=device))
+
+
+def mamba_mixer(
+    x: torch.Tensor,                    # [B, T, d]
+    p: Mapping[str, torch.Tensor],
+    *,
+    d_state: int,
+    d_conv: int,
+    state: Optional[MambaState] = None,
+    chunk_lens: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (out, new conv state).  Rows run their first `chunk_lens`
+    tokens (all T when None) through the scan; the state's `ssm` pool is
+    advanced in place at the rows' slots.  The outputs past a row's live
+    tokens are not defined (the JAX masks zero them).  The new conv state
+    is the last ``d_conv - 1`` live rows of ``[old state | chunk]`` (the old
+    state itself for a row with no live token)."""
+    B, T, _ = x.shape
+    xz = x @ p["in_proj"]                               # [B, T, 2*di]
+    di = xz.shape[-1] // 2
+    xi, z = xz[..., :di], xz[..., di:]
+    if state is None:
+        state = mamba_init_state(B, di, d_state, d_conv, x.dtype, x.device)
+
+    # causal depthwise conv over time, four shifted multiply-adds in f32 as
+    # the JAX function sums them (no conv1d: cuDNN would run f32 in TF32)
+    conv_in = torch.cat([state.conv.to(xi.dtype), xi], dim=1)
+    w = p["conv_w"].float()
+    yc = torch.zeros((B, T, di), dtype=torch.float32, device=x.device)
+    for j in range(d_conv):
+        yc = yc + conv_in[:, j:j + T].float() * w[j]
+    xi = F.silu(yc + p["conv_b"].float()).to(x.dtype)
+    if chunk_lens is None:
+        new_conv = conv_in[:, T:]
+    else:
+        idx = chunk_lens.long()[:, None] + torch.arange(
+            d_conv - 1, device=x.device)[None, :]        # [B, dc-1]
+        new_conv = torch.gather(conv_in, 1,
+                                idx[..., None].expand(-1, -1, di))
+
+    # input-dependent SSM parameters
+    dtr = p["dt_proj"].shape[0]
+    dbc = xi @ p["x_proj"]                              # [B, T, dtr + 2*ds]
+    Bm = dbc[..., dtr:dtr + d_state].float().contiguous()
+    Cm = dbc[..., dtr + d_state:].float().contiguous()
+    dt = F.softplus((dbc[..., :dtr] @ p["dt_proj"]).float()
+                    + p["dt_bias"].float())              # [B, T, di]
+    A = -torch.exp(p["A_log"].float())                  # [di, ds]
+
+    lens = chunk_lens if chunk_lens is not None else torch.full(
+        (B,), T, dtype=torch.int32, device=x.device)
+    y = ops.mamba_scan(dt.contiguous(), xi.contiguous(), Bm, Cm,
+                       A.contiguous(), state.ssm, state.slots,
+                       lens.to(torch.int32), state.fresh)     # f32
+    y = y + xi.float() * p["D"].float()
+    y = (y * F.silu(z.float())).to(x.dtype)
+    return y @ p["out_proj"], new_conv.to(x.dtype)
+
+
+# ----------------------------------------------------------------------------
+# RWKV6 (Finch) — data-dependent decay linear attention  [arXiv:2404.05892]
+# ----------------------------------------------------------------------------
 
 
 class RWKVState(NamedTuple):

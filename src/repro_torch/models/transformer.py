@@ -1,5 +1,5 @@
 """The stacked transformer (``repro.models.transformer``): ATTN_MLP,
-ATTN_MOE and RWKV blocks.
+ATTN_MOE, RWKV, MAMBA_MLP and MAMBA_MOE blocks.
 
 Parameters are *stacked* as in the JAX package: every block leaf carries
 leading dims ``[S, R, ...]`` (S = pipeline stages, R = the block's repeat
@@ -29,7 +29,10 @@ from repro_torch.models.layers import apply_norm, apply_rope, mlp_apply
 
 Leaf = Tuple[Tuple[int, ...], str]      # (shape, init kind)
 
-_PORTED_KINDS = (BlockKind.ATTN_MLP, BlockKind.ATTN_MOE, BlockKind.RWKV)
+_PORTED_KINDS = (BlockKind.ATTN_MLP, BlockKind.ATTN_MOE, BlockKind.RWKV,
+                 BlockKind.MAMBA_MLP, BlockKind.MAMBA_MOE)
+MAMBA_KINDS = (BlockKind.MAMBA_MLP, BlockKind.MAMBA_MOE)
+MOE_KINDS = (BlockKind.ATTN_MOE, BlockKind.MAMBA_MOE)
 
 
 def _check_kind(kind: BlockKind) -> None:
@@ -85,6 +88,23 @@ def _moe_defs(cfg: ArchConfig) -> Dict[str, Leaf]:
     return out
 
 
+def _mamba_defs(cfg: ArchConfig) -> Dict[str, Leaf]:
+    d = cfg.d_model
+    di, ds, dc = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
+    dtr = max(8, d // 16)
+    return {
+        "in_proj": ((d, 2 * di), "normal"),
+        "conv_w": ((dc, di), "normal"),
+        "conv_b": ((di,), "zeros"),
+        "x_proj": ((di, dtr + 2 * ds), "normal"),
+        "dt_proj": ((dtr, di), "normal"),
+        "dt_bias": ((di,), "zeros"),
+        "A_log": ((di, ds), "a_log"),
+        "D": ((di,), "ones"),
+        "out_proj": ((di, d), "residual"),
+    }
+
+
 def _rwkv_defs(cfg: ArchConfig) -> Dict[str, Leaf]:
     d, ff = cfg.d_model, cfg.d_ff
     lora = 64
@@ -118,8 +138,8 @@ def block_param_defs(cfg: ArchConfig, kind: BlockKind) -> Dict[str, Leaf]:
     defs: Dict[str, Leaf] = {}
     defs.update(_norm_defs(cfg, "ln1"))
     defs.update(_norm_defs(cfg, "ln2"))
-    defs.update(_attn_defs(cfg))
-    if kind == BlockKind.ATTN_MOE:
+    defs.update(_mamba_defs(cfg) if kind in MAMBA_KINDS else _attn_defs(cfg))
+    if kind in MOE_KINDS:
         defs.update(_moe_defs(cfg))
     else:
         defs.update(_mlp_defs(cfg))
@@ -173,7 +193,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
     """Random weights from `seed`, drawn on `device` with an explicit
     ``torch.Generator`` (the JAX package's kinds: normal at 0.02,
     0.02/sqrt(2L) for residual projections, RWKV's mixing coefficients
-    uniform in [0, 1) and decay base -1).  The draws differ from
+    uniform in [0, 1) and decay base -1, Mamba's A_log = log(1..d_state)
+    on every channel).  The draws differ from
     ``jax.random``; tests carry the JAX weights across with
     `repro_torch.models.convert.params_from_numpy` instead."""
     dtype = dtype or getattr(torch, cfg.dtype)
@@ -191,14 +212,20 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
                               device=device).to(dtype)
         if init == "decay":
             return torch.full(shape, -1.0, dtype=dtype, device=device)
+        if init == "a_log":          # correctly rounded log(1..d_state)
+            base = torch.log(torch.arange(1, shape[-1] + 1,
+                                          dtype=torch.float64, device=device))
+            return base.to(dtype).expand(shape).contiguous()
         scale = 0.02
         if init == "residual":
             scale = 0.02 / math.sqrt(max(1, 2 * cfg.num_layers))
         elif init != "normal":
             raise NotImplementedError(f"init {init!r} is not yet ported")
+        # in place: a bf16 leaf holds one f32 copy at a time (jamba's
+        # w_gate is 12.9 GB in f32)
         w = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=device)
-        return (w * scale).to(dtype)
+        return w.mul_(scale).to(dtype)
 
     def walk(tree):
         if isinstance(tree, tuple):
@@ -258,7 +285,6 @@ def block_apply_train(cfg: ArchConfig, kind: BlockKind, p,
         x, _ = ssm_lib.rwkv_block(x, p, head_dim=cfg.rwkv_head_dim,
                                   norm_eps=cfg.norm_eps)
         return x
-    positions = torch.arange(x.shape[1], device=x.device)
 
     def norm(name, h):
         keys = {"g": p[f"{name}_g"]}
@@ -266,9 +292,16 @@ def block_apply_train(cfg: ArchConfig, kind: BlockKind, p,
             keys["b"] = p[f"{name}_b"]
         return apply_norm(h, keys, cfg.norm, cfg.norm_eps)
 
-    x = x + _attn_train(cfg, p, norm("ln1", x), positions)
+    if kind in MAMBA_KINDS:
+        mix, _ = ssm_lib.mamba_mixer(norm("ln1", x), p,
+                                     d_state=cfg.mamba_d_state,
+                                     d_conv=cfg.mamba_d_conv)
+    else:
+        positions = torch.arange(x.shape[1], device=x.device)
+        mix = _attn_train(cfg, p, norm("ln1", x), positions)
+    x = x + mix
     h = norm("ln2", x)
-    if kind == BlockKind.ATTN_MOE:
+    if kind in MOE_KINDS:
         # the auxiliary load-balancing loss is for training; serving drops it
         y, _ = moe_lib.moe_apply(h.reshape(-1, cfg.d_model), p,
                                  top_k=cfg.num_experts_per_tok,

@@ -39,8 +39,9 @@ def test_port_imports_no_jax_and_no_repro(path):
 
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
-    assert {"paged_attention.py", "moe_gemm.py", "rwkv6_scan.py", "ssm.py",
-            "engine.py", "serve.py", "chip_smoke.py"} <= names
+    assert {"paged_attention.py", "moe_gemm.py", "rwkv6_scan.py",
+            "mamba_scan.py", "ssm.py", "engine.py", "serve.py",
+            "chip_smoke.py"} <= names
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -69,13 +70,19 @@ def test_unported_arch_and_pp_raise():
     from repro_torch.launch.serve import FULL_DIMS
 
     with pytest.raises(KeyError, match="not yet ported"):
-        get_config("jamba-1.5-large-398b")
+        get_config("whisper-small")
     cfg = get_config("qwen1.5-0.5b")
     with pytest.raises(NotImplementedError, match="pp=8"):
         build_serve_tick(cfg, FULL_DIMS)
     one = single_stage(cfg)
     assert one.plan.pp == 1 and one.layers_per_stage == cfg.num_layers == 24
     assert one.pattern[0].repeat == 24 and one.padded_vocab == 151936
+    # an interleaved pattern folds too: jamba's 9-layer stage, 8 times
+    jamba = get_config("jamba-1.5-large-398b")
+    one = single_stage(jamba)
+    assert one.plan.pp == 1 and one.layers_per_stage == jamba.num_layers == 72
+    assert [b.kind for b in one.pattern[:9]] == [b.kind
+                                                 for b in jamba.pattern]
 
 
 def test_launcher_runs_reduced_on_cpu():

@@ -230,9 +230,11 @@ def test_kernel_module_imports_without_nvcc():
 # tile early.
 FF_TILE = {torch.float32: 16, torch.bfloat16: 32}
 
-# chip_smoke.py's moe-kernel shapes with E cut for the CPU, and the serve
-# path's weight scale (0.02) over unit-variance rows
-CHECK_SHAPES = [(2, 88, 2048, 1024), (4, 24, 256, 256), (2, 16, 128, 128)]
+# chip_smoke.py's moe-kernel shapes with E cut for the CPU (jamba's, the last,
+# also C and d: its ff = 24576 is what the hidden's rounding term grows
+# with), and the serve path's weight scale (0.02) over unit-variance rows
+CHECK_SHAPES = [(2, 88, 2048, 1024), (4, 24, 256, 256), (2, 16, 128, 128),
+                (1, 16, 512, 24576)]
 
 
 def _simulated_kernel(x, w_gate, w_up, w_down, dropped=0):
