@@ -14,7 +14,10 @@ line; any failure raises and the script exits non-zero.
               started at once: wall time and ``-Xptxas -v`` report per kernel
   kernel      the paged-attention kernel against its plain PyTorch version
               at the main path's shapes (qwen1.5-0.5b decode and prefill,
-              one qwen2.5-14b decode), f32 and bf16, with dead pages
+              qwen2.5-14b's and jamba's 40:8 and 64:8 heads of 128 in
+              decode and in a 512-token prefill chunk; the chunks at 8 KV
+              heads fill the card with one split, the others split each
+              row's pages across blocks), f32 and bf16, with dead pages
               NaN-poisoned and one ctx=0 row, within the kernel module's
               TOLERANCE; a copy of the kernel built with a planted fault
               (an off-by-one causal mask) must fail the same check; kernel,
@@ -89,9 +92,10 @@ line; any failure raises and the script exits non-zero.
               profiled rerun
 
 The kernel and moe-kernel phases also hold their kernels at jamba's shapes:
-paged attention decode with 64 query heads over 8 KV heads of 128, and the
-fused MoE (bf16) at E=16, C=88, d=8192, ff=24576, where the planted MoE
-fault drops 32 of the down sum's 24,576 terms and must fail as elsewhere.
+paged attention decode and prefill with 64 query heads over 8 KV heads of
+128, and the fused MoE (bf16) at E=16, C=88, d=8192, ff=24576, where the
+planted MoE fault drops 32 of the down sum's 24,576 terms and must fail as
+elsewhere.
 
 Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.
@@ -134,7 +138,10 @@ MAX_NEW = 16
 NEAR_TIE = 1e-3
 # the device functions of the port's kernels (csrc/*.cu), as the profiler
 # names them
-PORT_KERNELS = ("::paged_attention_kernel<", "::paged_attention_mma_kernel<",
+PORT_KERNELS = ("::paged_attention_decode_kernel<",
+                "::paged_attention_f32_prefill_kernel<",
+                "::paged_attention_wgmma_kernel<",
+                "::paged_attention_combine_kernel<",
                 "::grouped_gemm_kernel<", "::wkv6_kernel<",
                 "::mamba_scan_kernel<")
 
@@ -198,9 +205,10 @@ PLANTED = "paged_attention_planted"
 def planted_source(build) -> str:
     """The kernel's source with one planted fault: the causal mask
     ``kpos <= qpos`` becomes ``kpos < qpos``, so every row loses its own
-    key, on the CUDA-core and the tensor-core path alike."""
+    key, on every path alike: the decode on the CUDA cores and on the tensor
+    cores, the f32 prefill and the wgmma prefill (one mask each)."""
     text = (build.CSRC / "paged_attention.cu").read_text()
-    if text.count("kpos <= qp[") != 3:
+    if text.count("kpos <= qp[") != 4:
         raise AssertionError("planted fault: the kernel's causal mask is no "
                              "longer where chip_smoke.py looks for it")
     return text.replace("kpos <= qp[", "kpos < qp[")
@@ -359,6 +367,9 @@ def phase_kernel(pa, planted_src: str) -> list:
         ("qwen2.5-14b decode", 32, 1, 40, 8, 128, 16, 128, decode_ctx,
          (2, 5)),
         ("jamba decode", 32, 1, 64, 8, 128, 16, 128, decode_ctx, (6, 7)),
+        ("jamba prefill", 1, 512, 64, 8, 128, 16, 128, [2000], (8, 9)),
+        ("qwen2.5-14b prefill", 1, 512, 40, 8, 128, 16, 128, [2000],
+         (10, 11)),
     ]
     results = []
     for d_idx, dtype in enumerate((torch.float32, torch.bfloat16)):

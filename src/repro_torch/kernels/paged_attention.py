@@ -4,13 +4,23 @@
 ``sm_90a``, built at first use by `kernels.build`, bound with ctypes).  It
 replaces ``repro/kernels/paged_attention.py::paged_flash_attention``, the
 Pallas TPU kernel; the source's header says what bounds it on an H100 and
-what the design does about that.
+what the design does about that.  A launch splits the KV pages of a row
+across blocks where the rows alone do not fill the card, and merges the
+splits' f32 partials in a second kernel: the wrapper asks the library's
+entry point ``paged_attention_workspace_bytes`` how much f32 workspace the
+launch needs (computed from shapes alone) and allocates it with
+`torch.empty`.
 
 `paged_flash_attention_ref` is the plain PyTorch version, mirroring
 ``repro/kernels/ref.py::paged_flash_attention_ref``: gather every table page,
 masked softmax in f32.  The CPU path uses it; on the card only the checks
 call it.  One difference: like the JAX oracle it gives rows with ctx == 0 the
 mean of V, where the kernel writes zeros; compare only ctx > 0 rows.
+
+`paged_flash_attention_partials_ref` and `merge_partials_ref` are the plain
+versions of the split arithmetic: the partials (o, m, l) of a range of table
+pages, and their merge, as the JAX package's ``flash_attention_blocks`` and
+``merge_flash_partials`` compute them.  Only the tests call them.
 """
 
 from __future__ import annotations
@@ -100,14 +110,17 @@ def _check(q, kv_pages, block_tables, context_lens, q_positions) -> None:
                          "aligned")
 
 
-def _entry_point(lib: ctypes.CDLL):
-    """The C entry point ``paged_attention_launch`` of a built library."""
-    fn = lib.paged_attention_launch
+def _entry_points(lib: ctypes.CDLL):
+    """The C entry points ``paged_attention_launch`` and
+    ``paged_attention_workspace_bytes`` of a built library."""
+    fn, ws = lib.paged_attention_launch, lib.paged_attention_workspace_bytes
     if fn.argtypes is None:
         ptr = ctypes.c_void_p
-        fn.argtypes = [ptr] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float, ptr]
+        fn.argtypes = [ptr] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
-    return fn
+        ws.argtypes = [ctypes.c_int] * 8
+        ws.restype = ctypes.c_longlong
+    return fn, ws
 
 
 def launch(library: str, q, kv_pages, block_tables, context_lens,
@@ -120,16 +133,23 @@ def launch(library: str, q, kv_pages, block_tables, context_lens,
     from repro_torch.kernels import build
 
     _check(q, kv_pages, block_tables, context_lens, q_positions)
-    fn = _entry_point(build.load(library, source))
+    fn, workspace_bytes = _entry_points(build.load(library, source))
     S, TQ, H, D = q.shape
     _, page, _, KH, _ = kv_pages.shape
+    shape = (S, TQ, H, KH, D, page, block_tables.shape[1], _DTYPES[q.dtype])
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
+        nbytes = workspace_bytes(*shape)
+        if nbytes < 0:
+            raise ValueError(f"paged_attention_workspace_bytes refuses the "
+                             f"shapes {shape}")
+        work = (torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+                if nbytes else None)
         err = fn(q.data_ptr(), kv_pages.data_ptr(), block_tables.data_ptr(),
                  context_lens.data_ptr(), q_positions.data_ptr(),
-                 out.data_ptr(), S, TQ, H, KH, D, page,
-                 block_tables.shape[1], _DTYPES[q.dtype], D ** -0.5, stream)
+                 out.data_ptr(), work.data_ptr() if nbytes else None,
+                 *shape, D ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"paged_attention_launch failed: CUDA error {err}")
     return out
@@ -176,3 +196,64 @@ def paged_flash_attention_ref(
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("sqhgk,skhd->sqhgd", p, v)
     return out.reshape(S, TQ, H, D).to(q.dtype)
+
+
+def paged_flash_attention_partials_ref(
+    q: torch.Tensor,             # [S, TQ, H, D]
+    kv_pages: torch.Tensor,      # [P, page, 2, KH, D]
+    block_tables: torch.Tensor,  # [S, B]
+    context_lens: torch.Tensor,  # [S]
+    q_positions: torch.Tensor,   # [S, TQ]
+    page_lo: int,
+    page_hi: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of one split: the flash partials of table pages
+    [page_lo, page_hi), as the kernel's blocks write them.  Returns the
+    unnormalised o [S, TQ, H, D], the running max m and the sum l
+    [S, TQ, H], all f32 (computed in f64, so that the tests hold the JAX
+    partials to a reference whose own rounding does not count).  A row that
+    attends no key of the range gets o = 0, m = NEG_INF, l = 0, and
+    contributes nothing to a merge."""
+    S, TQ, H, D = q.shape
+    _, page, _, KH, _ = kv_pages.shape
+    G = H // KH
+    n = page_hi - page_lo
+    if n <= 0:
+        zeros = torch.zeros(S, TQ, H, device=q.device)
+        return (torch.zeros(S, TQ, H, D, device=q.device),
+                torch.full_like(zeros, NEG_INF), zeros)
+    kv = kv_pages[block_tables[:, page_lo:page_hi]].reshape(
+        S, n * page, 2, KH, D).double()
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    kpos = page_lo * page + torch.arange(n * page, device=q.device)
+    mask = ((kpos[None, None, :] < context_lens[:, None, None])
+            & (kpos[None, None, :] <= q_positions[:, :, None]))
+    mask = mask[:, :, None, None, :]                    # [S, TQ, 1, 1, keys]
+    qf = q.double().reshape(S, TQ, KH, G, D)
+    scores = torch.einsum("sqhgd,skhd->sqhgk", qf, k) * (D ** -0.5)
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    m = scores.amax(dim=-1)
+    p = torch.where(mask, torch.exp(scores - m[..., None]),
+                    torch.zeros_like(scores))
+    o = torch.einsum("sqhgk,skhd->sqhgd", p, v)
+    return (o.reshape(S, TQ, H, D).float(), m.reshape(S, TQ, H).float(),
+            p.sum(dim=-1).reshape(S, TQ, H).float())
+
+
+def merge_partials_ref(parts) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Merge the (o, m, l) partials of disjoint page ranges, as the
+    kernel's combine does: the common max, each split scaled by
+    exp(m_i - m)."""
+    ms = torch.stack([m for _, m, _ in parts])
+    m = ms.amax(dim=0)
+    alphas = torch.exp(ms - m)
+    o = sum(po * a[..., None] for (po, _, _), a in zip(parts, alphas))
+    l = sum(pl * a for (_, _, pl), a in zip(parts, alphas))
+    return o, m, l
+
+
+def finalize_partials_ref(o: torch.Tensor, l: torch.Tensor,
+                          dtype: torch.dtype) -> torch.Tensor:
+    """The output of merged partials in `dtype`: o / l, zeros where l = 0."""
+    return (o / l.clamp_min(1e-20)[..., None]).to(dtype)

@@ -9,10 +9,13 @@ Tolerance: the kernel module's ``TOLERANCE`` (f32 2e-5; bf16 one output
 ulp, 2**-7 * |want|, plus twice the bound of P's rounding to bf16,
 2**-8 * sum p|v| / l).  Dead pages are
 NaN-poisoned and, where there are several sequences, the last has
-ctx == 0, whose rows the kernel writes as exact zeros.  The kernel picks its launch geometry from the
-TQ * H/KH rows of one (sequence, KV head): the shapes cross each of its
-boundaries (8 and 16 rows, 64-row tensor-core tiles) so every tiling is
-held to the plain version.
+ctx == 0, whose rows the kernel writes as exact zeros.  The kernel picks its
+path from the TQ * H/KH rows of one (sequence, KV head): decode up to 16
+rows (held in registers as 1, 8 or 16), else the f32 or the bf16 (wgmma)
+prefill in 64-row tiles; the shapes cross each boundary (1, 8, 9, 16 and
+17 rows, 64-row tiles) so every path is held to the plain version.  The last shapes leave the card short of row
+tiles, so the kernel splits each row's pages across blocks and merges the
+splits' partials; their contexts spread over the whole table.
 """
 
 import numpy as np
@@ -37,6 +40,15 @@ SHAPES = [
     (2, 4, 16, 4, 128, 16, 8),     # 16 rows: the last split-page tile
     (2, 17, 4, 4, 64, 16, 8),      # 17 rows: one row group per warp
     (1, 65, 8, 8, 64, 16, 8),      # 65 rows: a 64-row tensor-core tile + 1
+    # shapes whose rows do not fill the card: the KV pages of a row are
+    # split across blocks and the splits' partials merged
+    (128, 1, 16, 16, 64, 16, 128),  # decode, contexts from 1 to 2,048
+    (64, 1, 64, 8, 128, 16, 128),   # decode at jamba's heads, 64:8 (G=8)
+    (32, 1, 40, 8, 128, 8, 256),    # decode at qwen2.5-14b's heads, page 8
+    (1, 512, 16, 16, 64, 16, 128),  # a qwen1.5-0.5b prefill chunk
+    (1, 256, 64, 8, 128, 16, 64),   # prefill at 64:8, D=128
+    (1, 300, 8, 8, 128, 8, 256),    # prefill, page 8, deep tables
+    (2, 96, 40, 8, 128, 16, 32),    # prefill at 40:8, ragged row tiles
 ]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
