@@ -32,10 +32,16 @@ line; any failure raises and the script exits non-zero.
               activity only) for the device's busy time
   moe-kernel  the fused-MoE kernel against its plain version at
               olmoe-1b-7b's serve shapes (E=64, C=88, d=2048, ff=1024), a
-              ragged C=24 and a small shape, f32 and bf16, within
-              moe_gemm.TOLERANCE; a copy whose ff loop stops one tile early
-              must fail the same check; kernel, plain and library (the
-              torch.bmm gate/up/silu-mul/down sequence) times and the bound
+              ragged C=24, a small shape and a decode tick (C=88 with ~4
+              live rows per expert from a seed, 2 experts empty, the rows
+              past `counts` NaN, which must come out as exact zeros), f32
+              and bf16, within moe_gemm.TOLERANCE; a copy whose down loop
+              over ff stops one tile early must fail the same check at
+              every row, and a copy that drops split TF32's two cross
+              products (single TF32) at the small f32 row; kernel, plain
+              and library (the torch.bmm gate/up/silu-mul/down sequence)
+              times, the bound (counts-aware), and for bf16 the device gap
+              between the call's two launches
   serve-olmoe-f32   full-width olmoe-1b-7b cut to 4 of 16 layers, dropless
               capacity, 4 requests: greedy tokens equal the port's dense
               reference (its expert FFN on the plain version) up to a
@@ -93,9 +99,9 @@ line; any failure raises and the script exits non-zero.
 
 The kernel and moe-kernel phases also hold their kernels at jamba's shapes:
 paged attention decode and prefill with 64 query heads over 8 KV heads of
-128, and the fused MoE (bf16) at E=16, C=88, d=8192, ff=24576, where the
-planted MoE fault drops 32 of the down sum's 24,576 terms and must fail as
-elsewhere.
+128, and the fused MoE (bf16) at E=16, C=88, d=8192, ff=24576, full and as
+a decode tick, where the planted MoE fault drops 64 of the down sum's
+24,576 terms and must fail as elsewhere.
 
 Then a ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.
@@ -118,6 +124,7 @@ ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, data sheet
 PEAK_FLOPS = {"float32": 67e12,           # f32 outside the tensor cores
+              "tfloat32": 495e12,         # TF32 tensor cores, dense
               "bfloat16": 989e12}         # bf16 tensor cores, dense
 # special-function units (exp2, the core of expf): 16 results per SM and
 # clock (CUDA C Programming Guide, throughput table, compute capability
@@ -142,7 +149,7 @@ PORT_KERNELS = ("::paged_attention_decode_kernel<",
                 "::paged_attention_f32_prefill_kernel<",
                 "::paged_attention_wgmma_kernel<",
                 "::paged_attention_combine_kernel<",
-                "::grouped_gemm_kernel<", "::wkv6_kernel<",
+                "::moe_wgmma_kernel<", "::moe_f32_kernel<", "::wkv6_kernel<",
                 "::mamba_scan_kernel<")
 
 
@@ -220,12 +227,29 @@ MOE_MARK = "const int ff_tiles = ff / bk;"
 
 def moe_planted_source(build) -> str:
     """The MoE kernel's source with one planted fault: the down
-    projection's depth loop, which walks ff, stops one tile early."""
+    projection's depth loop, which walks ff, stops one tile early (64 terms
+    in bf16, 32 in f32)."""
     text = (build.CSRC / "moe_ffn.cu").read_text()
     if text.count(MOE_MARK) != 1:
         raise AssertionError("planted fault: the MoE kernel's ff loop bound "
                              "is no longer where chip_smoke.py looks for it")
     return text.replace(MOE_MARK, "const int ff_tiles = ff / bk - 1;")
+
+
+MOE_TF32_PLANTED = "moe_ffn_planted_tf32"
+MOE_TF32_MARK = ("  mma_tf32(c, a_lo, b_hi);\n"
+                 "  mma_tf32(c, a_hi, b_lo);\n")
+
+
+def moe_tf32_planted_source(build) -> str:
+    """The MoE kernel's source with split TF32's two cross products left
+    out: every f32 product is one TF32 product, hi(a) * hi(b)."""
+    text = (build.CSRC / "moe_ffn.cu").read_text()
+    if text.count(MOE_TF32_MARK) != 1:
+        raise AssertionError("planted fault: the MoE kernel's split-TF32 "
+                             "products are no longer where chip_smoke.py "
+                             "looks for them")
+    return text.replace(MOE_TF32_MARK, "")
 
 
 RWKV_PLANTED = "rwkv6_scan_planted"
@@ -570,42 +594,68 @@ def phase_serve_bf16(pa, build_engine) -> dict:
 
 # ------------------------------------------------------------ MoE phases
 
-def _moe_case(E, C, d, ff, dtype, seed):
+def _moe_case(E, C, d, ff, dtype, seed, top_k=0):
     """Unit-variance rows (the normed hidden) and the serve path's weight
-    scale (0.02), on the card."""
+    scale (0.02), on the card.  With `top_k`, a decode tick: counts [E]
+    int32 drawn as 32 decode rows x top_k routed uniformly over the experts
+    (~4 a expert at olmoe's and jamba's top-k), two experts empty, and the
+    rows past counts NaN; the counts are appended to the arguments."""
     g = torch.Generator(device=DEV).manual_seed(seed)
     x = torch.randn(E, C, d, generator=g, device=DEV).to(dtype)
     ws = [(torch.randn(*s, generator=g, device=DEV) * 0.02).to(dtype)
           for s in ((E, d, ff), (E, d, ff), (E, ff, d))]
-    return [x] + ws
+    if not top_k:
+        return [x] + ws
+    rng = np.random.default_rng(seed)
+    counts = rng.multinomial(32 * top_k, np.full(E, 1.0 / E))
+    counts[rng.choice(E, 2, replace=False)] = 0
+    counts = torch.from_numpy(np.minimum(counts, C).astype(np.int32)).to(DEV)
+    dead = torch.arange(C, device=DEV)[None, :] >= counts[:, None].long()
+    x[dead] = float("nan")
+    return [x] + ws + [counts]
 
 
-def _moe_bound(x, w_gate, w_up, w_down):
-    """Least time the card could take: every input read once and the
-    output written once at the HBM rate, against 6*E*C*d*ff flops (every
-    row of these inputs is live) at the dtype's peak."""
+def _moe_bound(x, w_gate, w_up, w_down, counts=None):
+    """Least time the card could take: the weights of the experts that hold
+    any row read once, x read and out written for the live rows only, at the
+    HBM rate, against 6 * (live rows) * d * ff flops at the peak of the
+    operations the kernel does (bf16: the tensor cores; f32: three TF32
+    tensor-core products per product, split TF32).  Without counts every
+    row is live."""
     E, C, d = x.shape
     ff = w_gate.shape[2]
     elt = x.element_size()
-    nbytes = (2 * x.numel() + w_gate.numel() + w_up.numel()
-              + w_down.numel()) * elt
-    flops = 6 * E * C * d * ff
-    dt = str(x.dtype).split(".")[-1]
+    if counts is None:
+        rows, experts = E * C, E
+    else:
+        rows, experts = int(counts.sum()), int((counts > 0).sum())
+    nbytes = (2 * rows * d + experts * 3 * d * ff) * elt
+    flops = 6 * rows * d * ff
+    if x.dtype == torch.float32:
+        t_ops = 3 * flops / PEAK_FLOPS["tfloat32"] * 1e3
+    else:
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dt] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), nbytes, flops
 
 
-def _moe_library_fn(x, w_gate, w_up, w_down):
+def _moe_library_fn(x, w_gate, w_up, w_down, counts=None):
     """The batched-GEMM sequence of the JAX package's non-kernel path
     (models/moe.py: gate and up products, silu * mul, down product) as
-    torch.bmm calls in x's dtype; never called by the port."""
+    torch.bmm calls in x's dtype, rows past counts masked to zero; never
+    called by the port."""
     import torch.nn.functional as F
+
+    live = None
+    if counts is not None:
+        live = (torch.arange(x.shape[1], device=x.device)[None, :]
+                < counts[:, None])[..., None]
 
     def run():
         h = F.silu(torch.bmm(x, w_gate)) * torch.bmm(x, w_up)
-        return torch.bmm(h, w_down)
+        out = torch.bmm(h, w_down)
+        return out if live is None else torch.where(live, out, 0.0)
     return run
 
 
@@ -619,35 +669,87 @@ def _moe_excess(mg, out, args, experts: int = 4):
     return max(p[0] for p in parts), max(p[1] for p in parts)
 
 
-def phase_moe_kernel(mg, planted_src: str) -> list:
+def _device_spans(fn, calls: int) -> list:
+    """(start_us, end_us, name, grid) of every device activity, in order,
+    of `calls` calls of `fn` after one warm call: the exported trace of a
+    torch.profiler run that records the card only."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    return sorted((e["ts"], e["ts"] + e["dur"], e.get("name", ""),
+                   e.get("args", {}).get("grid"))
+                  for e in events if e.get("ph") == "X")
+
+
+def _launch_gap_us(fn, calls: int = 3):
+    """Device time from the end of the gate/up launch to the start of the
+    down launch of a call of `fn`, the least over `calls` calls (None if
+    the trace names no such pair)."""
+    spans = [(a, b, "<true>" in name)
+             for a, b, name, _ in _device_spans(fn, calls)
+             if "moe_wgmma_kernel<" in name]
+    gaps = [n[0] - p[1] for p, n in zip(spans, spans[1:]) if p[2] and not n[2]]
+    return min(gaps) if gaps else None
+
+
+def phase_moe_kernel(mg, planted_src: str, tf32_src: str) -> list:
     shapes = [
-        # name, E, C, d, ff
-        ("olmoe serve", 64, 88, 2048, 1024),
-        ("olmoe ragged C", 64, 24, 2048, 1024),
-        ("small", 8, 16, 256, 256),
+        # name, E, C, d, ff, top_k of a decode tick (0: every row live)
+        ("olmoe serve", 64, 88, 2048, 1024, 0),
+        ("olmoe ragged C", 64, 24, 2048, 1024, 0),
+        ("small", 8, 16, 256, 256, 0),
+        ("olmoe decode tick", 64, 88, 2048, 1024, 8),
         # bf16 only: 19.3 GB of weights (38.7 GB in f32).  The planted
-        # fault drops one ff tile, 32 of the down sum's 24,576 terms
-        ("jamba serve", 16, 88, 8192, 24576),
+        # fault drops one ff tile, 64 of the down sum's 24,576 terms
+        ("jamba serve", 16, 88, 8192, 24576, 0),
+        ("jamba decode tick", 16, 88, 8192, 24576, 2),
     ]
     results = []
     for dtype in (torch.float32, torch.bfloat16):
         rtol, htol, acc = mg.TOLERANCE[dtype]
-        for name, E, C, d, ff in shapes:
-            if E * d * ff > 1 << 30 and dtype != torch.bfloat16:
+        f32 = dtype == torch.float32
+        for name, E, C, d, ff, top_k in shapes:
+            if E * d * ff > 1 << 30 and f32:
                 continue
-            args = _moe_case(E, C, d, ff, dtype, seed=100 + len(results))
+            args = _moe_case(E, C, d, ff, dtype, seed=100 + len(results),
+                             top_k=top_k)
             out = mg.fused_moe_ffn(*args)
             planted = mg.launch(MOE_PLANTED, *args, source=planted_src)
             torch.cuda.synchronize()
             excess, err = _moe_excess(mg, out, args)
             planted_excess, _ = _moe_excess(mg, planted, args)
+            del planted
             finite = bool(torch.isfinite(out).all())
             row = {"phase": "moe-kernel", "shape": name,
                    "dtype": str(dtype).split(".")[-1], "E": E, "C": C,
                    "d": d, "ff": ff, "max_abs_err": err, "rtol": rtol,
                    "htol": htol, "acc": acc, "excess": excess,
                    "planted_excess": planted_excess, "finite": finite}
-            if not (excess <= 1.0 and finite):
+            if top_k:
+                counts = args[4]
+                live = (torch.arange(C, device=DEV)[None, :]
+                        < counts[:, None])
+                row["counts"] = counts.tolist()
+                row["dead_rows_zero"] = bool((out[~live] == 0).all())
+                finite = bool(torch.isfinite(out[live]).all())
+                row["finite"] = finite and row["dead_rows_zero"]
+            if f32:
+                single = mg.launch(MOE_TF32_PLANTED, *args, source=tf32_src)
+                torch.cuda.synchronize()
+                row["planted_tf32_excess"] = _moe_excess(mg, single, args)[0]
+                del single
+            if not (excess <= 1.0 and row["finite"]):
                 emit(row)
                 raise AssertionError(f"MoE kernel disagrees with its plain "
                                      f"version at {name} {dtype}: {row}")
@@ -656,6 +758,10 @@ def phase_moe_kernel(mg, planted_src: str) -> list:
                 raise AssertionError(f"the check passes an MoE kernel whose "
                                      f"ff loop stops one tile early at "
                                      f"{name} {dtype}: {row}")
+            if f32 and name == "small" and not row["planted_tf32_excess"] > 1:
+                emit(row)
+                raise AssertionError(f"the check passes an MoE kernel on "
+                                     f"single TF32 at {name}: {row}")
             row["kernel_ms"] = time_ms(lambda: mg.fused_moe_ffn(*args), 20)
             row["plain_ms"] = time_ms(
                 lambda: mg.fused_moe_ffn_ref(*args), 3, warmup=1)
@@ -664,9 +770,12 @@ def phase_moe_kernel(mg, planted_src: str) -> list:
                               "torch.bmm down (a sequence of calls)")
             (row["bound_ms"], row["bound_by"], row["bytes"],
              row["flops"]) = _moe_bound(*args)
+            if not f32:
+                row["launch_gap_us"] = _launch_gap_us(
+                    lambda: mg.fused_moe_ffn(*args))
             emit(row)
             results.append(row)
-            del args, out, planted
+            del args, out
             torch.cuda.empty_cache()
     return results
 
@@ -1221,13 +1330,15 @@ def main() -> int:
     device = phase_device()
     planted = {PLANTED: planted_source(build),
                MOE_PLANTED: moe_planted_source(build),
+               MOE_TF32_PLANTED: moe_tf32_planted_source(build),
                RWKV_PLANTED: rwkv_planted_source(build),
                MAMBA_PLANTED: mamba_planted_source(build)}
     phase_build(build, planted)
     shapes = phase_kernel(pa, planted[PLANTED])
     phase_serve_f32(pa, build_engine, greedy_trace)
     bf16 = phase_serve_bf16(pa, build_engine)
-    moe_shapes = phase_moe_kernel(mg, planted[MOE_PLANTED])
+    moe_shapes = phase_moe_kernel(mg, planted[MOE_PLANTED],
+                                  planted[MOE_TF32_PLANTED])
     phase_serve_olmoe_f32(pa, mg, greedy_trace)
     olmoe = phase_serve_olmoe_bf16(pa, mg, build_engine)
     rwkv_shapes = phase_rwkv_kernel(wkv, planted[RWKV_PLANTED])

@@ -9,13 +9,19 @@ MoE layer: per expert e over its capacity-padded rows,
     out[e] = (silu(x[e] @ w_gate[e]) * (x[e] @ w_up[e])) @ w_down[e]
 
 with f32 accumulation and the hidden rounded to x's dtype before the down
-projection, as the Pallas kernel does.  The source's header says what bounds
-it on an H100 and what the design does about that.
+projection, as the Pallas kernel does.  `counts` (int32 [E], optional) says
+how many rows each expert holds: rows ``c >= counts[e]`` come out as exact
+zeros whatever x holds there, and the kernel spends no load or product on
+them.  The Pallas kernel computes the same function on the serve path,
+where those rows of x are zeros.  bf16 runs on wgmma with TMA, f32 in split
+TF32 on the tensor cores (three TF32 products per f32 product, never one);
+the source's header says what bounds it on an H100 and what the design does
+about that.
 
 `fused_moe_ffn_ref` is the plain PyTorch version, mirroring
 ``repro/kernels/ref.py::fused_moe_ffn_ref``: f32 einsums, cast at the end
-(the hidden is not rounded).  The CPU path uses it; on the card only the
-checks call it.
+(the hidden is not rounded), rows past `counts` masked to zero.  The CPU
+path uses it; on the card only the checks call it.
 """
 
 from __future__ import annotations
@@ -55,7 +61,10 @@ _SILU_SLOPE = 1.1
 # in every check's random weights), so their sum over f is bounded by lam
 # times its root-square scale (Hoeffding), not by the sum of |e_f w_down[f]|
 # that grows linearly in ff: that gives hs2 with the g and u sums' own
-# sqrt(d) * u.  bf16 adds: each version rounds its f32 result to bf16 (one
+# sqrt(d) * u.  Split TF32 (the f32 kernel) keeps each product to ~2**-22
+# of itself, inside this; one TF32 product (2**-11) is not, where d and ff
+# are small (tests/test_torch_moe.py simulates both).  bf16 adds: each
+# version rounds its f32 result to bf16 (one
 # ulp apart at most, <= 2**-7 * |want|), and the kernel rounds the hidden to
 # bf16 before the down projection (|error| <= 2**-8 * |h| for each f,
 # carried into out as above: lam * 2**-8 * h2).  Held linearly, as
@@ -73,13 +82,22 @@ def _parts(x, w_gate, w_up):
     return u, F.silu(g)
 
 
-def excess(out: torch.Tensor, x, w_gate, w_up, w_down
+def _live(x: torch.Tensor, counts: Optional[torch.Tensor]) -> torch.Tensor:
+    """[E, C, 1] bool: row c of expert e is live (c < counts[e])."""
+    rows = torch.arange(x.shape[1], device=x.device)
+    return (rows[None, :] < counts.to(x.device)[:, None])[..., None]
+
+
+def excess(out: torch.Tensor, x, w_gate, w_up, w_down, counts=None
            ) -> Tuple[float, float]:
     """(excess, max_abs_err) of the kernel's `out` against the plain version
     on the same inputs: excess is the largest |out - want| over its bound in
-    `TOLERANCE`, at most 1 when the two agree."""
+    `TOLERANCE`, at most 1 when the two agree.  Rows past `counts` are held
+    to exact zeros (their x is read as 0, so want and bound are 0)."""
     rtol, htol, acc = TOLERANCE[out.dtype]
     d, ff = w_gate.shape[1], w_gate.shape[2]
+    if counts is not None:
+        x = torch.where(_live(x, counts), x, x.new_zeros(()))
     u, s = _parts(x, w_gate, w_up)
     wd, h = w_down.float(), s * u
     want = torch.einsum("ecf,efd->ecd", h, wd).to(x.dtype).float()
@@ -100,7 +118,7 @@ def excess(out: torch.Tensor, x, w_gate, w_up, w_down
     return float(ratio.max()), float(err.max())
 
 
-def _check(x, w_gate, w_up, w_down) -> None:
+def _check(x, w_gate, w_up, w_down, counts) -> None:
     tensors = (x, w_gate, w_up, w_down)
     if not all(t.is_cuda and t.device == x.device for t in tensors):
         raise ValueError("fused_moe_ffn: every input must lie on the same "
@@ -128,6 +146,12 @@ def _check(x, w_gate, w_up, w_down) -> None:
                          f"{_MULTIPLE}")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("fused_moe_ffn: inputs must be 16-byte aligned")
+    if counts is not None and (
+            counts.device != x.device or counts.dtype != torch.int32
+            or tuple(counts.shape) != (E,) or not counts.is_contiguous()):
+        raise ValueError(f"fused_moe_ffn: counts must be a contiguous int32 "
+                         f"[{E}] tensor on {x.device}, got {counts.dtype} "
+                         f"{tuple(counts.shape)} on {counts.device}")
 
 
 def _entry_point(lib: ctypes.CDLL):
@@ -135,12 +159,12 @@ def _entry_point(lib: ctypes.CDLL):
     fn = lib.moe_ffn_launch
     if fn.argtypes is None:
         ptr = ctypes.c_void_p
-        fn.argtypes = [ptr] * 6 + [ctypes.c_int] * 5 + [ptr]
+        fn.argtypes = [ptr] * 7 + [ctypes.c_int] * 5 + [ptr]
         fn.restype = ctypes.c_int
     return fn
 
 
-def launch(library: str, x, w_gate, w_up, w_down,
+def launch(library: str, x, w_gate, w_up, w_down, counts=None,
            source: Optional[str] = None) -> torch.Tensor:
     """Check the inputs, then launch the entry point of kernel library
     `library` (built at first use from ``csrc/<library>.cu``, or from the
@@ -149,7 +173,7 @@ def launch(library: str, x, w_gate, w_up, w_down,
     `fused_moe_ffn` is the counted path."""
     from repro_torch.kernels import build
 
-    _check(x, w_gate, w_up, w_down)
+    _check(x, w_gate, w_up, w_down, counts)
     fn = _entry_point(build.load(library, source))
     E, C, d = x.shape
     ff = w_gate.shape[2]
@@ -158,7 +182,9 @@ def launch(library: str, x, w_gate, w_up, w_down,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
-                 w_down.data_ptr(), hidden.data_ptr(), out.data_ptr(),
+                 w_down.data_ptr(),
+                 None if counts is None else counts.data_ptr(),
+                 hidden.data_ptr(), out.data_ptr(),
                  E, C, d, ff, _DTYPES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"moe_ffn_launch failed: CUDA error {err}")
@@ -170,18 +196,22 @@ def fused_moe_ffn(
     w_gate: torch.Tensor,    # [E, d, ff]
     w_up: torch.Tensor,      # [E, d, ff]
     w_down: torch.Tensor,    # [E, ff, d]
+    counts: Optional[torch.Tensor] = None,   # [E] int32: live rows
 ) -> torch.Tensor:
     """Launch the Hopper kernel; raises on anything it does not take."""
     global launches
-    out = launch("moe_ffn", x, w_gate, w_up, w_down)
+    out = launch("moe_ffn", x, w_gate, w_up, w_down, counts)
     launches += 1
     return out
 
 
 def fused_moe_ffn_ref(x: torch.Tensor, w_gate: torch.Tensor,
-                      w_up: torch.Tensor, w_down: torch.Tensor
-                      ) -> torch.Tensor:
-    """Plain version: f32 einsums, cast to x's dtype at the end."""
+                      w_up: torch.Tensor, w_down: torch.Tensor,
+                      counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version: f32 einsums, cast to x's dtype at the end; rows past
+    `counts` masked to zero (the others are the full computation's)."""
     u, s = _parts(x, w_gate, w_up)
-    out = torch.einsum("ecf,efd->ecd", s * u, w_down.float())
-    return out.to(x.dtype)
+    out = torch.einsum("ecf,efd->ecd", s * u, w_down.float()).to(x.dtype)
+    if counts is None:
+        return out
+    return torch.where(_live(x, counts), out, out.new_zeros(()))

@@ -4,6 +4,8 @@ no fallback: a CUDA input that the kernel refuses raises."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import mamba_scan as s6
@@ -24,11 +26,13 @@ def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
 
 
 def fused_moe_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-                  w_down: torch.Tensor) -> torch.Tensor:
-    """Grouped-expert SwiGLU over capacity-padded buffers x [E, C, d]."""
+                  w_down: torch.Tensor,
+                  counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Grouped-expert SwiGLU over capacity-padded buffers x [E, C, d]; rows
+    at or past counts[e] (int32 [E], optional) come out as zeros."""
     if x.is_cuda:
-        return moe_gemm.fused_moe_ffn(x, w_gate, w_up, w_down)
-    return moe_gemm.fused_moe_ffn_ref(x, w_gate, w_up, w_down)
+        return moe_gemm.fused_moe_ffn(x, w_gate, w_up, w_down, counts)
+    return moe_gemm.fused_moe_ffn_ref(x, w_gate, w_up, w_down, counts)
 
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

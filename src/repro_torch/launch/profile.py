@@ -4,9 +4,12 @@ and the device's busy and idle share of the profiled window.
 
     PYTHONPATH=src python -m repro_torch.launch.profile --requests 16
 
-Full width and depth in bf16 on the card by default; ``--reduced --device
-cpu`` runs the same code on the CPU (host activity only, no device rows).
-A first, unprofiled batch warms the kernels and the allocator.
+Full width and depth in bf16 on the card by default; ``--cut`` serves the
+first layer of each named block kind, as in ``launch/serve.py`` (the jamba
+cut: ``--arch jamba-1.5-large-398b --cut mamba_mlp,mamba_moe,attn_moe``);
+``--reduced --device cpu`` runs the same code on the CPU (host activity
+only, no device rows).  A first, unprofiled batch warms the kernels and the
+allocator.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core import SamplingParams
-from repro_torch.launch.serve import build_engine
+from repro_torch.launch.serve import add_cut_argument, build_engine, parse_cut
 
 
 def _serve(eng, rng, n: int, max_new: int) -> None:
@@ -64,10 +67,11 @@ def main() -> None:
     ap.add_argument("--device", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=12)
+    add_cut_argument(ap)
     args = ap.parse_args()
 
     eng = build_engine(args.arch, reduced=args.reduced, device=args.device,
-                       seed=args.seed)
+                       cut=parse_cut(args.cut), seed=args.seed)
     rng = np.random.default_rng(args.seed)
     _serve(eng, rng, max(2, args.requests // 4), args.max_new)   # warm-up
     ticks0 = eng.stats.ticks
@@ -83,6 +87,7 @@ def main() -> None:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[: args.top]
     print(json.dumps({
         "arch": eng.cfg.name, "device": str(eng.device),
+        "kinds": [b.kind.value for b in eng.cfg.pattern],
         "dtype": eng.cfg.dtype, "requests": args.requests, "ticks": ticks,
         "wall_ms": wall_us / 1e3, "ms_per_tick": wall_us / 1e3 / ticks,
         "device_busy_ms": busy_us / 1e3,

@@ -103,6 +103,18 @@ def build_engine(arch: str = "qwen1.5-0.5b", *, reduced: bool = False,
                           dtype=dtype, seed=seed)
 
 
+def add_cut_argument(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--cut", default=None,
+                    help="comma-separated block kinds (e.g. "
+                    "mamba_mlp,mamba_moe,attn_moe): serve the first layer "
+                    "of each")
+
+
+def parse_cut(text: Optional[str]) -> Optional[list]:
+    """`--cut`'s block kinds, or None to serve every layer."""
+    return [BlockKind(k) for k in text.split(",")] if text else None
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen1.5-0.5b")
@@ -114,18 +126,13 @@ def main() -> None:
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--dtype", default=None, choices=["float32", "bfloat16"])
-    ap.add_argument("--cut", default=None,
-                    help="comma-separated block kinds (e.g. "
-                    "mamba_mlp,mamba_moe,attn_moe): serve the first layer "
-                    "of each")
+    add_cut_argument(ap)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
     dtype = getattr(torch, args.dtype) if args.dtype else None
-    cut = ([BlockKind(k) for k in args.cut.split(",")] if args.cut
-           else None)
     eng = build_engine(args.arch, reduced=args.reduced, device=args.device,
-                       dtype=dtype, cut=cut, seed=args.seed)
+                       dtype=dtype, cut=parse_cut(args.cut), seed=args.seed)
     cfg = eng.cfg
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()

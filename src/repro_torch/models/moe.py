@@ -10,9 +10,11 @@ stable and the group starts come from a left `searchsorted`.
 JAX's ``.at[...].set(mode="drop")`` silently drops out-of-range writes (the
 sentinel expert ``E`` of padding rows, positions past capacity); torch
 indexing would raise or wrap, so dropped assignments are sent to one extra
-dump row of the buffer, which is cut off.  Nothing here reads a device value
-on the host (no ``.item()``, ``nonzero`` or boolean-mask indexing): the
-capacity is a host function of the padded row count.  The combine is a sum
+dump row of the buffer, which is cut off.  The rows each buffer holds go to
+the expert kernel as a device tensor, so that it skips the empty ones.
+Nothing here reads a device value on the host (no ``.item()``, ``nonzero``
+or boolean-mask indexing): the capacity is a host function of the padded
+row count.  The combine is a sum
 over each row's top_k slots, which is deterministic where a CUDA
 ``index_add_`` is not.
 """
@@ -61,14 +63,18 @@ def _group_rows(values: torch.Tensor, group_ids: torch.Tensor,
     """Sort rows by group and scatter into [num_groups, capacity, ...]
     buffers.
 
-    Returns (buffers, order, slot_group, slot_pos); rows beyond capacity
-    drop.  `group_ids` >= num_groups mark invalid rows (never stored)."""
+    Returns (buffers, order, slot_group, slot_pos, counts); rows beyond
+    capacity drop, and counts [num_groups] int32 is the rows each buffer
+    holds, min(rows routed to the group, capacity).  `group_ids` >=
+    num_groups mark invalid rows (never stored)."""
     n = group_ids.shape[0]
     dev = group_ids.device
     order = torch.argsort(group_ids, stable=True)
     sg = group_ids[order]
+    # left edges of the groups, and of the invalid rows after them
     starts = torch.searchsorted(
-        sg, torch.arange(num_groups, device=dev, dtype=sg.dtype))
+        sg, torch.arange(num_groups + 1, device=dev, dtype=sg.dtype))
+    counts = torch.clamp(starts[1:] - starts[:-1], max=capacity)
     pos = (torch.arange(n, device=dev)
            - starts[torch.clamp(sg, max=num_groups - 1)])
     pos = torch.where(sg < num_groups, pos, capacity)    # invalid -> dropped
@@ -77,7 +83,7 @@ def _group_rows(values: torch.Tensor, group_ids: torch.Tensor,
     buf = values.new_zeros((dump + 1,) + values.shape[1:])
     buf[slot] = values[order]          # dropped rows all land on the dump row
     buf = buf[:dump].view((num_groups, capacity) + values.shape[1:])
-    return buf, order, sg, pos
+    return buf, order, sg, pos, counts.to(torch.int32)
 
 
 def _ungroup_rows(buffers: torch.Tensor, order: torch.Tensor,
@@ -96,13 +102,15 @@ def _ungroup_rows(buffers: torch.Tensor, order: torch.Tensor,
 
 
 def expert_ffn(xb: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-               w_down: torch.Tensor) -> torch.Tensor:
+               w_down: torch.Tensor,
+               counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Grouped SwiGLU over padded per-expert buffers, every shape through
     `ops.fused_moe_ffn`: the Hopper kernel for CUDA tensors (which raises on
     a shape it does not take), the plain version on the CPU.
 
-    xb [E, C, d]; weights [E, d, ff] / [E, ff, d]."""
-    return ops.fused_moe_ffn(xb, w_gate, w_up, w_down)
+    xb [E, C, d]; weights [E, d, ff] / [E, ff, d]; counts [E] int32, the
+    rows each buffer holds (the kernel skips the rest)."""
+    return ops.fused_moe_ffn(xb, w_gate, w_up, w_down, counts)
 
 
 def moe_apply(
@@ -135,8 +143,9 @@ def moe_apply(
     xs = x[src]                                           # [N, d]
 
     cap = capacity(T, top_k, E, capacity_factor)
-    ebuf, order, sg, pos = _group_rows(xs, flat_e, E, cap)
-    y = expert_ffn(ebuf, params["w_gate"], params["w_up"], params["w_down"])
+    ebuf, order, sg, pos, counts = _group_rows(xs, flat_e, E, cap)
+    y = expert_ffn(ebuf, params["w_gate"], params["w_up"], params["w_down"],
+                   counts)
     ys = _ungroup_rows(y, order, sg, pos)                 # [N, d]
 
     out = (ys.float().view(T, top_k, d) * w[..., None]).sum(dim=1)

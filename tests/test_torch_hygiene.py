@@ -147,3 +147,20 @@ def test_profile_launcher_runs_reduced_on_cpu():
                       if l.startswith("{")][-1])
     assert out["device"] == "cpu" and out["ticks"] > 0
     assert out["device_idle_share"] is None and out["kernels_ms"] == []
+
+
+def test_profile_launcher_profiles_jamba_cut_on_cpu():
+    """launch/profile.py takes --cut as launch/serve.py does: the reduced
+    jamba cut to one layer of each of its three block kinds."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.profile", "--arch",
+         "jamba-1.5-large-398b", "--reduced", "--device", "cpu", "--cut",
+         "mamba_mlp,mamba_moe,attn_moe", "--requests", "2", "--max-new",
+         "2"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    out = json.loads([l for l in res.stdout.splitlines()
+                      if l.startswith("{")][-1])
+    assert out["arch"] == "jamba-1.5-large-398b" and out["ticks"] > 0
+    assert sorted(out["kinds"]) == ["attn_moe", "mamba_mlp", "mamba_moe"]

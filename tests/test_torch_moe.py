@@ -139,13 +139,15 @@ def test_same_rows_drop_as_in_jax(top_k, cf, same_rows):
     xs = x[src]
     jbuf, jorder, jsg, jpos = jmoe._group_rows(
         jnp.asarray(xs), jnp.asarray(flat_e.numpy().astype(np.int32)), E, cap)
-    tbuf, torder, tsg, tpos = moe._group_rows(torch.from_numpy(xs), flat_e,
-                                              E, cap)
+    tbuf, torder, tsg, tpos, tcounts = moe._group_rows(
+        torch.from_numpy(xs), flat_e, E, cap)
     np.testing.assert_array_equal(tbuf.numpy(), np.asarray(jbuf))
     np.testing.assert_array_equal(torder.numpy(), np.asarray(jorder))
     np.testing.assert_array_equal(tpos.numpy(), np.asarray(jpos))
     dropped = tpos.numpy() >= cap
     assert dropped[np.asarray(tsg) < E].any()      # the capacity really bit
+    routed = np.bincount(np.asarray(tsg)[np.asarray(tsg) < E], minlength=E)
+    np.testing.assert_array_equal(tcounts.numpy(), np.minimum(routed, cap))
 
     kw = dict(top_k=top_k, capacity_factor=cf)
     jout, _ = jmoe.moe_apply(jnp.asarray(x), jp, row_valid=jnp.asarray(valid),
@@ -158,6 +160,39 @@ def test_same_rows_drop_as_in_jax(top_k, cf, same_rows):
                                   np.all(jout == 0, axis=-1))
     if same_rows:
         assert np.all(jout == 0, axis=-1).sum() > T // 2
+
+
+@pytest.mark.parametrize("cf", [0.5, 1.25])
+def test_moe_apply_counts_are_routed_rows_capped(cf, monkeypatch):
+    """The expert FFN gets counts[e] = min(rows routed to e, capacity), int32
+    on x's device, and each buffer holds exactly that many rows."""
+    cfg = _reduced("olmoe-1b-7b")
+    rng = np.random.default_rng(9)
+    T, E, k = 64, cfg.num_experts, cfg.num_experts_per_tok
+    x = torch.from_numpy(rng.normal(size=(T, cfg.d_model)).astype(np.float32))
+    valid = torch.from_numpy(rng.random(T) < 0.8)
+    _, tp = _both(_moe_params(cfg, 10))
+    seen = []
+    real = moe.expert_ffn
+
+    def spy(xb, w_gate, w_up, w_down, counts=None):
+        seen.append((xb, counts))
+        return real(xb, w_gate, w_up, w_down, counts)
+
+    monkeypatch.setattr(moe, "expert_ffn", spy)
+    moe.moe_apply(x, tp, top_k=k, capacity_factor=cf, row_valid=valid)
+    (xb, counts), = seen
+    _, idx, _ = moe.route(x, tp["router"], k)
+    routed = np.bincount(idx[valid].reshape(-1).numpy(), minlength=E)
+    cap = moe.capacity(T, k, E, cf)
+    assert counts.dtype == torch.int32 and counts.device == x.device
+    np.testing.assert_array_equal(counts.numpy(), np.minimum(routed, cap))
+    if cf < 1:
+        assert (routed > cap).any()                # the capacity really bit
+    held = xb.abs().sum(dim=-1) > 0                # [E, cap] rows in use
+    np.testing.assert_array_equal(held.sum(dim=1).numpy(), counts.numpy())
+    rows = torch.arange(cap)[None, :]
+    assert not held[rows >= counts[:, None].long()].any()
 
 
 def test_moe_apply_refuses_expert_parallelism():
@@ -194,6 +229,30 @@ def test_plain_matches_jax_oracle_and_pallas(shape):
     np.testing.assert_allclose(got, want_pallas, atol=ATOL)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_plain_counts_zero_rows_past_counts(dtype):
+    """The counts contract on the plain version: rows past counts[e] hold
+    NaN and come out as exact zeros; the rows below are bit-equal to the
+    computation without counts.  The dispatch passes counts through."""
+    arrs = _ffn_case(4, 24, 64, 128, seed=5)
+    counts = np.array([0, 7, 24, 13])
+    live = np.arange(24)[None, :] < counts[:, None]
+    arrs[0][~live] = np.nan
+    args = [torch.from_numpy(a).to(dtype) for a in arrs]
+    c = torch.from_numpy(counts.astype(np.int32))
+    out = moe_gemm.fused_moe_ffn_ref(*args, c)
+    full = moe_gemm.fused_moe_ffn_ref(*args)
+    live = torch.from_numpy(live)
+    assert torch.all(out[~live] == 0) and torch.isnan(full[~live]).all()
+    assert torch.equal(out[live], full[live])
+    assert torch.equal(ops.fused_moe_ffn(*args, c), out)
+    assert moe_gemm.excess(out, *args, c)[0] == 0.0
+    broken = out.clone()
+    broken[0, 0, 0] = 1.0                  # a row past counts that is not 0
+    assert not moe_gemm.excess(broken, *args, c)[0] <= 1.0
+
+
 def test_ops_cpu_takes_plain_path_without_launching():
     moe_gemm.launches = 0
     args = [torch.from_numpy(a) for a in _ffn_case(2, 24, 64, 128, seed=1)]
@@ -226,9 +285,10 @@ def test_kernel_module_imports_without_nvcc():
 
 
 # The kernel's ff tile: the depth of one step of its down-projection loop
-# (BK of `Tile` in csrc/moe_ffn.cu).  The planted fault stops that loop one
-# tile early.
-FF_TILE = {torch.float32: 16, torch.bfloat16: 32}
+# (`Depth<T>::kStep` in csrc/moe_ffn.cu: kF32BK for f32, one 128-byte
+# swizzled row, kBK, for bf16).  The planted fault stops that loop one tile
+# early.
+FF_TILE = {torch.float32: 32, torch.bfloat16: 64}
 
 # chip_smoke.py's moe-kernel shapes with E cut for the CPU (jamba's, the last,
 # also C and d: its ff = 24576 is what the hidden's rounding term grows
@@ -237,17 +297,38 @@ CHECK_SHAPES = [(2, 88, 2048, 1024), (4, 24, 256, 256), (2, 16, 128, 128),
                 (1, 16, 512, 24576)]
 
 
-def _simulated_kernel(x, w_gate, w_up, w_down, dropped=0):
-    """The kernel's arithmetic in plain PyTorch: f32 sums, the hidden rounded
-    to x's dtype, and optionally the last `dropped` ff rows of the down
-    projection left out (the planted fault)."""
+def _tf32(a):
+    """`a` rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as cvt.rna.tf32.f32 does."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _product(eq, a, b, tf32=None):
+    """einsum `eq` of f32 operands: exact products (None), split TF32
+    (hi.hi + hi.lo + lo.hi, the f32 kernel's), or one TF32 product
+    ("single", the fault split TF32 guards against)."""
+    if tf32 is None:
+        return torch.einsum(eq, a, b)
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if tf32 == "single":
+        return torch.einsum(eq, a_hi, b_hi)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
+            + torch.einsum(eq, a_hi, b_hi))
+
+
+def _simulated_kernel(x, w_gate, w_up, w_down, dropped=0, tf32=None):
+    """The kernel's arithmetic in plain PyTorch: f32 sums (of TF32 products
+    with `tf32`), the hidden rounded to x's dtype, and optionally the last
+    `dropped` ff rows of the down projection left out (the planted fault)."""
     xf = x.float()
-    g = torch.einsum("ecd,edf->ecf", xf, w_gate.float())
-    u = torch.einsum("ecd,edf->ecf", xf, w_up.float())
+    g = _product("ecd,edf->ecf", xf, w_gate.float(), tf32)
+    u = _product("ecd,edf->ecf", xf, w_up.float(), tf32)
     h = (torch.nn.functional.silu(g) * u).to(x.dtype).float()
     keep = h.shape[-1] - dropped
-    out = torch.einsum("ecf,efd->ecd", h[..., :keep],
-                       w_down.float()[:, :keep])
+    out = _product("ecf,efd->ecd", h[..., :keep], w_down.float()[:, :keep],
+                   tf32)
     return out.to(x.dtype)
 
 
@@ -259,10 +340,31 @@ def test_tolerance_admits_kernel_arithmetic_and_rejects_dropped_ff_tile(
         shape, dtype):
     arrs = _ffn_case(*shape, seed=sum(shape), w_scale=0.02, x_scale=1.0)
     args = [torch.from_numpy(a).to(dtype) for a in arrs]
-    faithful = _simulated_kernel(*args)
-    planted = _simulated_kernel(*args, dropped=FF_TILE[dtype])
+    tf32 = "split" if dtype == torch.float32 else None
+    faithful = _simulated_kernel(*args, tf32=tf32)
+    planted = _simulated_kernel(*args, dropped=FF_TILE[dtype], tf32=tf32)
     assert moe_gemm.excess(faithful, *args)[0] <= 1.0
     assert moe_gemm.excess(planted, *args)[0] > 1.0
+
+
+# Where one TF32 product per f32 product must fail the f32 check: the small
+# shapes (at olmoe's and jamba's depths its error is inside the bound, so
+# only these rows tell split TF32 from single TF32; chip_smoke.py's planted
+# single-TF32 copy is required to fail at its "small" row)
+SINGLE_TF32_CAUGHT = {(4, 24, 256, 256), (2, 16, 128, 128)}
+
+
+@pytest.mark.parametrize("shape", CHECK_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tolerance_admits_split_tf32_and_rejects_single_tf32(shape):
+    arrs = _ffn_case(*shape, seed=sum(shape), w_scale=0.02, x_scale=1.0)
+    args = [torch.from_numpy(a) for a in arrs]
+    split = _simulated_kernel(*args, tf32="split")
+    assert moe_gemm.excess(split, *args)[0] <= 1.0
+    single = moe_gemm.excess(_simulated_kernel(*args, tf32="single"),
+                             *args)[0]
+    if shape in SINGLE_TF32_CAUGHT:
+        assert single > 1.0
 
 
 @pytest.mark.parametrize("shape", CHECK_SHAPES,

@@ -9,8 +9,13 @@ Tolerance: the kernel module's ``TOLERANCE`` (f32: summation order, from the
 plain version on absolute values; bf16 adds one output ulp and twice the
 bound of the hidden's rounding to bf16).  The shapes are chip_smoke.py's
 (olmoe-1b-7b's serve shapes, a ragged C=24, a small one) plus ones that
-cross the kernel's tile edges: 128-row tiles in bf16 and 64-row tiles in
-f32, 64/128-column tiles, the smallest d and ff it takes, and one expert.
+cross the kernel's tiles: token tiles of 96 rows (bf16) and 64 (f32) and
+their edges, products 16 to 96 tokens wide, C not a multiple of 8, column
+tiles of 128 ff / 256 d columns (bf16, in clusters of two, so an odd count
+leaves a block of a cluster without columns) and 64 ff / 128 d (f32), the
+smallest d and ff it takes, one expert, and kimi-k2's widths (d=7168,
+ff=2048) at small E.  The `counts` cases hold rows past each expert's count
+at NaN, which must come out as exact zeros.
 """
 
 import numpy as np
@@ -24,25 +29,36 @@ SHAPES = [
     (8, 24, 2048, 1024),       # ragged C
     (2, 16, 128, 128),         # small
     (1, 1, 128, 128),          # one row, one expert
-    (3, 63, 256, 384),         # f32 row tile - 1
-    (3, 65, 384, 256),         # f32 row tile + 1
-    (2, 128, 256, 256),        # one full bf16 row tile
-    (2, 129, 256, 128),        # bf16 row tile + 1
-    (2, 300, 512, 640),        # several row tiles of both
+    (3, 63, 256, 384),         # f32 token tile - 1; 3 gate/up column tiles
+    (3, 65, 384, 256),         # f32 token tile + 1; d = 1.5 down tiles
+    (2, 95, 384, 640),         # bf16 token tile - 1; 5 gate/up column tiles
+    (2, 96, 256, 256),         # one full bf16 token tile
+    (2, 97, 256, 128),         # bf16 token tile + 1
+    (2, 129, 256, 128),        # two f32 tiles + 1, a bf16 tile + 33
+    (3, 13, 256, 256),         # C not a multiple of 8
+    (2, 300, 512, 640),        # several token tiles of both
+    (2, 88, 7168, 2048),       # kimi-k2-1t-a32b's widths
 ]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _case(E, C, d, ff, seed, device, dtype):
+def _case(E, C, d, ff, seed, device, dtype, counts=None):
     """Unit-variance rows and the serve path's weight scale (0.02); the
-    last row of every expert is an empty capacity slot (zeros)."""
+    last row of every expert is an empty capacity slot (zeros).  With
+    `counts`, the rows past each expert's count are NaN instead, and the
+    counts tensor (int32, on the device) is appended."""
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(E, C, d)).astype(np.float32)
-    if C > 1:
+    if counts is not None:
+        x[np.arange(C)[None, :] >= np.asarray(counts)[:, None]] = np.nan
+    elif C > 1:
         x[:, -1] = 0.0
     ws = [rng.normal(size=s).astype(np.float32) * 0.02
           for s in ((E, d, ff), (E, d, ff), (E, ff, d))]
-    return [torch.from_numpy(a).to(device, dtype) for a in [x] + ws]
+    out = [torch.from_numpy(a).to(device, dtype) for a in [x] + ws]
+    if counts is not None:
+        out.append(torch.tensor(counts, dtype=torch.int32, device=device))
+    return out
 
 
 @pytest.fixture
@@ -68,6 +84,40 @@ def test_kernel_matches_plain_on_card(cuda_device, shape, dtype):
         assert torch.all(out[:, -1] == 0)          # empty slots stay zero
 
 
+# (E, C, d, ff, counts): empty, partial and full experts; a token tile
+# edge; C=1096 (the f32 serve's dropless capacity at olmoe) with 17 live
+# rows; decode ticks with a few live rows per expert
+COUNT_CASES = [
+    (4, 88, 256, 384, [0, 5, 88, 40]),
+    (3, 200, 256, 256, [96, 97, 0]),
+    (3, 1096, 256, 256, [17, 0, 17]),
+    (6, 88, 512, 1024, [4, 3, 0, 6, 1, 4]),
+    (2, 64, 128, 128, [0, 0]),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", COUNT_CASES,
+                         ids=lambda c: "x".join(map(str, c[:4])) + "-"
+                         + ".".join(map(str, c[4])))
+def test_kernel_counts_skip_rows_on_card(cuda_device, case, dtype):
+    """Rows past counts[e] hold NaN and come out as exact zeros; the rows
+    below agree with the plain version (which masks the same rows)."""
+    *shape, counts = case
+    args = _case(*shape, seed=sum(shape), device=cuda_device,
+                 dtype=DTYPES[dtype], counts=counts)
+    out = moe_gemm.fused_moe_ffn(*args)
+    torch.cuda.synchronize()
+    rows = torch.arange(shape[1], device=cuda_device)
+    live = rows[None, :] < args[4][:, None]
+    assert torch.all(out[~live] == 0)
+    excess, err = moe_gemm.excess(out, *args)
+    assert excess <= 1.0, f"max abs err {err}"
+    want = moe_gemm.fused_moe_ffn_ref(*args)
+    assert torch.isfinite(want.float()).all()
+
+
 @pytest.mark.gpu
 def test_ops_sends_cuda_tensors_to_the_kernel(cuda_device):
     args = _case(2, 24, 128, 128, seed=1, device=cuda_device,
@@ -84,6 +134,9 @@ def test_ops_sends_cuda_tensors_to_the_kernel(cuda_device):
     with pytest.raises(ValueError):                 # not contiguous
         ops.fused_moe_ffn(x, wg.transpose(1, 2).contiguous().transpose(1, 2),
                           wu, wd)
+    with pytest.raises(ValueError):                 # counts not int32 [E]
+        ops.fused_moe_ffn(x, wg, wu, wd,
+                          torch.ones(2, dtype=torch.int64, device=x.device))
     assert moe_gemm.launches == 1
 
 
