@@ -10,8 +10,9 @@ in the checkout and drives the port end to end.  Each phase prints one JSON
 line; any failure raises and the script exits non-zero.
 
   device      card name and count, ``nvidia-smi`` name and power limit
-  build       the four kernels and their planted-fault copies, every nvcc
-              started at once: wall time and ``-Xptxas -v`` report per kernel
+  build       the four kernels, their planted-fault copies and the scans'
+              recurrent-only variants, every nvcc started at once: wall
+              time and ``-Xptxas -v`` report per kernel
   kernel      the paged-attention kernel against its plain PyTorch version
               at the main path's shapes (qwen1.5-0.5b decode and prefill,
               qwen2.5-14b's and jamba's 40:8 and 64:8 heads of 128 in
@@ -55,13 +56,21 @@ line; any failure raises and the script exits non-zero.
   rwkv-kernel the WKV6 kernel against its plain version at rwkv6-3b's
               serve shapes (32 decode rows over a pool of 64 slots; one
               512-token prefill chunk with 300 live tokens and a carried
-              state) and a small ragged one, f32 and bf16 inputs, with a
-              data-dependent decay, NaN-poisoned pool slots (fresh rows' and
-              unowned ones, which must come out bit-identical) and padding
-              rows on a live row's slot, within rwkv6_scan.TOLERANCE; a copy
-              that reads S_t in place of S_{t-1} must fail the same check;
-              kernel and plain times and the bound (no single library call
-              computes this function)
+              state), a small ragged one and the prefill chunk again with
+              decays over the serve clamp's whole range (exact 0 and 1
+              among them), f32 and bf16 inputs, with a data-dependent decay,
+              NaN-poisoned pool slots (fresh rows' and unowned ones, which
+              must come out bit-identical) and padding rows on a live row's
+              slot, within rwkv6_scan.TOLERANCE, zeros past each row's
+              length.  Decode runs the recurrent form, T > 1 the chunked
+              one; a copy with a planted fault in the form that serves the
+              row must fail the same check (recurrent: o_t reads S_t in
+              place of S_{t-1}; chunked: the entering state's decay taken
+              inclusive of w_t), and at the small f32 row a copy whose
+              chunked products are single TF32.  Kernel time beside the
+              recurrent-only form's (`recurrent_ms`, a variant built with
+              T > 1 sent to the recurrent kernel), plain time and the bound
+              (no single library call computes this function)
   serve-rwkv-f32  full-width rwkv6-3b cut to 4 of 32 layers, two waves of
               4 requests on one engine (the second wave reuses the first's
               state slots): greedy tokens equal the port's dense reference
@@ -74,14 +83,19 @@ line; any failure raises and the script exits non-zero.
   mamba-kernel  the Mamba selective-scan kernel against its plain version
               at jamba-1.5-large-398b's serve shapes (di=16384, ds=16: 32
               decode rows over a pool of 64 slots, 28 live; one 512-token
-              prefill chunk with 300 live tokens and a carried state) and a
-              small ragged one, f32 and bf16 x, step sizes from 1e-3 to 3,
-              NaN-poisoned pool slots (fresh rows' and unowned ones, which
-              must come out bit-identical) and padding rows on a live row's
-              slot, within mamba_scan.TOLERANCE; a copy that reads h_{t-1}
-              in place of h_t for y_t must fail the same check; kernel and
-              plain times and the bound (no single library call computes
-              the selective scan)
+              prefill chunk with 300 live tokens and a carried state), a
+              small ragged one and the prefill chunk again with step sizes
+              up to 100 (exp(dt A) exactly 0 on many channels), f32 and
+              bf16 x, step sizes from 1e-3 to 3, NaN-poisoned pool slots
+              (fresh rows' and unowned ones, which must come out
+              bit-identical) and padding rows on a live row's slot, within
+              mamba_scan.TOLERANCE, zeros past each row's length.  Decode
+              runs the recurrent form, T > 1 the segmented one; a copy with
+              a planted fault in the form that serves the row must fail the
+              same check (recurrent: y_t reads h_{t-1}; segmented: the
+              carry applied one token late).  Kernel time beside the
+              recurrent-only form's (`recurrent_ms`), plain time and the bound
+              (no single library call computes the selective scan)
   serve-jamba-f32  full-width jamba-1.5-large-398b cut to its first
               MAMBA_MLP and ATTN_MOE layers (47.7 GB in f32), dropless, two
               waves of 4 requests on one engine (the second wave reuses the
@@ -150,7 +164,9 @@ PORT_KERNELS = ("::paged_attention_decode_kernel<",
                 "::paged_attention_wgmma_kernel<",
                 "::paged_attention_combine_kernel<",
                 "::moe_wgmma_kernel<", "::moe_f32_kernel<", "::wkv6_kernel<",
-                "::mamba_scan_kernel<")
+                "::wkv6_chunk_state_kernel<", "::wkv6_chunk_scan_kernel(",
+                "::wkv6_chunk_out_kernel<", "::mamba_scan_kernel<",
+                "::mamba_segment_kernel<")
 
 
 T0 = time.perf_counter()
@@ -270,6 +286,53 @@ def rwkv_planted_source(build) -> str:
     return text.replace(RWKV_READ + RWKV_STEP, RWKV_STEP + RWKV_READ)
 
 
+RWKV_CHUNK_PLANTED = "rwkv6_scan_planted_chunked"
+RWKV_PREFIX = ("      sr[t][tid] = __fmul_rn(sr[t][tid], a);\n"
+               "      a = __fmul_rn(a, sw[t][tid]);\n")
+
+
+def rwkv_chunk_planted_source(build) -> str:
+    """The WKV kernel's source with one planted fault in its chunked form:
+    the decay that carries the chunk's entering state to token t is taken
+    inclusive of w_t (a_t = prod_{m<=t} w_m in place of prod_{m<t})."""
+    text = (build.CSRC / "rwkv6_scan.cu").read_text()
+    if text.count(RWKV_PREFIX) != 1:
+        raise AssertionError("planted fault: the WKV kernel's prefix decay is "
+                             "no longer where chip_smoke.py looks for it")
+    lines = RWKV_PREFIX.splitlines(keepends=True)
+    return text.replace(RWKV_PREFIX, lines[1] + lines[0])
+
+
+RWKV_TF32_PLANTED = "rwkv6_scan_planted_tf32"
+
+
+def rwkv_tf32_planted_source(build) -> str:
+    """The WKV kernel's source with split TF32's two cross products left
+    out of its chunked form: every product is one TF32 product."""
+    text = (build.CSRC / "rwkv6_scan.cu").read_text()
+    if text.count(MOE_TF32_MARK) != 1:
+        raise AssertionError("planted fault: the WKV kernel's split-TF32 "
+                             "products are no longer where chip_smoke.py "
+                             "looks for them")
+    return text.replace(MOE_TF32_MARK, "")
+
+
+# The recurrent-only form at every shape: the dispatch sends T > 1 to the
+# recurrent kernel too (a built variant for the before/after times, not a
+# knob of the port).
+RWKV_RECURRENT = "rwkv6_scan_recurrent"
+RWKV_DISPATCH = "bool chunked(int T) {\n  return T > 1;\n}"
+
+
+def rwkv_recurrent_source(build) -> str:
+    text = (build.CSRC / "rwkv6_scan.cu").read_text()
+    if text.count(RWKV_DISPATCH) != 1:
+        raise AssertionError("the WKV kernel's dispatch is no longer where "
+                             "chip_smoke.py looks for it")
+    return text.replace(RWKV_DISPATCH,
+                        "bool chunked(int T) {\n  return false;\n}")
+
+
 MAMBA_PLANTED = "mamba_scan_planted"
 MAMBA_STEP = "        h[i] = fmaf(dA, h[i], __fmul_rn(dtx, sm.b[t][s]));\n"
 MAMBA_READ = "        y = fmaf(sm.c[t][s], h[i], y);\n"
@@ -285,6 +348,37 @@ def mamba_planted_source(build) -> str:
                              "read-out are no longer where chip_smoke.py "
                              "looks for them")
     return text.replace(MAMBA_STEP + MAMBA_READ, MAMBA_READ + MAMBA_STEP)
+
+
+MAMBA_SEG_PLANTED = "mamba_scan_planted_segmented"
+MAMBA_CARRY = ("      p[i] = __fmul_rn(p[i], dA);\n"
+               "      qv[u][i] = __fmul_rn(cc[i], p[i]);\n")
+
+
+def mamba_seg_planted_source(build) -> str:
+    """The Mamba kernel's source with one planted fault in its segmented
+    form: the carry reaches token t with the decay up to t - 1 (q_t = C_t
+    P_{t-1}), so it is applied one token late."""
+    text = (build.CSRC / "mamba_scan.cu").read_text()
+    if text.count(MAMBA_CARRY) != 1:
+        raise AssertionError("planted fault: the Mamba kernel's carry decay "
+                             "is no longer where chip_smoke.py looks for it")
+    lines = MAMBA_CARRY.splitlines(keepends=True)
+    return text.replace(MAMBA_CARRY, lines[1] + lines[0])
+
+
+MAMBA_RECURRENT = "mamba_scan_recurrent"
+MAMBA_DISPATCH = "bool segmented(int T) {\n  return T > 1;\n}"
+
+
+def mamba_recurrent_source(build) -> str:
+    """The recurrent-only form at every shape (see RWKV_RECURRENT)."""
+    text = (build.CSRC / "mamba_scan.cu").read_text()
+    if text.count(MAMBA_DISPATCH) != 1:
+        raise AssertionError("the Mamba kernel's dispatch is no longer where "
+                             "chip_smoke.py looks for it")
+    return text.replace(MAMBA_DISPATCH,
+                        "bool segmented(int T) {\n  return false;\n}")
 
 
 def _ptxas(log: str) -> list:
@@ -890,18 +984,24 @@ def phase_serve_olmoe_bf16(pa, mg, build_engine) -> dict:
 
 # ----------------------------------------------------------- RWKV phases
 
-def _rwkv_case(S, T, H, lens, fresh, n_slots, dtype, seed):
+RWKV_DECAY = (-6.0, 3.0)      # log w = -exp(U(lo, hi)): ~2e-9 to ~0.998
+RWKV_STRONG = (-20.0, 10.0)   # the serve clamp's whole range: exact 0 and
+                              # exact 1 among them
+
+
+def _rwkv_case(S, T, H, lens, fresh, n_slots, dtype, seed, decay=RWKV_DECAY):
     """Unit-normal r, k, v in `dtype`, u uniform in [0, 1), decay
-    w = exp(-exp(U(-6, 3))) (from ~2e-9 to ~0.998), on the card.  Live rows
-    hold distinct slots, and where there are padding rows (lens 0) they sit
-    on slot 0, which a live row holds.  The pool is NaN except the slots of
-    the live rows that carry a state."""
+    w = exp(-exp(U(*decay))), on the card.  Live rows hold distinct slots,
+    and where there are padding rows (lens 0) they sit on slot 0, which a
+    live row holds.  The pool is NaN except the slots of the live rows that
+    carry a state."""
     g = torch.Generator(device=DEV).manual_seed(seed)
     D = 64
+    lo, hi = decay
     r, k, v = (torch.randn(S, T, H, D, generator=g, device=DEV).to(dtype)
                for _ in range(3))
     w = torch.exp(-torch.exp(torch.rand(S, T, H, D, generator=g, device=DEV)
-                             * 9.0 - 6.0))
+                             * (hi - lo) + lo))
     u = torch.rand(H, D, generator=g, device=DEV)
     rng = np.random.default_rng(seed)
     live = [s for s in range(S) if lens[s] > 0]
@@ -943,47 +1043,79 @@ def _rwkv_bound(r, lens, fresh):
                                  else "operations"), nbytes, flops
 
 
-def phase_rwkv_kernel(wkv, planted_src: str) -> list:
+def phase_rwkv_kernel(wkv, planted: dict) -> list:
+    """Each row runs the kernel (decode on its recurrent form, T > 1 on its
+    chunked form), the planted copy of the path that serves it, for f32
+    rows at T > 1 also the single-TF32 copy, and the recurrent-only form
+    (`RWKV_RECURRENT`) for `recurrent_ms`."""
     shapes = [
-        # name, S, T, H, lens, fresh, slots in the pool
-        ("rwkv6-3b decode", 32, 1, 40, [1] * 28 + [0] * 4, [0] * 32, 64),
-        ("rwkv6-3b prefill", 1, 512, 40, [300], [0], 64),
-        ("small ragged", 3, 70, 2, [70, 33, 0], [1, 0, 0], 4),
+        # name, S, T, H, lens, fresh, slots in the pool, decay
+        ("rwkv6-3b decode", 32, 1, 40, [1] * 28 + [0] * 4, [0] * 32, 64,
+         RWKV_DECAY),
+        ("rwkv6-3b prefill", 1, 512, 40, [300], [0], 64, RWKV_DECAY),
+        ("small ragged", 3, 70, 2, [70, 33, 0], [1, 0, 0], 4, RWKV_DECAY),
+        ("strong decay prefill", 1, 512, 40, [300], [0], 64, RWKV_STRONG),
     ]
     results = []
     for dtype in (torch.float32, torch.bfloat16):
-        for name, S, T, H, lens, fresh, n in shapes:
+        f32 = dtype == torch.float32
+        for name, S, T, H, lens, fresh, n, decay in shapes:
             args = _rwkv_case(S, T, H, lens, fresh, n, dtype,
-                              seed=200 + len(results))
+                              seed=200 + len(results), decay=decay)
             before = args[5]
             rows = args[6:]
-            kstate, pstate = before.clone(), before.clone()
+
+            def run(library):
+                state = before.clone()
+                out = wkv.launch(library, *args[:5], state, *rows,
+                                 source=planted[library])
+                torch.cuda.synchronize()
+                return wkv.excess(out, state, *args[:5], before, *rows)[0]
+
+            kstate = before.clone()
             out = wkv.rwkv6_chunked_scan(*args[:5], kstate, *rows)
-            planted = wkv.launch(RWKV_PLANTED, *args[:5], pstate, *rows,
-                                 source=planted_src)
             torch.cuda.synchronize()
             excess, err = wkv.excess(out, kstate, *args[:5], before, *rows)
-            planted_excess, _ = wkv.excess(planted, pstate, *args[:5],
-                                           before, *rows)
+            path = "recurrent" if T == 1 else "chunked"
+            planted_excess = run(RWKV_PLANTED if T == 1
+                                 else RWKV_CHUNK_PLANTED)
             finite = bool(torch.isfinite(out).all())
+            zeros = all(not out[s, L:].any() for s, L in enumerate(lens))
             row = {"phase": "rwkv-kernel", "shape": name,
                    "dtype": str(dtype).split(".")[-1], "S": S, "T": T,
                    "H": H, "D": 64, "live_rows": sum(1 for x in lens if x),
                    "live_tokens": sum(lens), "fresh_rows": sum(fresh),
-                   "slots": n, "max_abs_err": err,
-                   "acc": wkv.TOLERANCE[dtype], "excess": excess,
-                   "planted_excess": planted_excess, "finite": finite}
-            if not (excess <= 1.0 and finite):
+                   "slots": n, "log_w": [-float(np.exp(decay[1])),
+                                         -float(np.exp(decay[0]))],
+                   "w_zero": int((args[3] == 0).sum()),
+                   "w_one": int((args[3] == 1).sum()), "path": path,
+                   "max_abs_err": err, "acc": wkv.TOLERANCE[dtype],
+                   "excess": excess, "planted_excess": planted_excess,
+                   "finite": finite, "zeros_past_lens": zeros}
+            if T > 1:
+                row["recurrent_excess"] = run(RWKV_RECURRENT)
+                if f32:
+                    row["planted_tf32_excess"] = run(RWKV_TF32_PLANTED)
+            if not (excess <= 1.0 and finite and zeros):
                 emit(row)
                 raise AssertionError(f"WKV kernel disagrees with its plain "
                                      f"version at {name} {dtype}: {row}")
             if not planted_excess > 1.0:
                 emit(row)
-                raise AssertionError(f"the check passes a WKV kernel that "
-                                     f"reads S_t for o_t at {name} {dtype}: "
-                                     f"{row}")
+                raise AssertionError(f"the check passes a WKV kernel with a "
+                                     f"planted fault in its {path} form at "
+                                     f"{name} {dtype}: {row}")
+            if f32 and name == "small ragged" and \
+                    not row["planted_tf32_excess"] > 1.0:
+                emit(row)
+                raise AssertionError(f"the check passes a WKV kernel on "
+                                     f"single TF32 at {name}: {row}")
             row["kernel_ms"] = time_ms(
                 lambda: wkv.rwkv6_chunked_scan(*args[:5], kstate, *rows), 20)
+            row["recurrent_ms"] = time_ms(
+                lambda: wkv.launch(RWKV_RECURRENT, *args[:5], kstate, *rows,
+                                   source=planted[RWKV_RECURRENT]), 20)
+            pstate = before.clone()
             row["plain_ms"] = time_ms(
                 lambda: wkv.rwkv6_scan_ref(*args[:5], pstate, *rows), 3,
                 warmup=1)
@@ -993,7 +1125,7 @@ def phase_rwkv_kernel(wkv, planted_src: str) -> list:
              row["flops"]) = _rwkv_bound(args[0], args[7], args[8])
             emit(row)
             results.append(row)
-            del args, before, kstate, pstate, out, planted
+            del args, before, kstate, pstate, out
             torch.cuda.empty_cache()
     return results
 
@@ -1093,15 +1225,19 @@ def phase_serve_rwkv_bf16(wkv, build_engine) -> dict:
 
 # ---------------------------------------------------------- Mamba phases
 
-def _mamba_case(S, T, di, ds, lens, fresh, n_slots, dtype, seed):
+MAMBA_DT = (1e-3, 3.0)        # decays exp(dt A) from ~1 to ~1e-21
+MAMBA_STRONG = (1e-4, 100.0)  # exp(dt A) exactly 0 on many channels
+
+
+def _mamba_case(S, T, di, ds, lens, fresh, n_slots, dtype, seed,
+                dt_range=MAMBA_DT):
     """Unit-normal x (in `dtype`), B and C; step sizes dt log-uniform in
-    [1e-3, 3] (decays exp(dt A) from ~1 to ~1e-21); A = -exp(log(1..ds) +
-    0.3 N), on the card.  Live rows hold distinct slots, and where there
-    are padding rows (lens 0) they sit on slot 0, which a live row holds.
-    The pool is NaN except the slots of the live rows that carry a
-    state."""
+    `dt_range`; A = -exp(log(1..ds) + 0.3 N), on the card.  Live rows hold
+    distinct slots, and where there are padding rows (lens 0) they sit on
+    slot 0, which a live row holds.  The pool is NaN except the slots of
+    the live rows that carry a state."""
     g = torch.Generator(device=DEV).manual_seed(seed)
-    lo, hi = np.log(1e-3), np.log(3.0)
+    lo, hi = np.log(dt_range)
     dt = torch.exp(torch.rand(S, T, di, generator=g, device=DEV) * (hi - lo)
                    + lo)
     x = torch.randn(S, T, di, generator=g, device=DEV).to(dtype)
@@ -1153,51 +1289,73 @@ def _mamba_bound(x, A, lens, fresh):
                                  else "operations"), nbytes, flops, exps
 
 
-def phase_mamba_kernel(s6, planted_src: str) -> list:
+def phase_mamba_kernel(s6, planted: dict) -> list:
+    """Each row runs the kernel (decode on its recurrent form, T > 1 on its
+    segmented form), the planted copy of the path that serves it, and the
+    recurrent-only form (`MAMBA_RECURRENT`) for `recurrent_ms`."""
     shapes = [
-        # name, S, T, di, ds, lens, fresh, slots in the pool
+        # name, S, T, di, ds, lens, fresh, slots in the pool, dt range
         ("jamba decode", 32, 1, 16384, 16, [1] * 28 + [0] * 4, [0] * 32,
-         64),
-        ("jamba prefill", 1, 512, 16384, 16, [300], [0], 64),
-        ("small ragged", 3, 70, 200, 16, [70, 33, 0], [1, 0, 0], 4),
+         64, MAMBA_DT),
+        ("jamba prefill", 1, 512, 16384, 16, [300], [0], 64, MAMBA_DT),
+        ("small ragged", 3, 70, 200, 16, [70, 33, 0], [1, 0, 0], 4,
+         MAMBA_DT),
+        ("strong decay prefill", 1, 512, 16384, 16, [300], [0], 64,
+         MAMBA_STRONG),
     ]
     results = []
     for dtype in (torch.float32, torch.bfloat16):
-        for name, S, T, di, ds, lens, fresh, n in shapes:
+        for name, S, T, di, ds, lens, fresh, n, dt_range in shapes:
             args = _mamba_case(S, T, di, ds, lens, fresh, n, dtype,
-                               seed=300 + len(results))
+                               seed=300 + len(results), dt_range=dt_range)
             before = args[5]
             rows = args[6:]
-            kstate, pstate = before.clone(), before.clone()
+
+            def run(library):
+                state = before.clone()
+                out = s6.launch(library, *args[:5], state, *rows,
+                                source=planted[library])
+                torch.cuda.synchronize()
+                return s6.excess(out, state, *args[:5], before, *rows)[0]
+
+            kstate = before.clone()
             out = s6.mamba_chunked_scan(*args[:5], kstate, *rows)
-            planted = s6.launch(MAMBA_PLANTED, *args[:5], pstate, *rows,
-                                source=planted_src)
             torch.cuda.synchronize()
             excess, err = s6.excess(out, kstate, *args[:5], before, *rows)
-            planted_excess, _ = s6.excess(planted, pstate, *args[:5],
-                                          before, *rows)
+            path = "recurrent" if T == 1 else "segmented"
+            planted_excess = run(MAMBA_PLANTED if T == 1
+                                 else MAMBA_SEG_PLANTED)
             finite = bool(torch.isfinite(out).all())
             zeros = all(not out[r, L:].any() for r, L in enumerate(lens))
+            dA = torch.exp(args[0][..., None] * args[4])
             row = {"phase": "mamba-kernel", "shape": name,
                    "dtype": str(dtype).split(".")[-1], "S": S, "T": T,
                    "di": di, "ds": ds,
                    "live_rows": sum(1 for L in lens if L),
                    "live_tokens": sum(lens), "fresh_rows": sum(fresh),
-                   "slots": n, "max_abs_err": err,
-                   "acc": s6.TOLERANCE[dtype], "excess": excess,
-                   "planted_excess": planted_excess, "finite": finite,
-                   "zeros_past_lens": zeros}
+                   "slots": n, "dt_range": list(dt_range),
+                   "dA_zero": int((dA == 0).sum()), "path": path,
+                   "max_abs_err": err, "acc": s6.TOLERANCE[dtype],
+                   "excess": excess, "planted_excess": planted_excess,
+                   "finite": finite, "zeros_past_lens": zeros}
+            del dA
+            if T > 1:
+                row["recurrent_excess"] = run(MAMBA_RECURRENT)
             if not (excess <= 1.0 and finite and zeros):
                 emit(row)
                 raise AssertionError(f"Mamba kernel disagrees with its plain "
                                      f"version at {name} {dtype}: {row}")
             if not planted_excess > 1.0:
                 emit(row)
-                raise AssertionError(f"the check passes a Mamba kernel that "
-                                     f"reads h_(t-1) for y_t at {name} "
-                                     f"{dtype}: {row}")
+                raise AssertionError(f"the check passes a Mamba kernel with a "
+                                     f"planted fault in its {path} form at "
+                                     f"{name} {dtype}: {row}")
             row["kernel_ms"] = time_ms(
                 lambda: s6.mamba_chunked_scan(*args[:5], kstate, *rows), 20)
+            row["recurrent_ms"] = time_ms(
+                lambda: s6.launch(MAMBA_RECURRENT, *args[:5], kstate, *rows,
+                                  source=planted[MAMBA_RECURRENT]), 20)
+            pstate = before.clone()
             row["plain_ms"] = time_ms(
                 lambda: s6.mamba_scan_ref(*args[:5], pstate, *rows), 3,
                 warmup=1)
@@ -1208,7 +1366,7 @@ def phase_mamba_kernel(s6, planted_src: str) -> list:
              row["exps"]) = _mamba_bound(args[1], args[4], args[7], args[8])
             emit(row)
             results.append(row)
-            del args, before, kstate, pstate, out, planted
+            del args, before, kstate, pstate, out
             torch.cuda.empty_cache()
     return results
 
@@ -1302,8 +1460,10 @@ def _kernel_entry(name, source, replaces, launches, rows, main_row):
         "library_ms": main_row["library_ms"],
         "shapes": [{k: r[k] for k in ("shape", "dtype", "max_abs_err",
                                       "excess", "planted_excess",
-                                      "kernel_ms", "plain_ms", "library_ms",
-                                      "bound_ms", "bound_by")}
+                                      "planted_tf32_excess", "kernel_ms",
+                                      "recurrent_ms", "plain_ms",
+                                      "library_ms", "bound_ms", "bound_by")
+                    if k in r}
                    for r in rows]}
 
 
@@ -1332,7 +1492,12 @@ def main() -> int:
                MOE_PLANTED: moe_planted_source(build),
                MOE_TF32_PLANTED: moe_tf32_planted_source(build),
                RWKV_PLANTED: rwkv_planted_source(build),
-               MAMBA_PLANTED: mamba_planted_source(build)}
+               RWKV_CHUNK_PLANTED: rwkv_chunk_planted_source(build),
+               RWKV_TF32_PLANTED: rwkv_tf32_planted_source(build),
+               RWKV_RECURRENT: rwkv_recurrent_source(build),
+               MAMBA_PLANTED: mamba_planted_source(build),
+               MAMBA_SEG_PLANTED: mamba_seg_planted_source(build),
+               MAMBA_RECURRENT: mamba_recurrent_source(build)}
     phase_build(build, planted)
     shapes = phase_kernel(pa, planted[PLANTED])
     phase_serve_f32(pa, build_engine, greedy_trace)
@@ -1341,10 +1506,10 @@ def main() -> int:
                                   planted[MOE_TF32_PLANTED])
     phase_serve_olmoe_f32(pa, mg, greedy_trace)
     olmoe = phase_serve_olmoe_bf16(pa, mg, build_engine)
-    rwkv_shapes = phase_rwkv_kernel(wkv, planted[RWKV_PLANTED])
+    rwkv_shapes = phase_rwkv_kernel(wkv, planted)
     phase_serve_rwkv_f32(wkv, greedy_trace)
     rwkv = phase_serve_rwkv_bf16(wkv, build_engine)
-    mamba_shapes = phase_mamba_kernel(s6, planted[MAMBA_PLANTED])
+    mamba_shapes = phase_mamba_kernel(s6, planted)
     phase_serve_jamba_f32(pa, mg, s6, greedy_trace)
     jamba = phase_serve_jamba_bf16(pa, mg, s6, build_engine)
 

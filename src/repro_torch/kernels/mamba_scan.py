@@ -36,6 +36,11 @@ sequential f32 recurrence of ``repro/kernels/ref.py::mamba_scan_ref`` (and
 of the per-token scan in ``repro/models/ssm.py::mamba_mixer``), forming dA
 and dBx a token at a time.  The CPU path uses it; on the card only the
 checks call it.
+
+The kernel runs decode (T == 1) in the recurrent form and T > 1 in a
+segmented form (the source's header gives both).  `mamba_segmented_ref` is
+a plain PyTorch mirror of the segmented form's algebra, with the number of
+segments a parameter; only tests call it.
 """
 
 from __future__ import annotations
@@ -92,6 +97,35 @@ def _scan(dt, x, B, C, A, h0, lens):
     return y, h
 
 
+def _segmented(dt, x, B, C, A, h0, lens, segments):
+    """The segmented form over every row from h0 [S, di, ds]: the T tokens
+    cut into `segments` runs of consecutive tokens, each scanned from a zero
+    state with its decay product P_t (a product of exponentials, in [0, 1];
+    nothing is divided), the carries combined in order and applied as
+    h_t = h_local_t + P_t h_in.  Returns (y [S, T, di], h after each row's
+    last live token)."""
+    S, T, di = dt.shape
+    y = torch.zeros((S, T, di), dtype=torch.float32, device=dt.device)
+    carry = h0
+    size = -(-T // segments)
+    for t0 in range(0, T, size):
+        h = torch.zeros_like(h0)
+        P = torch.ones_like(h0)
+        for t in range(t0, min(t0 + size, T)):
+            live = (t < lens)[:, None, None]
+            dt_t = dt[:, t].float()
+            dA = torch.where(live, torch.exp(dt_t[..., None] * A), 1.0)
+            dBx = torch.where(live, (dt_t * x[:, t].float())[..., None]
+                              * B[:, t, None, :], 0.0)
+            h = dA * h + dBx
+            P = P * dA
+            y_t = (h * C[:, t, None, :]).sum(-1) \
+                + (C[:, t, None, :] * P * carry).sum(-1)
+            y[:, t] = torch.where(live[..., 0], y_t, 0.0)
+        carry = P * carry + h
+    return y, carry
+
+
 def _rows(state, slots, lens, T):
     """(slot index per row clipped into the pool, effective lens, live)."""
     n = state.shape[0]
@@ -119,6 +153,31 @@ def mamba_scan_ref(dt: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
     return y
 
 
+def mamba_segmented_ref(dt: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
+                        C: torch.Tensor, A: torch.Tensor, state: torch.Tensor,
+                        slots: torch.Tensor, lens: torch.Tensor,
+                        fresh: torch.Tensor, segments: int = 4
+                        ) -> torch.Tensor:
+    """`mamba_scan_ref`'s contract computed in the kernel's segmented form,
+    each row's T tokens cut into `segments` segments (the kernel cuts each
+    run of 32 into 4 of 8): a plain mirror of the kernel's algebra for the
+    tests."""
+    T = dt.shape[1]
+    sl, eff, live = _rows(state, slots, lens, T)
+    zero = ((fresh > 0) | ~live)[:, None, None]
+    h0 = state[sl].masked_fill(zero, 0.0)
+    y, hT = _segmented(dt, x, B, C, A, h0, eff, segments)
+    rows = torch.nonzero(live)[:, 0]
+    state[sl[rows]] = hT[rows]
+    return y
+
+
+def _largest(ratio: torch.Tensor) -> float:
+    """The largest ratio, inf where any is NaN (a NaN output or state
+    never passes)."""
+    return math.inf if bool(torch.isnan(ratio).any()) else float(ratio.max())
+
+
 def excess(out: torch.Tensor, state_after: torch.Tensor, dt, x, B, C, A,
            state_before: torch.Tensor, slots, lens, fresh
            ) -> Tuple[float, float]:
@@ -144,7 +203,7 @@ def excess(out: torch.Tensor, state_after: torch.Tensor, dt, x, B, C, A,
         * y_abs
     err_y = (out.float() - want).abs()
     ratio = torch.where(err_y == 0, torch.zeros_like(err_y), err_y / bound_y)
-    worst, max_err = float(ratio.max()), float(err_y.max())
+    worst, max_err = _largest(ratio), float(err_y.max())
 
     rows = torch.nonzero(live)[:, 0]
     if rows.numel():
@@ -152,7 +211,7 @@ def excess(out: torch.Tensor, state_after: torch.Tensor, dt, x, B, C, A,
             * A_abs[rows]
         err_h = (state_after[sl[rows]] - want_state[sl[rows]]).abs()
         rh = torch.where(err_h == 0, torch.zeros_like(err_h), err_h / bound_h)
-        worst = max(worst, float(rh.max()))
+        worst = max(worst, _largest(rh))
         max_err = max(max_err, float(err_h.max()))
     owned = torch.zeros(state_before.shape[0], dtype=torch.bool,
                         device=state_before.device)

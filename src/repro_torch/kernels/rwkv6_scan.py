@@ -29,6 +29,11 @@ bounds the kernel on an H100 and what the design does about that.
 sequential f32 recurrence of ``repro/kernels/ref.py::rwkv6_scan_ref`` (and
 of the per-token scan in ``repro/models/ssm.py::rwkv_time_mix``).  The CPU
 path uses it; on the card only the checks call it.
+
+The kernel runs decode (T == 1) in the recurrent form and T > 1 in a
+chunked, division-free form (the source's header gives both).
+`rwkv6_chunked_ref` is a plain PyTorch mirror of the chunked form's
+algebra, with the chunk length a parameter; only tests call it.
 """
 
 from __future__ import annotations
@@ -84,6 +89,50 @@ def _scan(r, k, v, w, u, S0, lens):
     return o, state
 
 
+def _chunked(r, k, v, w, u, S0, lens, chunk):
+    """The chunked form over every row from S0 [S, H, D, D], in f32 and
+    with products of w over intervals only (each in [0, 1]; nothing is
+    divided): returns (o [S, T, H, D], S after each row's last live
+    token)."""
+    S, T, H, D = r.shape
+    live = (torch.arange(T, device=r.device)[None, :] < lens[:, None])
+    m = live[:, :, None, None]
+    rf, kf, vf = (torch.where(m, x.float(), 0.0) for x in (r, k, v))
+    wf = torch.where(m, w.float(), 1.0)          # dead tokens: no decay
+    uf = u.float()
+    o = torch.zeros((S, T, H, D), dtype=torch.float32, device=r.device)
+    state = S0
+    steps = int(lens.max()) if S else 0
+    for c0 in range(0, steps, chunk):
+        rc, kc, vc, wc = (x[:, c0:c0 + chunk] for x in (rf, kf, vf, wf))
+        n = rc.shape[1]
+        a = torch.ones_like(wc[:, 0])            # prod_{m<t} w_m
+        ra = torch.empty_like(rc)
+        for t in range(n):
+            ra[:, t] = rc[:, t] * a
+            a = a * wc[:, t]
+        b = torch.ones_like(wc[:, 0])            # prod_{m>j} w_m
+        kb = torch.empty_like(kc)
+        for j in reversed(range(n)):
+            kb[:, j] = kc[:, j] * b
+            b = b * wc[:, j]
+        # A[t, j] = sum_i r_ti k_ji prod_{m=j+1}^{t-1} w_mi (j < t), the
+        # bonus r_t . (u (.) k_t) at j = t; P[:, j] runs along t
+        A = torch.zeros((S, H, n, n), dtype=torch.float32, device=r.device)
+        P = torch.ones_like(kc)
+        for t in range(n):
+            A[:, :, t, :t] = torch.einsum("shi,sjhi->shj", rc[:, t],
+                                          kc[:, :t] * P[:, :t])
+            A[:, :, t, t] = (rc[:, t] * uf * kc[:, t]).sum(-1)
+            P[:, :t] = P[:, :t] * wc[:, t:t + 1]
+        oc = (torch.einsum("sthi,shij->sthj", ra, state)
+              + torch.einsum("shtj,sjhd->sthd", A, vc))
+        o[:, c0:c0 + n] = torch.where(m[:, c0:c0 + n], oc, 0.0)
+        state = (a[..., :, None] * state
+                 + torch.einsum("sjhi,sjhd->shid", kb, vc))
+    return o, state
+
+
 def _rows(state, slots, lens, T):
     """(slot index per row clipped into the pool, effective lens, live)."""
     n = state.shape[0]
@@ -111,6 +160,29 @@ def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
+def rwkv6_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      w: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
+                      slots: torch.Tensor, lens: torch.Tensor,
+                      fresh: torch.Tensor, chunk: int = 16) -> torch.Tensor:
+    """`rwkv6_scan_ref`'s contract computed in the kernel's chunked,
+    division-free form, in chunks of `chunk` tokens (the kernel's is 16):
+    a plain mirror of the kernel's algebra for the tests."""
+    T = r.shape[1]
+    sl, eff, live = _rows(state, slots, lens, T)
+    zero = ((fresh > 0) | ~live)[:, None, None, None]
+    S0 = state[sl].masked_fill(zero, 0.0)
+    o, ST = _chunked(r, k, v, w, u, S0, eff, chunk)
+    rows = torch.nonzero(live)[:, 0]
+    state[sl[rows]] = ST[rows]
+    return o
+
+
+def _largest(ratio: torch.Tensor) -> float:
+    """The largest ratio, inf where any is NaN (a NaN output or state
+    never passes)."""
+    return math.inf if bool(torch.isnan(ratio).any()) else float(ratio.max())
+
+
 def excess(out: torch.Tensor, state_after: torch.Tensor, r, k, v, w, u,
            state_before: torch.Tensor, slots, lens, fresh
            ) -> Tuple[float, float]:
@@ -135,7 +207,7 @@ def excess(out: torch.Tensor, state_after: torch.Tensor, r, k, v, w, u,
                      + math.sqrt(D + 3)) * o_abs
     err_o = (out.float() - want).abs()
     ratio = torch.where(err_o == 0, torch.zeros_like(err_o), err_o / bound_o)
-    worst, max_err = float(ratio.max()), float(err_o.max())
+    worst, max_err = _largest(ratio), float(err_o.max())
 
     rows = torch.nonzero(live)[:, 0]
     if rows.numel():
@@ -143,7 +215,7 @@ def excess(out: torch.Tensor, state_after: torch.Tensor, r, k, v, w, u,
             * A[rows]
         err_s = (state_after[sl[rows]] - want_state[sl[rows]]).abs()
         rs = torch.where(err_s == 0, torch.zeros_like(err_s), err_s / bound_s)
-        worst = max(worst, float(rs.max()))
+        worst = max(worst, _largest(rs))
         max_err = max(max_err, float(err_s.max()))
     owned = torch.zeros(state_before.shape[0], dtype=torch.bool,
                         device=state_before.device)
@@ -190,34 +262,46 @@ def _check(r, k, v, w, u, state, slots, lens, fresh) -> None:
                          f"{HEAD_DIM} and S, T, slots >= 1")
 
 
-def _entry_point(lib: ctypes.CDLL):
-    """The C entry point ``rwkv6_scan_launch`` of a built library."""
-    fn = lib.rwkv6_scan_launch
+def _entry_points(lib: ctypes.CDLL):
+    """The C entry points ``rwkv6_scan_launch`` and
+    ``rwkv6_scan_workspace_bytes`` of a built library."""
+    fn, ws = lib.rwkv6_scan_launch, lib.rwkv6_scan_workspace_bytes
     if fn.argtypes is None:
         ptr = ctypes.c_void_p
-        fn.argtypes = [ptr] * 10 + [ctypes.c_int] * 6 + [ptr]
+        fn.argtypes = [ptr] * 11 + [ctypes.c_int] * 6 + [ptr]
         fn.restype = ctypes.c_int
-    return fn
+        ws.argtypes = [ctypes.c_int] * 4
+        ws.restype = ctypes.c_longlong
+    return fn, ws
 
 
 def launch(library: str, r, k, v, w, u, state, slots, lens, fresh,
            source: Optional[str] = None) -> torch.Tensor:
     """Check the inputs, then launch the entry point of kernel library
     `library` (built at first use from ``csrc/<library>.cu``, or from the
-    CUDA text `source`, see `build.load`) on the current stream.  Raises on
-    anything the kernel does not take or on a CUDA error.  Counts nothing:
-    `rwkv6_chunked_scan` is the counted path."""
+    CUDA text `source`, see `build.load`) on the current stream, with the
+    workspace that ``rwkv6_scan_workspace_bytes`` asks for (the chunked
+    form's chunk states; none for T == 1).  Raises on anything the kernel
+    does not take or on a CUDA error.  Counts nothing: `rwkv6_chunked_scan`
+    is the counted path."""
     from repro_torch.kernels import build
 
     _check(r, k, v, w, u, state, slots, lens, fresh)
-    fn = _entry_point(build.load(library, source))
+    fn, workspace_bytes = _entry_points(build.load(library, source))
     S, T, H, D = r.shape
     out = torch.empty((S, T, H, D), dtype=torch.float32, device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream
     with torch.cuda.device(r.device):
+        nbytes = workspace_bytes(S, T, H, D)
+        if nbytes < 0:
+            raise ValueError(f"rwkv6_scan_workspace_bytes refuses S={S}, "
+                             f"T={T}, H={H}, D={D}")
+        work = (torch.empty(nbytes, dtype=torch.uint8, device=r.device)
+                if nbytes else None)
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  u.data_ptr(), state.data_ptr(), slots.data_ptr(),
                  lens.data_ptr(), fresh.data_ptr(), out.data_ptr(),
+                 work.data_ptr() if nbytes else None,
                  S, T, H, D, state.shape[0], _DTYPES[r.dtype], stream)
     if err != 0:
         raise RuntimeError(f"rwkv6_scan_launch failed: CUDA error {err}")

@@ -14,8 +14,12 @@ in slots no live row owns, and padding rows (lens == 0) on slot 0, which a
 live row may own: the kernel must read no poison and leave every slot it
 does not own bit-identical.  The shapes are jamba's serve shapes (32 decode
 rows over a pool of 64 slots; one 512-token prefill chunk with 300 live
-tokens; di = 16384, ds = 16) and ragged ones that cross the kernel's
-32-token runs and channel blocks, with ds = 16 and 8.
+tokens; di = 16384, ds = 16) and ragged ones that cross the recurrent
+form's 32-token runs and channel blocks; for the segmented form (every
+T > 1, runs of 32 tokens cut into 4 segments of 8) a segment and a run less
+a token, exactly and plus a token, and several prefill rows with ragged
+lengths (0 among them).  The "strong decay" cases draw dt log-uniform in
+[1e-4, 100], so that exp(dt A) is exactly 0 for many channels.
 """
 
 import numpy as np
@@ -25,20 +29,35 @@ import torch
 from repro_torch.kernels import mamba_scan as s6
 from repro_torch.kernels import ops
 
-# name: (S, T, di, ds, lens, fresh, slots in the pool)
+SERVE = (1e-3, 3.0)       # dt log-uniform: exp(dt A) from ~1 to ~1e-21
+STRONG = (1e-4, 100.0)    # exp(dt A) exactly 0 for many channels
+# name: (S, T, di, ds, lens, fresh, slots in the pool, dt range)
 CASES = {
-    "decode": (32, 1, 16384, 16, [1] * 28 + [0] * 4, [0] * 32, 64),
-    "prefill": (1, 512, 16384, 16, [300], [0], 64),
-    "prefill fresh": (1, 512, 16384, 16, [512], [1], 64),
-    "ragged": (4, 70, 200, 16, [70, 33, 0, 32], [1, 0, 0, 0], 6),
-    "ragged narrow": (3, 40, 96, 16, [40, 7, 0], [1, 0, 0], 4),
-    "one token": (1, 1, 32, 16, [1], [0], 1),
+    "decode": (32, 1, 16384, 16, [1] * 28 + [0] * 4, [0] * 32, 64, SERVE),
+    "prefill": (1, 512, 16384, 16, [300], [0], 64, SERVE),
+    "prefill fresh": (1, 512, 16384, 16, [512], [1], 64, SERVE),
+    "ragged": (4, 70, 200, 16, [70, 33, 0, 32], [1, 0, 0, 0], 6, SERVE),
+    "ragged narrow": (3, 40, 96, 16, [40, 7, 0], [1, 0, 0], 4, SERVE),
+    "one token": (1, 1, 32, 16, [1], [0], 1, SERVE),
+    "segment - 1": (1, 7, 64, 16, [7], [0], 2, SERVE),
+    "segment": (1, 8, 64, 16, [8], [0], 2, SERVE),
+    "segment + 1": (1, 9, 64, 16, [9], [0], 2, SERVE),
+    "run - 1": (1, 31, 64, 16, [31], [0], 2, SERVE),
+    "run": (1, 32, 64, 16, [32], [0], 2, SERVE),
+    "run + 1": (1, 33, 64, 16, [33], [0], 2, SERVE),
+    "prefill rows": (3, 40, 200, 16, [40, 0, 23], [0, 0, 1], 5, SERVE),
+    "unaligned rows": (2, 20, 42, 16, [20, 13], [0, 1], 3, SERVE),
+    "strong decay prefill": (1, 512, 16384, 16, [300], [0], 64, STRONG),
+    "strong decay rows": (3, 40, 200, 16, [33, 0, 40], [1, 0, 0], 5,
+                          STRONG),
+    "strong decay decode": (32, 1, 16384, 16, [1] * 28 + [0] * 4, [0] * 32,
+                            64, STRONG),
 }
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _case(S, T, di, ds, lens, fresh, n, dtype, seed, device):
-    """Unit-normal x (in `dtype`), B and C; dt log-uniform in [1e-3, 3];
+def _case(S, T, di, ds, lens, fresh, n, dt_range, dtype, seed, device):
+    """Unit-normal x (in `dtype`), B and C; dt log-uniform in `dt_range`;
     A = -exp(log(1..ds) + 0.3 N); live rows on distinct random slots,
     padding rows on slot 0; the pool is NaN except the non-fresh live rows'
     slots."""
@@ -47,8 +66,9 @@ def _case(S, T, di, ds, lens, fresh, n, dtype, seed, device):
     def normal(*shape):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
 
-    dt = torch.from_numpy(np.exp(rng.uniform(np.log(1e-3), np.log(3.0),
-                                             (S, T, di))).astype(np.float32))
+    lo, hi = np.log(dt_range)
+    dt = torch.from_numpy(np.exp(rng.uniform(lo, hi, (S, T, di)))
+                          .astype(np.float32))
     x = normal(S, T, di).to(dtype)
     B, C = normal(S, T, ds), normal(S, T, ds)
     A = -torch.exp(torch.log(torch.arange(1, ds + 1).float())[None, :]

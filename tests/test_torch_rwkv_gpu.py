@@ -14,7 +14,11 @@ padding rows (lens == 0) on slot 0, which a live row may own: the kernel
 must read no poison and leave every slot it does not own bit-identical.
 The shapes are rwkv6-3b's serve shapes (32 decode rows over a pool of 64
 slots; one 512-token prefill chunk with 300 live tokens) and ragged ones
-that cross the kernel's 32-token runs.
+that cross the recurrent form's 32-token runs; for the chunked form (every
+T > 1, chunks of 16 tokens) one chunk less a token, exactly and plus a
+token, and several prefill rows with ragged lengths (0 among them).  The
+"strong decay" cases draw log w = -exp(U(-20, 10)), the serve path's whole
+clamp: w holds exact 0, exact 1 and subnormals.
 """
 
 import numpy as np
@@ -25,21 +29,31 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import rwkv6_scan as wkv
 
 D = 64
-# name: (S, T, H, lens, fresh, slots in the pool)
+SERVE = (-6, 3)           # log w = -exp(U(lo, hi)): w from ~2e-9 to ~0.998
+STRONG = (-20, 10)        # the serve clamp's whole range
+# name: (S, T, H, lens, fresh, slots in the pool, decay range)
 CASES = {
-    "decode": (32, 1, 40, [1] * 28 + [0] * 4, [0] * 32, 64),
-    "prefill": (1, 512, 40, [300], [0], 64),
-    "prefill fresh": (1, 512, 40, [512], [1], 64),
-    "ragged": (4, 70, 3, [70, 33, 0, 32], [1, 0, 0, 0], 6),
-    "one token": (1, 1, 1, [1], [0], 1),
+    "decode": (32, 1, 40, [1] * 28 + [0] * 4, [0] * 32, 64, SERVE),
+    "prefill": (1, 512, 40, [300], [0], 64, SERVE),
+    "prefill fresh": (1, 512, 40, [512], [1], 64, SERVE),
+    "ragged": (4, 70, 3, [70, 33, 0, 32], [1, 0, 0, 0], 6, SERVE),
+    "one token": (1, 1, 1, [1], [0], 1, SERVE),
+    "chunk - 1": (1, 15, 4, [15], [0], 2, SERVE),
+    "chunk": (1, 16, 4, [16], [0], 2, SERVE),
+    "chunk + 1": (1, 17, 4, [17], [0], 2, SERVE),
+    "prefill rows": (3, 40, 5, [40, 0, 23], [0, 0, 1], 5, SERVE),
+    "strong decay prefill": (1, 512, 40, [300], [0], 64, STRONG),
+    "strong decay rows": (3, 40, 5, [33, 0, 40], [1, 0, 0], 5, STRONG),
+    "strong decay decode": (32, 1, 40, [1] * 28 + [0] * 4, [0] * 32, 64,
+                            STRONG),
 }
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _case(S, T, H, lens, fresh, n, dtype, seed, device):
+def _case(S, T, H, lens, fresh, n, decay, dtype, seed, device):
     """Unit-normal r, k, v (in `dtype`), u uniform in [0, 1), decay
-    exp(-exp(U(-6, 3))); live rows on distinct random slots, padding rows on
-    slot 0; the pool is NaN except the non-fresh live rows' slots."""
+    exp(-exp(U(*decay))); live rows on distinct random slots, padding rows
+    on slot 0; the pool is NaN except the non-fresh live rows' slots."""
     rng = np.random.default_rng(seed)
 
     def normal(*shape):
@@ -47,7 +61,7 @@ def _case(S, T, H, lens, fresh, n, dtype, seed, device):
 
     r, k, v = (normal(S, T, H, D).to(dtype) for _ in range(3))
     w = torch.from_numpy(np.exp(-np.exp(
-        rng.uniform(-6, 3, (S, T, H, D)))).astype(np.float32))
+        rng.uniform(*decay, (S, T, H, D)))).astype(np.float32))
     u = torch.from_numpy(rng.uniform(0, 1, (H, D)).astype(np.float32))
     state = torch.full((n, H, D, D), float("nan"))
     slots = rng.permutation(n)[:S].astype(np.int32)
@@ -86,6 +100,33 @@ def test_kernel_matches_plain_on_card(cuda_device, name, dtype):
     assert torch.isfinite(out).all()
     for s, n in enumerate(lens.tolist()):
         assert not out[s, n:].any()              # zeros past the live tokens
+
+
+def _unaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of `x` whose storage starts one element past a
+    16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_kernel_takes_unaligned_inputs(cuda_device, dtype):
+    """r, k, v, w that are contiguous but not 16-byte aligned go through the
+    chunked form (its scalar loads) and agree with the plain version."""
+    args = _case(*CASES["prefill rows"], DTYPES[dtype], seed=5,
+                 device=cuda_device)
+    r, k, v, w, u, state, slots, lens, fresh = args
+    r, k, v, w = (_unaligned(x) for x in (r, k, v, w))
+    assert all(x.data_ptr() % 16 for x in (r, k, v, w))
+    before = state.clone()
+    out = wkv.rwkv6_chunked_scan(r, k, v, w, u, state, slots, lens, fresh)
+    torch.cuda.synchronize()
+    excess, err = wkv.excess(out, state, r, k, v, w, u, before, slots, lens,
+                             fresh)
+    assert excess <= 1.0, f"max abs err {err}"
 
 
 @pytest.mark.gpu
