@@ -24,13 +24,21 @@ line; any failure raises and the script exits non-zero.
               (an off-by-one causal mask) must fail the same check; kernel,
               plain and library (SDPA) times and the card's bound
   serve-f32   full-width, full-depth qwen1.5-0.5b (random weights from a
-              seed) serves 8 requests; greedy tokens equal the port's dense
-              reference up to a near-tie (top-2 logit gap < 1e-3); the kernel
-              ran 2 phases x 24 layers on every tick
+              seed) serves 8 requests on three engines from one set of
+              weights: eager (sync, unbucketed, no graphs), bucketed with
+              one CUDA graph per bucket, and the same with async dispatch;
+              the three give identical greedy tokens, equal to the port's
+              dense reference up to a near-tie (top-2 logit gap < 1e-3); the
+              kernel ran once per layer for each phase of every tick (the
+              phases a tick's bucket has rows in), counted per replay
   serve-bf16  the same entry point in bf16 with 32 requests (4 sampled at
-              temperature 0.8): tokens/s, ticks, host/device time, memory;
-              then the same batch again under torch.profiler (device
-              activity only) for the device's busy time
+              temperature 0.8), twice from one set of weights: on the eager
+              engine and on the bucketed async graph engine (the JAX
+              package's fastest configuration): tokens/s, ticks, host/device
+              time, memory, ladder size, graphs captured, capture seconds
+              and graph-pool bytes; then the same batch again under
+              torch.profiler (device activity only) for the device's busy
+              time; the graph count is what warm_start captured
   moe-kernel  the fused-MoE kernel against its plain version at
               olmoe-1b-7b's serve shapes (E=64, C=88, d=2048, ff=1024), a
               ragged C=24, a small shape and a decode tick (C=88 with ~4
@@ -44,15 +52,17 @@ line; any failure raises and the script exits non-zero.
               times, the bound (counts-aware), and for bf16 the device gap
               between the call's two launches
   serve-olmoe-f32   full-width olmoe-1b-7b cut to 4 of 16 layers, dropless
-              capacity, 4 requests: greedy tokens equal the port's dense
-              reference (its expert FFN on the plain version) up to a
-              near-tie; the MoE kernel ran once and paged attention twice
-              per layer on every tick
+              capacity, 4 requests on serve-f32's three engines: identical
+              greedy tokens, equal to the port's dense reference (its
+              expert FFN on the plain version) up to a near-tie; the MoE
+              kernel ran once per layer a tick, paged attention once per
+              layer and phase
   serve-olmoe-bf16  full-width, full-depth olmoe-1b-7b in bf16 at the
-              config's capacity factor, the serve-bf16 batch: every request
-              finishes with valid tokens, launches = ticks x 16 (MoE) and
-              ticks x 32 (attention); tokens/s, host/device time, memory and
-              the device's idle share from a profiled rerun
+              config's capacity factor, the serve-bf16 batch on serve-bf16's
+              two engines: every request finishes with valid tokens,
+              launches = ticks x 16 (MoE) and 16 per phase a tick runs
+              (attention); tokens/s, host/device time, memory and the
+              device's idle share from a profiled rerun
   rwkv-kernel the WKV6 kernel against its plain version at rwkv6-3b's
               serve shapes (32 decode rows over a pool of 64 slots; one
               512-token prefill chunk with 300 live tokens and a carried
@@ -72,14 +82,16 @@ line; any failure raises and the script exits non-zero.
               T > 1 sent to the recurrent kernel), plain time and the bound
               (no single library call computes this function)
   serve-rwkv-f32  full-width rwkv6-3b cut to 4 of 32 layers, two waves of
-              4 requests on one engine (the second wave reuses the first's
-              state slots): greedy tokens equal the port's dense reference
-              (its scan on the plain version) up to a near-tie; the kernel
-              ran 2 phases x 4 layers on every tick
+              4 requests on each of serve-f32's three engines (the second
+              wave reuses the first's state slots): identical greedy
+              tokens, equal to the port's dense reference (its scan on the
+              plain version) up to a near-tie; the kernel ran once per layer
+              and phase
   serve-rwkv-bf16  full-width, full-depth rwkv6-3b in bf16, the serve-bf16
-              batch: every request finishes with valid tokens, launches =
-              ticks x 64; tokens/s, host/device time, memory and the
-              device's idle share from a profiled rerun
+              batch on serve-bf16's two engines: every request finishes
+              with valid tokens, launches = 32 per phase a tick runs;
+              tokens/s, host/device time, memory and the device's idle
+              share from a profiled rerun
   mamba-kernel  the Mamba selective-scan kernel against its plain version
               at jamba-1.5-large-398b's serve shapes (di=16384, ds=16: 32
               decode rows over a pool of 64 slots, 28 live; one 512-token
@@ -98,18 +110,19 @@ line; any failure raises and the script exits non-zero.
               (no single library call computes the selective scan)
   serve-jamba-f32  full-width jamba-1.5-large-398b cut to its first
               MAMBA_MLP and ATTN_MOE layers (47.7 GB in f32), dropless, two
-              waves of 4 requests on one engine (the second wave reuses the
-              first's state slots): greedy tokens equal the port's dense
-              reference (its scan and expert FFN on the plain versions) up
-              to a near-tie; per tick the Mamba kernel ran 2 times, paged
-              attention 2 and the MoE kernel once
+              waves of 4 requests on each of serve-f32's three engines (the
+              second wave reuses the first's state slots): identical greedy
+              tokens, equal to the port's dense reference (its scan and
+              expert FFN on the plain versions) up to a near-tie; per phase
+              a tick runs the Mamba kernel ran once and paged attention
+              once, per tick the MoE kernel once
   serve-jamba-bf16  full-width jamba-1.5-large-398b cut to its first
               MAMBA_MLP, MAMBA_MOE and ATTN_MOE layers (44.0 GB in bf16) at
-              the config's capacity factor, the serve-bf16 batch: every
-              request finishes with valid tokens, launches = ticks x 4
-              (Mamba), ticks x 2 (MoE) and ticks x 2 (attention); tokens/s,
-              host/device time, memory and the device's idle share from a
-              profiled rerun
+              the config's capacity factor, the serve-bf16 batch on
+              serve-bf16's two engines: every request finishes with valid
+              tokens, launches = 2 per phase a tick runs (Mamba), ticks x 2
+              (MoE) and 1 per phase (attention); tokens/s, host/device time,
+              memory and the device's idle share from a profiled rerun
 
 The kernel and moe-kernel phases also hold their kernels at jamba's shapes:
 paged attention decode and prefill with 64 query heads over 8 KV heads of
@@ -157,6 +170,15 @@ JAMBA_KINDS = ("mamba_mlp", "mamba_moe", "attn_moe")
 JAMBA_F32_KINDS = ("mamba_mlp", "attn_moe")
 MAX_NEW = 16
 NEAR_TIE = 1e-3
+# the engines each serve phase runs, one after the other on one set of
+# weights: eager (sync, unbucketed, no graphs: the earlier slices' engine),
+# then one CUDA graph per ladder bucket, sync and async (the f32 phases), or
+# async (the bf16 phases: the JAX package's fastest configuration)
+F32_VARIANTS = {"eager": dict(cuda_graphs=False),
+                "graphs": dict(bucketed=True),
+                "graphs_async": dict(bucketed=True, async_dispatch=True)}
+BF16_VARIANTS = {"eager": dict(cuda_graphs=False),
+                 "graphs_async": dict(bucketed=True, async_dispatch=True)}
 # the device functions of the port's kernels (csrc/*.cu), as the profiler
 # names them
 PORT_KERNELS = ("::paged_attention_decode_kernel<",
@@ -570,31 +592,34 @@ def _match_reference(phase, eng, prompts, reqs, max_new, greedy_trace):
 
 
 def phase_serve_f32(pa, build_engine, greedy_trace) -> dict:
+    from repro_torch.configs import get_config
+
     t0 = time.perf_counter()
-    eng = build_engine(ARCH, device=DEV, dtype=torch.float32)
-    prompts = _prompts(11, 8, eng.cfg.vocab_size)
-    pa.launches = 0
-    reqs = [eng.add_request(p, _sampling(0.0)) for p in prompts]
-    eng.drain()
-    torch.cuda.synchronize()
-    launches = pa.launches
-    ticks = eng.stats.ticks
+    prompts = _prompts(11, 8, get_config(ARCH).vocab_size)
+
+    def serve(eng):
+        reqs = [eng.add_request(p, _sampling(0.0)) for p in prompts]
+        eng.drain()
+        return {"reqs": reqs}
+
+    runs, eng, last = _f32_variants(
+        "serve-f32", lambda: build_engine(ARCH, device=DEV,
+                                          dtype=torch.float32,
+                                          cuda_graphs=False),
+        serve, {"paged_flash_attention": pa})
     serve_s = time.perf_counter() - t0
-    if launches != ticks * LAYERS * 2:
-        raise AssertionError(f"serve-f32: {launches} kernel launches for "
-                             f"{ticks} ticks, want ticks x {LAYERS} x 2")
-    compared, near_ties = _match_reference("serve-f32", eng, prompts, reqs,
-                                           MAX_NEW, greedy_trace)
+    compared, near_ties = _match_reference("serve-f32", eng, prompts,
+                                           last["reqs"], MAX_NEW,
+                                           greedy_trace)
     out = {"phase": "serve-f32", "arch": ARCH, "layers": LAYERS,
-           "requests": len(reqs), "prompt_lens": [len(p) for p in prompts],
-           "max_new_tokens": MAX_NEW, "ticks": ticks,
-           "kernel_launches": launches, "tokens_compared": compared,
-           "near_ties": near_ties, "serve_and_check_s": serve_s,
+           "requests": len(prompts), "prompt_lens": [len(p) for p in prompts],
+           "max_new_tokens": MAX_NEW, "variants": runs,
+           "tokens_compared": compared, "near_ties": near_ties,
+           "serve_and_check_s": serve_s,
            "check_s": time.perf_counter() - t0 - serve_s}
     emit(out)
     del eng
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     return out
 
 
@@ -611,19 +636,23 @@ def _serve_batch(eng, prompts) -> list:
     return reqs
 
 
-def _serve_measured(eng, prompts, counted: dict, phase: str) -> dict:
+def _serve_measured(eng, prompts, counted: dict, phase: str,
+                    variant: str) -> dict:
     """Serve `prompts` once for the numbers, every count of `counted` (name
-    -> kernel module) set to 0 just before and read just after; check that
-    every request finished with valid tokens; then serve the same batch
-    again on the same engine under torch.profiler, device activity only,
-    for the device's busy time (its idle share is over the unprofiled wall
-    time of the same batch: the profiler slows the host, not the device)."""
+    -> kernel module) set to 0 just before and read just after, which must
+    be what `_launch_want` makes of the engine's ticks; check that every
+    request finished with valid tokens; then serve the same batch again on
+    the same engine under torch.profiler, device activity only, for the
+    device's busy time (its idle share is over the unprofiled wall time of
+    the same batch: the profiler slows the host, not the device).  The
+    engine's graph count must not move while it serves."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.profile import device_time
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    graphs = eng.backend.graph_count()
     for mod in counted.values():
         mod.launches = 0
     t0 = time.perf_counter()
@@ -632,6 +661,13 @@ def _serve_measured(eng, prompts, counted: dict, phase: str) -> dict:
     launches = {name: mod.launches for name, mod in counted.items()}
     st = eng.stats
     ticks, host_s, device_s = st.ticks, st.host_s, st.device_s
+    phase_ticks = (st.prefill_ticks, st.decode_ticks)
+    want = _launch_want(eng.cfg, ticks, *phase_ticks, counted)
+    if launches != want:
+        raise AssertionError(f"{phase}: launches {launches} for {ticks} "
+                             f"ticks ({phase_ticks[0]} with prefill rows, "
+                             f"{phase_ticks[1]} with decode rows), want "
+                             f"{want}")
     vocab = eng.cfg.vocab_size
     for i, r in enumerate(reqs):
         if not (r.is_finished and r.num_output_tokens == MAX_NEW and all(
@@ -647,18 +683,28 @@ def _serve_measured(eng, prompts, counted: dict, phase: str) -> dict:
         _serve_batch(eng, prompts)
     profiled_wall = time.perf_counter() - t1
     busy_us, by_kernel = device_time(prof)
+    if eng.backend.graph_count() != graphs:
+        raise AssertionError(f"{phase}: {eng.backend.graph_count()} graphs "
+                             f"after serving, {graphs} after warm_start")
     ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1])
     # the six largest, and the port's own kernels wherever they rank
     top = ranked[:6] + [kv for kv in ranked[6:]
                         if any(k in kv[0] for k in PORT_KERNELS)]
-    return {"phase": phase, "arch": eng.cfg.name,
+    backend = eng.backend
+    return {"phase": phase, "variant": variant, "arch": eng.cfg.name,
+            "bucketed": backend.bucketed,
+            "async_dispatch": eng.loop.async_dispatch,
+            "cuda_graphs": backend.graphs, "ladder": len(backend.ladder),
+            "graphs_captured": graphs, "capture_s": backend.capture_s,
+            "graph_pool_bytes": backend.graph_pool_bytes,
             "layers": eng.cfg.num_layers, "requests": len(reqs),
             "temperature_requests": sum(1 for i in range(len(reqs))
                                         if i % 8 == 7),
             "prompt_tokens": prompt_tokens, "output_tokens": out_tokens,
             "wall_s": wall, "output_tokens_per_s": out_tokens / wall,
             "total_tokens_per_s": (out_tokens + prompt_tokens) / wall,
-            "ticks": ticks, "ms_per_tick": wall / ticks * 1e3,
+            "ticks": ticks, "prefill_ticks": phase_ticks[0],
+            "decode_ticks": phase_ticks[1], "ms_per_tick": wall / ticks * 1e3,
             "host_s": host_s, "device_s": device_s, "launches": launches,
             "max_memory_allocated": peak,
             "profiled_ticks": eng.stats.ticks - ticks,
@@ -670,20 +716,122 @@ def _serve_measured(eng, prompts, counted: dict, phase: str) -> dict:
 
 
 def phase_serve_bf16(pa, build_engine) -> dict:
-    eng = build_engine(ARCH, device=DEV, dtype=torch.bfloat16)
-    prompts = _prompts(12, 32, eng.cfg.vocab_size)
-    out = _serve_measured(eng, prompts, {"paged_flash_attention": pa},
-                          "serve-bf16")
-    if out["launches"]["paged_flash_attention"] != out["ticks"] * LAYERS * 2:
-        emit(out)
-        raise AssertionError(f"serve-bf16: {out['launches']} launches for "
-                             f"{out['ticks']} ticks")
-    emit(out)
-    del eng
+    return _serve_bf16(
+        lambda: build_engine(ARCH, device=DEV, dtype=torch.bfloat16,
+                             cuda_graphs=False),
+        {"paged_flash_attention": pa}, "serve-bf16")
+
+
+def _launch_want(cfg, ticks: int, prefill_ticks: int, decode_ticks: int,
+                 counted: dict) -> dict:
+    """The launches each kernel of `counted` (by wrapper name) makes in
+    `ticks` ticks of which `prefill_ticks` ran a bucket with prefill rows
+    and `decode_ticks` one with decode rows: paged attention and the two
+    scans once per layer of theirs for each phase a tick runs, the MoE
+    kernel once per MoE layer a tick.  Unbucketed (Sp=1, Sd=32) every tick
+    runs both phases."""
+    kinds = [b.kind.value for b in cfg.pattern for _ in range(b.repeat)]
+    phases = prefill_ticks + decode_ticks
+    want = {"paged_flash_attention": phases * sum(
+                k in ("attn_mlp", "attn_moe") for k in kinds),
+            "fused_moe_ffn": ticks * sum(k.endswith("_moe") for k in kinds),
+            "rwkv6_chunked_scan": phases * kinds.count("rwkv"),
+            "mamba_chunked_scan": phases * sum(k.startswith("mamba")
+                                               for k in kinds)}
+    return {name: want[name] for name in counted}
+
+
+def _free() -> None:
+    """Return the memory of dropped engines (caches, graph pools) to the
+    card."""
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def _spec(eng) -> tuple:
+    """What a sibling of `eng` needs: (config, dims, weights, throttle,
+    dtype)."""
+    return (eng.cfg, eng.dims, eng.params, eng.scheduler.cfg,
+            eng.backend.dtype)
+
+
+def _sibling(spec: tuple, **kw):
+    """An engine from `_spec`'s tuple with the engine options `kw`, built
+    once the dropped engines' memory is back; returns (engine, seconds to
+    build it, warm_start included)."""
+    from repro_torch.runtime.engine import PipelineEngine
+
+    cfg, dims, params, throttle, dtype = spec
+    _free()
+    t0 = time.perf_counter()
+    eng = PipelineEngine(cfg, dims, params, throttle, device=DEV,
+                         dtype=dtype, seed=0, **kw)
+    return eng, time.perf_counter() - t0
+
+
+def _serve_bf16(make, counted: dict, phase: str) -> dict:
+    """serve-bf16's batch on the eager engine `make()` builds (sync,
+    unbucketed, the earlier slices' engine), then on a bucketed async
+    engine replaying one CUDA graph per bucket (the JAX package's fastest
+    configuration) from the same weights.  Emits one line per variant;
+    returns the graph variant's line."""
+    eng = make()
+    prompts = _prompts(12, 32, eng.cfg.vocab_size)
+    out = {}
+    for name, kw in BF16_VARIANTS.items():
+        build_s = None
+        if name != "eager":
+            spec, eng = _spec(eng), None
+            eng, build_s = _sibling(spec, **kw)
+        out = _serve_measured(eng, prompts, counted, phase, name)
+        out["engine_build_s"] = build_s
+        out["capacity_factor"] = eng.cfg.moe_capacity_factor
+        out["kinds"] = [b.kind.value for b in eng.cfg.pattern]
+        emit(out)
+    del eng
+    _free()
     return out
 
+
+def _f32_variants(phase: str, make, serve, counted: dict):
+    """Serve with `serve(eng)` (which returns a dict holding the requests
+    under "reqs") on the eager engine `make()` builds, then on graph
+    engines, sync and async, from the same weights; each kernel of `counted` must launch
+    as `_launch_want` says, every variant must give the same greedy
+    tokens.  Returns (per-variant numbers, the last engine, what its
+    `serve` returned)."""
+    runs, tokens = {}, {}
+    eng = make()
+    for name, kw in F32_VARIANTS.items():
+        build_s = None
+        if name != "eager":
+            spec, eng = _spec(eng), None
+            eng, build_s = _sibling(spec, **kw)
+        for mod in counted.values():
+            mod.launches = 0
+        t0 = time.perf_counter()
+        res = serve(eng)
+        torch.cuda.synchronize()
+        st = eng.stats
+        launches = {k: mod.launches for k, mod in counted.items()}
+        want = _launch_want(eng.cfg, st.ticks, st.prefill_ticks,
+                            st.decode_ticks, counted)
+        if launches != want:
+            raise AssertionError(f"{phase} {name}: launches {launches} for "
+                                 f"{st.ticks} ticks, want {want}")
+        runs[name] = {"ticks": st.ticks, "prefill_ticks": st.prefill_ticks,
+                      "decode_ticks": st.decode_ticks, "launches": launches,
+                      "graphs": eng.backend.graph_count(),
+                      "ladder": len(eng.backend.ladder),
+                      "engine_build_s": build_s,
+                      "serve_s": time.perf_counter() - t0,
+                      **{k: v for k, v in res.items()
+                         if k not in ("reqs", "prompts")}}
+        tokens[name] = [r.output_token_ids for r in res["reqs"]]
+    if any(t != tokens["eager"] for t in tokens.values()):
+        raise AssertionError(f"{phase}: the variants' greedy tokens differ: "
+                             f"{tokens}")
+    return runs, eng, res
 
 
 # ------------------------------------------------------------ MoE phases
@@ -878,7 +1026,8 @@ def _f32_engine(arch: str, layers: int = 0, kinds=()):
     """Full-width `arch` cut to its first `layers` layers (a uniform
     pattern) or to the first layer of each of `kinds` (`cut_to_kinds`), f32,
     smaller serve dims; an MoE config is made dropless (capacity factor =
-    number of experts), so that the serve matches the dense reference."""
+    number of experts), so that the serve matches the dense reference.  The
+    eager engine (`_f32_variants` builds the graph engines from it)."""
     import dataclasses
 
     from repro_torch.configs import (
@@ -908,7 +1057,8 @@ def _f32_engine(arch: str, layers: int = 0, kinds=()):
                      slots=16)
     params = init_params(cfg, 0, dtype=torch.float32, device=DEV)
     return PipelineEngine(cfg, dims, params, ThrottleConfig(pipeline_depth=1),
-                          device=DEV, dtype=torch.float32, seed=0)
+                          device=DEV, dtype=torch.float32, seed=0,
+                          cuda_graphs=False)
 
 
 def phase_serve_olmoe_f32(pa, mg, greedy_trace) -> dict:
@@ -916,70 +1066,55 @@ def phase_serve_olmoe_f32(pa, mg, greedy_trace) -> dict:
     from repro_torch.models import moe as moe_lib
 
     max_new = 8
+    from repro_torch.configs import get_config
+
     t0 = time.perf_counter()
-    eng = _f32_engine(MOE_ARCH, MOE_F32_LAYERS)
     rng = np.random.default_rng(13)
     lens = [16, 300] + [int(x) for x in rng.integers(16, 301, 2)]
-    prompts = [[int(t) for t in rng.integers(0, eng.cfg.vocab_size, L)]
-               for L in lens]
-    pa.launches = mg.launches = 0
-    reqs = [eng.add_request(p, SamplingParams(max_new_tokens=max_new))
-            for p in prompts]
-    eng.drain()
-    torch.cuda.synchronize()
-    attn_launches, moe_launches = pa.launches, mg.launches
-    ticks = eng.stats.ticks
+    vocab = get_config(MOE_ARCH).vocab_size
+    prompts = [[int(t) for t in rng.integers(0, vocab, L)] for L in lens]
+
+    def serve(eng):
+        reqs = [eng.add_request(p, SamplingParams(max_new_tokens=max_new))
+                for p in prompts]
+        eng.drain()
+        return {"reqs": reqs}
+
+    runs, eng, last = _f32_variants(
+        "serve-olmoe-f32", lambda: _f32_engine(MOE_ARCH, MOE_F32_LAYERS),
+        serve,
+        {"paged_flash_attention": pa, "fused_moe_ffn": mg})
     serve_s = time.perf_counter() - t0
-    if moe_launches != ticks * MOE_F32_LAYERS or \
-            attn_launches != ticks * MOE_F32_LAYERS * 2:
-        raise AssertionError(
-            f"serve-olmoe-f32: {moe_launches} MoE and {attn_launches} "
-            f"attention launches for {ticks} ticks, want ticks x "
-            f"{MOE_F32_LAYERS} and ticks x {MOE_F32_LAYERS} x 2")
     # the reference's expert FFN runs on the plain version, so the kernel
     # is not held against itself
     kernel_ffn = moe_lib.expert_ffn
     moe_lib.expert_ffn = mg.fused_moe_ffn_ref
     try:
         compared, near_ties = _match_reference(
-            "serve-olmoe-f32", eng, prompts, reqs, max_new, greedy_trace)
+            "serve-olmoe-f32", eng, prompts, last["reqs"], max_new,
+            greedy_trace)
     finally:
         moe_lib.expert_ffn = kernel_ffn
     out = {"phase": "serve-olmoe-f32", "arch": MOE_ARCH,
            "layers": MOE_F32_LAYERS,
            "capacity_factor": eng.cfg.moe_capacity_factor,
-           "requests": len(reqs), "prompt_lens": lens,
-           "max_new_tokens": max_new, "ticks": ticks,
-           "moe_launches": moe_launches, "attention_launches": attn_launches,
+           "requests": len(prompts), "prompt_lens": lens,
+           "max_new_tokens": max_new, "variants": runs,
            "tokens_compared": compared, "near_ties": near_ties,
            "serve_s": serve_s, "check_s": time.perf_counter() - t0 - serve_s}
     emit(out)
     del eng
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     return out
 
 
 def phase_serve_olmoe_bf16(pa, mg, build_engine) -> dict:
     """serve-bf16's batch on full-width, full-depth olmoe-1b-7b."""
-    eng = build_engine(MOE_ARCH, device=DEV, dtype=torch.bfloat16)
-    layers = eng.cfg.num_layers
-    prompts = _prompts(12, 32, eng.cfg.vocab_size)
-    out = _serve_measured(eng, prompts, {"paged_flash_attention": pa,
-                                         "fused_moe_ffn": mg},
-                          "serve-olmoe-bf16")
-    out["capacity_factor"] = eng.cfg.moe_capacity_factor
-    n, ticks = out["launches"], out["ticks"]
-    if n["fused_moe_ffn"] != ticks * layers or \
-            n["paged_flash_attention"] != ticks * layers * 2:
-        emit(out)
-        raise AssertionError(f"serve-olmoe-bf16: {n} launches for {ticks} "
-                             f"ticks of {layers} layers")
-    emit(out)
-    del eng
-    gc.collect()
-    torch.cuda.empty_cache()
-    return out
+    return _serve_bf16(
+        lambda: build_engine(MOE_ARCH, device=DEV, dtype=torch.bfloat16,
+                             cuda_graphs=False),
+        {"paged_flash_attention": pa, "fused_moe_ffn": mg},
+        "serve-olmoe-bf16")
 
 
 # ----------------------------------------------------------- RWKV phases
@@ -1133,9 +1268,9 @@ def phase_rwkv_kernel(wkv, planted: dict) -> list:
 def _two_waves(eng, seed: int, max_new: int):
     """Serve two waves of 4 requests (prompts 16-300 tokens, two of them 16
     and 300) on `eng`, the second after the first has drained, so that the
-    second wave's requests take over the first's state slots.  Returns
-    (prompt lengths, prompts, requests, slots of the first wave, slots of
-    the second)."""
+    second wave's requests take over the first's state slots, which it
+    checks.  Returns {"prompts", "reqs", "slots_first_wave",
+    "slots_second_wave"}."""
     from repro_torch.core import SamplingParams
 
     rng = np.random.default_rng(seed)
@@ -1161,7 +1296,12 @@ def _two_waves(eng, seed: int, max_new: int):
                                              for r in reqs[:4]}}
     second = {s for rid, s in taken if rid in {r.request_id
                                               for r in reqs[4:]}}
-    return lens, prompts, reqs, first, second
+    if not second <= first:
+        raise AssertionError(f"slots {first} then {second}: the second "
+                             f"wave did not reuse the first's")
+    return {"prompts": prompts, "reqs": reqs,
+            "slots_first_wave": sorted(first),
+            "slots_second_wave": sorted(second)}
 
 
 def phase_serve_rwkv_f32(wkv, greedy_trace) -> dict:
@@ -1172,55 +1312,40 @@ def phase_serve_rwkv_f32(wkv, greedy_trace) -> dict:
 
     max_new = 8
     t0 = time.perf_counter()
-    eng = _f32_engine(RWKV_ARCH, RWKV_F32_LAYERS)
-    wkv.launches = 0
-    lens, prompts, reqs, first, second = _two_waves(eng, 17, max_new)
-    launches, ticks = wkv.launches, eng.stats.ticks
+    runs, eng, last = _f32_variants(
+        "serve-rwkv-f32", lambda: _f32_engine(RWKV_ARCH, RWKV_F32_LAYERS),
+        lambda e: _two_waves(e, 17, max_new),
+        {"rwkv6_chunked_scan": wkv})
     serve_s = time.perf_counter() - t0
-    if launches != ticks * RWKV_F32_LAYERS * 2 or not second <= first:
-        raise AssertionError(
-            f"serve-rwkv-f32: {launches} launches for {ticks} ticks, want "
-            f"ticks x {RWKV_F32_LAYERS} x 2; slots {first} then {second}")
+    prompts = last["prompts"]
     # the reference's scan runs on the plain version, so the kernel is not
     # held against itself
     kernel_scan = ops.rwkv6_scan
     ops.rwkv6_scan = wkv.rwkv6_scan_ref
     try:
         compared, near_ties = _match_reference(
-            "serve-rwkv-f32", eng, prompts, reqs, max_new, greedy_trace)
+            "serve-rwkv-f32", eng, prompts, last["reqs"], max_new,
+            greedy_trace)
     finally:
         ops.rwkv6_scan = kernel_scan
     out = {"phase": "serve-rwkv-f32", "arch": RWKV_ARCH,
-           "layers": RWKV_F32_LAYERS, "requests": len(reqs),
-           "prompt_lens": lens, "max_new_tokens": max_new, "ticks": ticks,
-           "kernel_launches": launches,
-           "slots_first_wave": sorted(first),
-           "slots_second_wave": sorted(second),
+           "layers": RWKV_F32_LAYERS, "requests": len(prompts),
+           "prompt_lens": [len(p) for p in prompts],
+           "max_new_tokens": max_new, "variants": runs,
            "tokens_compared": compared, "near_ties": near_ties,
            "serve_s": serve_s, "check_s": time.perf_counter() - t0 - serve_s}
     emit(out)
     del eng
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     return out
 
 
 def phase_serve_rwkv_bf16(wkv, build_engine) -> dict:
     """serve-bf16's batch on full-width, full-depth rwkv6-3b."""
-    eng = build_engine(RWKV_ARCH, device=DEV, dtype=torch.bfloat16)
-    layers = eng.cfg.num_layers
-    prompts = _prompts(12, 32, eng.cfg.vocab_size)
-    out = _serve_measured(eng, prompts, {"rwkv6_chunked_scan": wkv},
-                          "serve-rwkv-bf16")
-    if out["launches"]["rwkv6_chunked_scan"] != out["ticks"] * layers * 2:
-        emit(out)
-        raise AssertionError(f"serve-rwkv-bf16: {out['launches']} launches "
-                             f"for {out['ticks']} ticks of {layers} layers")
-    emit(out)
-    del eng
-    gc.collect()
-    torch.cuda.empty_cache()
-    return out
+    return _serve_bf16(
+        lambda: build_engine(RWKV_ARCH, device=DEV, dtype=torch.bfloat16,
+                             cuda_graphs=False),
+        {"rwkv6_chunked_scan": wkv}, "serve-rwkv-bf16")
 
 
 # ---------------------------------------------------------- Mamba phases
@@ -1380,19 +1505,14 @@ def phase_serve_jamba_f32(pa, mg, s6, greedy_trace) -> dict:
 
     max_new = 8
     t0 = time.perf_counter()
-    eng = _f32_engine(JAMBA_ARCH, kinds=JAMBA_F32_KINDS)
-    pa.launches = mg.launches = s6.launches = 0
-    lens, prompts, reqs, first, second = _two_waves(eng, 19, max_new)
-    n = {"mamba_chunked_scan": s6.launches,
-         "paged_flash_attention": pa.launches, "fused_moe_ffn": mg.launches}
-    ticks = eng.stats.ticks
+    runs, eng, last = _f32_variants(
+        "serve-jamba-f32",
+        lambda: _f32_engine(JAMBA_ARCH, kinds=JAMBA_F32_KINDS),
+        lambda e: _two_waves(e, 19, max_new),
+        {"mamba_chunked_scan": s6, "paged_flash_attention": pa,
+         "fused_moe_ffn": mg})
     serve_s = time.perf_counter() - t0
-    want = {"mamba_chunked_scan": ticks * 2,
-            "paged_flash_attention": ticks * 2, "fused_moe_ffn": ticks}
-    if n != want or not second <= first:
-        raise AssertionError(f"serve-jamba-f32: launches {n} for {ticks} "
-                             f"ticks, want {want}; slots {first} then "
-                             f"{second}")
+    prompts = last["prompts"]
     # the reference's scan and expert FFN run on the plain versions, so no
     # kernel is held against itself
     kernel_scan, kernel_ffn = ops.mamba_scan, moe_lib.expert_ffn
@@ -1400,23 +1520,22 @@ def phase_serve_jamba_f32(pa, mg, s6, greedy_trace) -> dict:
     moe_lib.expert_ffn = mg.fused_moe_ffn_ref
     try:
         compared, near_ties = _match_reference(
-            "serve-jamba-f32", eng, prompts, reqs, max_new, greedy_trace)
+            "serve-jamba-f32", eng, prompts, last["reqs"], max_new,
+            greedy_trace)
     finally:
         ops.mamba_scan, moe_lib.expert_ffn = kernel_scan, kernel_ffn
     out = {"phase": "serve-jamba-f32", "arch": JAMBA_ARCH,
            "kinds": [b.kind.value for b in eng.cfg.pattern],
            "layers": eng.cfg.num_layers,
            "capacity_factor": eng.cfg.moe_capacity_factor,
-           "requests": len(reqs), "prompt_lens": lens,
-           "max_new_tokens": max_new, "ticks": ticks, "launches": n,
-           "slots_first_wave": sorted(first),
-           "slots_second_wave": sorted(second),
+           "requests": len(prompts),
+           "prompt_lens": [len(p) for p in prompts],
+           "max_new_tokens": max_new, "variants": runs,
            "tokens_compared": compared, "near_ties": near_ties,
            "serve_s": serve_s, "check_s": time.perf_counter() - t0 - serve_s}
     emit(out)
     del eng
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     return out
 
 
@@ -1425,27 +1544,12 @@ def phase_serve_jamba_bf16(pa, mg, s6, build_engine) -> dict:
     block kind, at the config's capacity factor."""
     from repro_torch.configs import BlockKind
 
-    eng = build_engine(JAMBA_ARCH, device=DEV, dtype=torch.bfloat16,
-                       cut=[BlockKind(k) for k in JAMBA_KINDS])
-    prompts = _prompts(12, 32, eng.cfg.vocab_size)
-    out = _serve_measured(eng, prompts, {"paged_flash_attention": pa,
-                                         "fused_moe_ffn": mg,
-                                         "mamba_chunked_scan": s6},
-                          "serve-jamba-bf16")
-    out["kinds"] = [b.kind.value for b in eng.cfg.pattern]
-    out["capacity_factor"] = eng.cfg.moe_capacity_factor
-    n, ticks = out["launches"], out["ticks"]
-    want = {"paged_flash_attention": ticks * 2, "fused_moe_ffn": ticks * 2,
-            "mamba_chunked_scan": ticks * 4}
-    if n != want:
-        emit(out)
-        raise AssertionError(f"serve-jamba-bf16: launches {n} for {ticks} "
-                             f"ticks, want {want}")
-    emit(out)
-    del eng
-    gc.collect()
-    torch.cuda.empty_cache()
-    return out
+    return _serve_bf16(
+        lambda: build_engine(JAMBA_ARCH, device=DEV, dtype=torch.bfloat16,
+                             cut=[BlockKind(k) for k in JAMBA_KINDS],
+                             cuda_graphs=False),
+        {"paged_flash_attention": pa, "fused_moe_ffn": mg,
+         "mamba_chunked_scan": s6}, "serve-jamba-bf16")
 
 
 def _kernel_entry(name, source, replaces, launches, rows, main_row):

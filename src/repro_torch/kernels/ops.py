@@ -59,3 +59,7 @@ def mamba_scan(dt: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
         return s6.mamba_chunked_scan(dt, x, B, C, A, state, slots, lens,
                                      fresh)
     return s6.mamba_scan_ref(dt, x, B, C, A, state, slots, lens, fresh)
+
+
+# The kernel modules whose wrappers count their launches (``launches``).
+COUNTED = (pa, moe_gemm, wkv, s6)

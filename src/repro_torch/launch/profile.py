@@ -8,7 +8,8 @@ Full width and depth in bf16 on the card by default; ``--cut`` serves the
 first layer of each named block kind, as in ``launch/serve.py`` (the jamba
 cut: ``--arch jamba-1.5-large-398b --cut mamba_mlp,mamba_moe,attn_moe``);
 ``--reduced --device cpu`` runs the same code on the CPU (host activity
-only, no device rows).  A first, unprofiled batch warms the kernels and the
+only, no device rows).  ``--bucketed``, ``--async`` and ``--eager`` are
+`launch/serve.py`'s.  A first, unprofiled batch warms the kernels and the
 allocator.
 """
 
@@ -24,7 +25,12 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core import SamplingParams
-from repro_torch.launch.serve import add_cut_argument, build_engine, parse_cut
+from repro_torch.launch.serve import (
+    add_cut_argument,
+    add_engine_arguments,
+    build_engine,
+    parse_cut,
+)
 
 
 def _serve(eng, rng, n: int, max_new: int) -> None:
@@ -68,10 +74,14 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=12)
     add_cut_argument(ap)
+    add_engine_arguments(ap)
     args = ap.parse_args()
 
     eng = build_engine(args.arch, reduced=args.reduced, device=args.device,
-                       cut=parse_cut(args.cut), seed=args.seed)
+                       cut=parse_cut(args.cut), seed=args.seed,
+                       bucketed=args.bucketed,
+                       async_dispatch=args.async_dispatch,
+                       cuda_graphs=args.cuda_graphs)
     rng = np.random.default_rng(args.seed)
     _serve(eng, rng, max(2, args.requests // 4), args.max_new)   # warm-up
     ticks0 = eng.stats.ticks
@@ -88,7 +98,10 @@ def main() -> None:
     print(json.dumps({
         "arch": eng.cfg.name, "device": str(eng.device),
         "kinds": [b.kind.value for b in eng.cfg.pattern],
-        "dtype": eng.cfg.dtype, "requests": args.requests, "ticks": ticks,
+        "dtype": eng.cfg.dtype, "bucketed": args.bucketed,
+        "async_dispatch": args.async_dispatch,
+        "cuda_graphs": eng.backend.graphs, "requests": args.requests,
+        "ticks": ticks,
         "wall_ms": wall_us / 1e3, "ms_per_tick": wall_us / 1e3 / ticks,
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": (1.0 - busy_us / wall_us) if cuda else None,

@@ -15,6 +15,12 @@ bf16, its cut to one layer of each kind 44 GB:
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch jamba-1.5-large-398b --cut mamba_mlp,mamba_moe,attn_moe
 
+On the card every tick replays a CUDA graph (``--eager`` runs it eagerly);
+``--bucketed`` serves the bucket ladder, ``--async`` overlaps the host's
+work on tick N+1 with tick N on the device:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --bucketed --async
+
 `build_engine` is the entry point `chip_smoke.py` and the tests call.
 """
 
@@ -67,12 +73,15 @@ def build_engine(arch: str = "qwen1.5-0.5b", *, reduced: bool = False,
                  dims: Optional[ServeDims] = None,
                  throttle: Optional[ThrottleConfig] = None,
                  cut: Optional[Sequence[BlockKind]] = None,
-                 seed: int = 0) -> PipelineEngine:
+                 seed: int = 0, bucketed: bool = False,
+                 async_dispatch: bool = False,
+                 cuda_graphs: bool = True) -> PipelineEngine:
     """A ready engine for `arch`: full width and depth in one stage (bf16
     by default), or the reduced CPU-sized variant (f32).  `cut` names block
     kinds: the model is then cut in depth to the first layer of each
     (`cut_to_kinds`).  On the card, weights that exceed its memory raise
-    before anything is allocated."""
+    before anything is allocated.  `bucketed`, `async_dispatch` and
+    `cuda_graphs` go to `PipelineEngine`."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
@@ -100,7 +109,9 @@ def build_engine(arch: str = "qwen1.5-0.5b", *, reduced: bool = False,
                 f"block kind: {sorted({b.kind.value for b in cfg.pattern})}")
     params = init_params(cfg, seed, dtype=dtype, device=dev)
     return PipelineEngine(cfg, dims, params, throttle, device=dev,
-                          dtype=dtype, seed=seed)
+                          dtype=dtype, seed=seed, bucketed=bucketed,
+                          async_dispatch=async_dispatch,
+                          cuda_graphs=cuda_graphs)
 
 
 def add_cut_argument(ap: argparse.ArgumentParser) -> None:
@@ -108,6 +119,19 @@ def add_cut_argument(ap: argparse.ArgumentParser) -> None:
                     help="comma-separated block kinds (e.g. "
                     "mamba_mlp,mamba_moe,attn_moe): serve the first layer "
                     "of each")
+
+
+def add_engine_arguments(ap: argparse.ArgumentParser) -> None:
+    """`--bucketed`, `--async` and `--eager`, `build_engine`'s options."""
+    ap.add_argument("--bucketed", action="store_true",
+                    help="serve the bucket ladder (each tick in the "
+                    "smallest shape that covers it)")
+    ap.add_argument("--async", dest="async_dispatch", action="store_true",
+                    help="double-buffered dispatch: the host prepares tick "
+                    "N+1 while the device runs tick N")
+    ap.add_argument("--eager", dest="cuda_graphs", action="store_false",
+                    help="on CUDA, run every tick eagerly instead of "
+                    "replaying one CUDA graph per bucket")
 
 
 def parse_cut(text: Optional[str]) -> Optional[list]:
@@ -127,12 +151,16 @@ def main() -> None:
                     help="cuda (default) or cpu")
     ap.add_argument("--dtype", default=None, choices=["float32", "bfloat16"])
     add_cut_argument(ap)
+    add_engine_arguments(ap)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
     dtype = getattr(torch, args.dtype) if args.dtype else None
     eng = build_engine(args.arch, reduced=args.reduced, device=args.device,
-                       dtype=dtype, cut=parse_cut(args.cut), seed=args.seed)
+                       dtype=dtype, cut=parse_cut(args.cut), seed=args.seed,
+                       bucketed=args.bucketed,
+                       async_dispatch=args.async_dispatch,
+                       cuda_graphs=args.cuda_graphs)
     cfg = eng.cfg
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
@@ -151,7 +179,9 @@ def main() -> None:
     st = eng.stats
     print(f"[{cfg.name} | {eng.device} {cfg.dtype}] {done}/{len(reqs)} "
           f"requests, {toks} tokens in {wall:.2f}s; ticks={st.ticks} "
-          f"host_s={st.host_s:.3f} device_s={st.device_s:.3f}")
+          f"host_s={st.host_s:.3f} device_s={st.device_s:.3f} "
+          f"buckets={len(eng.backend.ladder)} "
+          f"graphs={eng.backend.graph_count()}")
     if done != len(reqs):
         raise SystemExit("not every request finished")
 

@@ -8,6 +8,8 @@ interleaved, as in the JAX package.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -16,15 +18,23 @@ from repro_torch.kernels import ops
 NEG_INF = -1e30
 
 
+def kv_targets(valid: np.ndarray, slot_pages: np.ndarray,
+               num_pages: int) -> np.ndarray:
+    """Each row's KV destination page: its own where it writes (valid and
+    with a page inside the pool, what JAX's ``mode="drop"`` keeps), else
+    `num_pages`, the scratch page past the pool that no request owns.
+    torch would wrap a -1 page to the last page and silently overwrite it;
+    the targets are chosen on the host, where the tick's metadata is built,
+    and keep the array's shape, so that a captured graph can replay it."""
+    keep = valid & (slot_pages >= 0) & (slot_pages < num_pages)
+    return np.where(keep, slot_pages, num_pages).astype(np.int32)
+
+
 def valid_rows(valid: np.ndarray, slot_pages: np.ndarray,
                num_pages: int) -> np.ndarray:
-    """Flat indices of the rows that write KV: valid and with a page inside
-    the pool.  This is what JAX's ``mode="drop"`` keeps (`write_kv_pages`
-    there marks invalid rows with page -1 and drops them); torch would wrap
-    a -1 index to the last page and silently overwrite it, so the rows are
-    chosen on the host, where the tick's metadata is built, without a
-    device sync."""
-    keep = valid & (slot_pages >= 0) & (slot_pages < num_pages)
+    """Flat indices of the rows that write KV (`kv_targets` inside the
+    pool)."""
+    keep = kv_targets(valid, slot_pages, num_pages) < num_pages
     return np.flatnonzero(keep.reshape(-1)).astype(np.int32)
 
 
@@ -33,14 +43,18 @@ def write_kv_pages(
     new_kv: torch.Tensor,        # [S, C, 2, KH, D]
     slot_pages: torch.Tensor,    # [S, C] int32 destination page per token
     slot_offsets: torch.Tensor,  # [S, C] int32 offset within page
-    rows: torch.Tensor,          # [n] int32 flat rows that write (`valid_rows`)
+    rows: Optional[torch.Tensor] = None,   # [n] int32 flat rows that write
 ) -> torch.Tensor:
     """Scatter this step's K/V rows into their pages, in place (the JAX
-    version returns a new pool and donates the old one)."""
+    version returns a new pool and donates the old one).  With `rows`
+    (`valid_rows`) only those rows write; without, every row writes, each
+    to its page (`kv_targets` sends the rows that write nothing to a
+    scratch page)."""
     flat_kv = new_kv.reshape((-1,) + tuple(new_kv.shape[2:]))
-    pages = slot_pages.reshape(-1)[rows]
-    offs = slot_offsets.reshape(-1)[rows]
-    cache[pages, offs] = flat_kv[rows].to(cache.dtype)
+    pages, offs = slot_pages.reshape(-1), slot_offsets.reshape(-1)
+    if rows is not None:
+        flat_kv, pages, offs = flat_kv[rows], pages[rows], offs[rows]
+    cache[pages, offs] = flat_kv.to(cache.dtype)
     return cache
 
 

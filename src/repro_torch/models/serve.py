@@ -12,16 +12,23 @@ Layouts (per stage, as in the JAX package):
   Mamba state      conv [S, R, slots, dc-1, di]; ssm [S, R, slots, di, ds]
 
 The tick's metadata is built on the host as numpy (`zero_meta`, the JAX
-field names and shapes) and reaches the device in one copy
-(`meta_to_device`).  The KV pool is updated in place: each layer works on the
+field names and shapes; `host_meta` adds what the tick computes from it)
+and reaches the device in one copy, into one int32 buffer the tick reads
+as views (`unpack_meta`).  The KV pool is updated in place: each layer works on the
 contiguous view ``cache[s, r]`` (the JAX version donates the buffer), and
 so are the recurrent state slots.
+
+Every array a tick reads has a shape fixed by its bucket (`bucket_ladder`),
+so that one CUDA graph per bucket can replay it.  Rows that write nothing
+(padding, pages off the pool) write into a scratch page at index ``pages``
+of the KV pool and a scratch slot at index ``slots`` of each state pool,
+which no request is ever handed (`init_caches` allocates both).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Mapping, Optional, Tuple
+from dataclasses import dataclass, replace
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +47,12 @@ from repro_torch.models.transformer import (
 )
 
 ATTN_KINDS = (BlockKind.ATTN_MLP, BlockKind.ATTN_MOE)
+
+# Flash KV-block granularity (pages per gather step) and the KV-depth bucket
+# divisors: the JAX package's defaults (its REPRO_PAGES_PER_BLOCK and
+# REPRO_DEPTH_STEPS), taken here as constants.
+PAGES_PER_BLOCK = 8
+DEPTH_DIVISORS: Tuple[int, ...] = (4, 2, 1)
 STATE_KINDS = (BlockKind.RWKV,) + MAMBA_KINDS
 
 
@@ -64,6 +77,102 @@ class ServeDims:
     @property
     def rows(self) -> int:
         return self.Sp * self.prefill_width + self.Sd
+
+
+def depth_steps(B: int, *, pages_per_block: Optional[int] = None,
+                divisors: Optional[Sequence[int]] = None) -> Tuple[int, ...]:
+    """Block-table depth buckets for a phase whose full table is `B` pages:
+    {⌈B/k⌉ for k in `divisors`} rounded up to multiples of the flash gather
+    granularity (`pages_per_block`), deduplicated, always including B.  A
+    full width not divisible by `pages_per_block` gets no sub-buckets."""
+    ppb = PAGES_PER_BLOCK if pages_per_block is None else pages_per_block
+    if B <= 0 or ppb <= 0 or B % ppb != 0:
+        return (B,)
+    divisors = DEPTH_DIVISORS if divisors is None else tuple(divisors)
+    steps = {B}
+    for k in divisors:
+        if k > 0:
+            need = -(-B // k)                         # ⌈B/k⌉ pages demanded
+            steps.add(min(B, ppb * -(-need // ppb)))  # …rounded to blocks
+    return tuple(sorted(steps))
+
+
+def bucket_ladder(dims: ServeDims,
+                  depth_divisors: Optional[Sequence[int]] = None
+                  ) -> Tuple[ServeDims, ...]:
+    """Fixed ladder of serve shapes for bucketed execution: prefill-chunk
+    buckets {0, ⌈C/4⌉, ⌈C/2⌉, C} × decode-row buckets {⌈Sd/4⌉, ⌈Sd/2⌉, Sd}
+    × KV depth (the block-table widths Bp/Bd stepped per `depth_steps`, one
+    shared depth index for both phases), deduplicated.  A phase with no
+    rows in an entry keeps its full table width.  Every entry keeps the full
+    `dims` cache geometry (pages/page/slots/Te), so one KV pool, one state
+    pool and one parameter tree serve the whole ladder.  The fully empty
+    (Sp=0, Sd=0) shape is excluded: bubble ticks run in the smallest
+    non-empty bucket."""
+    def ceil_div(a: int, b: int) -> int:
+        return -(-a // b)
+
+    c_steps = sorted({max(1, ceil_div(dims.C, 4)),
+                      max(1, ceil_div(dims.C, 2)), dims.C})
+    d_steps = ([0] if dims.Sd == 0 else
+               sorted({max(1, ceil_div(dims.Sd, 4)),
+                       max(1, ceil_div(dims.Sd, 2)), dims.Sd}))
+    bp_steps = depth_steps(dims.Bp, divisors=depth_divisors)
+    bd_steps = depth_steps(dims.Bd, divisors=depth_divisors)
+    depth_pairs = []
+    for i in range(max(len(bp_steps), len(bd_steps))):
+        pair = (bp_steps[min(i, len(bp_steps) - 1)],
+                bd_steps[min(i, len(bd_steps) - 1)])
+        if pair not in depth_pairs:
+            depth_pairs.append(pair)
+    ladder, seen = [], set()
+    for Sd_b in d_steps:
+        variants = [(0, dims.C)]
+        if dims.Sp > 0:
+            variants += [(dims.Sp, c) for c in c_steps]
+        for Sp_b, C_b in variants:
+            for Bp_b, Bd_b in depth_pairs:
+                bp = Bp_b if Sp_b > 0 else dims.Bp
+                bd = Bd_b if Sd_b > 0 else dims.Bd
+                key = (Sp_b, C_b, Sd_b, bp, bd)
+                if key in seen or (Sp_b == 0 and Sd_b == 0):
+                    continue
+                seen.add(key)
+                ladder.append(replace(dims, Sp=Sp_b, C=C_b, Sd=Sd_b,
+                                      Bp=bp, Bd=bd))
+    return tuple(ladder)
+
+
+def select_bucket(ladder: Sequence[ServeDims], need_c: int, need_d: int,
+                  need_bp: int = 0, need_bd: int = 0) -> ServeDims:
+    """Smallest ladder entry covering a tick whose widest prefill chunk is
+    `need_c` tokens, whose decode rows number `need_d`, and whose deepest
+    prefill/decode block tables hold `need_bp`/`need_bd` live pages.
+    Minimality is by padded row count (`rows`); ties break toward the
+    narrower prefill bucket, the smaller decode bucket, then the shallower
+    block tables.  Depth demands bind only for phases with rows.  Raises
+    ValueError when no entry covers the demand."""
+    best: Optional[ServeDims] = None
+    for b in ladder:
+        covers = ((need_c == 0 or (b.Sp > 0 and b.C >= need_c
+                                   and b.Bp >= need_bp))
+                  and b.Sd >= need_d
+                  and (need_d == 0 or b.Bd >= need_bd))
+        if not covers:
+            continue
+        key = (b.rows, b.C, b.Sd, b.Bp, b.Bd)
+        if best is None or key < (best.rows, best.C, best.Sd,
+                                  best.Bp, best.Bd):
+            best = b
+    if best is None:
+        raise ValueError(
+            f"no bucket covers need_c={need_c}, need_d={need_d}, "
+            f"need_bp={need_bp}, need_bd={need_bd} "
+            f"(ladder max C={max(b.C for b in ladder)}, "
+            f"Sd={max(b.Sd for b in ladder)}, "
+            f"Bp={max(b.Bp for b in ladder)}, "
+            f"Bd={max(b.Bd for b in ladder)})")
+    return best
 
 
 def _meta_field_defs(dims: ServeDims) -> Dict[str, Tuple[int, ...]]:
@@ -107,45 +216,49 @@ def host_to_device(t: torch.Tensor, device: torch.device | str
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def meta_to_device(meta: Mapping[str, np.ndarray], dims: ServeDims,
-                   device: torch.device | str,
-                   extra: Optional[Mapping[str, np.ndarray]] = None
-                   ) -> Dict[str, torch.Tensor]:
-    """Move one tick's metadata (plus `extra` int arrays, e.g. the fresh
-    token ids) to `device` in a single non-blocking copy, as int32 views of
-    one buffer.
+def host_meta(meta: Mapping[str, np.ndarray], dims: ServeDims,
+              extra: Optional[Mapping[str, np.ndarray]] = None
+              ) -> Dict[str, np.ndarray]:
+    """One tick's host metadata (at `dims`' shapes) with the fields the tick
+    needs computed from it, every array int32 and of a shape fixed by
+    `dims`, then the `extra` arrays (e.g. the fresh token ids):
 
-    Adds, computed here on the host: ``p_rows``/``d_rows``, the flat
-    indices of the rows that write KV (`attention.valid_rows`); for the
-    recurrent state, ``p_live``/``d_live``, the live rows of each phase,
-    and ``p_live_slots``/``d_live_slots``, their state slots (only these
-    are written back: padding rows carry slot 0, which a live row may
-    hold); and ``p_fresh``/``d_fresh``, 1 where a row's state starts from
-    zero (a prefill chunk at position 0: a new request, or a recompute
-    after preemption, on a slot another request may have left state in)."""
+    ``p_kv_pages`` [Sp, C] / ``d_kv_pages`` [Sd], each row's KV destination
+    page: its own where it writes (valid, inside the pool), else
+    ``dims.pages``, the scratch page (`attention.kv_targets`);
+    ``p_write_slots`` [Sp] / ``d_write_slots`` [Sd], where each row's
+    shift/conv state is written back: its own slot for a live row, else
+    ``dims.slots``, the scratch slot (padding rows carry slot 0, which a
+    live row may hold); ``p_fresh`` / ``d_fresh``, 1 where a row's state
+    starts from zero (a prefill chunk at position 0: a new request, or a
+    recompute after preemption, on a slot another request may have left
+    state in)."""
     fields = dict(meta)
     p_valid = np.arange(dims.C)[None, :] < meta["p_chunk_lens"][:, None]
-    fields["p_rows"] = attn.valid_rows(p_valid, meta["p_slot_pages"],
-                                       dims.pages)
-    fields["d_rows"] = attn.valid_rows(meta["d_valid"] > 0,
-                                       meta["d_slot_pages"], dims.pages)
+    fields["p_kv_pages"] = attn.kv_targets(p_valid, meta["p_slot_pages"],
+                                           dims.pages)
+    fields["d_kv_pages"] = attn.kv_targets(meta["d_valid"] > 0,
+                                           meta["d_slot_pages"], dims.pages)
     p_live = meta["p_chunk_lens"] > 0
-    fields["p_live"] = np.flatnonzero(p_live)
-    fields["p_live_slots"] = meta["p_state_slots"][p_live]
+    fields["p_write_slots"] = np.where(p_live, meta["p_state_slots"],
+                                       dims.slots)
     fields["p_fresh"] = p_live & (meta["p_positions"][:, 0] == 0)
-    d_live = meta["d_valid"] > 0
-    fields["d_live"] = np.flatnonzero(d_live)
-    fields["d_live_slots"] = meta["d_state_slots"][d_live]
+    fields["d_write_slots"] = np.where(meta["d_valid"] > 0,
+                                       meta["d_state_slots"], dims.slots)
     fields["d_fresh"] = np.zeros(dims.Sd, np.int32)
     fields.update(extra or {})
-    arrays = [np.asarray(a, np.int32) for a in fields.values()]
-    flat = host_to_device(
-        torch.from_numpy(np.concatenate([a.reshape(-1) for a in arrays])),
-        device)
+    return {k: np.asarray(a, np.int32) for k, a in fields.items()}
+
+
+def unpack_meta(flat: torch.Tensor, shapes: Mapping[str, Tuple[int, ...]]
+                ) -> Dict[str, torch.Tensor]:
+    """Views of the one int32 buffer `flat` as the fields `shapes` names,
+    laid out one after the other in that order."""
     out, off = {}, 0
-    for k, a in zip(fields, arrays):
-        out[k] = flat[off:off + a.size].view(a.shape)
-        off += a.size
+    for k, shape in shapes.items():
+        n = int(np.prod(shape))
+        out[k] = flat[off:off + n].view(shape)
+        off += n
     return out
 
 
@@ -155,20 +268,21 @@ def meta_to_device(meta: Mapping[str, np.ndarray], dims: ServeDims,
 
 def block_cache_defs(cfg: ArchConfig, kind: BlockKind, dims: ServeDims,
                      repeat: int) -> Dict[str, Tuple[int, ...]]:
-    """Shape per cache array of one block group (no stage dim)."""
+    """Shape per cache array of one block group (no stage dim): the JAX
+    package's, plus the scratch page or slot at the end of each pool."""
     _check_kind(kind)
-    R = repeat
+    R, slots = repeat, dims.slots + 1
     if kind == BlockKind.RWKV:
         H, hd = cfg.num_rwkv_heads, cfg.rwkv_head_dim
-        return {"tm_x": (R, dims.slots, cfg.d_model),
-                "cm_x": (R, dims.slots, cfg.d_model),
-                "wkv": (R, dims.slots, H, hd, hd)}
+        return {"tm_x": (R, slots, cfg.d_model),
+                "cm_x": (R, slots, cfg.d_model),
+                "wkv": (R, slots, H, hd, hd)}
     if kind in MAMBA_KINDS:
         di = cfg.mamba_d_inner
-        return {"conv": (R, dims.slots, cfg.mamba_d_conv - 1, di),
-                "ssm": (R, dims.slots, di, cfg.mamba_d_state)}
-    return {"kv": (R, dims.pages, dims.page, 2, max(1, cfg.num_kv_heads),
-                   cfg.head_dim)}
+        return {"conv": (R, slots, cfg.mamba_d_conv - 1, di),
+                "ssm": (R, slots, di, cfg.mamba_d_state)}
+    return {"kv": (R, dims.pages + 1, dims.page, 2,
+                   max(1, cfg.num_kv_heads), cfg.head_dim)}
 
 
 def cache_defs(cfg: ArchConfig, dims: ServeDims) -> Dict[str, Dict[str, tuple]]:
@@ -220,18 +334,18 @@ def _paged_self_attention(cfg: ArchConfig, p, xs: torch.Tensor,
     if is_prefill:
         positions = meta["p_positions"]
         tables, ctx = meta["p_block_tables"], meta["p_context_lens"]
-        pages, offs = meta["p_slot_pages"], meta["p_slot_offsets"]
-        rows, rope = meta["p_rows"], meta["p_rope"]
+        pages, offs = meta["p_kv_pages"], meta["p_slot_offsets"]
+        rope = meta["p_rope"]
     else:
         positions = meta["d_positions"][:, None]
         tables, ctx = meta["d_block_tables"], meta["d_context_lens"]
-        pages = meta["d_slot_pages"][:, None]
+        pages = meta["d_kv_pages"][:, None]
         offs = meta["d_slot_offsets"][:, None]
-        rows, rope = meta["d_rows"], meta["d_rope"]
+        rope = meta["d_rope"]
 
     q, k, v = _qkv_rows(cfg, p, xs, rope)
     new_kv = torch.stack([k, v], dim=2)                   # [S, T, 2, KH, hd]
-    attn.write_kv_pages(cache, new_kv, pages, offs, rows)
+    attn.write_kv_pages(cache, new_kv, pages, offs)
     o = attn.paged_attention(q, cache, tables, ctx, positions)
     return o.reshape(o.shape[:-2] + (-1,)) @ p["wo"]
 
@@ -246,8 +360,8 @@ def _rwkv_serve(cfg: ArchConfig, p, xs: torch.Tensor,
     """One RWKV block over one phase's rows (`phase` "p" or "d"), from and
     back into the rows' state slots.  Fresh rows start from zero state
     whatever their slot holds; the WKV pool is advanced in place by the
-    scan (live tokens only); the shift states are written back for the live
-    rows only (`meta_to_device`).  Padding positions come out as zeros, as
+    scan (live tokens only); the shift states of padding rows go to the
+    scratch slot (`host_meta`).  Padding positions come out as zeros, as
     the JAX mask makes them."""
     slots, fresh = meta[f"{phase}_state_slots"], meta[f"{phase}_fresh"]
     lens = meta["p_chunk_lens"] if phase == "p" else meta["d_valid"]
@@ -259,9 +373,9 @@ def _rwkv_serve(cfg: ArchConfig, p, xs: torch.Tensor,
     out, new = ssm_lib.rwkv_block(xs, p, head_dim=cfg.rwkv_head_dim,
                                   norm_eps=cfg.norm_eps, state=state,
                                   valid=valid, chunk_lens=lens)
-    live, live_slots = meta[f"{phase}_live"], meta[f"{phase}_live_slots"]
-    cache["tm_x"][live_slots] = new.tm_x[live]
-    cache["cm_x"][live_slots] = new.cm_x[live]
+    write = meta[f"{phase}_write_slots"]
+    cache["tm_x"][write] = new.tm_x
+    cache["cm_x"][write] = new.cm_x
     return out.masked_fill(~valid[..., None], 0)
 
 
@@ -271,9 +385,9 @@ def _mamba_serve(cfg: ArchConfig, p, xs: torch.Tensor,
     """One Mamba mixer over one phase's rows (`phase` "p" or "d"), from and
     back into the rows' state slots.  Fresh rows start from zero conv and
     scan state whatever their slot holds; the scan advances the `ssm` pool
-    in place (live tokens only); the conv state is written back for the
-    live rows only (`meta_to_device`).  Padding positions come out as
-    zeros, as the JAX mask makes them."""
+    in place (live tokens only); the conv state of padding rows goes to
+    the scratch slot (`host_meta`).  Padding positions come out as zeros,
+    as the JAX mask makes them."""
     slots, fresh = meta[f"{phase}_state_slots"], meta[f"{phase}_fresh"]
     lens = meta["p_chunk_lens"] if phase == "p" else meta["d_valid"]
     valid = meta[f"{phase}_mask"]
@@ -283,8 +397,7 @@ def _mamba_serve(cfg: ArchConfig, p, xs: torch.Tensor,
     out, new_conv = ssm_lib.mamba_mixer(
         xs, p, d_state=cfg.mamba_d_state, d_conv=cfg.mamba_d_conv,
         state=state, chunk_lens=lens)
-    live, live_slots = meta[f"{phase}_live"], meta[f"{phase}_live_slots"]
-    cache["conv"][live_slots] = new_conv[live]
+    cache["conv"][meta[f"{phase}_write_slots"]] = new_conv
     return out.masked_fill(~valid[..., None], 0)
 
 

@@ -9,8 +9,8 @@ micro-batch, push it into a depth-S pipeline ring, execute one tick, retire
 the micro-batch that exits the ring.  `TickLoop` owns that cycle once;
 *what a tick costs and produces* is delegated to an `ExecutionBackend`:
 
-  * `TorchBackend` (runtime/engine.py) — the eager PyTorch serve tick; tokens
-    are real, the clock is the wall clock.
+  * `TorchBackend` (runtime/engine.py) — the PyTorch serve tick (a CUDA
+    graph replay per bucket); tokens are real, the clock is the wall clock.
   * `SimBackend` (runtime/simulator.py) — the roofline cost model; tokens are
     placeholders, the clock is virtual time.
 
@@ -55,8 +55,7 @@ class ExecResult:
     synchronous results leave `pending` None and `resolve()` is a no-op.
     `ready` optionally carries a *non-blocking* probe for whether the
     deferred readback has already materialized (the engine wires it to
-    a CUDA event's `query()`).  The JAX package's async TickLoop reads it;
-    the port's loop resolves every result within its own tick.
+    a CUDA event's `query()`); the async TickLoop reads it.
     """
 
     tokens: List[int] = field(default_factory=list)
@@ -179,13 +178,21 @@ class TickLoop:
     scheduler's exclusion rule (one resident micro-batch per request) is
     built around.
 
-    The JAX package's async double-buffered mode is not carried over: the
-    port's engine has no use for it yet.
+    **Async double-buffered mode** (`async_dispatch=True`): the exiting
+    batch's readback is *not* forced inside its own tick.  Instead the
+    deferred `ExecResult` is parked in `_pending` and retired one tick
+    later — after the next tick's schedule/prepare host work has already
+    run and the next device tick has been dispatched — so host metadata
+    assembly for tick N+1 overlaps device execution of tick N.  The
+    completion lag is invisible to outputs: a pending request is still in
+    the scheduler's in-flight set, so it simply becomes schedulable one tick
+    later, and greedy sampling makes per-request token streams independent
+    of tick placement.  Sync mode stays the default.
     """
 
     def __init__(self, scheduler: PipelineScheduler, backend: ExecutionBackend,
-                 on_token: Optional[Callable[[Request, int], None]] = None
-                 ) -> None:
+                 on_token: Optional[Callable[[Request, int], None]] = None,
+                 *, async_dispatch: bool = False) -> None:
         self.scheduler = scheduler
         self.backend = backend
         backend.scheduler = scheduler
@@ -195,12 +202,21 @@ class TickLoop:
         self.on_token = on_token
         self.finished: List[Request] = []
         self.last_tick_empty = False
+        self.async_dispatch = async_dispatch
+        # async mode: the exiting batch of the *previous* tick, its readback
+        # still deferred — retired at the top of the next step
+        self._pending: Optional[Tuple[int, ExecResult]] = None
 
     # ------------------------------------------------------------------ state
     @property
-    def busy(self) -> bool:
-        """True while any real micro-batch is in the ring."""
+    def _ring_busy(self) -> bool:
         return any(bid is not None for bid, _ in self.ring)
+
+    @property
+    def busy(self) -> bool:
+        """True while any real micro-batch is in the ring or awaiting its
+        deferred retirement."""
+        return self._ring_busy or self._pending is not None
 
     @property
     def has_work(self) -> bool:
@@ -211,6 +227,16 @@ class TickLoop:
         """One pipeline tick.  Returns requests finishing this tick."""
         if now is None:
             now = self.backend.clock()
+        finished_early: List[Request] = []
+        had_pending = self._pending is not None
+        if (self.async_dispatch and had_pending
+                and self._pending[1].is_ready()):
+            # The deferred readback already materialized, so retiring it
+            # costs no wait — and doing it BEFORE scheduling makes its
+            # requests schedulable this very tick.  Without this, deferred
+            # retirement delays every completion by a full tick and the
+            # decode population freezes into two alternating cohorts.
+            finished_early = self._retire_pending(now)
         batch = self.scheduler.schedule(now)
         if batch.is_empty:
             # nothing resident this tick: retire the empty batch immediately
@@ -219,6 +245,14 @@ class TickLoop:
         else:
             entry = (batch.batch_id, self.backend.prepare(batch))
         self.last_tick_empty = batch.is_empty
+        if (self.async_dispatch and batch.is_empty and not self._ring_busy
+                and had_pending):
+            # nothing to execute — only the deferred batch remained (retired
+            # above or here); no bubble device tick.  The JAX loop tests
+            # `_pending` after the early retirement and so runs one bubble
+            # tick more than sync mode at the end of every drain.
+            return finished_early + (self._retire_pending(now)
+                                     if self._pending is not None else [])
         # Rotate: the new batch enters stage 0; the entry reaching the ring's
         # tail is the one executing its LAST stage this tick — its results
         # materialize when `execute` returns.  (For depth 1 that is this
@@ -227,6 +261,19 @@ class TickLoop:
         exiting_id, _ = self.ring[-1]
 
         result = self.backend.execute(tuple(self.ring), exiting_id, now)
+
+        if self.async_dispatch:
+            # This tick is now in flight on the device.  Retire the PREVIOUS
+            # tick's exiting batch — its readback has had a full device tick
+            # to complete — and park this tick's exiting batch until the
+            # next step.
+            finished = (self._retire_pending(now)
+                        if self._pending is not None else [])
+            if exiting_id is not None:
+                self._pending = (exiting_id, result)
+            self.ring[-1] = (None, self.backend.prepare(None))
+            return finished_early + finished
+
         result.resolve()
         if exiting_id is None:
             return []
@@ -247,6 +294,14 @@ class TickLoop:
         return out
 
     # ----------------------------------------------------------------- retire
+    def _retire_pending(self, now: float) -> List[Request]:
+        """Force the deferred readback of the previous tick's exiting batch
+        and retire it.  `now` (resolve-time clock) is the completion time —
+        the tokens materialized no later than this."""
+        bid, result = self._pending
+        self._pending = None
+        return self._retire(bid, result.resolve(), now)
+
     def _retire(self, batch_id: int, tokens: Sequence[int],
                 now: float) -> List[Request]:
         batch = self.scheduler.get_batch(batch_id)
@@ -271,6 +326,10 @@ class TickLoop:
         if now is None:
             now = self.backend.clock()
         affected: List[Request] = []
+        if self._pending is not None:
+            bid, _ = self._pending
+            self._pending = None          # deferred readback never forced
+            affected.extend(self.scheduler.abort_batch(bid, now))
         for bid, _ in list(self.ring):
             if bid is not None:
                 affected.extend(self.scheduler.abort_batch(bid, now))

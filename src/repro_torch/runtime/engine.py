@@ -7,14 +7,15 @@ the parameters, the paged KV pool and the per-request host state.
 `TickLoop`, exactly as the JAX engine does.
 
 Per tick the host builds the metadata as numpy (`prepare`, one tick ahead),
-`execute` ships metadata and token ids to the device in one non-blocking
-copy from pinned memory (so `host_s` counts host work, not waits for the
-device), embeds on the device, launches the tick and returns a deferred
-`ExecResult`: the
-readback (``tokens.cpu()``) lives in its `pending` thunk and `ready()` is a
-CUDA event's ``query()`` (always True on the CPU).  Bucketed shapes, CUDA
-graphs, migration hooks and tracing are later slices: the migration hooks
-keep the base class's no-op defaults.
+`execute` picks the tick's bucket, ships metadata and token ids to the
+device in one non-blocking copy from pinned memory (so `host_s` counts host
+work, not waits for the device), replays the bucket's CUDA graph (embed,
+layers, head, greedy argmax; or runs the same tick eagerly), draws the
+temperature rows after it, copies the tokens back behind an event and
+returns a deferred `ExecResult`: the readback lives in its `pending` thunk
+and `ready()` is the event's ``query()`` (always True on the CPU).
+Migration hooks and tracing are later slices: the migration hooks keep the
+base class's no-op defaults.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ from repro_torch.core import (
     ScheduledBatch,
     ThrottleConfig,
 )
-from repro_torch.distributed.pipeline import build_serve_tick
+from repro_torch.distributed.pipeline import build_serve_tick, sample_tokens
+from repro_torch.kernels import ops
 from repro_torch.models import serve as serve_lib
 from repro_torch.models.serve import ServeDims
 from repro_torch.runtime.core import ExecResult, ExecutionBackend, TickLoop
@@ -87,14 +89,56 @@ class EngineStats:
     live_pages: int = 0         # KV pages actually holding context
     host_s: float = 0.0         # host-side per-tick work (meta/copy/launch)
     device_s: float = 0.0       # host time *blocked* on device readback
+    last_bucket: Optional[Dict[str, int]] = None  # selected serve shape
+    # ticks whose bucket has prefill (decode) rows: each runs that phase's
+    # layers, so a kernel of one phase launches once per layer per such tick
+    prefill_ticks: int = 0
+    decode_ticks: int = 0
+
+
+class _BucketProgram:
+    """One ladder bucket's tick: its static int32 input buffer (the bucket's
+    metadata and the full-dims token ids, laid out as `serve.host_meta`
+    orders them) and, when the backend replays graphs, the CUDA graph that
+    runs the tick on that buffer, with the outputs it writes and the kernel
+    launches one replay makes."""
+
+    def __init__(self, tick, fields: Dict[str, np.ndarray],
+                 device: torch.device) -> None:
+        self.tick = tick
+        self.shapes = {k: a.shape for k, a in fields.items()}
+        self.size = sum(a.size for a in fields.values())
+        self.static = torch.zeros(self.size, dtype=torch.int32,
+                                  device=device)
+        self.meta = serve_lib.unpack_meta(self.static, self.shapes)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.logits: Optional[torch.Tensor] = None
+        self.greedy: Optional[torch.Tensor] = None
+        self.launches: Dict[Any, int] = {}
 
 
 class TorchBackend(ExecutionBackend):
-    """ExecutionBackend running the PyTorch serve tick on `device`."""
+    """ExecutionBackend running the PyTorch serve tick on `device`.
+
+    With `bucketed=True` the backend serves the fixed `bucket_ladder` of
+    serve shapes (all over the full-dims caches) and each tick runs in the
+    smallest bucket covering the ring; unbucketed is a ladder of one entry,
+    ``(dims,)``.  Each bucket has a static input buffer (`_BucketProgram`).
+    On CUDA, unless `cuda_graphs=False`, `warm_start()` captures one CUDA
+    graph per bucket, all in one memory pool, and every tick is a replay:
+    the host fills a pinned staging buffer, makes one non-blocking copy into
+    the bucket's static buffer, replays the graph and copies the sampled
+    tokens back into a pinned buffer, behind an event.  The pool is shared
+    safely because every replay runs on one stream, in order, and each
+    graph's outputs stay referenced.  On the CPU, and on CUDA with
+    `cuda_graphs=False`, the same bucket programs run eagerly.  Two staging
+    and two readback buffers alternate: the async `TickLoop` holds at most
+    one deferred readback while the next tick runs."""
 
     def __init__(self, cfg: ArchConfig, dims: ServeDims, params,
                  kv: PagedKVManager, *, device: torch.device,
-                 dtype: Optional[torch.dtype] = None, seed: int = 0) -> None:
+                 dtype: Optional[torch.dtype] = None, seed: int = 0,
+                 bucketed: bool = False, cuda_graphs: bool = True) -> None:
         self.cfg = cfg
         self.dims = dims
         self.device = device
@@ -103,12 +147,198 @@ class TorchBackend(ExecutionBackend):
         self.kv = kv
         self.slots = SlotAllocator(dims.slots)
         self.stats = EngineStats()
-        self._tick = build_serve_tick(cfg, dims)
+        self.bucketed = bucketed
+        self.ladder: Tuple[ServeDims, ...] = (
+            serve_lib.bucket_ladder(dims) if bucketed else (dims,))
+        self.graphs = cuda_graphs and device.type == "cuda"
+        self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
+        self._programs: Dict[Tuple[int, ...], _BucketProgram] = {}
         self.caches = serve_lib.init_caches(cfg, dims, self.dtype, device)
         self._gen = torch.Generator(device=device)
         self._gen.manual_seed(seed)
         self._zm = serve_lib.zero_meta(dims)
         self._prep_s = 0.0          # host prepare() time since last execute
+        cuda = device.type == "cuda"
+        # the largest static buffer of the ladder: the full shape's
+        size = sum(a.size for a in self._fields(
+            ((None, self._zm),), dims, None).values())
+        self._staging = [torch.empty(size, dtype=torch.int32,
+                                     pin_memory=cuda) for _ in range(2)]
+        self._host_tokens = [torch.empty(dims.Sp + dims.Sd,
+                                         dtype=torch.int32, pin_memory=cuda)
+                             for _ in range(2)]
+        self._copied: List[Optional[torch.cuda.Event]] = [None, None]
+        self._ring_slot = 0
+        self.capture_s = 0.0        # warm_start: seconds spent
+        self.graph_pool_bytes = 0   # warm_start: device memory it reserved
+
+    # ------------------------------------------------------- bucket programs
+    def _program(self, bucket: ServeDims) -> _BucketProgram:
+        key = (bucket.Sp, bucket.C, bucket.Sd, bucket.Bp, bucket.Bd)
+        prog = self._programs.get(key)
+        if prog is None:
+            tick = build_serve_tick(self.cfg, bucket, carry_dims=self.dims,
+                                    dtype=self.dtype)
+            zero = ((None, self._zm),) * self.depth
+            prog = _BucketProgram(tick, self._fields(zero, bucket, None),
+                                  self.device)
+            self._programs[key] = prog
+        return prog
+
+    def graph_count(self) -> int:
+        """CUDA graphs captured across the bucket programs (flat after
+        `warm_start`: serving captures none)."""
+        return sum(p.graph is not None for p in self._programs.values())
+
+    @torch.inference_mode()
+    def warm_start(self) -> None:
+        """Run every ladder bucket once on a bubble tick (zero metadata: a
+        state no-op, like any pipeline bubble; the rows that write go to the
+        scratch page and slot) before serving begins, which builds every
+        kernel.  With graphs, that run is made on a side stream, then the
+        bucket's tick is captured into its graph and replayed once on the
+        same bubble.  A capture that fails raises."""
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+            reserved = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
+        zero = ((None, self._zm),) * self.depth
+        for bucket in self.ladder:
+            prog = self._program(bucket)
+            self._load(prog, self._fields(zero, bucket, None))
+            if not self.graphs:
+                self._run(prog)
+                continue
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                prog.tick(self.params, self.caches, prog.meta)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            self._capture(prog)
+            self._run(prog)
+        if cuda:
+            torch.cuda.synchronize(self.device)
+            self.graph_pool_bytes = (torch.cuda.memory_reserved(self.device)
+                                     - reserved)
+        self.capture_s = time.perf_counter() - t0
+
+    def _capture(self, prog: _BucketProgram) -> None:
+        """Capture `prog`'s tick (the logits and the greedy tokens) into a
+        CUDA graph in the shared pool.  The kernel wrappers count their
+        launches while the graph is recorded; those counts are kept as the
+        launches of one replay and taken back off the wrappers, since a
+        capture launches nothing."""
+        before = {mod: mod.launches for mod in ops.COUNTED}
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool):
+                _, logits = prog.tick(self.params, self.caches, prog.meta)
+                greedy = sample_tokens(logits)
+        finally:
+            prog.launches = {mod: mod.launches - n
+                             for mod, n in before.items()
+                             if mod.launches != n}
+            for mod, n in before.items():
+                mod.launches = n
+        prog.graph, prog.logits, prog.greedy = graph, logits, greedy
+
+    def _run(self, prog: _BucketProgram
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Run `prog`'s tick on its static buffer: replay its graph (and
+        count the replay's kernel launches), or run it eagerly.  Returns
+        (logits, greedy tokens)."""
+        if self.graphs:
+            if prog.graph is None:
+                raise RuntimeError("bucket program not captured: "
+                                   "warm_start() captures every bucket")
+            prog.graph.replay()
+            for mod, n in prog.launches.items():
+                mod.launches += n
+            return prog.logits, prog.greedy
+        _, logits = prog.tick(self.params, self.caches, prog.meta)
+        return logits, sample_tokens(logits)
+
+    def _fields(self, ring: Sequence[Tuple[Optional[int], Any]],
+                bucket: ServeDims, entering: Optional[ScheduledBatch]
+                ) -> Dict[str, np.ndarray]:
+        """The host arrays of a tick at `bucket`: the entering batch's
+        metadata cut to the bucket, the fields the tick computes from it,
+        and the full-dims token ids."""
+        meta = {k: v[0] for k, v in self._stack_meta(ring, bucket).items()}
+        p_tok, d_tok = self._fresh_tokens(entering)
+        return serve_lib.host_meta(meta, bucket,
+                                   extra={"p_tok": p_tok, "d_tok": d_tok})
+
+    def _load(self, prog: _BucketProgram,
+              fields: Dict[str, np.ndarray]) -> None:
+        """Pack `fields` into this ring slot's staging buffer (once the
+        device has read what it held before) and copy it into `prog`'s
+        static buffer: one non-blocking copy on CUDA."""
+        if [a.shape for a in fields.values()] != list(prog.shapes.values()):
+            raise ValueError("tick metadata does not fit its bucket program")
+        slot = self._ring_slot
+        if self._copied[slot] is not None:
+            self._copied[slot].synchronize()
+        staging = self._staging[slot][:prog.size]
+        np.concatenate([a.reshape(-1) for a in fields.values()],
+                       out=staging.numpy())
+        prog.static.copy_(staging, non_blocking=True)
+        if self.device.type == "cuda":
+            self._copied[slot] = torch.cuda.Event()
+            self._copied[slot].record()
+
+    def _select_bucket(self, ring: Sequence[Tuple[Optional[int], Any]]
+                       ) -> ServeDims:
+        if not self.bucketed:
+            return self.dims
+        need_c = need_d = need_bp = need_bd = 0
+        page = self.dims.page
+        for _, m in ring:
+            if m["p_chunk_lens"].size:
+                need_c = max(need_c, int(m["p_chunk_lens"].max()))
+                # block-table depth demand = ring-wide max pages-in-use;
+                # context_lens is 0 on empty rows so the max is safe
+                need_bp = max(need_bp,
+                              -(-int(m["p_context_lens"].max()) // page))
+            if m["d_valid"].size:
+                need_d = max(need_d, int(np.count_nonzero(m["d_valid"])))
+                need_bd = max(need_bd,
+                              -(-int(m["d_context_lens"].max()) // page))
+        return serve_lib.select_bucket(self.ladder, need_c, need_d,
+                                       need_bp=need_bp, need_bd=need_bd)
+
+    @staticmethod
+    def _slice_meta_field(key: str, arr: np.ndarray,
+                          bucket: ServeDims) -> np.ndarray:
+        """Cut one stage-stacked full-dims meta field down to bucket shape."""
+        if key.startswith("p_"):
+            arr = arr[:, :bucket.Sp]
+            if key in ("p_positions", "p_slot_pages", "p_slot_offsets"):
+                arr = arr[:, :, :bucket.C]
+            elif key == "p_block_tables":
+                # depth bucket: the selector guarantees every live page index
+                # sits below bucket.Bp, so the tail is always zero padding
+                arr = arr[:, :, :bucket.Bp]
+        else:
+            arr = arr[:, :bucket.Sd]
+            if key == "d_block_tables":
+                arr = arr[:, :, :bucket.Bd]
+        return arr
+
+    def _stack_meta(self, ring: Sequence[Tuple[Optional[int], Any]],
+                    bucket: ServeDims) -> Dict[str, np.ndarray]:
+        """The ring's metadata stacked over stages and cut to `bucket`, as
+        host arrays."""
+        full = bucket == self.dims
+        out = {}
+        for k in self._zm:
+            stacked = np.stack([m[1][k] for m in ring], axis=0)
+            if not full:
+                stacked = np.ascontiguousarray(
+                    self._slice_meta_field(k, stacked, bucket))
+            out[k] = stacked
+        return out
 
     # --------------------------------------------------------------- protocol
     @property
@@ -128,65 +358,80 @@ class TorchBackend(ExecutionBackend):
     def execute(self, ring: Sequence[Tuple[Optional[int], Any]],
                 exiting_id: Optional[int], now: float) -> ExecResult:
         t0 = time.perf_counter()
-        dims = self.dims
+        bucket = self._select_bucket(ring)
+        prog = self._program(bucket)
         entering = (self.scheduler.get_batch(ring[0][0])
                     if ring[0][0] is not None else None)
-        p_tok, d_tok = self._fresh_tokens(entering)
-        meta = serve_lib.meta_to_device(ring[0][1], dims, self.device,
-                                        extra={"p_tok": p_tok,
-                                               "d_tok": d_tok})
-        fresh = self._build_fresh(meta)
-        sampling = self._build_sampling(exiting_id)
-        self.caches, tokens = self._tick(self.params, self.caches, meta,
-                                         fresh, sampling)
-        done = None
-        if self.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record()
+        self._load(prog, self._fields(ring, bucket, entering))
+        slot, self._ring_slot = self._ring_slot, self._ring_slot ^ 1
+        logits, tokens = self._run(prog)
+        sampling = self._build_sampling(exiting_id, bucket)
+        if sampling is not None:
+            tokens = sample_tokens(logits, sampling)
 
         n_p = entering.num_prefill_tokens if entering is not None else 0
         n_d = entering.num_decode_tokens if entering is not None else 0
         self.stats.ticks += 1
         self.stats.scheduled_prefill += n_p
         self.stats.scheduled_decode += n_d
-        self.stats.padded_prefill += dims.Sp * dims.C - n_p
-        self.stats.padded_decode += dims.Sd - n_d
-        self.stats.scanned_pages += dims.Sp * dims.Bp + dims.Sd * dims.Bd
+        self.stats.padded_prefill += bucket.Sp * bucket.C - n_p
+        self.stats.padded_decode += bucket.Sd - n_d
+        self.stats.prefill_ticks += bucket.Sp > 0
+        self.stats.decode_ticks += bucket.Sd > 0
+        self.stats.scanned_pages += (bucket.Sp * bucket.Bp
+                                     + bucket.Sd * bucket.Bd)
         if entering is not None:
-            page = dims.page
+            page = self.dims.page
             live = sum(-(-(seq.start_pos + seq.num_tokens) // page)
                        for seq in entering.prefill)
             live += sum(-(-(seq.start_pos + 1) // page)
                         for seq in entering.decode)
             self.stats.live_pages += live
-        host_s = self._prep_s + (time.perf_counter() - t0)
-        self._prep_s = 0.0
-        self.stats.host_s += host_s
+        self.stats.last_bucket = {"Sp": bucket.Sp, "C": bucket.C,
+                                  "Sd": bucket.Sd, "Bp": bucket.Bp,
+                                  "Bd": bucket.Bd}
 
         exiting = (self.scheduler.get_batch(exiting_id)
                    if exiting_id is not None else None)
         if exiting is None:
-            return ExecResult(completed_at=now, host_s=host_s)
+            return ExecResult(completed_at=now, host_s=self._host_s(t0))
 
+        # copy the tokens out now: a later replay may reuse their memory
+        host = self._host_tokens[slot][:tokens.shape[0]]
+        host.copy_(tokens, non_blocking=True)
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
         prefill_rows = [i for i, seq in enumerate(exiting.prefill)
                         if seq.produces_token]
         n_decode = len(exiting.decode)
-        d_off = dims.Sp
+        d_off = bucket.Sp
 
         def readback() -> List[int]:
             t1 = time.perf_counter()
-            host = tokens.cpu().numpy()     # blocks until the tick finishes
+            if done is not None:
+                done.synchronize()      # blocks until the tick finishes
+            vals = host.numpy()
             self.stats.device_s += time.perf_counter() - t1
-            toks = [int(host[i]) for i in prefill_rows]
-            toks += [int(host[d_off + j]) for j in range(n_decode)]
+            toks = [int(vals[i]) for i in prefill_rows]
+            toks += [int(vals[d_off + j]) for j in range(n_decode)]
             self.stats.tokens_out += len(toks)
             return toks
 
         def probe() -> bool:
             return done is None or done.query()
 
-        return ExecResult(completed_at=now, host_s=host_s, pending=readback,
-                          ready=probe)
+        return ExecResult(completed_at=now, host_s=self._host_s(t0),
+                          pending=readback, ready=probe)
+
+    def _host_s(self, t0: float) -> float:
+        """This tick's host time: the prepare() calls since the last
+        execute plus execute's own, up to now."""
+        host_s = self._prep_s + (time.perf_counter() - t0)
+        self._prep_s = 0.0
+        self.stats.host_s += host_s
+        return host_s
 
     def finish_request(self, req: Request) -> None:
         self.slots.release(req.request_id)
@@ -197,19 +442,19 @@ class TorchBackend(ExecutionBackend):
         self.slots.release(req.request_id)
 
     # -------------------------------------------------------------- internals
-    def _build_sampling(self, exiting_id) -> Optional[dict]:
-        """Per-row temperatures for the micro-batch exiting this tick; None
-        when every row is greedy."""
-        dims = self.dims
+    def _build_sampling(self, exiting_id,
+                        bucket: ServeDims) -> Optional[dict]:
+        """Per-row temperatures for the micro-batch exiting this tick, at
+        `bucket`'s rows; None when every row is greedy."""
         batch = (self.scheduler.get_batch(exiting_id)
                  if exiting_id is not None else None)
         if batch is None:
             return None
-        temps = np.zeros(dims.Sp + dims.Sd, np.float32)
+        temps = np.zeros(bucket.Sp + bucket.Sd, np.float32)
         for i, seq in enumerate(batch.prefill):
             temps[i] = seq.request.sampling.temperature
         for j, seq in enumerate(batch.decode):
-            temps[dims.Sp + j] = seq.request.sampling.temperature
+            temps[bucket.Sp + j] = seq.request.sampling.temperature
         if not temps.any():
             return None
         return {"temps": serve_lib.host_to_device(torch.from_numpy(temps),
@@ -253,7 +498,8 @@ class TorchBackend(ExecutionBackend):
         return m
 
     def _fresh_tokens(self, batch: Optional[ScheduledBatch]):
-        """Host token ids of the entering micro-batch (0 on padding rows)."""
+        """Host token ids of the entering micro-batch at the full dims (0
+        on padding rows): one layout for every bucket."""
         dims = self.dims
         p_tok = np.zeros((dims.Sp, dims.C), np.int32)
         d_tok = np.zeros((dims.Sd,), np.int32)
@@ -266,18 +512,18 @@ class TorchBackend(ExecutionBackend):
                 d_tok[s] = seq.request.effective_prompt[seq.start_pos]
         return p_tok, d_tok
 
-    def _build_fresh(self, meta: Dict[str, torch.Tensor]) -> dict:
-        """Embed the entering micro-batch on the device."""
-        tok = self.params["embed"]["tok"]
-        xp = tok[meta["p_tok"]].to(self.dtype)            # [Sp, C, d]
-        xd = tok[meta["d_tok"]].to(self.dtype)[:, None]   # [Sd, 1, d]
-        return {"xp": xp, "xd": xd}
-
 
 class PipelineEngine:
     """Single-device engine binding scheduler + KV + `TorchBackend` under
     the shared `TickLoop`.  Runs on CUDA unless `device="cpu"` is asked for;
-    `params` (a `TransformerParams`) must already lie on that device."""
+    `params` (a `TransformerParams`) must already lie on that device.
+
+    `bucketed` serves the bucket ladder, `async_dispatch` retires each
+    tick's tokens one tick later so that the host prepares tick N+1 while
+    the device runs tick N (the JAX engine's two options).  On CUDA every
+    tick replays a CUDA graph; `cuda_graphs=False` runs the ticks eagerly
+    instead.  `warm_start` (capturing the graphs) runs here when the
+    engine is bucketed or replays graphs."""
 
     def __init__(
         self,
@@ -289,6 +535,9 @@ class PipelineEngine:
         device: Optional[torch.device | str] = None,
         dtype: Optional[torch.dtype] = None,
         seed: int = 0,
+        bucketed: bool = False,
+        async_dispatch: bool = False,
+        cuda_graphs: bool = True,
     ) -> None:
         self.device = resolve_device(device)
         wdev = params["embed"]["tok"].device
@@ -306,8 +555,13 @@ class PipelineEngine:
             max_chunk_tokens=max(dims.C, 1),
             max_decode_seqs=dims.Sd)
         self.backend = TorchBackend(cfg, dims, params, self.kv,
-                                    device=self.device, dtype=dtype, seed=seed)
-        self.loop = TickLoop(self.scheduler, self.backend)
+                                    device=self.device, dtype=dtype, seed=seed,
+                                    bucketed=bucketed,
+                                    cuda_graphs=cuda_graphs)
+        if bucketed or self.backend.graphs:
+            self.backend.warm_start()
+        self.loop = TickLoop(self.scheduler, self.backend,
+                             async_dispatch=async_dispatch)
         # state slots are tied to residency: free them when the scheduler
         # evicts a request (preemption or batch abort), not only on finish
         self.scheduler.on_preempt = self.backend.release_resident_state

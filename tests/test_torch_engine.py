@@ -301,10 +301,16 @@ def test_engine_serves_temperature_requests():
 
 def test_meta_to_device_one_buffer_round_trip():
     """One tick's metadata and token ids reach the device as int32 views of
-    one buffer, every field unchanged, plus the KV-writing rows."""
+    one buffer, the bucket program's static input, every field unchanged,
+    plus each row's KV destination page: its own for the rows that write,
+    the scratch page past the pool for the others."""
     from repro_torch.models import serve as tserve
     from repro_torch.models.attention import valid_rows
+    from repro_torch.models.transformer import init_params
+    _, tcfg = _cfgs("qwen1.5")
     dims = ServeDims(**DIMS)
+    eng = PipelineEngine(tcfg, dims, init_params(tcfg, 0),
+                         ThrottleConfig(**THROTTLE), device="cpu")
     rng = np.random.default_rng(4)
     meta = tserve.zero_meta(dims)
     meta["p_chunk_lens"][0] = 5
@@ -315,16 +321,25 @@ def test_meta_to_device_one_buffer_round_trip():
                                              meta["d_block_tables"].shape)
     extra = {"p_tok": rng.integers(0, 100, (dims.Sp, dims.C)),
              "d_tok": rng.integers(0, 100, (dims.Sd,))}
-    out = tserve.meta_to_device(meta, dims, "cpu", extra=extra)
+    prog = eng.backend._program(dims)
+    eng.backend._load(prog, tserve.host_meta(meta, dims, extra))
+    out = prog.meta
     for k, a in {**meta, **extra}.items():
         assert out[k].dtype == torch.int32
         np.testing.assert_array_equal(out[k].numpy(), a)
     assert len({t.untyped_storage().data_ptr() for t in out.values()}) == 1
+    assert out["p_tok"].untyped_storage().data_ptr() == \
+        prog.static.untyped_storage().data_ptr()
     p_valid = np.arange(dims.C)[None, :] < meta["p_chunk_lens"][:, None]
+    p_pages = out["p_kv_pages"].numpy()
+    assert p_pages.shape == (dims.Sp, dims.C)
     np.testing.assert_array_equal(
-        out["p_rows"].numpy(),
+        np.flatnonzero(p_pages.reshape(-1) < dims.pages),
         valid_rows(p_valid, meta["p_slot_pages"], dims.pages))
-    assert out["d_rows"].tolist() == [0, 1]
+    np.testing.assert_array_equal(p_pages[p_valid],
+                                  meta["p_slot_pages"][p_valid])
+    assert out["d_kv_pages"].tolist() == (
+        meta["d_slot_pages"][:2].tolist() + [dims.pages] * (dims.Sd - 2))
 
 
 def test_deferred_result_is_ready_on_cpu():

@@ -440,18 +440,26 @@ def test_mixer_in_two_pieces_equals_one_pass():
 
 def _serve_block(cfg, kind, bkey, tparams, meta, dims, x, conv, h):
     """The port's one-block stage (`stage_forward_serve`) on a copy of the
-    state: returns (xp, xd, conv pool, ssm pool)."""
+    state, with the scratch slot the engine's pools end in (zeros) after
+    the `dims.slots` slots given: returns (xp, xd, conv pool, ssm pool)
+    without it."""
     one = dataclasses.replace(cfg, pattern=(BlockSpec(kind, 1),),
                               num_layers=1)
     key = f"b0_{kind.value}"
     params = {key: {k: v for k, v in tparams["stages"][bkey].items()}}
-    caches = {key: {"conv": torch.from_numpy(conv.copy())[None, None],
-                    "ssm": torch.from_numpy(h.copy())[None, None]}}
-    m = tserve.meta_to_device(meta, dims, "cpu")
+
+    def pool(a):
+        return torch.from_numpy(np.concatenate(
+            [a, np.zeros_like(a[:1])]))[None, None]
+
+    caches = {key: {"conv": pool(conv), "ssm": pool(h)}}
+    m = {k: torch.from_numpy(a) for k, a in tserve.host_meta(meta,
+                                                             dims).items()}
     xp, xd, _ = tserve.stage_forward_serve(
         one, params, caches, torch.from_numpy(x[0]), torch.from_numpy(x[1]),
         m, dims)
-    return xp, xd, caches[key]["conv"][0, 0], caches[key]["ssm"][0, 0]
+    return (xp, xd, caches[key]["conv"][0, 0, :-1],
+            caches[key]["ssm"][0, 0, :-1])
 
 
 BLOCK_DIMS = dict(Sp=1, C=8, Sd=4, pages=8, page=8, Bp=2, Bd=2, slots=8)

@@ -443,9 +443,10 @@ def test_init_params_rwkv_kinds():
 
 
 def test_meta_to_device_rwkv_fields():
-    """Live rows, their slots and the fresh flags are computed on the host:
-    a prefill chunk at position 0 is fresh, a later chunk is not, padding
-    rows (on slot 0) are not live."""
+    """The slots each row's state is written back to and the fresh flags
+    are computed on the host: a live row writes its own slot, a padding row
+    (on slot 0) the scratch slot past the pool; a prefill chunk at position
+    0 is fresh, a later chunk is not."""
     dims = ServeDims(**{**DIMS, "Sp": 2})
     meta = tserve.zero_meta(dims)
     meta["p_chunk_lens"][:] = [5, 0]
@@ -454,14 +455,16 @@ def test_meta_to_device_rwkv_fields():
     meta["d_valid"][[1, 4]] = 1
     meta["d_state_slots"][[1, 4]] = [7, 2]
     meta["d_positions"][[1, 4]] = [9, 30]
-    out = tserve.meta_to_device(meta, dims, "cpu")
-    assert out["p_live"].tolist() == [0] and out["p_live_slots"].tolist() == [3]
+    out = tserve.host_meta(meta, dims)
+    scratch = dims.slots
+    assert out["p_write_slots"].tolist() == [3, scratch]
     assert out["p_fresh"].tolist() == [1, 0]
-    assert out["d_live"].tolist() == [1, 4]
-    assert out["d_live_slots"].tolist() == [7, 2]
+    want = [scratch] * dims.Sd
+    want[1], want[4] = 7, 2
+    assert out["d_write_slots"].tolist() == want
     assert not out["d_fresh"].any()
     meta["p_positions"][0, :5] = 16 + np.arange(5)     # a second chunk
-    assert tserve.meta_to_device(meta, dims, "cpu")["p_fresh"].tolist() == [
+    assert tserve.host_meta(meta, dims)["p_fresh"].tolist() == [
         0, 0]
 
 
