@@ -124,6 +124,35 @@ line; any failure raises and the script exits non-zero.
               (MoE) and 1 per phase (attention); tokens/s, host/device time,
               memory and the device's idle share from a profiled rerun
 
+  serve-router-f32  full-width, full-depth qwen1.5-0.5b in f32, two
+              bucketed async graph replicas on the one card, built by
+              `repro_torch.serving.build` behind the balanced router and
+              served through `LLMServer`, three times from one seed: the
+              serve-f32 batch with two requests live-migrated mid-decode and
+              one mid-prefill by `router.migrate_request`; the same batch on
+              a disaggregated pair (roles prefill, decode), every request
+              handed off once; and with prefix caching, 4 requests sharing a
+              1,024-token head one after the other (at least 3 prefix hits),
+              then one request streamed and one aborted mid-stream through
+              `HTTPFrontend` on 127.0.0.1 (an ephemeral port; its pages
+              return to its replica's pool).  Every greedy token equals the
+              dense reference up to a near-tie; on each replica paged
+              attention ran once per layer and phase a tick runs, its graph
+              count stayed what warm_start captured and its pools kept their
+              addresses
+  serve-router-rwkv-f32  rwkv6-3b cut to 4 layers, f32, two bucketed async
+              graph replicas behind the router: 8 requests placed on
+              replica 0, 3 of them stolen while waiting and 2 live-migrated
+              mid-decode (their WKV, tm_x and cm_x slots move); tokens equal
+              the dense reference (its scan on the plain version) up to a
+              near-tie, the WKV kernel ran on both replicas
+  serve-router-bf16  serve-bf16's batch through `LLMServer` in bf16, on one
+              bucketed async graph replica and on two behind the balanced
+              router with its rebalance plane on: output tokens/s, TTFT,
+              time per output token and inter-token gaps (p50, p99), routed
+              counts, stolen and migrated requests, migrated tokens, peak
+              memory; measurements only
+
 The kernel and moe-kernel phases also hold their kernels at jamba's shapes:
 paged attention decode and prefill with 64 query heads over 8 KV heads of
 128, and the fused MoE (bf16) at E=16, C=88, d=8192, ff=24576, full and as
@@ -1552,6 +1581,491 @@ def phase_serve_jamba_bf16(pa, mg, s6, build_engine) -> dict:
          "mamba_chunked_scan": s6}, "serve-jamba-bf16")
 
 
+# ------------------------------------------------------- router phases
+
+PREFIX_TOKENS = 1024          # the prefix-caching run's shared head: 64 pages
+ROUTER_MIGRATIONS = 2         # forced mid-decode moves (and one mid-prefill)
+
+
+class _Replicas:
+    """What the router phases hold each replica of `server` to: its graph
+    count and pool addresses, taken now and held to `check` (imports write
+    into the pools in place, and serving captures no graph), and the
+    launches of `counted`'s kernels made in its own steps (its `step` is
+    wrapped; the counts are set to 0 here), which must be what
+    `_launch_want` makes of its ticks."""
+
+    def __init__(self, engines, counted: dict) -> None:
+        self.engines = list(engines)
+        self.counted = counted
+        self.graphs = [e.backend.graph_count() for e in self.engines]
+        self.pools = [self._pools(e) for e in self.engines]
+        self.ticks0 = [self._ticks(e) for e in self.engines]
+        self.launches = [dict.fromkeys(counted, 0) for _ in self.engines]
+        for mod in counted.values():
+            mod.launches = 0
+        for eng, acc in zip(self.engines, self.launches):
+            eng.step = self._counting(eng.step, acc)
+
+    @staticmethod
+    def _pools(eng) -> dict:
+        return {f"{gk}/{n}": a.data_ptr()
+                for gk, grp in eng.backend.caches.items()
+                for n, a in grp.items()}
+
+    @staticmethod
+    def _ticks(eng) -> tuple:
+        st = eng.stats
+        return st.ticks, st.prefill_ticks, st.decode_ticks
+
+    def _counting(self, step, acc: dict):
+        def counted_step():
+            before = {k: m.launches for k, m in self.counted.items()}
+            out = step()
+            for k, m in self.counted.items():
+                acc[k] += m.launches - before[k]
+            return out
+        return counted_step
+
+    def check(self, phase: str) -> list:
+        rows = []
+        for i, eng in enumerate(self.engines):
+            ticks = [a - b for a, b in zip(self._ticks(eng), self.ticks0[i])]
+            want = _launch_want(eng.cfg, *ticks, self.counted)
+            if self.launches[i] != want:
+                raise AssertionError(f"{phase}: replica {i} launched "
+                                     f"{self.launches[i]} in {ticks} ticks "
+                                     f"(all, prefill, decode), want {want}")
+            if eng.backend.graph_count() != self.graphs[i]:
+                raise AssertionError(f"{phase}: replica {i} has "
+                                     f"{eng.backend.graph_count()} graphs, "
+                                     f"{self.graphs[i]} after warm_start")
+            if self._pools(eng) != self.pools[i]:
+                raise AssertionError(f"{phase}: replica {i}'s pools moved")
+            rows.append({"ticks": ticks[0], "prefill_ticks": ticks[1],
+                         "decode_ticks": ticks[2],
+                         "launches": self.launches[i],
+                         "graphs": self.graphs[i]})
+        return rows
+
+
+_REFERENCE = {}
+
+
+def _reference(eng, prompt, max_new, greedy_trace):
+    """The dense reference's (tokens, top-2 gaps) of `prompt`, computed once
+    per weights (their seed makes them the same in every build)."""
+    key = (eng.cfg.name, eng.cfg.num_layers, eng.cfg.dtype, tuple(prompt),
+           max_new)
+    if key not in _REFERENCE:
+        _REFERENCE[key] = greedy_trace(eng.cfg, eng.params, prompt, max_new)
+    return _REFERENCE[key]
+
+
+def _check_tokens(phase, eng, prompts, tokens, max_new, greedy_trace):
+    """Every request's `max_new` tokens equal the dense reference's up to
+    its first near-tie (top-2 gap below NEAR_TIE).  Returns (tokens
+    compared, near-ties)."""
+    compared, near_ties = 0, []
+    vocab = eng.cfg.vocab_size
+    for i, (p, got) in enumerate(zip(prompts, tokens)):
+        if len(got) != max_new or not all(0 <= t < vocab for t in got):
+            raise AssertionError(f"{phase}: request {i} gave {got}")
+        want, gaps = _reference(eng, p, max_new, greedy_trace)
+        stop = next((k for k, g in enumerate(gaps) if g < NEAR_TIE), max_new)
+        if stop < max_new:
+            near_ties.append({"request": i, "step": stop, "gap": gaps[stop]})
+        if got[:stop] != want[:stop]:
+            raise AssertionError(f"{phase}: request {i} (prompt {len(p)}) "
+                                 f"{got} != reference {want} (compared "
+                                 f"{stop})")
+        compared += stop
+    return compared, near_ties
+
+
+def _where(router, rid: str) -> int:
+    return next(i for i, e in enumerate(router.replicas)
+                if e.scheduler.kv.has_request(rid))
+
+
+def _force_moves(srv, rids, decode_moves: int, prefill_moves: int) -> list:
+    """Step `srv` until `decode_moves` requests have been live-migrated
+    mid-decode and `prefill_moves` mid-prefill (prompt partly prefilled, no
+    token yet), each by `router.migrate_request` to the other replica."""
+    router = srv.router
+    reqs = [srv._requests[r] for r in rids]
+    moves = []
+    for _ in range(2000):
+        if not srv.has_work:
+            break
+        for req in reqs:
+            rid = req.request_id
+            if any(m["request_id"] == rid for m in moves):
+                continue
+            mid_prefill = (0 < req.num_prefilled
+                           < req.num_effective_prompt_tokens
+                           and req.num_output_tokens == 0)
+            mid_decode = 2 <= req.num_output_tokens <= MAX_NEW - 4
+            kind = ("prefill" if mid_prefill else
+                    "decode" if mid_decode else None)
+            if kind is None or sum(m["at"] == kind for m in moves) >= (
+                    prefill_moves if kind == "prefill" else decode_moves):
+                continue
+            src = _where(router, rid)
+            tokens = req.num_prefilled
+            if router.migrate_request(rid, src, 1 - src):
+                moves.append({"request_id": rid, "at": kind, "src": src,
+                              "kv_tokens": tokens,
+                              "outputs": req.num_output_tokens})
+        if len(moves) == decode_moves + prefill_moves:
+            return moves
+        srv.step()
+    raise AssertionError(f"forced moves: caught only {moves}")
+
+
+def _router_stats(srv) -> dict:
+    st = srv.stats()
+    out = {"routed": st.routed_counts,
+           "prefix_hits": [r.prefix_hits for r in st.replicas],
+           "prefix_tokens_avoided": [r.prefix_tokens_avoided
+                                     for r in st.replicas]}
+    if srv.router is not None:
+        rb = srv.router.rebalance_stats
+        out.update(stolen=rb.stolen, migrated=rb.migrated,
+                   migrated_tokens=rb.migrated_tokens,
+                   migration_fallbacks=rb.migration_fallbacks)
+    if st.disagg is not None:
+        out.update(handoffs=st.disagg.handoffs,
+                   handoff_tokens=st.disagg.handoff_tokens,
+                   handoff_fallbacks=st.disagg.fallbacks)
+    return out
+
+
+def _sse(url: str, body: dict):
+    """POST `body` to `url` and yield the SSE frames' JSON as they come."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        for line in resp:
+            line = line.decode().strip()
+            if line.startswith("data: "):
+                yield json.loads(line[len("data: "):])
+
+
+def _http_stream_and_abort(srv, prompt, greedy_trace) -> dict:
+    """Through `HTTPFrontend` on 127.0.0.1 (an ephemeral port): stream one
+    request to its end, its tokens equal to the dense reference's; then
+    abort a long one mid-stream with DELETE from a second connection: its
+    stream ends with finish_reason "abort" and its pages are back in its
+    replica's pool."""
+    import threading
+    import urllib.request
+
+    from repro_torch.serving import HTTPFrontend
+
+    fe = HTTPFrontend(srv, host="127.0.0.1", port=0).start()
+    try:
+        url = fe.url + "/v1/generate?stream=1"
+        frames = list(_sse(url, {"prompt": prompt,
+                                 "max_new_tokens": MAX_NEW}))
+        streamed = [f["token"] for f in frames if f["token"] is not None]
+        if frames[-1]["finish_reason"] != "length":
+            raise AssertionError(f"http: stream ended with {frames[-1]}")
+        compared, ties = _check_tokens("serve-router-f32 http", srv.replicas[0],
+                                       [prompt], [streamed], MAX_NEW,
+                                       greedy_trace)
+        free = [e.kv.num_free_pages for e in srv.replicas]
+        victim = _sse(url, {"prompt": prompt[:200], "max_new_tokens": 400,
+                            "request_id": "http-victim"})
+        first = next(victim)
+        where = next(i for i, e in enumerate(srv.replicas)
+                     if e.kv.has_request("http-victim")
+                     or "http-victim" in {r.request_id
+                                          for r in e.scheduler.waiting})
+
+        def abort():
+            urllib.request.urlopen(urllib.request.Request(
+                fe.url + "/v1/requests/http-victim", method="DELETE"),
+                timeout=120).read()
+
+        aborter = threading.Thread(target=abort)
+        aborter.start()
+        rest = [first] + list(victim)
+        aborter.join(timeout=120)
+        if rest[-1]["finish_reason"] != "abort":
+            raise AssertionError(f"http: the aborted stream ended with "
+                                 f"{rest[-1]}")
+        after = [e.kv.num_free_pages for e in srv.replicas]
+        if after != free or any(e.kv.has_request("http-victim")
+                                for e in srv.replicas):
+            raise AssertionError(f"http: free pages {free} before the "
+                                 f"aborted request, {after} after it")
+        return {"url_host": fe.host, "streamed_tokens": len(streamed),
+                "tokens_compared": compared, "near_ties": ties,
+                "aborted_after_frames": len(rest), "abort_replica": where,
+                "free_pages_after_abort": after}
+    finally:
+        fe.shutdown()
+
+
+def phase_serve_router_f32(pa, greedy_trace) -> dict:
+    """Full-width, full-depth qwen1.5-0.5b in f32, two bucketed async graph
+    replicas on the card behind the balanced router, built by
+    `repro_torch.serving.build`, three times from one seed: live migration,
+    disaggregated hand-off, prefix caching with the HTTP frontend."""
+    import dataclasses
+
+    from repro_torch.serving import (ClusterSpec, EngineSpec, HandoffPolicy,
+                                     ServeSpec, build)
+
+    counted = {"paged_flash_attention": pa}
+    engine = EngineSpec(arch=ARCH, reduced=False, bucketed=True,
+                        dispatch="async")
+    out = {"phase": "serve-router-f32", "arch": ARCH, "layers": LAYERS,
+           "replicas": 2, "max_new_tokens": MAX_NEW}
+
+    def run(name, spec, serve):
+        t0 = time.perf_counter()
+        _free()
+        srv = build(spec, device=DEV, dtype=torch.float32)
+        build_s = time.perf_counter() - t0
+        watch = _Replicas(srv.replicas, counted)
+        t1 = time.perf_counter()
+        res = serve(srv)
+        torch.cuda.synchronize()
+        res.update(build_s=build_s, serve_s=time.perf_counter() - t1,
+                   replicas_run=watch.check(f"serve-router-f32 {name}"),
+                   capture_s=[e.backend.capture_s for e in srv.replicas],
+                   **_router_stats(srv))
+        srv.router.check_invariants()
+        out[name] = res
+        emit({"phase": "serve-router-f32", "run": name, **res})
+        return srv
+
+    def balanced(srv):
+        ps = _prompts(11, 8, srv.cfg.vocab_size)
+        rids = [srv.submit(p, _sampling(0.0)) for p in ps]
+        moves = _force_moves(srv, rids, ROUTER_MIGRATIONS, 1)
+        srv.drain()
+        toks = [o.token_ids for o in srv.outputs(rids)]
+        compared, ties = _check_tokens("serve-router-f32 balanced",
+                                       srv.replicas[0], ps, toks, MAX_NEW,
+                                       greedy_trace)
+        migrated = srv.router.rebalance_stats.migrated
+        if migrated != len(moves):
+            raise AssertionError(f"migrated {migrated}, forced {moves}")
+        return {"moves": moves, "tokens_compared": compared,
+                "near_ties": ties}
+
+    run("balanced", ServeSpec(engine=engine,
+                              cluster=ClusterSpec(replicas=2)), balanced)
+
+    def disagg(srv):
+        ps = _prompts(11, 8, srv.cfg.vocab_size)
+        rids = [srv.submit(p, _sampling(0.0)) for p in ps]
+        srv.drain()
+        toks = [o.token_ids for o in srv.outputs(rids)]
+        compared, ties = _check_tokens("serve-router-f32 disagg",
+                                       srv.replicas[0], ps, toks, MAX_NEW,
+                                       greedy_trace)
+        st = srv.stats()
+        if st.disagg.handoffs != len(ps) or st.disagg.fallbacks:
+            raise AssertionError(f"disagg: {st.disagg} for {len(ps)} "
+                                 f"requests")
+        done = {r.request_id for r in srv.replicas[1].finished}
+        if not set(rids) <= done:
+            raise AssertionError("disagg: a request finished off the "
+                                 "decode replica")
+        return {"tokens_compared": compared, "near_ties": ties}
+
+    run("disagg", ServeSpec(engine=engine, cluster=ClusterSpec(
+        replicas=2, roles=("prefill", "decode"),
+        handoff=HandoffPolicy(interval=1e-4))), disagg)
+
+    def prefix(srv):
+        rng = np.random.default_rng(23)
+        vocab = srv.cfg.vocab_size
+        head = [int(t) for t in rng.integers(0, vocab, PREFIX_TOKENS)]
+        ps = [head + [int(t) for t in rng.integers(0, vocab, n)]
+              for n in (17, 40, 9, 33)]
+        # one at a time: each later request finds the head cached on the
+        # replica that served the first, and cache-aware routing sends it
+        # there
+        toks = [srv.generate(p, _sampling(0.0)).token_ids for p in ps]
+        compared, ties = _check_tokens("serve-router-f32 prefix",
+                                       srv.replicas[0], ps, toks, MAX_NEW,
+                                       greedy_trace)
+        hits = sum(r.prefix_hits for r in srv.stats().replicas)
+        if hits < len(ps) - 1:
+            raise AssertionError(f"prefix: {hits} hits for {len(ps)} "
+                                 f"requests sharing {PREFIX_TOKENS} tokens")
+        # the streamed prompt adopts half the cached head
+        http = _http_stream_and_abort(srv, ps[1][:PREFIX_TOKENS // 2],
+                                      greedy_trace)
+        return {"prefix_tokens": PREFIX_TOKENS, "tokens_compared": compared,
+                "near_ties": ties, "http": http}
+
+    run("prefix", ServeSpec(engine=dataclasses.replace(
+        engine, enable_prefix_caching=True),
+        cluster=ClusterSpec(replicas=2)), prefix)
+    _free()
+    return out
+
+
+def phase_serve_router_rwkv_f32(wkv, greedy_trace) -> dict:
+    """Full-width rwkv6-3b cut to 4 layers, f32, two bucketed async graph
+    replicas from one set of weights behind the router.  Every request is
+    placed on replica 0; three still waiting are stolen to replica 1 (no
+    state moves) and two are live-migrated mid-decode (their WKV, tm_x and
+    cm_x slots move device to device)."""
+    from repro_torch.core import SamplingParams
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.router import ReplicaRouter
+
+    max_new = 8
+    t0 = time.perf_counter()
+    spec = _spec(_f32_engine(RWKV_ARCH, RWKV_F32_LAYERS))
+    engines = [_sibling(spec, bucketed=True, async_dispatch=True)[0]
+               for _ in range(2)]
+    build_s = time.perf_counter() - t0
+    router = ReplicaRouter(engines)
+    watch = _Replicas(engines, {"rwkv6_chunked_scan": wkv})
+    rng = np.random.default_rng(29)
+    vocab = engines[0].cfg.vocab_size
+    lens = [16, 300] + [int(x) for x in rng.integers(16, 301, 6)]
+    prompts = [[int(t) for t in rng.integers(0, vocab, n)] for n in lens]
+    reqs = [engines[0].add_request(p, SamplingParams(max_new_tokens=max_new))
+            for p in prompts]
+    for req in reqs[-3:]:
+        if not router.migrate_request(req.request_id, 0, 1):
+            raise AssertionError("a waiting request was not stolen")
+    moved = []
+    for _ in range(2000):
+        for req in reqs[:5]:
+            if (len(moved) < ROUTER_MIGRATIONS
+                    and req.request_id not in moved
+                    and 2 <= req.num_output_tokens <= max_new - 3
+                    and engines[0].kv.has_request(req.request_id)
+                    and router.migrate_request(req.request_id, 0, 1)):
+                moved.append(req.request_id)
+        if not (router.has_work or router.busy):
+            break
+        router.step()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0 - build_s
+    st = router.rebalance_stats
+    if st.stolen != 3 or st.migrated != ROUTER_MIGRATIONS:
+        raise AssertionError(f"serve-router-rwkv-f32: {st}, moved {moved}")
+    replicas = watch.check("serve-router-rwkv-f32")
+    if not all(r["launches"]["rwkv6_chunked_scan"] > 0 for r in replicas):
+        raise AssertionError(f"the WKV kernel did not run on both "
+                             f"replicas: {replicas}")
+    router.check_invariants()
+    # the reference's scan runs on the plain version
+    kernel_scan = ops.rwkv6_scan
+    ops.rwkv6_scan = wkv.rwkv6_scan_ref
+    try:
+        compared, ties = _check_tokens(
+            "serve-router-rwkv-f32", engines[0], prompts,
+            [r.output_token_ids for r in reqs], max_new, greedy_trace)
+    finally:
+        ops.rwkv6_scan = kernel_scan
+    out = {"phase": "serve-router-rwkv-f32", "arch": RWKV_ARCH,
+           "layers": RWKV_F32_LAYERS, "replicas": 2,
+           "requests": len(prompts), "prompt_lens": lens,
+           "max_new_tokens": max_new, "stolen": st.stolen,
+           "migrated": st.migrated, "migrated_tokens": st.migrated_tokens,
+           "migrated_requests": moved, "replicas_run": replicas,
+           "tokens_compared": compared, "near_ties": ties,
+           "build_s": build_s, "serve_s": serve_s,
+           "check_s": time.perf_counter() - t0 - build_s - serve_s}
+    emit(out)
+    del engines, router, watch
+    _free()
+    return out
+
+
+def _percentiles(xs) -> dict:
+    xs = np.asarray(xs, float)
+    return {"p50": float(np.percentile(xs, 50)),
+            "p99": float(np.percentile(xs, 99))} if xs.size else {}
+
+
+def phase_serve_router_bf16(pa) -> dict:
+    """serve-bf16's 32-request batch through `LLMServer` in bf16, on one
+    bucketed async graph replica, then on two behind the balanced router
+    with its rebalance plane on (live migration allowed).  Measurements
+    only: tokens/s, TTFT and inter-token latency, routing and migration
+    counts, peak memory."""
+    from repro_torch.serving import (ClusterSpec, EngineSpec,
+                                     RebalancePolicy, ServeSpec, build)
+
+    engine = EngineSpec(arch=ARCH, reduced=False, bucketed=True,
+                        dispatch="async")
+    counted = {"paged_flash_attention": pa}
+    specs = {"one": ServeSpec(engine=engine),
+             "two_balanced": ServeSpec(engine=engine, cluster=ClusterSpec(
+                 replicas=2, rebalance=RebalancePolicy(interval=0.05)))}
+    rows = {}
+    for name, spec in specs.items():
+        _free()
+        t0 = time.perf_counter()
+        srv = build(spec, device=DEV, dtype=torch.bfloat16)
+        build_s = time.perf_counter() - t0
+        prompts = _prompts(12, 32, srv.cfg.vocab_size)
+        watch = _Replicas(srv.replicas, counted)
+        stamps = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        rids = []
+        for i, p in enumerate(prompts):
+            rid = f"{name}-{i}"
+            stamps[rid] = []
+            srv.subscribe(rid, lambda d, ts=stamps[rid]: ts.append(
+                time.perf_counter()) if d.token is not None else None)
+            rids.append(srv.submit(p, _sampling(0.8 if i % 8 == 7 else 0.0),
+                                   request_id=rid))
+        srv.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        outs = srv.outputs(rids)
+        vocab = srv.cfg.vocab_size
+        for o in outs:
+            if len(o.token_ids) != MAX_NEW or not all(
+                    0 <= t < vocab for t in o.token_ids):
+                raise AssertionError(f"serve-router-bf16 {name}: "
+                                     f"{o.request_id} gave {o.token_ids}")
+        gaps = [b - a for ts in stamps.values() for a, b in zip(ts, ts[1:])]
+        out_tokens = sum(len(o.token_ids) for o in outs)
+        row = {"phase": "serve-router-bf16", "run": name,
+               "replicas": len(srv.replicas), "requests": len(outs),
+               "output_tokens": out_tokens, "wall_s": wall,
+               "output_tokens_per_s": out_tokens / wall,
+               "ttft_s": _percentiles([o.metrics.ttft() for o in outs]),
+               "tpot_s": _percentiles([o.metrics.tpot(len(o.token_ids))
+                                       for o in outs]),
+               "inter_token_s": _percentiles(gaps),
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "build_s": build_s,
+               "replicas_run": watch.check(f"serve-router-bf16 {name}"),
+               **_router_stats(srv)}
+        if srv.router is not None:
+            srv.router.check_invariants()
+        emit(row)
+        rows[name] = row
+        del srv, watch
+    _free()
+    return rows
+
+
+def _launches(run: dict, name: str) -> list:
+    """A router run's launches of kernel `name`, one count per replica."""
+    return [r["launches"][name] for r in run["replicas_run"]]
+
+
 def _kernel_entry(name, source, replaces, launches, rows, main_row):
     return {
         "name": name, "route": "cuda", "source": source,
@@ -1616,6 +2130,9 @@ def main() -> int:
     mamba_shapes = phase_mamba_kernel(s6, planted)
     phase_serve_jamba_f32(pa, mg, s6, greedy_trace)
     jamba = phase_serve_jamba_bf16(pa, mg, s6, build_engine)
+    router_f32 = phase_serve_router_f32(pa, greedy_trace)
+    router_rwkv = phase_serve_router_rwkv_f32(wkv, greedy_trace)
+    router_bf16 = phase_serve_router_bf16(pa)
 
     pa_entry = _kernel_entry(
         "paged_flash_attention",
@@ -1627,7 +2144,13 @@ def main() -> int:
     pa_entry["launches_by_path"] = {
         "serve-bf16": bf16["launches"]["paged_flash_attention"],
         "serve-olmoe-bf16": olmoe["launches"]["paged_flash_attention"],
-        "serve-jamba-bf16": jamba["launches"]["paged_flash_attention"]}
+        "serve-jamba-bf16": jamba["launches"]["paged_flash_attention"],
+        **{f"serve-router-f32 {run}": _launches(router_f32[run],
+                                                "paged_flash_attention")
+           for run in ("balanced", "disagg", "prefix")},
+        **{f"serve-router-bf16 {run}": _launches(router_bf16[run],
+                                                 "paged_flash_attention")
+           for run in router_bf16}}
     moe_entry = _kernel_entry(
         "fused_moe_ffn", "src/repro_torch/kernels/csrc/moe_ffn.cu",
         "src/repro/kernels/moe_gemm.py:53",
@@ -1644,7 +2167,9 @@ def main() -> int:
         next(r for r in rwkv_shapes if r["shape"] == "rwkv6-3b decode"
              and r["dtype"] == "bfloat16"))
     rwkv_entry["launches_by_path"] = {
-        "serve-rwkv-bf16": rwkv["launches"]["rwkv6_chunked_scan"]}
+        "serve-rwkv-bf16": rwkv["launches"]["rwkv6_chunked_scan"],
+        "serve-router-rwkv-f32": _launches(router_rwkv,
+                                           "rwkv6_chunked_scan")}
     mamba_entry = _kernel_entry(
         "mamba_chunked_scan", "src/repro_torch/kernels/csrc/mamba_scan.cu",
         "src/repro/kernels/mamba_scan.py:60",

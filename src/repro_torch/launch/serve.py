@@ -21,7 +21,22 @@ work on tick N+1 with tick N on the device:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --bucketed --async
 
-`build_engine` is the entry point `chip_smoke.py` and the tests call.
+Every flag combination is one `ServeSpec` (the JAX launcher's format),
+served by `repro_torch.serving.build`: ``--dump-spec`` prints it,
+``--spec FILE`` serves a dumped one.  ``--replicas N`` puts N engines, which
+share one set of weights, behind the balanced `ReplicaRouter`;
+``--rebalance-interval`` runs its control plane and ``--migrate`` lets it
+live-migrate running requests with their KV and state.  ``--http PORT``
+serves the spec over HTTP instead of running the synthetic workload:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --device cpu --replicas 2 --route balanced \
+        --rebalance-interval 0.05 --migrate
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --device cpu --http 0
+
+`serve_config`, `build_params` and `build_engine` are the entry points
+`chip_smoke.py` and the tests call.
 """
 
 from __future__ import annotations
@@ -67,6 +82,47 @@ def weight_bytes(cfg, dtype: torch.dtype) -> int:
     return walk(model_param_defs(cfg)) * dtype.itemsize
 
 
+def serve_config(arch: str = "qwen1.5-0.5b", *, reduced: bool = False,
+                 dtype: Optional[torch.dtype] = None,
+                 cut: Optional[Sequence[BlockKind]] = None,
+                 reduced_overrides: Optional[dict] = None):
+    """(config, dtype) of the model `arch` serves: full width and depth in
+    one stage (bf16 by default), or the reduced CPU-sized variant (f32,
+    `make_reduced(**reduced_overrides)`).  `cut` names block kinds: the
+    model is then cut in depth to the first layer of each
+    (`cut_to_kinds`)."""
+    cfg = get_config(arch)
+    if reduced:
+        cfg = make_reduced(cfg, **(reduced_overrides or {})).with_plan(
+            pp=1, tp=1)
+        cfg = dataclasses.replace(cfg, dtype="float32")
+    else:
+        if reduced_overrides:
+            raise ValueError("reduced_overrides only applies to reduced mode")
+        cfg = single_stage(cfg)
+    if cut:
+        cfg = cut_to_kinds(cfg, cut)
+    dtype = dtype or getattr(torch, cfg.dtype)
+    return dataclasses.replace(cfg, dtype=str(dtype).split(".")[-1]), dtype
+
+
+def build_params(cfg, dtype: torch.dtype, device: torch.device,
+                 seed: int = 0):
+    """`cfg`'s random weights from `seed` on `device`: one read-only set
+    that any number of engine replicas share.  On the card, weights that
+    exceed its memory raise before anything is allocated."""
+    if device.type == "cuda":
+        need = weight_bytes(cfg, dtype)
+        have = torch.cuda.get_device_properties(device).total_memory
+        if need > have:
+            raise ValueError(
+                f"{cfg.name}: {cfg.num_layers} layers need {need:,} bytes "
+                f"of {cfg.dtype} weights, more than the card's {have:,}; "
+                f"serve a depth cut (cut=, --cut), e.g. one layer of each "
+                f"block kind: {sorted({b.kind.value for b in cfg.pattern})}")
+    return init_params(cfg, seed, dtype=dtype, device=device)
+
+
 def build_engine(arch: str = "qwen1.5-0.5b", *, reduced: bool = False,
                  device: Optional[torch.device | str] = None,
                  dtype: Optional[torch.dtype] = None,
@@ -76,38 +132,19 @@ def build_engine(arch: str = "qwen1.5-0.5b", *, reduced: bool = False,
                  seed: int = 0, bucketed: bool = False,
                  async_dispatch: bool = False,
                  cuda_graphs: bool = True) -> PipelineEngine:
-    """A ready engine for `arch`: full width and depth in one stage (bf16
-    by default), or the reduced CPU-sized variant (f32).  `cut` names block
-    kinds: the model is then cut in depth to the first layer of each
-    (`cut_to_kinds`).  On the card, weights that exceed its memory raise
-    before anything is allocated.  `bucketed`, `async_dispatch` and
-    `cuda_graphs` go to `PipelineEngine`."""
+    """A ready engine for `arch` (`serve_config`, `build_params`) at
+    `FULL_DIMS`, or `REDUCED_DIMS` when `reduced`.  `bucketed`,
+    `async_dispatch` and `cuda_graphs` go to `PipelineEngine`."""
     dev = resolve_device(device)
-    cfg = get_config(arch)
+    cfg, dtype = serve_config(arch, reduced=reduced, dtype=dtype, cut=cut)
     if reduced:
-        cfg = make_reduced(cfg).with_plan(pp=1, tp=1)
-        cfg = dataclasses.replace(cfg, dtype="float32")
         dims = dims or REDUCED_DIMS
         throttle = throttle or ThrottleConfig(pipeline_depth=1,
                                               **REDUCED_THROTTLE)
     else:
-        cfg = single_stage(cfg)
         dims = dims or FULL_DIMS
         throttle = throttle or ThrottleConfig(pipeline_depth=1)
-    if cut:
-        cfg = cut_to_kinds(cfg, cut)
-    dtype = dtype or getattr(torch, cfg.dtype)
-    cfg = dataclasses.replace(cfg, dtype=str(dtype).split(".")[-1])
-    if dev.type == "cuda":
-        need = weight_bytes(cfg, dtype)
-        have = torch.cuda.get_device_properties(dev).total_memory
-        if need > have:
-            raise ValueError(
-                f"{cfg.name}: {cfg.num_layers} layers need {need:,} bytes "
-                f"of {cfg.dtype} weights, more than the card's {have:,}; "
-                f"serve a depth cut (cut=, --cut), e.g. one layer of each "
-                f"block kind: {sorted({b.kind.value for b in cfg.pattern})}")
-    params = init_params(cfg, seed, dtype=dtype, device=dev)
+    params = build_params(cfg, dtype, dev, seed)
     return PipelineEngine(cfg, dims, params, throttle, device=dev,
                           dtype=dtype, seed=seed, bucketed=bucketed,
                           async_dispatch=async_dispatch,
@@ -139,11 +176,34 @@ def parse_cut(text: Optional[str]) -> Optional[list]:
     return [BlockKind(k) for k in text.split(",")] if text else None
 
 
+def _spec(*, arch: str, reduced: bool, policy: str, seed: int,
+          replicas: int, route: str, rebalance_interval: Optional[float],
+          migrate: bool, bucketed: bool, async_dispatch: bool):
+    from repro_torch.serving import (ClusterSpec, EngineSpec,
+                                     RebalancePolicy, ServeSpec)
+    cluster = None
+    if replicas > 1 or rebalance_interval is not None:
+        rebalance = None
+        if rebalance_interval is not None:
+            rebalance = RebalancePolicy(interval=rebalance_interval,
+                                        migrate=migrate)
+        cluster = ClusterSpec(replicas=max(replicas, 1), route=route,
+                              rebalance=rebalance)
+    return ServeSpec(
+        backend="engine",
+        engine=EngineSpec(arch=arch, reduced=reduced, policy=policy,
+                          seed=seed, bucketed=bucketed,
+                          dispatch="async" if async_dispatch else "sync"),
+        cluster=cluster)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen1.5-0.5b")
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--policy", default="gllm",
+                    choices=["gllm", "sarathi", "no_wt", "no_ut"])
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config (f32) instead of the "
                     "published width and depth")
@@ -153,36 +213,100 @@ def main() -> None:
     add_cut_argument(ap)
     add_engine_arguments(ap)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="data-parallel engine replicas behind the router "
+                    "(one shared set of weights)")
+    ap.add_argument("--route", default="balanced", choices=["balanced", "rr"],
+                    help="request placement policy across replicas")
+    ap.add_argument("--rebalance-interval", type=float, default=None,
+                    metavar="SECONDS",
+                    help="run the periodic control plane: steal waiting "
+                    "requests off saturated replicas every SECONDS")
+    ap.add_argument("--migrate", action="store_true",
+                    help="with --rebalance-interval: also live-migrate "
+                    "running requests (their KV and state move, no "
+                    "recompute)")
+    ap.add_argument("--spec", default=None, metavar="FILE",
+                    help="serve from a ServeSpec JSON file (the JAX "
+                    "launcher's --dump-spec loads too) instead of the "
+                    "engine/cluster flags above")
+    ap.add_argument("--dump-spec", action="store_true",
+                    help="print the ServeSpec these flags translate to "
+                    "(JSON) and exit")
+    ap.add_argument("--http", type=int, default=None, metavar="PORT",
+                    help="serve the spec over HTTP on PORT (0 = ephemeral) "
+                    "instead of running the synthetic workload")
     args = ap.parse_args()
 
+    from repro_torch.serving import ServeSpec, build
+
+    if args.spec is not None:
+        with open(args.spec) as fh:
+            spec = ServeSpec.from_json(fh.read())
+    else:
+        spec = _spec(arch=args.arch, reduced=args.reduced,
+                     policy=args.policy, seed=args.seed,
+                     replicas=args.replicas, route=args.route,
+                     rebalance_interval=args.rebalance_interval,
+                     migrate=args.migrate, bucketed=args.bucketed,
+                     async_dispatch=args.async_dispatch)
+    if args.dump_spec:
+        print(spec.to_json(indent=2))
+        return
+
     dtype = getattr(torch, args.dtype) if args.dtype else None
-    eng = build_engine(args.arch, reduced=args.reduced, device=args.device,
-                       dtype=dtype, cut=parse_cut(args.cut), seed=args.seed,
-                       bucketed=args.bucketed,
-                       async_dispatch=args.async_dispatch,
-                       cuda_graphs=args.cuda_graphs)
-    cfg = eng.cfg
+    server = build(spec, device=args.device, dtype=dtype,
+                   cuda_graphs=args.cuda_graphs, cut=parse_cut(args.cut))
+    if args.http is not None:
+        from repro_torch.serving.http import HTTPFrontend
+        frontend = HTTPFrontend(server, port=args.http)
+        print(f"[{spec.engine.arch} | {server.replicas[0].device}] serving "
+              f"on {frontend.url} — POST /v1/generate[?stream=1], "
+              f"DELETE /v1/requests/{{rid}}, GET /v1/stats  (Ctrl-C stops)",
+              flush=True)
+        try:
+            frontend.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            frontend.shutdown()
+        return
+
+    cfg = server.cfg
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
-    reqs = []
+    rids = []
     for _ in range(args.requests):
         n = int(np.clip(rng.lognormal(3.0, 0.8), 4, 300))
-        reqs.append(eng.add_request(
+        rids.append(server.submit(
             [int(t) for t in rng.integers(0, cfg.vocab_size, n)],
             SamplingParams(max_new_tokens=args.max_new)))
-    eng.drain()
-    if eng.device.type == "cuda":
+    server.drain()
+    engines = server.replicas
+    if engines[0].device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    toks = sum(r.num_output_tokens for r in reqs)
-    done = sum(r.is_finished for r in reqs)
-    st = eng.stats
-    print(f"[{cfg.name} | {eng.device} {cfg.dtype}] {done}/{len(reqs)} "
-          f"requests, {toks} tokens in {wall:.2f}s; ticks={st.ticks} "
-          f"host_s={st.host_s:.3f} device_s={st.device_s:.3f} "
-          f"buckets={len(eng.backend.ladder)} "
-          f"graphs={eng.backend.graph_count()}")
-    if done != len(reqs):
+    outs = server.outputs(rids)
+    toks = sum(len(o.token_ids) for o in outs)
+    done = sum(o.finish_reason is not None for o in outs)
+    stats = server.stats()
+    routed = ""
+    if stats.routed_counts is not None:
+        routed = (f" routed={'/'.join(map(str, stats.routed_counts))}"
+                  f" ({server.router.policy.value})")
+        if stats.rebalance is not None:
+            routed += (f" rebalance[stolen={stats.rebalance.stolen} "
+                       f"migrated={stats.rebalance.migrated}]")
+    print(f"[{cfg.name} | {engines[0].device} {cfg.dtype}] {done}/{len(outs)}"
+          f" requests, {toks} tokens in {wall:.2f}s; "
+          f"ticks={sum(e.stats.ticks for e in engines)} "
+          f"host_s={sum(e.stats.host_s for e in engines):.3f} "
+          f"device_s={sum(e.stats.device_s for e in engines):.3f} "
+          f"buckets={len(engines[0].backend.ladder)} "
+          f"graphs={'/'.join(str(e.backend.graph_count()) for e in engines)}"
+          f"{routed}")
+    server.close()
+    if done != len(outs):
         raise SystemExit("not every request finished")
 
 

@@ -206,6 +206,8 @@ class TickLoop:
         # async mode: the exiting batch of the *previous* tick, its readback
         # still deferred — retired at the top of the next step
         self._pending: Optional[Tuple[int, ExecResult]] = None
+        # requests that `settle` finished, handed out by the next step
+        self._settled: List[Request] = []
 
     # ------------------------------------------------------------------ state
     @property
@@ -220,11 +222,26 @@ class TickLoop:
 
     @property
     def has_work(self) -> bool:
-        return self.scheduler.has_work or self.busy
+        return self.scheduler.has_work or self.busy or bool(self._settled)
+
+    def settle(self, now: Optional[float] = None) -> None:
+        """Async mode: retire the deferred batch now, blocking on its
+        readback.  At depth 1 no request is then in flight until the next
+        step, so the router may drain and move any of them (otherwise every
+        running decode is in flight between steps).  The requests this
+        finishes are returned by the next `step`."""
+        if self._pending is not None:
+            self._settled.extend(self._retire_pending(
+                self.backend.clock() if now is None else now))
 
     # ------------------------------------------------------------------- tick
     def step(self, now: Optional[float] = None) -> List[Request]:
-        """One pipeline tick.  Returns requests finishing this tick."""
+        """One pipeline tick.  Returns requests finishing this tick (and
+        those a `settle` since the last step finished)."""
+        settled, self._settled = self._settled, []
+        return settled + self._step(now)
+
+    def _step(self, now: Optional[float]) -> List[Request]:
         if now is None:
             now = self.backend.clock()
         finished_early: List[Request] = []

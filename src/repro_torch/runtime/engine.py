@@ -14,12 +14,20 @@ layers, head, greedy argmax; or runs the same tick eagerly), draws the
 temperature rows after it, copies the tokens back behind an event and
 returns a deferred `ExecResult`: the readback lives in its `pending` thunk
 and `ready()` is the event's ``query()`` (always True on the CPU).
-Migration hooks and tracing are later slices: the migration hooks keep the
-base class's no-op defaults.
+
+The live-migration hooks (`export/import_kv_pages`,
+`export/import_request_state`) speak the JAX engine's wire format, so a
+payload exported by either package imports into the other.  Every device
+operation of the backend runs on the device and stream it was built on
+(`_on_stream`), whichever thread steps it: the CUDA graphs hold the pools'
+addresses, so imports write into the pools in place, and an export's gather
+is queued behind every tick already replayed.  Tracing is a later slice.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import itertools
 import time
 from dataclasses import dataclass
@@ -53,6 +61,15 @@ def resolve_device(device: Optional[torch.device | str]) -> torch.device:
             "repro_torch runs on a CUDA device and none is available; pass "
             "device='cpu' to run the plain PyTorch path on the CPU")
     return dev
+
+
+def _pinned(method):
+    """Run a `TorchBackend` method on the backend's device and stream."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with self._on_stream():
+            return method(self, *args, **kwargs)
+    return run
 
 
 class SlotAllocator:
@@ -151,6 +168,11 @@ class TorchBackend(ExecutionBackend):
         self.ladder: Tuple[ServeDims, ...] = (
             serve_lib.bucket_ladder(dims) if bucketed else (dims,))
         self.graphs = cuda_graphs and device.type == "cuda"
+        # the stream every tick, capture and migration copy runs on: the
+        # server may step the engine from any thread, whose current stream
+        # is its own
+        self._stream = (torch.cuda.current_stream(device)
+                        if device.type == "cuda" else None)
         self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
         self._programs: Dict[Tuple[int, ...], _BucketProgram] = {}
         self.caches = serve_lib.init_caches(cfg, dims, self.dtype, device)
@@ -172,6 +194,15 @@ class TorchBackend(ExecutionBackend):
         self.capture_s = 0.0        # warm_start: seconds spent
         self.graph_pool_bytes = 0   # warm_start: device memory it reserved
 
+    def _on_stream(self):
+        """Run on the backend's device and stream (a no-op on the CPU)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.cuda.device(self.device))
+        stack.enter_context(torch.cuda.stream(self._stream))
+        return stack
+
     # ------------------------------------------------------- bucket programs
     def _program(self, bucket: ServeDims) -> _BucketProgram:
         key = (bucket.Sp, bucket.C, bucket.Sd, bucket.Bp, bucket.Bd)
@@ -190,6 +221,7 @@ class TorchBackend(ExecutionBackend):
         `warm_start`: serving captures none)."""
         return sum(p.graph is not None for p in self._programs.values())
 
+    @_pinned
     @torch.inference_mode()
     def warm_start(self) -> None:
         """Run every ladder bucket once on a bubble tick (zero metadata: a
@@ -354,6 +386,7 @@ class TorchBackend(ExecutionBackend):
         self._prep_s += time.perf_counter() - t0
         return out
 
+    @_pinned
     @torch.inference_mode()
     def execute(self, ring: Sequence[Tuple[Optional[int], Any]],
                 exiting_id: Optional[int], now: float) -> ExecResult:
@@ -441,6 +474,116 @@ class TorchBackend(ExecutionBackend):
         state slot can be reassigned."""
         self.slots.release(req.request_id)
 
+    # ------------------------------------------------- live migration (§9)
+    # The JAX engine's wire format: a paged "kv" leaf [S, R, pages, page, 2,
+    # KH, hd] moves as one gather/scatter on its (page, offset) axes, the
+    # payload "{group}/kv" [S, R, n, 2, KH, hd] in sequence order; the
+    # slot-indexed recurrent leaves move by state slot on axis 2.  The
+    # scratch page (index `pages`) and slot (index `slots`) never move.
+
+    _SLOT_LEAF_AXIS = {"conv": 2, "ssm": 2, "tm_x": 2, "cm_x": 2, "wkv": 2}
+
+    def _page_index(self, slots: Sequence[Tuple[int, int]]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        pg = [p for p, _ in slots]
+        off = [o for _, o in slots]
+        if any(not 0 <= p < self.dims.pages for p in pg) or any(
+                not 0 <= o < self.dims.page for o in off):
+            raise ValueError(f"KV slots outside the pool's {self.dims.pages}"
+                             f" pages of {self.dims.page}")
+        as_index = functools.partial(torch.tensor, dtype=torch.long,
+                                     device=self.device)
+        return as_index(pg), as_index(off)
+
+    @_pinned
+    @torch.inference_mode()
+    def export_kv_pages(self, request_id: str,
+                        slots: Sequence[Tuple[int, int]]) -> dict:
+        """A copy of the KV at `slots`, gathered on the stream the ticks
+        replay on: queued behind every tick already replayed, ahead of any
+        tick that reuses the pages once the caller frees them."""
+        pg, off = self._page_index(slots)
+        return {f"{gk}/kv": grp["kv"][:, :, pg, off]
+                for gk, grp in self.caches.items() if "kv" in grp}
+
+    @_pinned
+    @torch.inference_mode()
+    def import_kv_pages(self, request_id: str, payload: Optional[dict],
+                        slots: Sequence[Tuple[int, int]]) -> None:
+        """Write a payload (a torch tensor on any device, or a numpy array)
+        into the pools at `slots`, in place: the CUDA graphs replay on these
+        very tensors."""
+        if payload is None:
+            return
+        pg, off = self._page_index(slots)
+        pools = {f"{gk}/kv": grp["kv"] for gk, grp in self.caches.items()
+                 if "kv" in grp}
+        if set(payload) != set(pools):
+            raise ValueError(f"KV payload holds {sorted(payload)}, the pools "
+                             f"are {sorted(pools)}")
+        for key, pool in pools.items():
+            want = pool.shape[:2] + (len(slots),) + pool.shape[4:]
+            pool[:, :, pg, off] = self._landed(payload[key], pool, want, key)
+
+    def _landed(self, vals, pool: torch.Tensor, want: Tuple[int, ...],
+                key: str) -> torch.Tensor:
+        """`vals` (a torch tensor, or a numpy array, bf16 ones as JAX
+        exports them included) on the pool's device in its dtype, after
+        checking its shape against `want`."""
+        if not torch.is_tensor(vals):
+            vals = np.array(vals)       # a writable copy
+            vals = (torch.from_numpy(vals.view(np.uint16)).view(torch.bfloat16)
+                    if vals.dtype.name == "bfloat16"
+                    else torch.from_numpy(vals))
+        if tuple(vals.shape) != tuple(want):
+            raise ValueError(f"{key}: payload of shape {tuple(vals.shape)}, "
+                             f"the pool takes {tuple(want)}")
+        return vals.to(device=pool.device, dtype=pool.dtype)
+
+    @_pinned
+    @torch.inference_mode()
+    def export_request_state(self, req: Request) -> dict:
+        """Copies of the request's recurrent state slots (none for a model
+        without them); releases its slot here."""
+        state: Dict[str, Any] = {"enc": None, "slot_leaves": {}}
+        s = self.slots.owner.get(req.request_id)
+        if s is not None:
+            for gk, grp in self.caches.items():
+                for name, arr in grp.items():
+                    ax = self._SLOT_LEAF_AXIS.get(name)
+                    if ax is not None:
+                        state["slot_leaves"][f"{gk}/{name}"] = \
+                            arr.select(ax, s).clone()
+            self.slots.release(req.request_id)
+        return state
+
+    @_pinned
+    @torch.inference_mode()
+    def import_request_state(self, req: Request, state: Optional[dict],
+                             resident: bool = True) -> None:
+        """Attach exported state in a fresh slot, in place (`MemoryError`
+        when no slot is free).  A non-resident arrival recomputes from
+        position 0, from zero state, so it takes no slot."""
+        if state is None:
+            return
+        if state.get("enc") is not None:
+            raise ValueError("encoder state cannot arrive: the port serves "
+                             "no encoder-decoder model yet")
+        leaves = (state.get("slot_leaves") or {}) if resident else {}
+        if not leaves:
+            return
+        pools = {f"{gk}/{name}": arr for gk, grp in self.caches.items()
+                 for name, arr in grp.items() if name in self._SLOT_LEAF_AXIS}
+        if set(leaves) != set(pools):
+            raise ValueError(f"state payload holds {sorted(leaves)}, the "
+                             f"pools are {sorted(pools)}")
+        s = self.slots.get(req.request_id)
+        for key, pool in pools.items():
+            ax = self._SLOT_LEAF_AXIS[key.rsplit("/", 1)[1]]
+            want = pool.shape[:ax] + pool.shape[ax + 1:]
+            pool.select(ax, s).copy_(self._landed(leaves[key], pool, want,
+                                                  key))
+
     # -------------------------------------------------------------- internals
     def _build_sampling(self, exiting_id,
                         bucket: ServeDims) -> Optional[dict]:
@@ -523,7 +666,9 @@ class PipelineEngine:
     the device runs tick N (the JAX engine's two options).  On CUDA every
     tick replays a CUDA graph; `cuda_graphs=False` runs the ticks eagerly
     instead.  `warm_start` (capturing the graphs) runs here when the
-    engine is bucketed or replays graphs."""
+    engine is bucketed or replays graphs.  `enable_prefix_caching` lets
+    admission adopt the cached full pages of a prompt's prefix (attention
+    models only: a model with recurrent blocks raises `ValueError`)."""
 
     def __init__(
         self,
@@ -538,8 +683,16 @@ class PipelineEngine:
         bucketed: bool = False,
         async_dispatch: bool = False,
         cuda_graphs: bool = True,
+        enable_prefix_caching: bool = False,
     ) -> None:
         self.device = resolve_device(device)
+        if enable_prefix_caching and any(
+                bs.kind in serve_lib.STATE_KINDS for bs in cfg.pattern):
+            raise ValueError(
+                f"{cfg.name}: prefix caching shares KV pages, but the "
+                "recurrent state of its RWKV/Mamba blocks lives in slots: "
+                "a request that adopted a prefix would start past position "
+                "0 on state it never computed")
         wdev = params["embed"]["tok"].device
         if wdev.type != self.device.type:
             raise ValueError(f"params lie on {wdev}, the engine runs on "
@@ -547,7 +700,8 @@ class PipelineEngine:
         self.cfg = cfg
         self.dims = dims
         self.params = params
-        self.kv = PagedKVManager(dims.pages, dims.page)
+        self.kv = PagedKVManager(dims.pages, dims.page,
+                                 enable_prefix_caching=enable_prefix_caching)
         self.scheduler = PipelineScheduler(
             throttle, self.kv,
             max_model_len=dims.page * max(dims.Bp, dims.Bd),
@@ -623,6 +777,12 @@ class PipelineEngine:
     def step(self) -> List[Request]:
         """One pipeline tick.  Returns requests finishing this tick."""
         return self.loop.step(self._now_fn())
+
+    def settle(self) -> None:
+        """Retire the tick whose readback the async loop deferred, so that
+        no request is in flight until the next step (`TickLoop.settle`);
+        the router settles a source before it moves a request off it."""
+        self.loop.settle(self._now_fn())
 
     def drain(self, max_ticks: int = 100000) -> List[Request]:
         return self.loop.drain(self._now_fn, max_ticks)
