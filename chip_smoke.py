@@ -153,6 +153,24 @@ line; any failure raises and the script exits non-zero.
               counts, stolen and migrated requests, migrated tokens, peak
               memory; measurements only
 
+  serve-pp-f32  full-width, full-depth qwen1.5-0.5b in f32 in four
+              pipeline stages of 6 layers on the one card (`--pp 4`: four
+              micro-batches in flight, Token Throttling at depth 4), the
+              serve-f32 batch on serve-f32's three engines: identical greedy
+              tokens, equal to the dense reference up to a near-tie; paged
+              attention ran 4 x 6 times for each phase a tick's bucket
+              holds, counted per replay; graph count, pool and carry
+              addresses unchanged by serving
+  serve-pp-bf16  qwen2.5-14b (the paper's model) at full width and depth
+              (48 layers, d 5120, 40:8 heads of 128, 29.5 GB in bf16), the
+              serve-bf16 batch on bucketed async graph engines at pp=1 and
+              at pp=4 (4 x 12 layers) from one set of weights (the pp=4
+              engine's are views of the pp=1 engine's): every request
+              finishes with valid tokens, launches as `_launch_want` says;
+              tokens/s, ms per tick, ticks, bubble stage-ticks (a stage
+              holding no micro-batch), padded rows, busy and idle share
+              from a profiled rerun, capture s and peak memory
+
 The kernel and moe-kernel phases also hold their kernels at jamba's shapes:
 paged attention decode and prefill with 64 query heads over 8 KV heads of
 128, and the fused MoE (bf16) at E=16, C=88, d=8192, ff=24576, full and as
@@ -197,6 +215,8 @@ JAMBA_ARCH = "jamba-1.5-large-398b"
 # kind; the f32 serve drops the MAMBA_MOE layer to fit (47.7 GB)
 JAMBA_KINDS = ("mamba_mlp", "mamba_moe", "attn_moe")
 JAMBA_F32_KINDS = ("mamba_mlp", "attn_moe")
+PP = 4                      # pipeline stages of the serve-pp phases
+PP_ARCH = "qwen2.5-14b"     # the paper's evaluation model, 29.5 GB in bf16
 MAX_NEW = 16
 NEAR_TIE = 1e-3
 # the engines each serve phase runs, one after the other on one set of
@@ -691,6 +711,9 @@ def _serve_measured(eng, prompts, counted: dict, phase: str,
     st = eng.stats
     ticks, host_s, device_s = st.ticks, st.host_s, st.device_s
     phase_ticks = (st.prefill_ticks, st.decode_ticks)
+    ring = {"pp": eng.cfg.plan.pp, "bubble_stage_ticks": st.bubble_stage_ticks,
+            "padded_prefill": st.padded_prefill,
+            "padded_decode": st.padded_decode}
     want = _launch_want(eng.cfg, ticks, *phase_ticks, counted)
     if launches != want:
         raise AssertionError(f"{phase}: launches {launches} for {ticks} "
@@ -734,6 +757,7 @@ def _serve_measured(eng, prompts, counted: dict, phase: str,
             "total_tokens_per_s": (out_tokens + prompt_tokens) / wall,
             "ticks": ticks, "prefill_ticks": phase_ticks[0],
             "decode_ticks": phase_ticks[1], "ms_per_tick": wall / ticks * 1e3,
+            **ring,
             "host_s": host_s, "device_s": device_s, "launches": launches,
             "max_memory_allocated": peak,
             "profiled_ticks": eng.stats.ticks - ticks,
@@ -758,8 +782,12 @@ def _launch_want(cfg, ticks: int, prefill_ticks: int, decode_ticks: int,
     and `decode_ticks` one with decode rows: paged attention and the two
     scans once per layer of theirs for each phase a tick runs, the MoE
     kernel once per MoE layer a tick.  Unbucketed (Sp=1, Sd=32) every tick
-    runs both phases."""
-    kinds = [b.kind.value for b in cfg.pattern for _ in range(b.repeat)]
+    runs both phases.  At pp = S a tick runs all S stages: their layers are
+    the stage pattern S times over (padding layers past `num_layers`
+    dropped)."""
+    kinds = [b.kind.value for b in cfg.pattern
+             for _ in range(b.repeat)] * cfg.plan.pp
+    kinds = kinds[:cfg.num_layers]
     phases = prefill_ticks + decode_ticks
     want = {"paged_flash_attention": phases * sum(
                 k in ("attn_mlp", "attn_moe") for k in kinds),
@@ -861,6 +889,115 @@ def _f32_variants(phase: str, make, serve, counted: dict):
         raise AssertionError(f"{phase}: the variants' greedy tokens differ: "
                              f"{tokens}")
     return runs, eng, res
+
+
+# ------------------------------------------------------- pipeline phases
+
+def _pool_addresses(eng) -> dict:
+    """The addresses of the engine's KV and state pools and of its ring's
+    carry: the CUDA graphs replay on these very tensors."""
+    out = {f"{gk}/{n}": a.data_ptr()
+           for gk, grp in eng.backend.caches.items() for n, a in grp.items()}
+    out.update({f"carry/{k}": a.data_ptr()
+                for k, a in (eng.backend.carry or {}).items()})
+    return out
+
+
+def phase_serve_pp_f32(pa, build_engine, greedy_trace) -> dict:
+    """serve-f32's batch on qwen1.5-0.5b in PP stages, on serve-f32's three
+    engines: identical greedy tokens, equal to the dense reference up to a
+    near-tie; launches per replay as `_launch_want` says at depth PP; the
+    graph count and the pool and carry addresses unchanged by serving."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    prompts = _prompts(11, 8, get_config(ARCH).vocab_size)
+
+    def serve(eng):
+        graphs, pools = eng.backend.graph_count(), _pool_addresses(eng)
+        reqs = [eng.add_request(p, _sampling(0.0)) for p in prompts]
+        eng.drain()
+        if (eng.backend.graph_count(), _pool_addresses(eng)) != (graphs,
+                                                                 pools):
+            raise AssertionError("serve-pp-f32: serving captured a graph or "
+                                 "moved a pool")
+        st = eng.stats
+        return {"reqs": reqs, "bubble_stage_ticks": st.bubble_stage_ticks,
+                "padded_prefill": st.padded_prefill,
+                "padded_decode": st.padded_decode}
+
+    runs, eng, last = _f32_variants(
+        "serve-pp-f32", lambda: build_engine(ARCH, device=DEV,
+                                             dtype=torch.float32,
+                                             cuda_graphs=False, pp=PP),
+        serve, {"paged_flash_attention": pa})
+    if eng.cfg.plan.pp != PP or eng.scheduler.cfg.pipeline_depth != PP:
+        raise AssertionError(f"serve-pp-f32: served at pp={eng.cfg.plan.pp}")
+    serve_s = time.perf_counter() - t0
+    compared, near_ties = _match_reference("serve-pp-f32", eng, prompts,
+                                           last["reqs"], MAX_NEW,
+                                           greedy_trace)
+    out = {"phase": "serve-pp-f32", "arch": ARCH, "layers": LAYERS,
+           "pp": PP, "layers_per_stage": eng.cfg.layers_per_stage,
+           "requests": len(prompts), "prompt_lens": [len(p) for p in prompts],
+           "max_new_tokens": MAX_NEW, "variants": runs,
+           "tokens_compared": compared, "near_ties": near_ties,
+           "serve_and_check_s": serve_s,
+           "check_s": time.perf_counter() - t0 - serve_s}
+    emit(out)
+    del eng
+    _free()
+    return out
+
+
+def phase_serve_pp_bf16(pa, build_engine) -> dict:
+    """qwen2.5-14b at full width and depth in bf16, serve-bf16's batch on a
+    bucketed async graph engine at pp=1, then on one at pp=PP whose weights
+    are views of the first's (`repartition_params`), each measured by
+    `_serve_measured`.  Returns {pp: its line}."""
+    from repro_torch.configs import stage_config
+    from repro_torch.core import ThrottleConfig
+    from repro_torch.distributed.elastic import repartition_params
+    from repro_torch.runtime.engine import PipelineEngine
+
+    counted = {"paged_flash_attention": pa}
+    _free()
+    t0 = time.perf_counter()
+    eng = build_engine(PP_ARCH, device=DEV, dtype=torch.bfloat16,
+                       bucketed=True, async_dispatch=True)
+    build_s = time.perf_counter() - t0
+    one, params = eng.cfg, eng.params
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in params.parameters())
+    prompts = _prompts(12, 32, one.vocab_size)
+    rows = {}
+    for pp in (1, PP):
+        if pp != 1:
+            dims = eng.dims
+            del eng
+            _free()
+            cfg = stage_config(one, pp)
+            staged = repartition_params(params, one, cfg)
+            if any(a.data_ptr() != b.data_ptr() for a, b in zip(
+                    staged.parameters(), params.parameters())):
+                raise AssertionError("serve-pp-bf16: the staged weights are "
+                                     "not views of the pp=1 weights")
+            t0 = time.perf_counter()
+            eng = PipelineEngine(cfg, dims, staged,
+                                 ThrottleConfig(pipeline_depth=pp),
+                                 device=DEV, dtype=torch.bfloat16, seed=0,
+                                 bucketed=True, async_dispatch=True)
+            build_s = time.perf_counter() - t0
+        out = _serve_measured(eng, prompts, counted, "serve-pp-bf16",
+                              f"pp{pp}")
+        out.update(engine_build_s=build_s, weight_bytes=weight_bytes,
+                   layers_per_stage=eng.cfg.layers_per_stage,
+                   throttle_depth=eng.scheduler.cfg.pipeline_depth)
+        emit(out)
+        rows[pp] = out
+    del eng, params
+    _free()
+    return rows
 
 
 # ------------------------------------------------------------ MoE phases
@@ -1609,9 +1746,7 @@ class _Replicas:
 
     @staticmethod
     def _pools(eng) -> dict:
-        return {f"{gk}/{n}": a.data_ptr()
-                for gk, grp in eng.backend.caches.items()
-                for n, a in grp.items()}
+        return _pool_addresses(eng)
 
     @staticmethod
     def _ticks(eng) -> tuple:
@@ -2120,6 +2255,8 @@ def main() -> int:
     shapes = phase_kernel(pa, planted[PLANTED])
     phase_serve_f32(pa, build_engine, greedy_trace)
     bf16 = phase_serve_bf16(pa, build_engine)
+    phase_serve_pp_f32(pa, build_engine, greedy_trace)
+    pp_bf16 = phase_serve_pp_bf16(pa, build_engine)
     moe_shapes = phase_moe_kernel(mg, planted[MOE_PLANTED],
                                   planted[MOE_TF32_PLANTED])
     phase_serve_olmoe_f32(pa, mg, greedy_trace)
@@ -2150,7 +2287,9 @@ def main() -> int:
            for run in ("balanced", "disagg", "prefix")},
         **{f"serve-router-bf16 {run}": _launches(router_bf16[run],
                                                  "paged_flash_attention")
-           for run in router_bf16}}
+           for run in router_bf16},
+        **{f"serve-pp-bf16 pp={pp}": row["launches"]["paged_flash_attention"]
+           for pp, row in pp_bf16.items()}}
     moe_entry = _kernel_entry(
         "fused_moe_ffn", "src/repro_torch/kernels/csrc/moe_ffn.cu",
         "src/repro/kernels/moe_gemm.py:53",

@@ -15,6 +15,7 @@ from repro_torch.configs.base import (
     cut_to_kinds,
     make_reduced,
     single_stage,
+    stage_config,
 )
 
 # Archs whose block kinds the port runs (ATTN_MLP dense, ATTN_MOE at NS=1,
@@ -58,4 +59,5 @@ __all__ = [
     "list_archs",
     "make_reduced",
     "single_stage",
+    "stage_config",
 ]

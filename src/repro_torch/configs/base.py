@@ -2,8 +2,9 @@
 
 A copy of ``repro.configs.base`` (the port imports nothing of the JAX
 package), plus the port's one-card helpers: `single_stage`, which folds the
-pipeline into one stage so a whole model runs on one card, and
-`cut_to_kinds`, a depth cut for a model whose weights do not fit one card.
+pipeline into one stage so a whole model runs on one card, `stage_config`,
+which stages it again at pp = S on that card, and `cut_to_kinds`, a depth
+cut for a model whose weights do not fit one card.
 
 Every assigned architecture gets one module in ``repro_torch/configs`` exporting
 ``CONFIG: ArchConfig``.  A stage's layer structure is a *stage-local pattern*
@@ -222,6 +223,17 @@ def single_stage(cfg: ArchConfig) -> ArchConfig:
     entries); runs of one kind merge into one entry."""
     return dataclasses.replace(cfg, pattern=_merged(_layer_kinds(cfg)),
                                plan=ParallelPlan(pp=1, tp=1))
+
+
+def stage_config(cfg: ArchConfig, pp: int) -> ArchConfig:
+    """`cfg` served in `pp` pipeline stages on one card, tp=1
+    (`distributed.elastic.replan`): a uniform pattern's stacked layers
+    re-tile into `pp` stages (qwen2.5-14b's 16 x 3 into 4 x 12); a count
+    they do not divide, and a heterogeneous pattern at another stage count
+    than its own (jamba; any depth cut of several kinds, which is one
+    stage), raise `ValueError` as the JAX package refuses them."""
+    from repro_torch.distributed.elastic import replan
+    return replan(cfg, pp, 1)
 
 
 def cut_to_kinds(cfg: ArchConfig, kinds) -> ArchConfig:

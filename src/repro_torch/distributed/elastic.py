@@ -1,0 +1,62 @@
+"""Re-staging a model between pipeline factorings
+(``repro.distributed.elastic``: `replan` and `repartition_params`).
+
+Parameters are stored logically, stacked ``[S, R, ...]`` per block group.
+A uniform pattern (one `BlockSpec`) re-tiles its ``S * R`` stacked layers
+into ``[S', R']`` by a pure reshape; a heterogeneous pattern (jamba's
+interleave, a depth cut of several kinds) keeps its stage structure, so only
+its tp factor may change.  On one card the reshape of a contiguous tensor
+is a view: engines at pp=1 and at pp=4 serve from one set of weights.
+
+The JAX module's checkpoint restore (`elastic_restore`) belongs to the
+checkpoint slice (ROADMAP Queue 1 item 8).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, BlockSpec
+from repro_torch.models.transformer import TransformerParams
+
+
+def replan(cfg: ArchConfig, new_pp: int, new_tp: int) -> ArchConfig:
+    """A config with the same architecture on a different (pp, tp) grid."""
+    if len(cfg.pattern) == 1:
+        total = cfg.layers_per_stage * cfg.plan.pp
+        if total % new_pp:
+            raise ValueError(f"{total} stacked layers don't tile pp={new_pp}")
+        pattern = (BlockSpec(cfg.pattern[0].kind, total // new_pp),)
+    else:
+        if new_pp != cfg.plan.pp:
+            raise ValueError(
+                f"{cfg.name}: heterogeneous pattern is pinned to pp={cfg.plan.pp}")
+        pattern = cfg.pattern
+    return dataclasses.replace(
+        cfg, pattern=pattern,
+        plan=dataclasses.replace(cfg.plan, pp=new_pp, tp=new_tp))
+
+
+def repartition_params(params: TransformerParams, cfg_old: ArchConfig,
+                       cfg_new: ArchConfig) -> TransformerParams:
+    """`params` with every stacked stage leaf ``[S, R, ...]`` seen as
+    ``[S', R', ...]``: views of the same storage (no copy), the embedding,
+    final norm and head shared as they are.  Unchanged when the pattern and
+    the stage count are."""
+    if cfg_old.pattern == cfg_new.pattern and \
+            cfg_old.plan.pp == cfg_new.plan.pp:
+        return params
+    s2 = cfg_new.plan.pp
+
+    def view(x: torch.Tensor) -> torch.Tensor:
+        s, r = x.shape[:2]
+        if (s * r) % s2:
+            raise ValueError(f"{s * r} stacked layers don't tile pp={s2}")
+        return x.view((s2, s * r // s2) + tuple(x.shape[2:]))
+
+    stages = {g: {n: view(t) for n, t in leaves.items()}
+              for g, leaves in params["stages"].items()}
+    return TransformerParams({k: stages if k == "stages" else dict(v.items())
+                              for k, v in params.items()})

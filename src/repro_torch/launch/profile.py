@@ -8,8 +8,8 @@ Full width and depth in bf16 on the card by default; ``--cut`` serves the
 first layer of each named block kind, as in ``launch/serve.py`` (the jamba
 cut: ``--arch jamba-1.5-large-398b --cut mamba_mlp,mamba_moe,attn_moe``);
 ``--reduced --device cpu`` runs the same code on the CPU (host activity
-only, no device rows).  ``--bucketed``, ``--async`` and ``--eager`` are
-`launch/serve.py`'s.  A first, unprofiled batch warms the kernels and the
+only, no device rows).  ``--bucketed``, ``--async``, ``--eager`` and
+``--pp`` are `launch/serve.py`'s.  A first, unprofiled batch warms the kernels and the
 allocator.
 """
 
@@ -48,13 +48,16 @@ def _serve(eng, rng, n: int, max_new: int) -> None:
 
 def device_time(prof):
     """(busy_us, {kernel name: us}) of a finished `torch.profiler` run: the
-    union of the device's activity intervals, and the time by name."""
+    union of the device's activity intervals, and the time by name.  Read
+    from the profiler's raw activity records: building its `events()` tree
+    takes tens of seconds for a few hundred ticks of a 48-layer model."""
     by_kernel = defaultdict(float)
     spans = []
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[ev.name] += ev.time_range.end - ev.time_range.start
-            spans.append((ev.time_range.start, ev.time_range.end))
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            a, b = ev.start_ns() / 1e3, ev.end_ns() / 1e3
+            by_kernel[ev.name()] += b - a
+            spans.append((a, b))
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         if b <= end:
@@ -81,7 +84,7 @@ def main() -> None:
                        cut=parse_cut(args.cut), seed=args.seed,
                        bucketed=args.bucketed,
                        async_dispatch=args.async_dispatch,
-                       cuda_graphs=args.cuda_graphs)
+                       cuda_graphs=args.cuda_graphs, pp=args.pp)
     rng = np.random.default_rng(args.seed)
     _serve(eng, rng, max(2, args.requests // 4), args.max_new)   # warm-up
     ticks0 = eng.stats.ticks
@@ -100,7 +103,8 @@ def main() -> None:
         "kinds": [b.kind.value for b in eng.cfg.pattern],
         "dtype": eng.cfg.dtype, "bucketed": args.bucketed,
         "async_dispatch": args.async_dispatch,
-        "cuda_graphs": eng.backend.graphs, "requests": args.requests,
+        "cuda_graphs": eng.backend.graphs, "pp": eng.cfg.plan.pp,
+        "requests": args.requests,
         "ticks": ticks,
         "wall_ms": wall_us / 1e3, "ms_per_tick": wall_us / 1e3 / ticks,
         "device_busy_ms": busy_us / 1e3,

@@ -1,7 +1,8 @@
 """Serving launcher of the port (``repro.launch.serve``).
 
 On the card it builds the published width and depth of the arch (folded to
-one stage by `single_stage`, bf16, random weights from `--seed`):
+one stage by `single_stage` unless ``--pp`` asks for more, bf16, random
+weights from `--seed`):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
         --requests 16 --max-new 16
@@ -14,6 +15,13 @@ bf16, its cut to one layer of each kind 44 GB:
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch jamba-1.5-large-398b --cut mamba_mlp,mamba_moe,attn_moe
+
+``--pp S`` serves the model in S pipeline stages on the one card, S
+micro-batches in flight (Token Throttling at depth S): qwen2.5-14b, the
+paper's model, at full width and depth in four stages of 12 layers:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \
+        --pp 4 --bucketed --async
 
 On the card every tick replays a CUDA graph (``--eager`` runs it eagerly);
 ``--bucketed`` serves the bucket ladder, ``--async`` overlaps the host's
@@ -56,6 +64,7 @@ from repro_torch.configs import (
     get_config,
     make_reduced,
     single_stage,
+    stage_config,
 )
 from repro_torch.core import SamplingParams, ThrottleConfig
 from repro_torch.models.serve import ServeDims
@@ -85,16 +94,21 @@ def weight_bytes(cfg, dtype: torch.dtype) -> int:
 def serve_config(arch: str = "qwen1.5-0.5b", *, reduced: bool = False,
                  dtype: Optional[torch.dtype] = None,
                  cut: Optional[Sequence[BlockKind]] = None,
-                 reduced_overrides: Optional[dict] = None):
+                 reduced_overrides: Optional[dict] = None, pp: int = 1):
     """(config, dtype) of the model `arch` serves: full width and depth in
     one stage (bf16 by default), or the reduced CPU-sized variant (f32,
     `make_reduced(**reduced_overrides)`).  `cut` names block kinds: the
     model is then cut in depth to the first layer of each
-    (`cut_to_kinds`)."""
+    (`cut_to_kinds`).  `pp` > 1 stages the model again in `pp` stages
+    (`stage_config`): the folded depth for the published model, the
+    reduced config's two stacked layers for the reduced one; a cut of
+    several kinds, and a count that does not divide the stacked layers,
+    raise `ValueError`."""
     cfg = get_config(arch)
     if reduced:
-        cfg = make_reduced(cfg, **(reduced_overrides or {})).with_plan(
-            pp=1, tp=1)
+        cfg = make_reduced(cfg, **(reduced_overrides or {}))
+        if pp == 1:
+            cfg = cfg.with_plan(pp=1, tp=1)
         cfg = dataclasses.replace(cfg, dtype="float32")
     else:
         if reduced_overrides:
@@ -102,6 +116,8 @@ def serve_config(arch: str = "qwen1.5-0.5b", *, reduced: bool = False,
         cfg = single_stage(cfg)
     if cut:
         cfg = cut_to_kinds(cfg, cut)
+    if pp != cfg.plan.pp:
+        cfg = stage_config(cfg, pp)
     dtype = dtype or getattr(torch, cfg.dtype)
     return dataclasses.replace(cfg, dtype=str(dtype).split(".")[-1]), dtype
 
@@ -131,19 +147,21 @@ def build_engine(arch: str = "qwen1.5-0.5b", *, reduced: bool = False,
                  cut: Optional[Sequence[BlockKind]] = None,
                  seed: int = 0, bucketed: bool = False,
                  async_dispatch: bool = False,
-                 cuda_graphs: bool = True) -> PipelineEngine:
+                 cuda_graphs: bool = True, pp: int = 1) -> PipelineEngine:
     """A ready engine for `arch` (`serve_config`, `build_params`) at
-    `FULL_DIMS`, or `REDUCED_DIMS` when `reduced`.  `bucketed`,
-    `async_dispatch` and `cuda_graphs` go to `PipelineEngine`."""
+    `FULL_DIMS`, or `REDUCED_DIMS` when `reduced`, in `pp` pipeline stages
+    with Token Throttling at that depth.  `bucketed`, `async_dispatch` and
+    `cuda_graphs` go to `PipelineEngine`."""
     dev = resolve_device(device)
-    cfg, dtype = serve_config(arch, reduced=reduced, dtype=dtype, cut=cut)
+    cfg, dtype = serve_config(arch, reduced=reduced, dtype=dtype, cut=cut,
+                              pp=pp)
     if reduced:
         dims = dims or REDUCED_DIMS
-        throttle = throttle or ThrottleConfig(pipeline_depth=1,
+        throttle = throttle or ThrottleConfig(pipeline_depth=pp,
                                               **REDUCED_THROTTLE)
     else:
         dims = dims or FULL_DIMS
-        throttle = throttle or ThrottleConfig(pipeline_depth=1)
+        throttle = throttle or ThrottleConfig(pipeline_depth=pp)
     params = build_params(cfg, dtype, dev, seed)
     return PipelineEngine(cfg, dims, params, throttle, device=dev,
                           dtype=dtype, seed=seed, bucketed=bucketed,
@@ -159,7 +177,11 @@ def add_cut_argument(ap: argparse.ArgumentParser) -> None:
 
 
 def add_engine_arguments(ap: argparse.ArgumentParser) -> None:
-    """`--bucketed`, `--async` and `--eager`, `build_engine`'s options."""
+    """`--bucketed`, `--async`, `--eager` and `--pp`, `build_engine`'s
+    options."""
+    ap.add_argument("--pp", type=int, default=1,
+                    help="pipeline stages on the one card (micro-batches "
+                    "in flight; Token Throttling at that depth)")
     ap.add_argument("--bucketed", action="store_true",
                     help="serve the bucket ladder (each tick in the "
                     "smallest shape that covers it)")
@@ -256,7 +278,8 @@ def main() -> None:
 
     dtype = getattr(torch, args.dtype) if args.dtype else None
     server = build(spec, device=args.device, dtype=dtype,
-                   cuda_graphs=args.cuda_graphs, cut=parse_cut(args.cut))
+                   cuda_graphs=args.cuda_graphs, cut=parse_cut(args.cut),
+                   pp=args.pp)
     if args.http is not None:
         from repro_torch.serving.http import HTTPFrontend
         frontend = HTTPFrontend(server, port=args.http)
@@ -304,6 +327,7 @@ def main() -> None:
           f"device_s={sum(e.stats.device_s for e in engines):.3f} "
           f"buckets={len(engines[0].backend.ladder)} "
           f"graphs={'/'.join(str(e.backend.graph_count()) for e in engines)}"
+          f" pp={cfg.plan.pp}"
           f"{routed}")
     server.close()
     if done != len(outs):

@@ -228,8 +228,12 @@ class TickLoop:
         """Async mode: retire the deferred batch now, blocking on its
         readback.  At depth 1 no request is then in flight until the next
         step, so the router may drain and move any of them (otherwise every
-        running decode is in flight between steps).  The requests this
-        finishes are returned by the next `step`."""
+        running decode is in flight between steps).  At depth S > 1 only
+        the deferred batch retires: the S-1 micro-batches still inside the
+        ring stay in flight, so `drain_request` returns None for their
+        requests and the router's move returns False (it may retry after
+        later steps).  The requests this finishes are returned by the next
+        `step`."""
         if self._pending is not None:
             self._settled.extend(self._retire_pending(
                 self.backend.clock() if now is None else now))

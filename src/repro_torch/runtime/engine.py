@@ -1,8 +1,10 @@
 """gLLM serving engine on PyTorch (``repro.runtime.engine``).
 
-`TorchBackend` is the ExecutionBackend that runs the eager PyTorch serve
-tick (`distributed.pipeline.build_serve_tick`, pp=1) on one device; it owns
-the parameters, the paged KV pool and the per-request host state.
+`TorchBackend` is the ExecutionBackend that runs the PyTorch serve tick
+(`distributed.pipeline.build_serve_tick`) on one device, all S pipeline
+stages of it at pp = S (S micro-batches in flight, one per stage); it owns
+the parameters, the paged KV pool, the ring's activation carry and the
+per-request host state.
 `PipelineEngine` binds scheduler + KV manager + backend under the shared
 `TickLoop`, exactly as the JAX engine does.
 
@@ -45,7 +47,11 @@ from repro_torch.core import (
     ScheduledBatch,
     ThrottleConfig,
 )
-from repro_torch.distributed.pipeline import build_serve_tick, sample_tokens
+from repro_torch.distributed.pipeline import (
+    build_serve_tick,
+    init_carry,
+    sample_tokens,
+)
 from repro_torch.kernels import ops
 from repro_torch.models import serve as serve_lib
 from repro_torch.models.serve import ServeDims
@@ -111,14 +117,17 @@ class EngineStats:
     # layers, so a kernel of one phase launches once per layer per such tick
     prefill_ticks: int = 0
     decode_ticks: int = 0
+    # stages that held no micro-batch on a tick the device ran, and so
+    # computed padding only: the pipeline bubble Token Throttling shrinks
+    bubble_stage_ticks: int = 0
 
 
 class _BucketProgram:
     """One ladder bucket's tick: its static int32 input buffer (the bucket's
-    metadata and the full-dims token ids, laid out as `serve.host_meta`
-    orders them) and, when the backend replays graphs, the CUDA graph that
-    runs the tick on that buffer, with the outputs it writes and the kernel
-    launches one replay makes."""
+    metadata, stacked over the stages at pp > 1, and the full-dims token
+    ids, laid out as `serve.host_meta` orders them) and, when the backend
+    replays graphs, the CUDA graph that runs the tick on that buffer, with
+    the outputs it writes and the kernel launches one replay makes."""
 
     def __init__(self, tick, fields: Dict[str, np.ndarray],
                  device: torch.device) -> None:
@@ -150,7 +159,12 @@ class TorchBackend(ExecutionBackend):
     graph's outputs stay referenced.  On the CPU, and on CUDA with
     `cuda_graphs=False`, the same bucket programs run eagerly.  Two staging
     and two readback buffers alternate: the async `TickLoop` holds at most
-    one deferred readback while the next tick runs."""
+    one deferred readback while the next tick runs.
+
+    At pp = S the buffer holds every stage's metadata (the ring's entries),
+    one bucket covers the whole ring, and the tick runs the S stages over
+    the activation carry (`pipeline.init_carry`), which every bucket
+    program shares."""
 
     def __init__(self, cfg: ArchConfig, dims: ServeDims, params,
                  kv: PagedKVManager, *, device: torch.device,
@@ -176,6 +190,7 @@ class TorchBackend(ExecutionBackend):
         self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
         self._programs: Dict[Tuple[int, ...], _BucketProgram] = {}
         self.caches = serve_lib.init_caches(cfg, dims, self.dtype, device)
+        self.carry = init_carry(cfg, dims, self.dtype, device)
         self._gen = torch.Generator(device=device)
         self._gen.manual_seed(seed)
         self._zm = serve_lib.zero_meta(dims)
@@ -183,7 +198,7 @@ class TorchBackend(ExecutionBackend):
         cuda = device.type == "cuda"
         # the largest static buffer of the ladder: the full shape's
         size = sum(a.size for a in self._fields(
-            ((None, self._zm),), dims, None).values())
+            ((None, self._zm),) * self.depth, dims, None).values())
         self._staging = [torch.empty(size, dtype=torch.int32,
                                      pin_memory=cuda) for _ in range(2)]
         self._host_tokens = [torch.empty(dims.Sp + dims.Sd,
@@ -245,7 +260,7 @@ class TorchBackend(ExecutionBackend):
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
-                prog.tick(self.params, self.caches, prog.meta)
+                prog.tick(self.params, self.caches, prog.meta, self.carry)
             torch.cuda.current_stream(self.device).wait_stream(side)
             self._capture(prog)
             self._run(prog)
@@ -265,7 +280,8 @@ class TorchBackend(ExecutionBackend):
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, pool=self._pool):
-                _, logits = prog.tick(self.params, self.caches, prog.meta)
+                _, logits = prog.tick(self.params, self.caches, prog.meta,
+                                      self.carry)
                 greedy = sample_tokens(logits)
         finally:
             prog.launches = {mod: mod.launches - n
@@ -288,19 +304,26 @@ class TorchBackend(ExecutionBackend):
             for mod, n in prog.launches.items():
                 mod.launches += n
             return prog.logits, prog.greedy
-        _, logits = prog.tick(self.params, self.caches, prog.meta)
+        _, logits = prog.tick(self.params, self.caches, prog.meta,
+                              self.carry)
         return logits, sample_tokens(logits)
 
     def _fields(self, ring: Sequence[Tuple[Optional[int], Any]],
                 bucket: ServeDims, entering: Optional[ScheduledBatch]
                 ) -> Dict[str, np.ndarray]:
-        """The host arrays of a tick at `bucket`: the entering batch's
-        metadata cut to the bucket, the fields the tick computes from it,
-        and the full-dims token ids."""
-        meta = {k: v[0] for k, v in self._stack_meta(ring, bucket).items()}
+        """The host arrays of a tick at `bucket`: each stage's metadata cut
+        to the bucket with the fields the tick computes from it (stacked
+        over the ring's stages at pp > 1), then the entering batch's
+        full-dims token ids."""
+        stacked = self._stack_meta(ring, bucket)
         p_tok, d_tok = self._fresh_tokens(entering)
-        return serve_lib.host_meta(meta, bucket,
-                                   extra={"p_tok": p_tok, "d_tok": d_tok})
+        tokens = {"p_tok": p_tok, "d_tok": d_tok}
+        stages = [serve_lib.host_meta({k: v[s] for k, v in stacked.items()},
+                                      bucket) for s in range(len(ring))]
+        if len(stages) == 1:
+            return {**stages[0], **tokens}
+        return {**{k: np.stack([f[k] for f in stages]) for k in stages[0]},
+                **tokens}
 
     def _load(self, prog: _BucketProgram,
               fields: Dict[str, np.ndarray]) -> None:
@@ -411,6 +434,7 @@ class TorchBackend(ExecutionBackend):
         self.stats.padded_decode += bucket.Sd - n_d
         self.stats.prefill_ticks += bucket.Sp > 0
         self.stats.decode_ticks += bucket.Sd > 0
+        self.stats.bubble_stage_ticks += sum(bid is None for bid, _ in ring)
         self.stats.scanned_pages += (bucket.Sp * bucket.Bp
                                      + bucket.Sd * bucket.Bd)
         if entering is not None:
@@ -659,7 +683,10 @@ class TorchBackend(ExecutionBackend):
 class PipelineEngine:
     """Single-device engine binding scheduler + KV + `TorchBackend` under
     the shared `TickLoop`.  Runs on CUDA unless `device="cpu"` is asked for;
-    `params` (a `TransformerParams`) must already lie on that device.
+    `params` (a `TransformerParams`) must already lie on that device.  It
+    serves `cfg.plan.pp` stages on that device, as a ring of that many
+    micro-batches (`configs.stage_config` stages a config, and
+    `distributed.elastic.repartition_params` views its weights to match).
 
     `bucketed` serves the bucket ladder, `async_dispatch` retires each
     tick's tokens one tick later so that the host prepares tick N+1 while

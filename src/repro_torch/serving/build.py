@@ -10,8 +10,8 @@ The port's shapes, one factory:
 
 The spec is the JAX package's, field for field, so that a spec dumped by
 either launcher serves in the other.  What the port builds but the spec
-does not say (the device, the dtype, graphs or eager ticks, a depth cut)
-are arguments of `build`.  The simulator and trace replay are not ported
+does not say (the device, the dtype, graphs or eager ticks, a depth cut,
+the pipeline stages on the card) are arguments of `build`.  The simulator and trace replay are not ported
 yet: ``backend="sim"`` (with it ``ClusterSpec.autoscale``, which the spec
 allows on the simulator only), ``backend="trace"`` and
 ``TraceSpec.record`` raise `NotImplementedError`.
@@ -32,12 +32,14 @@ _NOT_PORTED = "is not ported to repro_torch yet (ROADMAP Queue 1 item 7)"
 
 def build(spec: ServeSpec, *, device: Optional[torch.device | str] = None,
           dtype: Optional[torch.dtype] = None, cuda_graphs: bool = True,
-          cut: Optional[Sequence[Any]] = None) -> LLMServer:
+          cut: Optional[Sequence[Any]] = None, pp: int = 1) -> LLMServer:
     """The one public entry point: every serving scenario starts here.
     Engines run on CUDA unless `device` asks for the CPU; `dtype` defaults
     to f32 for a reduced spec and bf16 for the published config;
     `cuda_graphs=False` runs every tick eagerly; `cut` serves the first
-    layer of each named block kind (`configs.cut_to_kinds`)."""
+    layer of each named block kind (`configs.cut_to_kinds`); `pp` serves
+    each engine in that many pipeline stages on its card, with Token
+    Throttling at that depth (`configs.stage_config`)."""
     if spec.backend == "trace":
         _build_trace_server(spec)
     if spec.backend == "sim":
@@ -45,7 +47,7 @@ def build(spec: ServeSpec, *, device: Optional[torch.device | str] = None,
     if spec.trace is not None and spec.trace.record is not None:
         raise NotImplementedError(f"trace recording {_NOT_PORTED}")
     engine, cfg = _build_engine(spec, device=device, dtype=dtype,
-                                cuda_graphs=cuda_graphs, cut=cut)
+                                cuda_graphs=cuda_graphs, cut=cut, pp=pp)
     return LLMServer(engine, spec=spec, cfg=cfg)
 
 
@@ -65,7 +67,7 @@ def _throttle_config(spec: ServeSpec, pipeline_depth: int, *,
 
 
 def _build_engine(spec: ServeSpec, *, device, dtype, cuda_graphs: bool,
-                  cut) -> Tuple[Any, Any]:
+                  cut, pp: int = 1) -> Tuple[Any, Any]:
     from repro_torch.launch.serve import (FULL_DIMS, REDUCED_DIMS,
                                           build_params, serve_config)
     from repro_torch.runtime.engine import PipelineEngine, resolve_device
@@ -74,7 +76,7 @@ def _build_engine(spec: ServeSpec, *, device, dtype, cuda_graphs: bool,
     dev = resolve_device(device)
     cfg, dtype = serve_config(es.arch, reduced=es.reduced, dtype=dtype,
                               cut=cut,
-                              reduced_overrides=es.reduced_overrides)
+                              reduced_overrides=es.reduced_overrides, pp=pp)
     if es.reduced:
         # dropless, as the JAX builder makes the reduced MoE
         cfg = dataclasses.replace(

@@ -41,7 +41,8 @@ class EngineSpec:
 
     `reduced=True` builds the same-family reduced config (the CPU-sized
     model every test and example runs); `reduced=False` uses the published
-    config (in the port: folded to one stage at the launcher's full dims).
+    config (in the port: folded to one stage at the launcher's full dims,
+    or staged again at `build`'s ``pp=``).
     `throttle` / `dims` are sparse overrides onto the backend's defaults
     (`ThrottleConfig` fields, `ServeDims` fields); `reduced_overrides` is
     passed to `make_reduced` (e.g. ``{"d_model": 128}``).

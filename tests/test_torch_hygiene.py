@@ -41,7 +41,7 @@ def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"paged_attention.py", "moe_gemm.py", "rwkv6_scan.py",
             "mamba_scan.py", "ssm.py", "engine.py", "serve.py",
-            "chip_smoke.py"} <= names
+            "pipeline.py", "elastic.py", "chip_smoke.py"} <= names
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -65,15 +65,21 @@ def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_unported_arch_and_pp_raise():
-    from repro_torch.configs import get_config, single_stage
+    """An unported arch raises; a pipelined config builds its tick, which
+    raises without the ring's carry; a heterogeneous pattern is pinned to
+    its stage count (jamba's fold stays one stage)."""
+    from repro_torch.configs import get_config, single_stage, stage_config
     from repro_torch.distributed.pipeline import build_serve_tick
     from repro_torch.launch.serve import FULL_DIMS
 
     with pytest.raises(KeyError, match="not yet ported"):
         get_config("whisper-small")
     cfg = get_config("qwen1.5-0.5b")
-    with pytest.raises(NotImplementedError, match="pp=8"):
-        build_serve_tick(cfg, FULL_DIMS)
+    tick = build_serve_tick(cfg, FULL_DIMS)
+    with pytest.raises(ValueError, match="pp=8 needs the carry"):
+        tick(None, None, {})
+    with pytest.raises(ValueError, match="pinned to pp=1"):
+        stage_config(single_stage(get_config("jamba-1.5-large-398b")), 8)
     one = single_stage(cfg)
     assert one.plan.pp == 1 and one.layers_per_stage == cfg.num_layers == 24
     assert one.pattern[0].repeat == 24 and one.padded_vocab == 151936
