@@ -39,6 +39,22 @@ line; any failure raises and the script exits non-zero.
               and graph-pool bytes; then the same batch again under
               torch.profiler (device activity only) for the device's busy
               time; the graph count is what warm_start captured
+  trace-bf16  serve-bf16's batch on its weights again, on a bucketed sync
+              graph engine twice untraced and on a twin with a tick trace
+              (`trace_path`; traces refuse async): the same ticks, paged
+              attention launched as in serve-bf16 (counted per replay);
+              strict replay of the file round-trips it byte for byte
+              (`check_trace`) and gives the live run's tokens; tokens/s
+              traced and untraced (the recorder's cost), the trace's raw
+              and compacted bytes, `host_s` per tick, the `RuntimeModel`
+              fitted on it at overlap 0, and measured ms per tick by kind
+  sim-h100    the port's simulator on that run: the scheduler rebuilt from
+              the trace's header, qwen1.5-0.5b's roofline cost model at
+              pp=1 at the card's rates (`repro_torch.roofline.analysis`)
+              with the fitted host term, the 32 arrivals at t = 0 with the
+              output lengths they had on the card; its batches must equal
+              the trace's tick for tick; predicted ms per tick and output
+              tokens/s beside the measured ones, and their ratios
   moe-kernel  the fused-MoE kernel against its plain version at
               olmoe-1b-7b's serve shapes (E=64, C=88, d=2048, ff=1024), a
               ragged C=24, a small shape and a decode tick (C=88 with ~4
@@ -196,10 +212,14 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
-HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, data sheet
+# the card's HBM rate and bf16 tensor-core peak are the simulator's
+# (`repro_torch.roofline.analysis`, H100 SXM data sheet): `main` sets them
+# once the package is importable; the f32 and TF32 peaks and the SFU rate
+# are the kernel bounds' own
+HBM_BYTES_PER_S = None
 PEAK_FLOPS = {"float32": 67e12,           # f32 outside the tensor cores
               "tfloat32": 495e12,         # TF32 tensor cores, dense
-              "bfloat16": 989e12}         # bf16 tensor cores, dense
+              "bfloat16": None}           # bf16 tensor cores, dense
 # special-function units (exp2, the core of expf): 16 results per SM and
 # clock (CUDA C Programming Guide, throughput table, compute capability
 # 9.0) x 132 SMs x 1.98 GHz (H100 SXM boost clock)
@@ -768,11 +788,13 @@ def _serve_measured(eng, prompts, counted: dict, phase: str,
                                     for k, v in top]}
 
 
-def phase_serve_bf16(pa, build_engine) -> dict:
+def phase_serve_bf16(pa, build_engine) -> tuple:
+    """Returns the graph variant's line and its engine's `_spec`, whose
+    weights the trace-bf16 phase serves again."""
     return _serve_bf16(
         lambda: build_engine(ARCH, device=DEV, dtype=torch.bfloat16,
                              cuda_graphs=False),
-        {"paged_flash_attention": pa}, "serve-bf16")
+        {"paged_flash_attention": pa}, "serve-bf16", keep=True)
 
 
 def _launch_want(cfg, ticks: int, prefill_ticks: int, decode_ticks: int,
@@ -826,12 +848,13 @@ def _sibling(spec: tuple, **kw):
     return eng, time.perf_counter() - t0
 
 
-def _serve_bf16(make, counted: dict, phase: str) -> dict:
+def _serve_bf16(make, counted: dict, phase: str, keep: bool = False):
     """serve-bf16's batch on the eager engine `make()` builds (sync,
     unbucketed, the earlier slices' engine), then on a bucketed async
     engine replaying one CUDA graph per bucket (the JAX package's fastest
     configuration) from the same weights.  Emits one line per variant;
-    returns the graph variant's line."""
+    returns the graph variant's line (with `keep`, and the last engine's
+    `_spec`)."""
     eng = make()
     prompts = _prompts(12, 32, eng.cfg.vocab_size)
     out = {}
@@ -845,9 +868,10 @@ def _serve_bf16(make, counted: dict, phase: str) -> dict:
         out["capacity_factor"] = eng.cfg.moe_capacity_factor
         out["kinds"] = [b.kind.value for b in eng.cfg.pattern]
         emit(out)
+    spec = _spec(eng) if keep else None
     del eng
     _free()
-    return out
+    return (out, spec) if keep else out
 
 
 def _f32_variants(phase: str, make, serve, counted: dict):
@@ -889,6 +913,218 @@ def _f32_variants(phase: str, make, serve, counted: dict):
         raise AssertionError(f"{phase}: the variants' greedy tokens differ: "
                              f"{tokens}")
     return runs, eng, res
+
+
+# ------------------------------------------------- trace and simulator
+
+def _tick_ms(ticks) -> list:
+    """The duration (ms) of every tick of a trace but the last: the next
+    tick's `now` less its own (a sync engine reads each tick's tokens back
+    inside it; the simulator starts the next tick when its stage is
+    free)."""
+    nows = [r["now"] for r in ticks]
+    return [(b - a) * 1e3 for a, b in zip(nows, nows[1:])]
+
+
+def _by_kind(ticks, ms) -> dict:
+    """Mean ms of the ticks whose batch holds prefill rows, and of the
+    decode-only ones."""
+    pre = [m for r, m in zip(ticks, ms) if r["batch"] and r["batch"]["prefill"]]
+    dec = [m for r, m in zip(ticks, ms)
+           if r["batch"] and not r["batch"]["prefill"]]
+    return {"prefill_ticks": len(pre),
+            "prefill_ms_mean": float(np.mean(pre)) if pre else None,
+            "decode_only_ticks": len(dec),
+            "decode_only_ms_mean": float(np.mean(dec)) if dec else None}
+
+
+def phase_trace_bf16(pa, spec: tuple) -> dict:
+    """serve-bf16's batch on qwen1.5-0.5b bf16 (serve-bf16's weights), on a
+    bucketed sync graph engine: untraced three times, the last after the
+    batch on a twin engine with `trace_path` (traces refuse async); the
+    recorder's cost is the traced run's tokens/s against the mean of the
+    untraced runs just before and after it (the first warms the process
+    up).  The traced run must launch paged attention as `_launch_want`
+    says and take the untraced run's ticks;
+    strict replay of its file (`check_trace`) must round-trip byte for byte
+    and give the live run's tokens.  Prints the recorder's cost in tokens/s,
+    the trace's raw and compacted bytes, `host_s` per tick and the
+    `RuntimeModel` fitted at overlap 0.  Returns what sim-h100 needs."""
+    import tempfile
+
+    from repro_torch.runtime.simulator import RuntimeModel
+    from repro_torch.runtime.trace import (Trace, check_trace,
+                                           compact_records, dumps_record,
+                                           host_overhead_samples)
+
+    counted = {"paged_flash_attention": pa}
+    prompts = _prompts(12, 32, spec[0].vocab_size)
+
+    def serve(eng, name):
+        st = eng.stats
+        before = (st.ticks, st.prefill_ticks, st.decode_ticks)
+        for mod in counted.values():
+            mod.launches = 0
+        t0 = time.perf_counter()
+        reqs = _serve_batch(eng, prompts)
+        wall = time.perf_counter() - t0
+        launches = {k: mod.launches for k, mod in counted.items()}
+        ticks, prefill_ticks, decode_ticks = (
+            a - b for a, b in zip((st.ticks, st.prefill_ticks,
+                                   st.decode_ticks), before))
+        want = _launch_want(eng.cfg, ticks, prefill_ticks, decode_ticks,
+                            counted)
+        if launches != want:
+            raise AssertionError(f"trace-bf16 {name}: launches {launches} "
+                                 f"for {st.ticks} ticks, want {want}")
+        out_tokens = sum(r.num_output_tokens for r in reqs)
+        if out_tokens != MAX_NEW * len(prompts):
+            raise AssertionError(f"trace-bf16 {name}: {out_tokens} tokens")
+        return reqs, {"ticks": ticks, "wall_s": wall,
+                      "output_tokens_per_s": out_tokens / wall,
+                      "ms_per_tick": wall / ticks * 1e3,
+                      "launches": launches}
+
+    plain, plain_build_s = _sibling(spec, bucketed=True)
+    _, untraced_first = serve(plain, "untraced first")
+    plain_reqs, untraced = serve(plain, "untraced before")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "serve-bf16.trace.jsonl")
+        eng, build_s = _sibling(spec, bucketed=True, trace_path=path)
+        graphs = eng.backend.graph_count()
+        reqs, traced = serve(eng, "traced")
+        eng.recorder.close()
+        _, untraced_after = serve(plain, "untraced after")
+        del plain
+        if eng.backend.graph_count() != graphs:
+            raise AssertionError("trace-bf16: serving captured a graph")
+        if traced["ticks"] != untraced["ticks"]:
+            raise AssertionError(f"trace-bf16: {traced['ticks']} ticks "
+                                 f"traced, {untraced['ticks']} untraced")
+        live = {r.request_id: list(r.output_token_ids) for r in reqs}
+        raw = Path(path).read_text()
+        t0 = time.perf_counter()
+        report = check_trace(path)        # strict replay, byte identity
+        check_s = time.perf_counter() - t0
+    if report.outputs() != live:
+        raise AssertionError("trace-bf16: the replay's tokens differ from "
+                             "the live run's")
+    trace = Trace.loads(raw)
+    records = [json.loads(line) for line in raw.splitlines()]
+    compacted = "".join(dumps_record(r) + "\n"
+                        for r in compact_records(records))
+    host = np.array(host_overhead_samples(trace)) * 1e3
+    fitted = RuntimeModel.fit_from_trace(trace, overlap_fraction=0.0)
+    measured = _tick_ms(trace.ticks)
+    greedy = [i for i in range(len(prompts)) if i % 8 != 7]
+    out = {"phase": "trace-bf16", "arch": ARCH, "layers": LAYERS,
+           "requests": len(prompts), "engine": "graphs sync",
+           "ladder": len(eng.backend.ladder), "graphs_captured": graphs,
+           "engine_build_s": build_s, "untraced_build_s": plain_build_s,
+           "untraced_first": untraced_first, "untraced_before": untraced,
+           "traced": traced, "untraced_after": untraced_after,
+           "recorder_cost": 1.0 - traced["output_tokens_per_s"] / np.mean(
+               [r["output_tokens_per_s"] for r in (untraced,
+                                                   untraced_after)]),
+           "untraced_spread": abs(untraced["output_tokens_per_s"]
+                                  - untraced_after["output_tokens_per_s"])
+           / np.mean([r["output_tokens_per_s"] for r in (untraced,
+                                                         untraced_after)]),
+           "greedy_tokens_equal_untraced": all(
+               reqs[i].output_token_ids == plain_reqs[i].output_token_ids
+               for i in greedy),
+           "trace_ticks": len(trace.ticks),
+           "trace_records": len(records), "trace_bytes": len(raw.encode()),
+           "compact_bytes": len(compacted.encode()),
+           "host_ms_per_tick": {"mean": float(host.mean()),
+                                "p50": float(np.percentile(host, 50)),
+                                "p90": float(np.percentile(host, 90)),
+                                "max": float(host.max())},
+           "fit_overhead_serial_ms": fitted.overhead_serial * 1e3,
+           "fit_overhead_overlap_ms": fitted.overhead_overlap * 1e3,
+           "tick_ms": {"mean": float(np.mean(measured)),
+                       **_by_kind(trace.ticks, measured)},
+           "check_trace_s": check_s, "replay_ticks": report.ticks,
+           "replay_equals_live": True}
+    emit(out)
+    del eng
+    _free()
+    return {"trace": trace, "outputs": report.outputs(), "traced": traced,
+            "runtime": fitted}
+
+
+def phase_sim_h100(traced: dict) -> dict:
+    """The port's simulator on trace-bf16's run: the scheduler rebuilt
+    from the trace's header (the engine's caps), the roofline cost model of
+    qwen1.5-0.5b at pp=1 with page-billed attention at the card's rates,
+    the `RuntimeModel` fitted on the trace, and the same 32 arrivals at
+    t = 0, each with the output length its request had on the card.  Its
+    batches must equal the trace's tick for tick.  Prints predicted ms per
+    tick and output tokens/s beside the measured ones, and their ratios;
+    no bound is put on them."""
+    from repro_torch.configs import get_config
+    from repro_torch.roofline import analysis
+    from repro_torch.runtime.simulator import PipelineSimulator, cost_model_for
+    from repro_torch.runtime.trace import scheduler_from_header
+
+    trace = traced["trace"]
+    page = trace.header["kv"]["page_size"]
+    cost = cost_model_for(get_config(ARCH), pp=1, page_size=page)
+    sim = PipelineSimulator(scheduler_from_header(trace.header), trace.depth,
+                            cost, traced["runtime"])
+    sim.attach_trace(None)
+    t0 = time.perf_counter()
+    for rec in trace.requests:
+        sim.inject_request(0.0, rec["prompt"],
+                           len(traced["outputs"][rec["rid"]]))
+    metrics = sim.run()
+    sim_s = time.perf_counter() - t0
+    simulated = sim.recorder.trace()
+    names = {a["rid"]: b["rid"]           # the same admission order
+             for a, b in zip(simulated.requests, trace.requests)}
+
+    def batches(tr, rename):
+        return [None if r["batch"] is None else
+                ([[rename.get(e[0], e[0])] + e[1:]
+                  for e in r["batch"]["prefill"]],
+                 [[rename.get(e[0], e[0])] + e[1:]
+                  for e in r["batch"]["decode"]]) for r in tr.ticks]
+
+    want, got = batches(trace, {}), batches(simulated, names)
+    if got != want:
+        first = next((k for k, (a, b) in enumerate(zip(got, want))
+                      if a != b), min(len(got), len(want)))
+        raise AssertionError(f"sim-h100: {len(got)} simulated ticks, "
+                             f"{len(want)} on the card; first difference "
+                             f"at tick {first}")
+    ticks = len(want)
+    predicted = _tick_ms(simulated.ticks)
+    measured = _tick_ms(trace.ticks)
+    pred_ms = metrics.sim_time / ticks * 1e3
+    meas_ms = traced["traced"]["ms_per_tick"]
+    out_tokens = metrics.total_output_tokens
+    pred_tps = out_tokens / metrics.sim_time
+    meas_tps = traced["traced"]["output_tokens_per_s"]
+    out = {"phase": "sim-h100", "arch": ARCH, "pp": 1, "page_size": page,
+           "hbm_bytes_per_s": analysis.HBM_BW,
+           "peak_flops_bf16": analysis.PEAK_FLOPS,
+           "mfu": cost.mfu, "hbm_eff": cost.hbm_eff,
+           "fixed_us": cost.fixed_us,
+           "runtime_overhead_serial_ms":
+               traced["runtime"].overhead_serial * 1e3,
+           "ticks": ticks, "batches_equal": True,
+           "output_tokens": out_tokens,
+           "predicted_ms_per_tick": pred_ms,
+           "measured_ms_per_tick": meas_ms,
+           "ms_per_tick_ratio": pred_ms / meas_ms,
+           "predicted_output_tokens_per_s": pred_tps,
+           "measured_output_tokens_per_s": meas_tps,
+           "tokens_per_s_ratio": pred_tps / meas_tps,
+           "predicted": _by_kind(simulated.ticks, predicted),
+           "measured": _by_kind(trace.ticks, measured),
+           "simulate_s": sim_s}
+    emit(out)
+    return out
 
 
 # ------------------------------------------------------- pipeline phases
@@ -2235,10 +2471,14 @@ def main() -> int:
         from repro_torch.kernels import rwkv6_scan as wkv
         from repro_torch.launch.serve import build_engine
         from repro_torch.models.reference import greedy_trace
+        from repro_torch.roofline import analysis
     except ImportError as exc:
         print(f"chip_smoke: the repro_torch package is not beside this "
               f"script ({exc})", file=sys.stderr)
         return 1
+    global HBM_BYTES_PER_S
+    HBM_BYTES_PER_S = analysis.HBM_BW
+    PEAK_FLOPS["bfloat16"] = analysis.PEAK_FLOPS
 
     device = phase_device()
     planted = {PLANTED: planted_source(build),
@@ -2254,7 +2494,10 @@ def main() -> int:
     phase_build(build, planted)
     shapes = phase_kernel(pa, planted[PLANTED])
     phase_serve_f32(pa, build_engine, greedy_trace)
-    bf16 = phase_serve_bf16(pa, build_engine)
+    bf16, bf16_weights = phase_serve_bf16(pa, build_engine)
+    traced = phase_trace_bf16(pa, bf16_weights)
+    del bf16_weights
+    phase_sim_h100(traced)
     phase_serve_pp_f32(pa, build_engine, greedy_trace)
     pp_bf16 = phase_serve_pp_bf16(pa, build_engine)
     moe_shapes = phase_moe_kernel(mg, planted[MOE_PLANTED],

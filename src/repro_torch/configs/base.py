@@ -19,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Tuple
 
 
 class BlockKind(enum.Enum):
@@ -162,6 +162,34 @@ class ArchConfig:
 
     def with_plan(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, plan=dataclasses.replace(self.plan, **kw))
+
+    def params_per_layer_estimate(self) -> Dict[str, float]:
+        """Rough analytic parameter counts (used by roofline MODEL_FLOPS)."""
+        d = self.d_model
+        counts: Dict[str, float] = {}
+        counts["attn"] = d * self.q_dim + self.q_dim * d + 2 * d * self.kv_dim
+        if self.mla:
+            counts["attn"] = (
+                d * self.q_lora_rank
+                + self.q_lora_rank * self.num_heads * (self.qk_nope_dim + self.qk_rope_dim)
+                + d * (self.kv_lora_rank + self.qk_rope_dim)
+                + self.kv_lora_rank * self.num_heads * (self.qk_nope_dim + self.v_head_dim)
+                + self.num_heads * self.v_head_dim * d
+            )
+        counts["mlp"] = 3 * d * self.d_ff
+        if self.is_moe:
+            counts["moe"] = 3 * d * self.moe_d_ff * self.num_experts
+            counts["moe_active"] = 3 * d * self.moe_d_ff * (
+                self.num_experts_per_tok + self.num_shared_experts
+            ) + d * self.num_experts
+        counts["mamba"] = (
+            2 * d * self.mamba_d_inner                      # in_proj (x, gate)
+            + self.mamba_d_inner * self.mamba_d_conv        # conv
+            + self.mamba_d_inner * (self.mamba_d_state * 2 + 1 + self.mamba_d_state)
+            + self.mamba_d_inner * d                        # out_proj
+        )
+        counts["rwkv"] = 4 * d * d + d * d + 2 * d * self.d_ff  # tm(r,k,v,o,g) + cm
+        return counts
 
 
 def make_reduced(cfg: ArchConfig, *, d_model: int = 64, d_ff: int = 128,

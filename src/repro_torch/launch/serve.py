@@ -43,6 +43,17 @@ serves the spec over HTTP instead of running the synthetic workload:
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
         --device cpu --http 0
 
+``--trace-out PATH`` records a replayable tick trace of the run (the JAX
+package's schema; per replica PATH.replicaN and PATH.router with
+``--replicas N``; traced engines are synchronous, so it refuses
+``--async``).  ``--trace-replay PATH`` replays a recorded trace strictly
+through the scheduler and builds no model, so it runs on any box:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --bucketed \
+        --trace-out serve.trace.jsonl
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --trace-replay serve.trace.jsonl
+
 `serve_config`, `build_params` and `build_engine` are the entry points
 `chip_smoke.py` and the tests call.
 """
@@ -200,9 +211,10 @@ def parse_cut(text: Optional[str]) -> Optional[list]:
 
 def _spec(*, arch: str, reduced: bool, policy: str, seed: int,
           replicas: int, route: str, rebalance_interval: Optional[float],
-          migrate: bool, bucketed: bool, async_dispatch: bool):
+          migrate: bool, bucketed: bool, async_dispatch: bool,
+          trace_out: Optional[str]):
     from repro_torch.serving import (ClusterSpec, EngineSpec,
-                                     RebalancePolicy, ServeSpec)
+                                     RebalancePolicy, ServeSpec, TraceSpec)
     cluster = None
     if replicas > 1 or rebalance_interval is not None:
         rebalance = None
@@ -216,7 +228,8 @@ def _spec(*, arch: str, reduced: bool, policy: str, seed: int,
         engine=EngineSpec(arch=arch, reduced=reduced, policy=policy,
                           seed=seed, bucketed=bucketed,
                           dispatch="async" if async_dispatch else "sync"),
-        cluster=cluster)
+        cluster=cluster,
+        trace=TraceSpec(record=trace_out) if trace_out is not None else None)
 
 
 def main() -> None:
@@ -255,12 +268,29 @@ def main() -> None:
     ap.add_argument("--dump-spec", action="store_true",
                     help="print the ServeSpec these flags translate to "
                     "(JSON) and exit")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="record a replayable tick trace of the run "
+                    "(per-replica PATH.replicaN + PATH.router when N>1; "
+                    "synchronous engines only)")
+    ap.add_argument("--trace-replay", default=None, metavar="PATH",
+                    help="strict-replay a recorded trace through the "
+                    "scheduler instead of serving (builds no model)")
     ap.add_argument("--http", type=int, default=None, metavar="PORT",
                     help="serve the spec over HTTP on PORT (0 = ephemeral) "
                     "instead of running the synthetic workload")
     args = ap.parse_args()
 
-    from repro_torch.serving import ServeSpec, build
+    from repro_torch.serving import ServeSpec, TraceSpec, build
+
+    if args.trace_replay is not None:
+        # replay needs only the scheduler and the recorded events: it never
+        # builds the model, so it runs on any box
+        server = build(ServeSpec(backend="trace",
+                                 trace=TraceSpec(replay=args.trace_replay)))
+        server.replay()
+        print(f"[replay {args.trace_replay}] {server.last_report.summary()} "
+              f"— decisions match the recording")
+        return
 
     if args.spec is not None:
         with open(args.spec) as fh:
@@ -271,7 +301,8 @@ def main() -> None:
                      replicas=args.replicas, route=args.route,
                      rebalance_interval=args.rebalance_interval,
                      migrate=args.migrate, bucketed=args.bucketed,
-                     async_dispatch=args.async_dispatch)
+                     async_dispatch=args.async_dispatch,
+                     trace_out=args.trace_out)
     if args.dump_spec:
         print(spec.to_json(indent=2))
         return
@@ -283,7 +314,8 @@ def main() -> None:
     if args.http is not None:
         from repro_torch.serving.http import HTTPFrontend
         frontend = HTTPFrontend(server, port=args.http)
-        print(f"[{spec.engine.arch} | {server.replicas[0].device}] serving "
+        where = getattr(server.replicas[0], "device", spec.backend)
+        print(f"[{spec.engine.arch} | {where}] serving "
               f"on {frontend.url} — POST /v1/generate[?stream=1], "
               f"DELETE /v1/requests/{{rid}}, GET /v1/stats  (Ctrl-C stops)",
               flush=True)
@@ -306,7 +338,7 @@ def main() -> None:
             SamplingParams(max_new_tokens=args.max_new)))
     server.drain()
     engines = server.replicas
-    if engines[0].device.type == "cuda":
+    if spec.backend == "engine" and engines[0].device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     outs = server.outputs(rids)
@@ -320,15 +352,20 @@ def main() -> None:
         if stats.rebalance is not None:
             routed += (f" rebalance[stolen={stats.rebalance.stolen} "
                        f"migrated={stats.rebalance.migrated}]")
-    print(f"[{cfg.name} | {engines[0].device} {cfg.dtype}] {done}/{len(outs)}"
-          f" requests, {toks} tokens in {wall:.2f}s; "
-          f"ticks={sum(e.stats.ticks for e in engines)} "
-          f"host_s={sum(e.stats.host_s for e in engines):.3f} "
-          f"device_s={sum(e.stats.device_s for e in engines):.3f} "
-          f"buckets={len(engines[0].backend.ladder)} "
-          f"graphs={'/'.join(str(e.backend.graph_count()) for e in engines)}"
-          f" pp={cfg.plan.pp}"
-          f"{routed}")
+    if spec.backend == "engine":
+        where = f"{engines[0].device} {cfg.dtype}"
+        detail = (f"ticks={sum(e.stats.ticks for e in engines)} "
+                  f"host_s={sum(e.stats.host_s for e in engines):.3f} "
+                  f"device_s={sum(e.stats.device_s for e in engines):.3f} "
+                  f"buckets={len(engines[0].backend.ladder)} graphs="
+                  f"{'/'.join(str(e.backend.graph_count()) for e in engines)}"
+                  f" pp={cfg.plan.pp}")
+    else:                           # the simulator's clock is virtual
+        where = spec.backend
+        detail = (f"ticks={sum(r.ticks for r in stats.replicas)} "
+                  f"pp={'/'.join(str(e.pp) for e in engines)}")
+    print(f"[{cfg.name} | {where}] {done}/{len(outs)} requests, {toks} "
+          f"tokens in {wall:.2f}s; {detail}{routed}")
     server.close()
     if done != len(outs):
         raise SystemExit("not every request finished")

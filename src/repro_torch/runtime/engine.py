@@ -23,7 +23,12 @@ payload exported by either package imports into the other.  Every device
 operation of the backend runs on the device and stream it was built on
 (`_on_stream`), whichever thread steps it: the CUDA graphs hold the pools'
 addresses, so imports write into the pools in place, and an export's gather
-is queued behind every tick already replayed.  Tracing is a later slice.
+is queued behind every tick already replayed.
+
+With ``trace_path`` the engine logs every tick to a replayable JSONL trace
+(`runtime/trace.py`, the JAX package's schema): a `TraceRecorder` wraps the
+backend as the `TickLoop`'s backend, and a lock serialises intake against
+the tick.  Traced engines are synchronous, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import itertools
+import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -695,7 +701,9 @@ class PipelineEngine:
     instead.  `warm_start` (capturing the graphs) runs here when the
     engine is bucketed or replays graphs.  `enable_prefix_caching` lets
     admission adopt the cached full pages of a prompt's prefix (attention
-    models only: a model with recurrent blocks raises `ValueError`)."""
+    models only: a model with recurrent blocks raises `ValueError`).
+    `trace_path` records every tick to that file (`runtime/trace.py`);
+    with `async_dispatch` it raises `ValueError`."""
 
     def __init__(
         self,
@@ -711,7 +719,14 @@ class PipelineEngine:
         async_dispatch: bool = False,
         cuda_graphs: bool = True,
         enable_prefix_caching: bool = False,
+        trace_path: Optional[str] = None,
     ) -> None:
+        if trace_path is not None and async_dispatch:
+            # the recorder writes each tick's exit tokens at execute time;
+            # a deferred retire would interleave records out of order and
+            # break strict replay, so traced engines stay synchronous
+            raise ValueError("async_dispatch is incompatible with trace_path "
+                             "(traces require synchronous retirement)")
         self.device = resolve_device(device)
         if enable_prefix_caching and any(
                 bs.kind in serve_lib.STATE_KINDS for bs in cfg.pattern):
@@ -741,7 +756,22 @@ class PipelineEngine:
                                     cuda_graphs=cuda_graphs)
         if bucketed or self.backend.graphs:
             self.backend.warm_start()
-        self.loop = TickLoop(self.scheduler, self.backend,
+        # With a trace, every tick is logged by a recorder that wraps the
+        # backend as the loop's backend; warm-up, graphs, migration and
+        # state release keep calling `self.backend`.  The serving layer
+        # submits from client threads while a worker thread ticks, so a
+        # traced engine serialises intake against the tick: a request's
+        # `req` record could otherwise land after the tick that batched it.
+        # Untraced engines keep the lock-free path.
+        self.recorder = None
+        self._trace_lock = None
+        loop_backend = self.backend
+        if trace_path is not None:
+            from repro_torch.runtime.trace import TraceRecorder
+            self.recorder = TraceRecorder(self.backend, trace_path)
+            self._trace_lock = threading.Lock()
+            loop_backend = self.recorder
+        self.loop = TickLoop(self.scheduler, loop_backend,
                              async_dispatch=async_dispatch)
         # state slots are tied to residency: free them when the scheduler
         # evicts a request (preemption or batch abort), not only on finish
@@ -779,15 +809,28 @@ class PipelineEngine:
         rid = request_id or f"req-{next(PipelineEngine._req_counter)}"
         req = Request(rid, list(prompt), sampling or SamplingParams())
         req.metrics.arrival_time = self._now_fn()
-        self.scheduler.add_request(req)
+        if self._trace_lock is None:
+            self.scheduler.add_request(req)
+        else:
+            with self._trace_lock:
+                self.scheduler.add_request(req)
+                self.recorder.record_arrival(req)
         return req
 
     def abort_request(self, request_id: str) -> bool:
         """User abort: frees KV pages and the state slot.  In-flight requests
         finalize when their micro-batch retires; False when unknown."""
-        req = self.scheduler.abort_request(request_id, self._now_fn())
-        if req is None:
-            return False
+        now = self._now_fn()
+        if self._trace_lock is None:
+            req = self.scheduler.abort_request(request_id, now)
+            if req is None:
+                return False
+        else:
+            with self._trace_lock:
+                req = self.scheduler.abort_request(request_id, now)
+                if req is None:
+                    return False
+                self.recorder.record_abort(request_id, now)
         if req.is_finished:
             self.backend.finish_request(req)
             self.loop.finished.append(req)
@@ -803,7 +846,10 @@ class PipelineEngine:
 
     def step(self) -> List[Request]:
         """One pipeline tick.  Returns requests finishing this tick."""
-        return self.loop.step(self._now_fn())
+        if self._trace_lock is None:
+            return self.loop.step(self._now_fn())
+        with self._trace_lock:
+            return self.loop.step(self._now_fn())
 
     def settle(self) -> None:
         """Retire the tick whose readback the async loop deferred, so that
@@ -812,4 +858,15 @@ class PipelineEngine:
         self.loop.settle(self._now_fn())
 
     def drain(self, max_ticks: int = 100000) -> List[Request]:
-        return self.loop.drain(self._now_fn, max_ticks)
+        if self._trace_lock is None:
+            return self.loop.drain(self._now_fn, max_ticks)
+        out: List[Request] = []
+        for _ in range(max_ticks):          # lock per tick, not per drain
+            # the no-work check and the step share one lock acquisition: an
+            # add_request between a check outside the lock and the step
+            # would be missed by this drain pass
+            with self._trace_lock:
+                if not (self.has_work or self.busy):
+                    break
+                out.extend(self.loop.step(self._now_fn()))
+        return out

@@ -2,12 +2,11 @@
 
 A copy of ``repro.runtime.router``: the port keeps its own so that it
 imports nothing of the JAX package.  Its replicas are `PipelineEngine`s on
-`TorchBackend`; `SimCluster` is copied so that the counterpart is found by
-name, but the simulator it drives, and tracing, are not ported yet
-(`open_trace` raises).  One addition: `_move_request` settles the source
-first (`PipelineEngine.settle`), since an async engine at depth 1 holds
-every running decode in flight between its steps, where the JAX router
-could never move it.
+`TorchBackend` or the port's `PipelineSimulator`s (`SimCluster`), and
+`open_trace` writes the JAX package's `gllm-route` stream.  One addition:
+`_move_request` settles the source first (`PipelineEngine.settle`), since
+an async engine at depth 1 holds every running decode in flight between
+its steps, where the JAX router could never move it.
 
 gLLM's thesis is that *global* state — pending prefill tokens (#WP), decode
 population (#RD), KV idle rate — should drive scheduling.  Token Throttling
@@ -451,11 +450,31 @@ class ReplicaRouter:
 
     # ---------------------------------------------------------------- tracing
     def open_trace(self, sink) -> None:
-        """Log every placement decision and control-plane pass to a
-        `gllm-route` JSONL stream: the trace module is not ported yet."""
-        raise NotImplementedError(
-            "router traces are not ported to repro_torch yet (ROADMAP "
-            "Queue 1 item 7)")
+        """Log every placement decision (per-replica scores + chosen index)
+        and every control-plane pass to a `gllm-route` JSONL stream — the
+        routing counterpart of the per-replica tick traces
+        (runtime/trace.py)."""
+        from repro_torch.runtime.trace import (ROUTE_SCHEMA, SCHEMA_MAJOR,
+                                               SCHEMA_MINOR, TraceWriter)
+        assert self._trace is None, "router trace already open"
+        self._trace = TraceWriter(sink)
+        header = {
+            "kind": "header",
+            "schema": ROUTE_SCHEMA,
+            "version": [SCHEMA_MAJOR, SCHEMA_MINOR],
+            "replicas": len(self.replicas),
+            "policy": self.policy.value,
+            "capacities": list(self.capacities),
+        }
+        if self.rebalance_policy is not None:
+            header["rebalance"] = dataclasses.asdict(self.rebalance_policy)
+        if any(r != ROLE_MIXED for r in self.roles):
+            header["roles"] = list(self.roles)
+        if self.handoff_policy is not None:
+            header["handoff"] = dataclasses.asdict(self.handoff_policy)
+        if self.autoscale_policy is not None:
+            header["autoscale"] = dataclasses.asdict(self.autoscale_policy)
+        self._trace.write(header)
 
     def close_trace(self) -> None:
         if self._trace is not None:

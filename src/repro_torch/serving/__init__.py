@@ -3,8 +3,8 @@
 
 One declarative spec (`ServeSpec`), one factory (`build`), one client
 surface (`LLMServer` with `generate` / `generate_stream` / `abort`) over a
-`TorchBackend` engine or a globally-balanced cluster of them.  The
-simulator and trace replay are not ported yet: `build` raises for them.
+`TorchBackend` engine, the roofline simulator, a trace replay, or a
+globally-balanced cluster of engines or simulators.
 
     from repro_torch.serving import ServeSpec, SamplingParams, build
 

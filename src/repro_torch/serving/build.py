@@ -1,33 +1,36 @@
 """`build(spec) -> LLMServer`: materialize a `ServeSpec`
 (``repro.serving.build``).
 
-The port's shapes, one factory:
+The four shapes, one factory:
 
   * engine, 1 replica      -> `PipelineEngine` (`TorchBackend`)
   * engine, N replicas     -> `ReplicaRouter` over N engines sharing one
                               read-only parameter set; each owns its KV
                               pool, state slots and CUDA graphs
+  * sim, 1 or N replicas   -> `PipelineSimulator` / `SimCluster` on the
+                              roofline cost model at the card's rates
+  * trace replay           -> the recorded stream (strict bit-identity via
+                              `LLMServer.replay()`, or a timing-only engine
+                              that serves new requests at recorded costs)
 
 The spec is the JAX package's, field for field, so that a spec dumped by
 either launcher serves in the other.  What the port builds but the spec
 does not say (the device, the dtype, graphs or eager ticks, a depth cut,
-the pipeline stages on the card) are arguments of `build`.  The simulator and trace replay are not ported
-yet: ``backend="sim"`` (with it ``ClusterSpec.autoscale``, which the spec
-allows on the simulator only), ``backend="trace"`` and
-``TraceSpec.record`` raise `NotImplementedError`.
+the pipeline stages on the card) are arguments of `build`; they apply to
+engine builds.  Sim and trace-replay builds touch no tensor and no device,
+so they run on any box.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.serving.server import LLMServer
 from repro_torch.serving.spec import ServeSpec
-
-_NOT_PORTED = "is not ported to repro_torch yet (ROADMAP Queue 1 item 7)"
 
 
 def build(spec: ServeSpec, *, device: Optional[torch.device | str] = None,
@@ -39,15 +42,15 @@ def build(spec: ServeSpec, *, device: Optional[torch.device | str] = None,
     `cuda_graphs=False` runs every tick eagerly; `cut` serves the first
     layer of each named block kind (`configs.cut_to_kinds`); `pp` serves
     each engine in that many pipeline stages on its card, with Token
-    Throttling at that depth (`configs.stage_config`)."""
+    Throttling at that depth (`configs.stage_config`).  A sim spec takes
+    its stages from `SimSpec.pp`."""
     if spec.backend == "trace":
-        _build_trace_server(spec)
+        return _build_trace_server(spec)
     if spec.backend == "sim":
-        _build_sim(spec)
-    if spec.trace is not None and spec.trace.record is not None:
-        raise NotImplementedError(f"trace recording {_NOT_PORTED}")
-    engine, cfg = _build_engine(spec, device=device, dtype=dtype,
-                                cuda_graphs=cuda_graphs, cut=cut, pp=pp)
+        engine, cfg = _build_sim(spec)
+    else:
+        engine, cfg = _build_engine(spec, device=device, dtype=dtype,
+                                    cuda_graphs=cuda_graphs, cut=cut, pp=pp)
     return LLMServer(engine, spec=spec, cfg=cfg)
 
 
@@ -86,6 +89,8 @@ def _build_engine(spec: ServeSpec, *, device, dtype, cuda_graphs: bool,
         dims = dataclasses.replace(dims, **es.dims)
     th = _throttle_config(spec, cfg.plan.pp, reduced=es.reduced)
 
+    n = spec.num_replicas
+    record = spec.trace.record if spec.trace is not None else None
     # replicas share the (read-only) parameters; each owns its KV pool,
     # state slots, scheduler, TickLoop and CUDA graphs
     params = build_params(cfg, dtype, dev, es.seed)
@@ -93,17 +98,23 @@ def _build_engine(spec: ServeSpec, *, device, dtype, cuda_graphs: bool,
                               seed=es.seed, bucketed=es.bucketed,
                               async_dispatch=es.dispatch == "async",
                               cuda_graphs=cuda_graphs,
-                              enable_prefix_caching=es.enable_prefix_caching)
-               for _ in range(spec.num_replicas)]
-    if spec.cluster is None and spec.num_replicas == 1:
+                              enable_prefix_caching=es.enable_prefix_caching,
+                              trace_path=_replica_trace(record, i, n))
+               for i in range(n)]
+    if spec.cluster is None and n == 1:
         return engines[0], cfg
-    return _wrap_router(spec, engines), cfg
+    return _wrap_router(spec, engines, record), cfg
 
 
-def _wrap_router(spec: ServeSpec, replicas: List[Any]):
-    """The JAX builder's router over `replicas`, without the trace and the
-    autoscaler, which are not ported yet (`ServeSpec` allows autoscale on
-    the simulator only, which `build` refuses)."""
+def _replica_trace(record: Optional[str], i: int, n: int) -> Optional[str]:
+    if record is None:
+        return None
+    return record if n == 1 else f"{record}.replica{i}"
+
+
+def _wrap_router(spec: ServeSpec, replicas: List[Any],
+                 record: Optional[str],
+                 replica_factory: Optional[Any] = None):
     from repro_torch.runtime.router import BalanceWeights, ReplicaRouter
     cl = spec.cluster
     weights = None
@@ -117,17 +128,147 @@ def _wrap_router(spec: ServeSpec, replicas: List[Any]):
         capacities=cl.capacities,
         roles=cl.roles,
         handoff=cl.handoff,
+        autoscale=cl.autoscale,
+        replica_factory=replica_factory,
+        trace_path=None if record is None else f"{record}.router",
     )
 
 
 # ---------------------------------------------------------------------------
-# sim and trace replay: later slices
+# sim
 # ---------------------------------------------------------------------------
 
-def _build_sim(spec: ServeSpec):
-    raise NotImplementedError(
-        f'backend="sim" (the roofline simulator) {_NOT_PORTED}')
+def _build_sim(spec: ServeSpec) -> Tuple[Any, Any]:
+    from repro_torch.configs import get_config
+    from repro_torch.core import PagedKVManager, PipelineScheduler
+    from repro_torch.runtime.router import SimCluster
+    from repro_torch.runtime.simulator import (PipelineSimulator,
+                                               RuntimeModel, cost_model_for)
+
+    cfg = get_config(spec.engine.arch)
+    n = spec.num_replicas
+    record = spec.trace.record if spec.trace is not None else None
+    overrides = (spec.cluster.sim_overrides
+                 if spec.cluster is not None else None)
+
+    def replica_sim_spec(i: int):
+        """The i-th replica's geometry: the base `SimSpec` with that
+        replica's sparse overrides applied (spec-declared heterogeneity)."""
+        ov = overrides[i] if overrides is not None else None
+        return dataclasses.replace(spec.sim, **ov) if ov else spec.sim
+
+    def one(i: int) -> PipelineSimulator:
+        # ordinals >= the initial fleet size are autoscaler-added replicas:
+        # they take the base geometry (sim_overrides shape the initial
+        # fleet only — the elastic pool is homogeneous)
+        ss = replica_sim_spec(i) if i < n else spec.sim
+        th = _throttle_config(spec, ss.pp, reduced=False)
+        runtime = (RuntimeModel.vllm_like() if ss.runtime == "vllm"
+                   else RuntimeModel.gllm())
+        kv = PagedKVManager(num_pages=ss.pages, page_size=ss.page_size,
+                            enable_prefix_caching=ss.enable_prefix_caching)
+        sched = PipelineScheduler(th, kv,
+                                  max_model_len=ss.pages * ss.page_size)
+        return PipelineSimulator(
+            sched, ss.pp,
+            cost_model_for(cfg, chips_per_stage=ss.chips_per_stage,
+                           pp=ss.pp),
+            runtime,
+            straggler_stage=ss.straggler_stage,
+            straggler_factor=ss.straggler_factor,
+            # clusters record via SimCluster's trace_dir layout instead
+            trace_path=record if spec.cluster is None else None)
+
+    sims = [one(i) for i in range(n)]
+    if spec.cluster is None and n == 1:
+        return sims[0], cfg
+    router = _wrap_router(spec, sims, None, replica_factory=one)
+    # SimCluster owns cluster trace layout: one tick trace per replica plus
+    # the router placement stream, under `record` as a directory
+    return SimCluster(sims, router, trace_dir=record), cfg
 
 
-def _build_trace_server(spec: ServeSpec):
-    raise NotImplementedError(f'backend="trace" (trace replay) {_NOT_PORTED}')
+# ---------------------------------------------------------------------------
+# trace replay
+# ---------------------------------------------------------------------------
+
+class TraceReplayEngine:
+    """Engine-surface adapter over a recorded trace in *timing-only* mode:
+    new requests are welcome, the scheduler decides freely, and each tick
+    costs what the recorded tick cost — the what-if serving substrate.
+    Once the recording's ticks are exhausted, further ticks advance a
+    fixed 1ms synthetic clock (matching `replay_trace`)."""
+
+    def __init__(self, trace) -> None:
+        from repro_torch.runtime.core import TickLoop
+        from repro_torch.runtime.trace import (TraceBackend,
+                                               scheduler_from_header)
+
+        self.trace = trace
+        self.scheduler = scheduler_from_header(trace.header)
+        self.backend = TraceBackend(trace, TraceBackend.TIMING)
+        self.loop = TickLoop(self.scheduler, self.backend)
+        self._now = 0.0
+        self._seq = itertools.count()
+        self.recorder = None
+
+    # ------------------------------------------------------- engine surface
+    @property
+    def finished(self):
+        return self.loop.finished
+
+    @property
+    def has_work(self) -> bool:
+        return self.scheduler.has_work
+
+    @property
+    def busy(self) -> bool:
+        return self.loop.busy
+
+    @property
+    def on_token(self):
+        return self.loop.on_token
+
+    @on_token.setter
+    def on_token(self, fn) -> None:
+        self.loop.on_token = fn
+
+    def add_request(self, prompt, sampling=None, request_id=None):
+        from repro_torch.core import Request, SamplingParams
+        rid = request_id or f"replay-{next(self._seq)}"
+        req = Request(rid, list(prompt), sampling or SamplingParams())
+        req.metrics.arrival_time = self._clock()
+        self.scheduler.add_request(req)
+        return req
+
+    def step(self):
+        now = self._clock()
+        if self.backend._k >= len(self.backend._ticks):
+            now = self._now = self._now + 1e-3
+        self._now = max(self._now, now)
+        return self.loop.step(now)
+
+    def abort_request(self, request_id: str) -> bool:
+        req = self.scheduler.abort_request(request_id, self._clock())
+        if req is None:
+            return False
+        if req.is_finished:
+            self.loop.finished.append(req)
+        return True
+
+    def _clock(self) -> float:
+        return max(self._now, self.backend.clock())
+
+
+def _build_trace_server(spec: ServeSpec) -> LLMServer:
+    from repro_torch.runtime.trace import Trace, TraceBackend
+
+    trace = Trace.load(spec.trace.replay)
+    if spec.trace.timing_only:
+        engine = TraceReplayEngine(trace)
+        return LLMServer(engine, spec=spec, replay=trace,
+                         replay_mode=TraceBackend.TIMING)
+    # strict replay: the workload IS the recording; LLMServer.replay()
+    # reproduces it bit-for-bit (no interactive substrate to submit into)
+    return LLMServer(None, spec=spec, replay=trace,
+                     replay_mode=TraceBackend.STRICT)

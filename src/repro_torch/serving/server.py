@@ -457,9 +457,15 @@ class LLMServer:
         decision matches the recording (`TraceDivergence` otherwise);
         timing-only replays the costs but lets decisions drift.  The full
         `ReplayReport` is kept on `self.last_report`."""
-        raise NotImplementedError(
-            "trace replay is not ported to repro_torch yet (ROADMAP Queue 1 "
-            "item 7)")
+        if self._replay_trace is None:
+            raise RuntimeError("not a trace-replay server: build with "
+                               'ServeSpec(backend="trace", ...)')
+        from repro_torch.runtime.trace import replay_trace
+        report = replay_trace(self._replay_trace, mode=self._replay_mode)
+        self.last_report = report
+        for req in report.finished:
+            self._requests.setdefault(req.request_id, req)
+        return [RequestOutput.of(r) for r in report.finished]
 
     # ---------------------------------------------------------------- stats
     def stats(self) -> ServerStats:

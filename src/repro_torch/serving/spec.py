@@ -16,9 +16,7 @@ reproduced byte-for-byte.
 The spec layer is *pure data*: nothing here touches a device; all
 construction lives in `repro_torch.serving.build`.  The JSON is the JAX
 package's byte for byte, so a spec dumped by either launcher loads in the
-other; in the port, `build` refuses the sim and trace backends,
-`TraceSpec.record` and `ClusterSpec.autoscale` until the simulator and
-trace are ported.
+other.
 """
 
 from __future__ import annotations

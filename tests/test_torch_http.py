@@ -1,7 +1,8 @@
 """HTTP frontend conformance of the port (`repro_torch.serving.http`): the
 15 cases of tests/test_http.py against `HTTPFrontend(build(spec), port=0)`
 over a reduced `TorchBackend` engine on the CPU (the JAX suite serves a
-simulator spec, which the port does not build yet).
+simulator spec; tests/test_torch_sim_serving.py serves the port's over
+HTTP).
 
 Generate (sync), streaming SSE (incl. mid-stream abort), DELETE-abort,
 stats, request validation, the OpenAI-shaped surface, and a declared

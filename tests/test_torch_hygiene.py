@@ -41,7 +41,8 @@ def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"paged_attention.py", "moe_gemm.py", "rwkv6_scan.py",
             "mamba_scan.py", "ssm.py", "engine.py", "serve.py",
-            "pipeline.py", "elastic.py", "chip_smoke.py"} <= names
+            "pipeline.py", "elastic.py", "trace.py", "simulator.py",
+            "analysis.py", "chip_smoke.py"} <= names
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
