@@ -187,6 +187,44 @@ line; any failure raises and the script exits non-zero.
               holding no micro-batch), padded rows, busy and idle share
               from a profiled rerun, capture s and peak memory
 
+  serve-archs-f32  the archs this slice adds, at full width, f32, on
+              serve-f32's three engines, two waves of 4 requests each (the
+              second on the first's slots): minicpm3-4b (MLA) cut to 4 of
+              62 layers, whisper-small (encoder-decoder) at full depth with
+              1,500 encoder frames and seeded encoder inputs (the second
+              wave reuses the first's slots and encoder snapshots),
+              qwen2-vl-7b (M-RoPE, 28:4 heads) and internlm2-1.8b (16:8
+              heads) cut to 4 layers: identical greedy tokens, equal to
+              the port's dense reference up to a near-tie; paged attention
+              once per layer and phase (none for MLA, which runs as plain
+              PyTorch as it runs as jnp in the JAX package)
+  serve-archs-bf16  serve-bf16's batch on a bucketed async graph engine in
+              bf16 for minicpm3-4b, whisper-small (1,500 frames),
+              qwen2-vl-7b and internlm2-1.8b at full width and depth,
+              kimi-k2-1t-a32b cut to its first ATTN_MOE layer (384
+              experts, 38.9 GB) and llama3.1-100b cut to 32 of its 96
+              layers in four stages of 8 (59 GB): every request finishes
+              with valid tokens, launches as `_launch_want` says; tokens/s,
+              ms per tick, padded rows and peak memory; busy time and
+              idle share from a profiled rerun for minicpm3 and whisper
+  attention-plain  the attention that runs as plain PyTorch (no Pallas
+              kernel in the JAX package either), bf16 at the serve shapes:
+              minicpm3-4b's MLA (absorbed form) over a decode tick and a
+              512-token chunk, whisper-small's encoder self-attention and
+              cross-attention (decode tick, 512-token chunk): ms, bound,
+              SDPA's ms (MLA's over K/V expanded ahead of the call)
+  serve-32b-bf16  qwen2.5-32b (the paper's mid-size model: 64 layers,
+              d 5120, 40:8 heads, 65.5 GB in bf16) at full width and depth,
+              as serve-pp-bf16: pp=1, then pp=4 on views of the same
+              weights once the pp=1 engine's KV pool and graphs are freed;
+              tokens/s, ms per tick, bubble stage-ticks, padded rows, peak
+              memory, and busy time and idle share from a profiled rerun at
+              pp=1
+
+The kernel phase also holds paged attention at qwen2-vl-7b's 28:4 heads
+(G = 7) and internlm2-1.8b's 16:8 heads of 128 (G = 2), and the moe-kernel
+phase the fused MoE at kimi-k2's E=384, C=16, d=7168, ff=2048 (bf16), full
+and as a decode tick with most experts empty.
 The kernel and moe-kernel phases also hold their kernels at jamba's shapes:
 paged attention decode and prefill with 64 query heads over 8 KV heads of
 128, and the fused MoE (bf16) at E=16, C=88, d=8192, ff=24576, full and as
@@ -579,6 +617,17 @@ def phase_kernel(pa, planted_src: str) -> list:
         ("jamba prefill", 1, 512, 64, 8, 128, 16, 128, [2000], (8, 9)),
         ("qwen2.5-14b prefill", 1, 512, 40, 8, 128, 16, 128, [2000],
          (10, 11)),
+        # G = 7: 7 rows padded to 16 on the tensor-core decode path; prefill
+        # row tiles straddle q positions at a G not a power of two
+        ("qwen2-vl-7b decode", 32, 1, 28, 4, 128, 16, 128, decode_ctx,
+         (20, 21)),
+        ("qwen2-vl-7b prefill", 1, 512, 28, 4, 128, 16, 128, [2000],
+         (22, 23)),
+        # G = 2 at D = 128: bf16 decode below 4 rows on the CUDA cores
+        ("internlm2-1.8b decode", 32, 1, 16, 8, 128, 16, 128, decode_ctx,
+         (24, 25)),
+        ("internlm2-1.8b prefill", 1, 512, 16, 8, 128, 16, 128, [2000],
+         (26, 27)),
     ]
     results = []
     for d_idx, dtype in enumerate((torch.float32, torch.bfloat16)):
@@ -640,15 +689,18 @@ def _prompts(seed: int, n: int, vocab: int):
     return [[int(t) for t in rng.integers(0, vocab, L)] for L in lens]
 
 
-def _match_reference(phase, eng, prompts, reqs, max_new, greedy_trace):
+def _match_reference(phase, eng, prompts, reqs, max_new, greedy_trace,
+                     encs=None):
     """Every request finished with `max_new` tokens, equal to the port's
-    dense reference up to its first near-tie (top-2 logit gap below
-    NEAR_TIE).  Returns (tokens compared, near-ties)."""
+    dense reference (on an encoder-decoder's `encs`, one per prompt) up to
+    its first near-tie (top-2 logit gap below NEAR_TIE).  Returns (tokens
+    compared, near-ties)."""
     compared, near_ties = 0, []
+    encs = encs or [None] * len(prompts)
     for i, (p, r) in enumerate(zip(prompts, reqs)):
         if not (r.is_finished and r.num_output_tokens == max_new):
             raise AssertionError(f"{phase}: request {i} did not finish")
-        want, gaps = greedy_trace(eng.cfg, eng.params, p, max_new)
+        want, gaps = greedy_trace(eng.cfg, eng.params, p, max_new, encs[i])
         stop = next((k for k, g in enumerate(gaps) if g < NEAR_TIE), max_new)
         if stop < max_new:
             near_ties.append({"request": i, "step": stop, "gap": gaps[stop]})
@@ -697,24 +749,27 @@ def _sampling(temperature):
     return SamplingParams(max_new_tokens=MAX_NEW, temperature=temperature)
 
 
-def _serve_batch(eng, prompts) -> list:
-    reqs = [eng.add_request(p, _sampling(0.8 if i % 8 == 7 else 0.0))
-            for i, p in enumerate(prompts)]
+def _serve_batch(eng, prompts, encs=None) -> list:
+    encs = encs or [None] * len(prompts)
+    reqs = [eng.add_request(p, _sampling(0.8 if i % 8 == 7 else 0.0),
+                            **({} if e is None else {"enc_embeds": e}))
+            for i, (p, e) in enumerate(zip(prompts, encs))]
     eng.drain()
     torch.cuda.synchronize()
     return reqs
 
 
 def _serve_measured(eng, prompts, counted: dict, phase: str,
-                    variant: str) -> dict:
+                    variant: str, encs=None, profiled: bool = True) -> dict:
     """Serve `prompts` once for the numbers, every count of `counted` (name
     -> kernel module) set to 0 just before and read just after, which must
     be what `_launch_want` makes of the engine's ticks; check that every
     request finished with valid tokens; then serve the same batch again on
     the same engine under torch.profiler, device activity only, for the
     device's busy time (its idle share is over the unprofiled wall time of
-    the same batch: the profiler slows the host, not the device).  The
-    engine's graph count must not move while it serves."""
+    the same batch: the profiler slows the host, not the device), unless
+    not `profiled`.  `encs`: an encoder-decoder's encoder inputs, one per
+    prompt.  The engine's graph count must not move while it serves."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.profile import device_time
@@ -725,7 +780,7 @@ def _serve_measured(eng, prompts, counted: dict, phase: str,
     for mod in counted.values():
         mod.launches = 0
     t0 = time.perf_counter()
-    reqs = _serve_batch(eng, prompts)
+    reqs = _serve_batch(eng, prompts, encs)
     wall = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in counted.items()}
     st = eng.stats
@@ -750,15 +805,18 @@ def _serve_measured(eng, prompts, counted: dict, phase: str,
     prompt_tokens = sum(len(p) for p in prompts)
     peak = torch.cuda.max_memory_allocated()
 
-    t1 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _serve_batch(eng, prompts)
-    profiled_wall = time.perf_counter() - t1
-    busy_us, by_kernel = device_time(prof)
+    busy_us = by_kernel = profiled_wall = None
+    profiled_ticks = eng.stats.ticks
+    if profiled:
+        t1 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _serve_batch(eng, prompts, encs)
+        profiled_wall = time.perf_counter() - t1
+        busy_us, by_kernel = device_time(prof)
     if eng.backend.graph_count() != graphs:
         raise AssertionError(f"{phase}: {eng.backend.graph_count()} graphs "
                              f"after serving, {graphs} after warm_start")
-    ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1])
+    ranked = sorted((by_kernel or {}).items(), key=lambda kv: -kv[1])
     # the six largest, and the port's own kernels wherever they rank
     top = ranked[:6] + [kv for kv in ranked[6:]
                         if any(k in kv[0] for k in PORT_KERNELS)]
@@ -780,10 +838,11 @@ def _serve_measured(eng, prompts, counted: dict, phase: str,
             **ring,
             "host_s": host_s, "device_s": device_s, "launches": launches,
             "max_memory_allocated": peak,
-            "profiled_ticks": eng.stats.ticks - ticks,
+            "profiled_ticks": eng.stats.ticks - profiled_ticks,
             "profiled_wall_s": profiled_wall,
-            "device_busy_s": busy_us / 1e6,
-            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "device_busy_s": None if busy_us is None else busy_us / 1e6,
+            "device_idle_share": (None if busy_us is None
+                                  else 1.0 - busy_us / 1e6 / wall),
             "device_ms_by_kernel": [{"name": k[:80], "ms": v / 1e3}
                                     for k, v in top]}
 
@@ -812,7 +871,7 @@ def _launch_want(cfg, ticks: int, prefill_ticks: int, decode_ticks: int,
     kinds = kinds[:cfg.num_layers]
     phases = prefill_ticks + decode_ticks
     want = {"paged_flash_attention": phases * sum(
-                k in ("attn_mlp", "attn_moe") for k in kinds),
+                k in ("attn_mlp", "attn_moe", "dec_layer") for k in kinds),
             "fused_moe_ffn": ticks * sum(k.endswith("_moe") for k in kinds),
             "rwkv6_chunked_scan": phases * kinds.count("rwkv"),
             "mamba_chunked_scan": phases * sum(k.startswith("mamba")
@@ -907,7 +966,7 @@ def _f32_variants(phase: str, make, serve, counted: dict):
                       "engine_build_s": build_s,
                       "serve_s": time.perf_counter() - t0,
                       **{k: v for k, v in res.items()
-                         if k not in ("reqs", "prompts")}}
+                         if k not in ("reqs", "prompts", "encs")}}
         tokens[name] = [r.output_token_ids for r in res["reqs"]]
     if any(t != tokens["eager"] for t in tokens.values()):
         raise AssertionError(f"{phase}: the variants' greedy tokens differ: "
@@ -1186,11 +1245,15 @@ def phase_serve_pp_f32(pa, build_engine, greedy_trace) -> dict:
     return out
 
 
-def phase_serve_pp_bf16(pa, build_engine) -> dict:
-    """qwen2.5-14b at full width and depth in bf16, serve-bf16's batch on a
+def phase_serve_pp_bf16(pa, build_engine, arch: str = PP_ARCH,
+                        phase: str = "serve-pp-bf16",
+                        profiled=(1, PP)) -> dict:
+    """`arch` at full width and depth in bf16, serve-bf16's batch on a
     bucketed async graph engine at pp=1, then on one at pp=PP whose weights
-    are views of the first's (`repartition_params`), each measured by
-    `_serve_measured`.  Returns {pp: its line}."""
+    are views of the first's (`repartition_params`; the pp=1 engine, its
+    KV pool and graphs freed first), each measured by `_serve_measured`,
+    with a profiled rerun at the stage counts in `profiled`.  Returns
+    {pp: its line}."""
     from repro_torch.configs import stage_config
     from repro_torch.core import ThrottleConfig
     from repro_torch.distributed.elastic import repartition_params
@@ -1199,7 +1262,7 @@ def phase_serve_pp_bf16(pa, build_engine) -> dict:
     counted = {"paged_flash_attention": pa}
     _free()
     t0 = time.perf_counter()
-    eng = build_engine(PP_ARCH, device=DEV, dtype=torch.bfloat16,
+    eng = build_engine(arch, device=DEV, dtype=torch.bfloat16,
                        bucketed=True, async_dispatch=True)
     build_s = time.perf_counter() - t0
     one, params = eng.cfg, eng.params
@@ -1216,16 +1279,16 @@ def phase_serve_pp_bf16(pa, build_engine) -> dict:
             staged = repartition_params(params, one, cfg)
             if any(a.data_ptr() != b.data_ptr() for a, b in zip(
                     staged.parameters(), params.parameters())):
-                raise AssertionError("serve-pp-bf16: the staged weights are "
-                                     "not views of the pp=1 weights")
+                raise AssertionError(f"{phase}: the staged weights are "
+                                     f"not views of the pp=1 weights")
             t0 = time.perf_counter()
             eng = PipelineEngine(cfg, dims, staged,
                                  ThrottleConfig(pipeline_depth=pp),
                                  device=DEV, dtype=torch.bfloat16, seed=0,
                                  bucketed=True, async_dispatch=True)
             build_s = time.perf_counter() - t0
-        out = _serve_measured(eng, prompts, counted, "serve-pp-bf16",
-                              f"pp{pp}")
+        out = _serve_measured(eng, prompts, counted, phase, f"pp{pp}",
+                              profiled=pp in profiled)
         out.update(engine_build_s=build_s, weight_bytes=weight_bytes,
                    layers_per_stage=eng.cfg.layers_per_stage,
                    throttle_depth=eng.scheduler.cfg.pipeline_depth)
@@ -1358,6 +1421,11 @@ def phase_moe_kernel(mg, planted_src: str, tf32_src: str) -> list:
         # fault drops one ff tile, 64 of the down sum's 24,576 terms
         ("jamba serve", 16, 88, 8192, 24576, 0),
         ("jamba decode tick", 16, 88, 8192, 24576, 2),
+        # bf16 only: kimi-k2's 384 experts (33.8 GB), C = 16 from the
+        # serve batch's 544 rows at top-8 and capacity factor 1.25; the
+        # decode tick routes 32 x 8 rows, most experts empty
+        ("kimi-k2 serve", 384, 16, 7168, 2048, 0),
+        ("kimi-k2 decode tick", 384, 16, 7168, 2048, 8),
     ]
     results = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -1426,10 +1494,12 @@ def phase_moe_kernel(mg, planted_src: str, tf32_src: str) -> list:
 
 def _f32_engine(arch: str, layers: int = 0, kinds=()):
     """Full-width `arch` cut to its first `layers` layers (a uniform
-    pattern) or to the first layer of each of `kinds` (`cut_to_kinds`), f32,
-    smaller serve dims; an MoE config is made dropless (capacity factor =
-    number of experts), so that the serve matches the dense reference.  The
-    eager engine (`_f32_variants` builds the graph engines from it)."""
+    pattern), to the first layer of each of `kinds` (`cut_to_kinds`), or at
+    full depth with neither, f32, smaller serve dims (an encoder-decoder's
+    at `launch.serve.ENC_FRAMES` encoder frames); an MoE config is made
+    dropless (capacity factor = number of experts), so that the serve
+    matches the dense reference.  The eager engine (`_f32_variants` builds
+    the graph engines from it)."""
     import dataclasses
 
     from repro_torch.configs import (
@@ -1440,6 +1510,7 @@ def _f32_engine(arch: str, layers: int = 0, kinds=()):
         single_stage,
     )
     from repro_torch.core import ThrottleConfig
+    from repro_torch.launch.serve import ENC_FRAMES
     from repro_torch.models.serve import ServeDims
     from repro_torch.models.transformer import init_params
     from repro_torch.runtime.engine import PipelineEngine
@@ -1447,7 +1518,7 @@ def _f32_engine(arch: str, layers: int = 0, kinds=()):
     cfg = single_stage(get_config(arch))
     if kinds:
         cfg = cut_to_kinds(cfg, [BlockKind(k) for k in kinds])
-    else:
+    elif layers:
         cfg = dataclasses.replace(
             cfg, num_layers=layers,
             pattern=(BlockSpec(cfg.pattern[0].kind, layers),))
@@ -1456,7 +1527,7 @@ def _f32_engine(arch: str, layers: int = 0, kinds=()):
         moe_capacity_factor=(float(cfg.num_experts) if cfg.is_moe
                              else cfg.moe_capacity_factor))
     dims = ServeDims(Sp=1, C=128, Sd=8, pages=256, page=16, Bp=32, Bd=32,
-                     slots=16)
+                     slots=16, Te=ENC_FRAMES if cfg.is_encoder_decoder else 0)
     params = init_params(cfg, 0, dtype=torch.float32, device=DEV)
     return PipelineEngine(cfg, dims, params, ThrottleConfig(pipeline_depth=1),
                           device=DEV, dtype=torch.float32, seed=0,
@@ -1669,16 +1740,18 @@ def phase_rwkv_kernel(wkv, planted: dict) -> list:
 
 def _two_waves(eng, seed: int, max_new: int):
     """Serve two waves of 4 requests (prompts 16-300 tokens, two of them 16
-    and 300) on `eng`, the second after the first has drained, so that the
-    second wave's requests take over the first's state slots, which it
-    checks.  Returns {"prompts", "reqs", "slots_first_wave",
-    "slots_second_wave"}."""
+    and 300; an encoder-decoder's with seeded encoder inputs) on `eng`, the
+    second after the first has drained, so that the second wave's requests
+    take over the first's state slots, which it checks.  Returns
+    {"prompts", "reqs", "encs", "slots_first_wave", "slots_second_wave"}."""
     from repro_torch.core import SamplingParams
+    from repro_torch.launch.serve import enc_inputs
 
     rng = np.random.default_rng(seed)
     vocab = eng.cfg.vocab_size
     lens = [16, 300] + [int(x) for x in rng.integers(16, 301, 6)]
     prompts = [[int(t) for t in rng.integers(0, vocab, L)] for L in lens]
+    encs = [enc_inputs(eng.cfg, eng.dims, rng) for _ in prompts]
     taken = []
     get = eng.slots.get
 
@@ -1689,9 +1762,10 @@ def _two_waves(eng, seed: int, max_new: int):
 
     eng.slots.get = record
     reqs = []
-    for wave in (prompts[:4], prompts[4:]):
-        reqs += [eng.add_request(p, SamplingParams(max_new_tokens=max_new))
-                 for p in wave]
+    for wave in (slice(0, 4), slice(4, 8)):
+        reqs += [eng.add_request(p, SamplingParams(max_new_tokens=max_new),
+                                 **kw)
+                 for p, kw in zip(prompts[wave], encs[wave])]
         eng.drain()
     torch.cuda.synchronize()
     first = {s for rid, s in taken if rid in {r.request_id
@@ -1702,6 +1776,7 @@ def _two_waves(eng, seed: int, max_new: int):
         raise AssertionError(f"slots {first} then {second}: the second "
                              f"wave did not reuse the first's")
     return {"prompts": prompts, "reqs": reqs,
+            "encs": [kw.get("enc_embeds") for kw in encs],
             "slots_first_wave": sorted(first),
             "slots_second_wave": sorted(second)}
 
@@ -1952,6 +2027,230 @@ def phase_serve_jamba_bf16(pa, mg, s6, build_engine) -> dict:
                              cuda_graphs=False),
         {"paged_flash_attention": pa, "fused_moe_ffn": mg,
          "mamba_chunked_scan": s6}, "serve-jamba-bf16")
+
+
+# ------------------------------------------------- the remaining archs
+
+# serve-archs-f32: (arch, depth cut; 0 = full depth)
+ARCHS_F32 = (("minicpm3-4b", 4), ("whisper-small", 0), ("qwen2-vl-7b", 4),
+             ("internlm2-1.8b", 4))
+KIMI_ARCH = "kimi-k2-1t-a32b"
+LLAMA_ARCH = "llama3.1-100b"
+LLAMA_LAYERS = 32           # of 96: 59 GB of bf16 weights, 8 a stage at PP
+ARCHS_BF16 = ("minicpm3-4b", "whisper-small", "qwen2-vl-7b",
+              "internlm2-1.8b", KIMI_ARCH, LLAMA_ARCH)
+BIG_ARCH = "qwen2.5-32b"    # the paper's mid-size model, 65.5 GB in bf16
+# the archs whose attention runs (partly) as plain PyTorch: their
+# serve-archs-bf16 line gets a profiled rerun for busy time and idle share
+PROFILED_ARCHS = ("minicpm3-4b", "whisper-small")
+
+
+def phase_serve_archs_f32(pa, greedy_trace) -> dict:
+    """Each arch of ARCHS_F32 at full width (cut in depth as listed), f32,
+    two waves of 4 requests on serve-f32's three engines (`_two_waves`:
+    the second wave on the first's slots, whisper's with seeded encoder
+    inputs at its 1,500 frames): identical greedy tokens, equal to the
+    port's dense reference up to a near-tie; paged attention once per layer
+    and phase (DEC_LAYER's self-attention; none for MLA)."""
+    rows = {}
+    for arch, layers in ARCHS_F32:
+        t0 = time.perf_counter()
+        runs, eng, last = _f32_variants(
+            "serve-archs-f32", lambda: _f32_engine(arch, layers),
+            lambda e: _two_waves(e, 23, 8), {"paged_flash_attention": pa})
+        serve_s = time.perf_counter() - t0
+        compared, near_ties = _match_reference(
+            "serve-archs-f32", eng, last["prompts"], last["reqs"], 8,
+            greedy_trace, last["encs"])
+        out = {"phase": "serve-archs-f32", "arch": arch,
+               "kinds": [b.kind.value for b in eng.cfg.pattern],
+               "layers": eng.cfg.num_layers, "Te": eng.dims.Te,
+               "requests": len(last["prompts"]),
+               "prompt_lens": [len(p) for p in last["prompts"]],
+               "max_new_tokens": 8, "variants": runs,
+               "slots_first_wave": last["slots_first_wave"],
+               "slots_second_wave": last["slots_second_wave"],
+               "tokens_compared": compared, "near_ties": near_ties,
+               "serve_s": serve_s,
+               "check_s": time.perf_counter() - t0 - serve_s}
+        emit(out)
+        rows[arch] = out
+        del eng, last
+        _free()
+    return rows
+
+
+def _plain_bound(nbytes: int, flops: int) -> tuple:
+    """(bound ms, "bytes" or "operations"): the larger of the bytes at the
+    HBM rate and the flops at the bf16 tensor-core peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_attention_plain() -> list:
+    """The attention paths that run as plain PyTorch (the JAX package runs
+    them as jnp, with no Pallas kernel), timed at the serve path's bf16
+    shapes: minicpm3-4b's MLA (`paged_attention_mla`, absorbed form; 40
+    heads, kv_lora 256, rope 32, nope 64, v 64) over a decode tick (32
+    rows, ctx up to 2,048, 128-page tables) and a 512-token prefill chunk,
+    whisper-small's encoder self-attention (1,500 frames, 12 heads of 64)
+    and its cross-attention for a decode tick (32 rows, each over its own
+    1,500-frame snapshot) and a 512-token prefill chunk.  Each against the
+    bound of its work (live keys only) and, as the library call, SDPA (for
+    MLA over K and V expanded from the latent ahead of the call, not
+    timed).  Outputs finite; MLA's equal to SDPA's on the expanded K/V
+    within bf16 rounding (the engine phases hold the whole path to the
+    dense reference)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import attention as attn
+
+    rows = []
+    g = torch.Generator(device=DEV).manual_seed(31)
+    bf16 = torch.bfloat16
+    H, klr, dr, dn, dv, page, B = 40, 256, 32, 64, 64, 16, 128
+    rng_ctx = np.random.default_rng(7)
+    decode_ctx = [int(c) for c in rng_ctx.integers(1, 2049, 32)]
+    for name, S, C, ctx in (("mla decode", 32, 1, decode_ctx),
+                            ("mla prefill", 1, 512, [2000])):
+        q = torch.randn(S, C, H, dn + dr, generator=g, device=DEV).to(bf16)
+        cache = torch.randn(S * B, page, klr + dr, generator=g,
+                            device=DEV).to(bf16)
+        w = (torch.randn(klr, H * (dn + dv), generator=g, device=DEV)
+             * 0.06).to(bf16)
+        tables = torch.randperm(S * B, generator=g, device=DEV).view(
+            S, B).to(torch.int32)
+        ctx_t = torch.tensor(ctx, dtype=torch.int32, device=DEV)
+        qpos = (torch.clamp(ctx_t, min=C)[:, None] - C
+                + torch.arange(C, device=DEV)[None, :]).to(torch.int32)
+        kw = dict(kv_lora_rank=klr, qk_nope_dim=dn, v_head_dim=dv)
+        out = attn.paged_attention_mla(q, cache, w, tables, ctx_t, qpos, **kw)
+        # SDPA over the latent expanded into per-head K and V
+        L = B * page
+        lat = cache[tables.long()].reshape(S, L, klr + dr)
+        kv = (lat[..., :klr] @ w).view(S, L, H, dn + dv)
+        k = torch.cat([kv[..., :dn], lat[..., None, klr:].expand(
+            S, L, H, dr)], dim=-1).transpose(1, 2).contiguous()
+        v = kv[..., dn:].transpose(1, 2).contiguous()
+        kpos = torch.arange(L, device=DEV)
+        mask = ((kpos[None, None, :] < ctx_t[:, None, None])
+                & (kpos[None, None, :] <= qpos[:, :, None]))[:, None]
+        qt = q.transpose(1, 2).contiguous()
+        want = F.scaled_dot_product_attention(qt, k, v, attn_mask=mask)
+        err = float((out.float() - want.transpose(1, 2).float()).abs().max())
+        keys = int(torch.minimum(ctx_t[:, None], qpos + 1).clamp(min=0)
+                   .sum())
+        nbytes = (q.numel() + S * C * H * dv + w.numel()
+                  + int(ctx_t.sum()) * (klr + dr)) * 2
+        flops = keys * H * (4 * klr + 2 * dr) + S * C * H * 2 * klr * (dn
+                                                                       + dv)
+        rows.append(dict(
+            shape=name, rows=S * C, max_abs_err_vs_sdpa=err,
+            finite=bool(torch.isfinite(out).all()),
+            ms=time_ms(lambda: attn.paged_attention_mla(
+                q, cache, w, tables, ctx_t, qpos, **kw), 10),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qt, k, v, attn_mask=mask), 10),
+            **dict(zip(("bound_ms", "bound_by"),
+                       _plain_bound(nbytes, flops)))))
+        del q, cache, lat, kv, k, v, want, out
+    Hw, D, Te = 12, 64, 1500
+    for name, S, Tq in (("encoder self-attention", 1, Te),
+                        ("cross-attention decode", 32, 1),
+                        ("cross-attention prefill", 1, 512)):
+        q = torch.randn(S, Tq, Hw, D, generator=g, device=DEV).to(bf16)
+        k = torch.randn(S, Te, Hw, D, generator=g, device=DEV).to(bf16)
+        v = torch.randn(S, Te, Hw, D, generator=g, device=DEV).to(bf16)
+        out = attn.cross_attention(q, k, v)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        want = F.scaled_dot_product_attention(qt, kt, vt)
+        err = float((out.float() - want.transpose(1, 2).float()).abs().max())
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+        flops = 4 * S * Tq * Te * Hw * D
+        rows.append(dict(
+            shape=name, rows=S * Tq, max_abs_err_vs_sdpa=err,
+            finite=bool(torch.isfinite(out).all()),
+            ms=time_ms(lambda: attn.cross_attention(q, k, v), 10),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt), 10),
+            **dict(zip(("bound_ms", "bound_by"),
+                       _plain_bound(nbytes, flops)))))
+        del q, k, v, qt, kt, vt, out, want
+    for row in rows:
+        row = {"phase": "attention-plain", "dtype": "bfloat16", **row}
+        emit(row)
+        if not row["finite"] or row["max_abs_err_vs_sdpa"] > 0.05:
+            raise AssertionError(f"attention-plain: {row}")
+    _free()
+    return rows
+
+
+def _archs_engine(arch: str, build_engine):
+    """The bf16 bucketed async graph engine serve-archs-bf16 measures:
+    `arch` at full width and depth, kimi-k2 cut to its first ATTN_MOE
+    layer (`cut_to_kinds`: 38.9 GB), llama3.1-100b cut to its first
+    LLAMA_LAYERS layers in PP stages."""
+    import dataclasses
+
+    from repro_torch.configs import BlockKind, BlockSpec, stage_config
+    from repro_torch.core import ThrottleConfig
+    from repro_torch.launch.serve import FULL_DIMS, build_params, serve_config
+    from repro_torch.runtime.engine import PipelineEngine
+
+    kw = dict(device=DEV, dtype=torch.bfloat16, bucketed=True,
+              async_dispatch=True)
+    if arch == KIMI_ARCH:
+        return build_engine(arch, cut=[BlockKind.ATTN_MOE], **kw)
+    if arch != LLAMA_ARCH:
+        return build_engine(arch, **kw)
+    cfg, dtype = serve_config(arch, dtype=torch.bfloat16)
+    cfg = stage_config(dataclasses.replace(
+        cfg, num_layers=LLAMA_LAYERS,
+        pattern=(BlockSpec(BlockKind.ATTN_MLP, LLAMA_LAYERS),)), PP)
+    params = build_params(cfg, dtype, torch.device(DEV))
+    return PipelineEngine(cfg, FULL_DIMS, params,
+                          ThrottleConfig(pipeline_depth=PP), seed=0, **kw)
+
+
+def phase_serve_archs_bf16(pa, mg, build_engine) -> dict:
+    """serve-bf16's batch (whisper's with seeded encoder inputs) on each
+    arch of ARCHS_BF16 (`_archs_engine`), bf16, bucketed async graphs:
+    every request finishes with valid tokens, launches as `_launch_want`
+    says; tokens/s, ms per tick and peak memory; busy time and idle share
+    from a profiled rerun for PROFILED_ARCHS."""
+    from repro_torch.launch.serve import enc_inputs
+
+    rows = {}
+    for arch in ARCHS_BF16:
+        _free()
+        t0 = time.perf_counter()
+        eng = _archs_engine(arch, build_engine)
+        build_s = time.perf_counter() - t0
+        cfg = eng.cfg
+        prompts = _prompts(12, 32, cfg.vocab_size)
+        encs = None
+        if cfg.is_encoder_decoder:
+            rng = np.random.default_rng(12)
+            encs = [enc_inputs(cfg, eng.dims, rng)["enc_embeds"]
+                    for _ in prompts]
+        counted = {"paged_flash_attention": pa}
+        if cfg.is_moe:
+            counted["fused_moe_ffn"] = mg
+        out = _serve_measured(eng, prompts, counted, "serve-archs-bf16",
+                              "graphs_async", encs=encs,
+                              profiled=arch in PROFILED_ARCHS)
+        out.update(engine_build_s=build_s, Te=eng.dims.Te,
+                   weight_bytes=sum(t.numel() * t.element_size()
+                                    for t in eng.params.parameters()),
+                   kinds=[b.kind.value for b in cfg.pattern],
+                   layers_per_stage=cfg.layers_per_stage,
+                   capacity_factor=cfg.moe_capacity_factor)
+        emit(out)
+        rows[arch] = out
+        del eng
+    _free()
+    return rows
 
 
 # ------------------------------------------------------- router phases
@@ -2513,6 +2812,11 @@ def main() -> int:
     router_f32 = phase_serve_router_f32(pa, greedy_trace)
     router_rwkv = phase_serve_router_rwkv_f32(wkv, greedy_trace)
     router_bf16 = phase_serve_router_bf16(pa)
+    phase_serve_archs_f32(pa, greedy_trace)
+    phase_attention_plain()
+    archs_bf16 = phase_serve_archs_bf16(pa, mg, build_engine)
+    big_bf16 = phase_serve_pp_bf16(pa, build_engine, BIG_ARCH,
+                                   "serve-32b-bf16", profiled=(1,))
 
     pa_entry = _kernel_entry(
         "paged_flash_attention",
@@ -2532,7 +2836,11 @@ def main() -> int:
                                                  "paged_flash_attention")
            for run in router_bf16},
         **{f"serve-pp-bf16 pp={pp}": row["launches"]["paged_flash_attention"]
-           for pp, row in pp_bf16.items()}}
+           for pp, row in pp_bf16.items()},
+        **{f"serve-archs-bf16 {arch}": row["launches"]["paged_flash_attention"]
+           for arch, row in archs_bf16.items()},
+        **{f"serve-32b-bf16 pp={pp}": row["launches"]["paged_flash_attention"]
+           for pp, row in big_bf16.items()}}
     moe_entry = _kernel_entry(
         "fused_moe_ffn", "src/repro_torch/kernels/csrc/moe_ffn.cu",
         "src/repro/kernels/moe_gemm.py:53",
@@ -2541,7 +2849,9 @@ def main() -> int:
              and r["dtype"] == "bfloat16"))
     moe_entry["launches_by_path"] = {
         "serve-olmoe-bf16": olmoe["launches"]["fused_moe_ffn"],
-        "serve-jamba-bf16": jamba["launches"]["fused_moe_ffn"]}
+        "serve-jamba-bf16": jamba["launches"]["fused_moe_ffn"],
+        f"serve-archs-bf16 {KIMI_ARCH}":
+            archs_bf16[KIMI_ARCH]["launches"]["fused_moe_ffn"]}
     rwkv_entry = _kernel_entry(
         "rwkv6_chunked_scan", "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         "src/repro/kernels/rwkv6_scan.py:78",

@@ -1,6 +1,5 @@
 """Architecture registry of the port.  ``get_config(name)`` resolves an
-``--arch`` id among the architectures the port can serve so far; any other
-arch the JAX package knows raises "not yet ported"."""
+``--arch`` id of the JAX package's registry; any other name raises."""
 
 from __future__ import annotations
 
@@ -18,27 +17,24 @@ from repro_torch.configs.base import (
     stage_config,
 )
 
-# Archs whose block kinds the port runs (ATTN_MLP dense, ATTN_MOE at NS=1,
-# RWKV, MAMBA_MLP and MAMBA_MOE).
+# Every arch of the JAX package's registry (repro.configs), in its order.
 _MODULES: Dict[str, str] = {
-    "qwen1.5-0.5b": "qwen1_5_0_5b",
-    "qwen2.5-14b": "qwen2_5_14b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "olmoe-1b-7b": "olmoe_1b_7b",
-    "rwkv6-3b": "rwkv6_3b",
+    "minicpm3-4b": "minicpm3_4b",
+    "qwen2.5-14b": "qwen2_5_14b",
+    "qwen1.5-0.5b": "qwen1_5_0_5b",
+    "internlm2-1.8b": "internlm2_1_8b",
+    "whisper-small": "whisper_small",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "rwkv6-3b": "rwkv6_3b",
+    "qwen2.5-32b": "qwen2_5_32b",
+    "llama3.1-100b": "llama3_1_100b",
 }
-
-# Archs of the JAX package's registry that later slices of the port add.
-_NOT_YET_PORTED = (
-    "qwen2-vl-7b", "kimi-k2-1t-a32b", "minicpm3-4b",
-    "internlm2-1.8b", "whisper-small", "qwen2.5-32b", "llama3.1-100b",
-)
 
 
 def get_config(name: str) -> ArchConfig:
-    if name in _NOT_YET_PORTED:
-        raise KeyError(f"arch {name!r} is not yet ported to repro_torch; "
-                       f"ported: {sorted(_MODULES)}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")

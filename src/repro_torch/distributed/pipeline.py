@@ -40,9 +40,10 @@ from repro_torch.models import serve as serve_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.serve import ServeDims
 
-# meta fields of the entering batch alone; every other field is stacked
-# over stages at pp > 1
-TOKEN_FIELDS = ("p_tok", "d_tok")
+# meta fields of the entering batch alone (its token ids, and an
+# encoder-decoder's encoder input); every other field is stacked over
+# stages at pp > 1
+TOKEN_FIELDS = ("p_tok", "d_tok", "p_enc")
 
 
 def sample_tokens(logits: torch.Tensor,
@@ -85,6 +86,9 @@ def build_serve_tick(cfg: ArchConfig, dims: ServeDims, *,
              each field stacked over the S stages at pp > 1 (entry s: the
              micro-batch at stage s), plus the entering micro-batch's token
              ids ``p_tok`` [Sp, C] and ``d_tok`` [Sd] at `carry_dims`' shapes
+             and, for an encoder-decoder (``Te`` > 0), its encoder input
+             ``p_enc`` [Sp, Te, d] (model dtype), which becomes the
+             prefill payload's first ``Te`` rows
     carry  = `init_carry`'s buffers at pp > 1, read and written in place
     logits = [Sp+Sd, V] f32 for the micro-batch exiting the last stage: one
              row per prefill row (its chunk's last token), then one per
@@ -119,6 +123,8 @@ def build_serve_tick(cfg: ArchConfig, dims: ServeDims, *,
             if s == 0:
                 tok = params["embed"]["tok"]
                 xp = tok[meta["p_tok"][:Sp, :C]].to(dtype)     # [Sp, C, d]
+                if dims.Te:                                # [Sp, Te + C, d]
+                    xp = torch.cat([meta["p_enc"][:Sp].to(dtype), xp], dim=1)
                 xd = tok[meta["d_tok"][:Sd]].to(dtype)[:, None]  # [Sd, 1, d]
             else:
                 xp = carry["xp"][s - 1, :Sp, :W]

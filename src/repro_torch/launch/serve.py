@@ -54,6 +54,15 @@ through the scheduler and builds no model, so it runs on any box:
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --trace-replay serve.trace.jsonl
 
+Every arch of the JAX registry serves: whisper-small (an encoder-decoder:
+each request brings its encoder input, here seeded, ``Te`` = 1,500 frames),
+minicpm3-4b (MLA), qwen2-vl-7b (M-RoPE), kimi-k2-1t-a32b (as a depth cut:
+``--cut attn_moe``), and llama3.1-100b, whose 168 GB of bf16 weights the
+card refuses whole:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
+        --reduced --device cpu --requests 3 --max-new 4
+
 `serve_config`, `build_params` and `build_engine` are the entry points
 `chip_smoke.py` and the tests call.
 """
@@ -89,8 +98,33 @@ FULL_DIMS = ServeDims(Sp=1, C=512, Sd=32, pages=2048, page=16, Bp=128,
 # Reduced mode: the JAX package's CPU-sized defaults (serving/build.py).
 REDUCED_DIMS = ServeDims(Sp=1, C=32, Sd=8, pages=512, page=8, Bp=64, Bd=64,
                          slots=16)
+# An encoder-decoder's encoder width: whisper's 1,500 frames (a 30-s
+# window after the conv front end, which is a stub in both packages:
+# requests bring their encoder input), or the JAX reduced build's 16.
+ENC_FRAMES = 1500
+REDUCED_ENC_FRAMES = 16
 REDUCED_THROTTLE = dict(num_iters_T=4, max_prefill_tokens=32,
                         min_prefill_tokens=4)
+
+
+def serve_dims(cfg, reduced: bool = False) -> ServeDims:
+    """`FULL_DIMS` or `REDUCED_DIMS`, with the encoder width for an
+    encoder-decoder."""
+    dims = REDUCED_DIMS if reduced else FULL_DIMS
+    if cfg.is_encoder_decoder:
+        dims = dataclasses.replace(
+            dims, Te=REDUCED_ENC_FRAMES if reduced else ENC_FRAMES)
+    return dims
+
+
+def enc_inputs(cfg, dims: ServeDims, rng: np.random.Generator):
+    """Keyword arguments of a request's submission: a seeded encoder input
+    [Te, d] (normal, scale 0.05, as the JAX launcher draws it) for an
+    encoder-decoder, else none."""
+    if not cfg.is_encoder_decoder:
+        return {}
+    return {"enc_embeds": (rng.normal(size=(dims.Te, cfg.d_model))
+                           * 0.05).astype(np.float32)}
 
 
 def weight_bytes(cfg, dtype: torch.dtype) -> int:
@@ -160,18 +194,18 @@ def build_engine(arch: str = "qwen1.5-0.5b", *, reduced: bool = False,
                  async_dispatch: bool = False,
                  cuda_graphs: bool = True, pp: int = 1) -> PipelineEngine:
     """A ready engine for `arch` (`serve_config`, `build_params`) at
-    `FULL_DIMS`, or `REDUCED_DIMS` when `reduced`, in `pp` pipeline stages
+    `FULL_DIMS`, or `REDUCED_DIMS` when `reduced` (`serve_dims`: with the
+    encoder width for an encoder-decoder), in `pp` pipeline stages
     with Token Throttling at that depth.  `bucketed`, `async_dispatch` and
     `cuda_graphs` go to `PipelineEngine`."""
     dev = resolve_device(device)
     cfg, dtype = serve_config(arch, reduced=reduced, dtype=dtype, cut=cut,
                               pp=pp)
+    dims = dims or serve_dims(cfg, reduced)
     if reduced:
-        dims = dims or REDUCED_DIMS
         throttle = throttle or ThrottleConfig(pipeline_depth=pp,
                                               **REDUCED_THROTTLE)
     else:
-        dims = dims or FULL_DIMS
         throttle = throttle or ThrottleConfig(pipeline_depth=pp)
     params = build_params(cfg, dtype, dev, seed)
     return PipelineEngine(cfg, dims, params, throttle, device=dev,
@@ -331,11 +365,13 @@ def main() -> None:
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
     rids = []
+    dims = getattr(server.replicas[0], "dims", None)
     for _ in range(args.requests):
         n = int(np.clip(rng.lognormal(3.0, 0.8), 4, 300))
+        prompt = [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
         rids.append(server.submit(
-            [int(t) for t in rng.integers(0, cfg.vocab_size, n)],
-            SamplingParams(max_new_tokens=args.max_new)))
+            prompt, SamplingParams(max_new_tokens=args.max_new),
+            **(enc_inputs(cfg, dims, rng) if dims is not None else {})))
     server.drain()
     engines = server.replicas
     if spec.backend == "engine" and engines[0].device.type == "cuda":

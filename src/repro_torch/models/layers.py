@@ -1,4 +1,5 @@
-"""Shared neural-net layers: norms, RoPE, MLPs (``repro.models.layers``).
+"""Shared neural-net layers: norms, RoPE/M-RoPE, MLPs
+(``repro.models.layers``).
 
 Weights keep the JAX layout (``x @ w`` with ``w`` of shape ``[d_in, d_out]``)
 and the casts follow the JAX package: norms and RoPE compute in float32 and
@@ -70,6 +71,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x [..., T, H, D], positions [..., T] -> rotary-embedded x."""
     return rotate(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+def mrope_tables(positions3: torch.Tensor, sections: Tuple[int, int, int],
+                 dim: int, theta: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (cos, sin) `apply_mrope` uses, [..., T, 1, dim/2]: the dim/2
+    frequency bands split into (temporal, height, width) sections of
+    `sections` bands, each band at the position of its section's stream
+    (`positions3` [3, ..., T])."""
+    if sum(sections) != dim // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to "
+                         f"{dim // 2}")
+    exps = torch.arange(0, dim, 2, dtype=torch.float32,
+                        device=positions3.device) / dim
+    inv = 1.0 / (theta ** exps)
+    # contiguous bands, one slice each: no index tensor, so a CUDA graph
+    # captures it
+    bounds = [0, sections[0], sections[0] + sections[1], dim // 2]
+    ang = torch.cat([positions3[i].float()[..., None] * inv[lo:hi]
+                     for i, (lo, hi) in enumerate(zip(bounds, bounds[1:]))],
+                    dim=-1)                                   # [..., T, D/2]
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                sections: Tuple[int, int, int], theta: float) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: x [..., T, H, D], positions3 [3, ..., T]
+    (temporal, height, width).  For text tokens the three streams coincide
+    and M-RoPE reduces to RoPE."""
+    return rotate(x, *mrope_tables(positions3, sections, x.shape[-1], theta))
 
 
 # ----------------------------------------------------------------------------

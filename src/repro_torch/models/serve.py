@@ -1,15 +1,28 @@
 """Serve-mode model execution (``repro.models.serve``): one pipeline stage's
 forward over a micro-batch of prefill chunks and decode rows, with the paged
-KV cache (ATTN_MLP and ATTN_MOE blocks) or per-sequence recurrent state
-slots (RWKV, MAMBA_MLP and MAMBA_MOE blocks); one engine holds both for a
-hybrid model (jamba).
+KV cache (ATTN_MLP, ATTN_MOE and DEC_LAYER blocks; MLA_MLP's latent pool),
+per-sequence recurrent state slots (RWKV, MAMBA_MLP and MAMBA_MOE blocks)
+and an encoder-decoder's encoder snapshots; one engine holds both kinds of
+cache for a hybrid model (jamba).
 
 Layouts (per stage, as in the JAX package):
-  prefill payload  xp [Sp, C, d]
+  prefill payload  xp [Sp, C, d]   (whisper: [Sp, Te + C, d], enc slice first)
   decode payload   xd [Sd, 1, d]
   paged KV         [S, R, pages, page, 2, KH, hd] (S stages, R block repeat)
+  MLA latent KV    [S, R, pages, page, klr + dr]
   RWKV state       tm_x, cm_x [S, R, slots, d]; wkv [S, R, slots, H, hd, hd]
   Mamba state      conv [S, R, slots, dc-1, di]; ssm [S, R, slots, di, ds]
+  whisper encoder  h [S, slots, Te, d] per ENC_LAYER group
+
+**Encoder snapshots.**  A prefill chunk carries its request's encoder
+stream through the encoder layers; after each ENC_LAYER group the stream
+is written into that group's snapshot ``h`` at the request's slot, and the
+decode rows of the DEC_LAYER group after it cross-attend to that snapshot.
+The JAX package keeps one snapshot per stage (its stage pattern is one
+encoder group then one decoder group); the port keeps one per encoder
+group, so that a model folded into one stage (`single_stage`: whisper's
+``ENC3 DEC3`` four times over) still gives each decoder group the encoder
+hidden at its own depth, as the dense reference does.
 
 The tick's metadata is built on the host as numpy (`zero_meta`, the JAX
 field names and shapes; `host_meta` adds what the tick computes from it)
@@ -37,16 +50,27 @@ from repro_torch.configs.base import ArchConfig, BlockKind
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import apply_norm, mlp_apply, rope_tables, rotate
+from repro_torch.models.layers import (
+    apply_norm,
+    mlp_apply,
+    mrope_tables,
+    rmsnorm,
+    rope_tables,
+    rotate,
+)
 from repro_torch.models.transformer import (
+    ENC_DEC_KINDS,
     MAMBA_KINDS,
     MOE_KINDS,
     _block_key,
-    _check_kind,
     _heads,
+    cross_attend,
+    cross_kv,
 )
 
-ATTN_KINDS = (BlockKind.ATTN_MLP, BlockKind.ATTN_MOE)
+# kinds whose layers attend over the paged pool with RoPE'd positions
+PAGED_KINDS = (BlockKind.ATTN_MLP, BlockKind.ATTN_MOE, BlockKind.MLA_MLP,
+               BlockKind.DEC_LAYER)
 
 # Flash KV-block granularity (pages per gather step) and the KV-depth bucket
 # divisors: the JAX package's defaults (its REPRO_PAGES_PER_BLOCK and
@@ -269,9 +293,15 @@ def unpack_meta(flat: torch.Tensor, shapes: Mapping[str, Tuple[int, ...]]
 def block_cache_defs(cfg: ArchConfig, kind: BlockKind, dims: ServeDims,
                      repeat: int) -> Dict[str, Tuple[int, ...]]:
     """Shape per cache array of one block group (no stage dim): the JAX
-    package's, plus the scratch page or slot at the end of each pool."""
-    _check_kind(kind)
+    package's, plus the scratch page or slot at the end of each pool.  An
+    ENC_LAYER group holds its encoder snapshot ``h`` [slots, Te, d] (one
+    for the group, not per layer)."""
     R, slots = repeat, dims.slots + 1
+    if kind == BlockKind.ENC_LAYER:
+        return {"h": (slots, dims.Te, cfg.d_model)}
+    if kind == BlockKind.MLA_MLP:
+        return {"kv": (R, dims.pages + 1, dims.page,
+                       cfg.kv_lora_rank + cfg.qk_rope_dim)}
     if kind == BlockKind.RWKV:
         H, hd = cfg.num_rwkv_heads, cfg.rwkv_head_dim
         return {"tm_x": (R, slots, cfg.d_model),
@@ -287,8 +317,17 @@ def block_cache_defs(cfg: ArchConfig, kind: BlockKind, dims: ServeDims,
 
 def cache_defs(cfg: ArchConfig, dims: ServeDims) -> Dict[str, Dict[str, tuple]]:
     """Cache tree of shapes with the leading stage dim (same leaf names as
-    the JAX package)."""
+    the JAX package, but for the per-group encoder snapshots).  Raises
+    when a DEC_LAYER group has no ENC_LAYER group before it in the stage
+    pattern, or the encoder width ``dims.Te`` is 0."""
     S = cfg.plan.pp
+    kinds = [bs.kind for bs in cfg.pattern]
+    if BlockKind.DEC_LAYER in kinds and (
+            BlockKind.ENC_LAYER not in kinds[:kinds.index(BlockKind.DEC_LAYER)]
+            or dims.Te <= 0):
+        raise ValueError(f"{cfg.name}: a decoder group needs an encoder "
+                         f"group before it in the stage pattern and Te > 0 "
+                         f"(pattern {[k.value for k in kinds]}, Te {dims.Te})")
     return {_block_key(i, bs): {
         name: (S,) + shape for name, shape in
         block_cache_defs(cfg, bs.kind, dims, bs.repeat).items()}
@@ -326,11 +365,9 @@ def _qkv_rows(cfg: ArchConfig, p, x: torch.Tensor, rope):
     return q, k, v
 
 
-def _paged_self_attention(cfg: ArchConfig, p, xs: torch.Tensor,
-                          cache: torch.Tensor, meta: Mapping[str, torch.Tensor],
-                          is_prefill: bool) -> torch.Tensor:
-    """Project, write pages (in place), attend.  Returns the attention
-    output."""
+def _phase_rows(meta: Mapping[str, torch.Tensor], is_prefill: bool):
+    """One phase's (positions [S, T], block tables, context lengths, KV
+    destination pages and offsets [S, T], RoPE tables)."""
     if is_prefill:
         positions = meta["p_positions"]
         tables, ctx = meta["p_block_tables"], meta["p_context_lens"]
@@ -342,12 +379,47 @@ def _paged_self_attention(cfg: ArchConfig, p, xs: torch.Tensor,
         pages = meta["d_kv_pages"][:, None]
         offs = meta["d_slot_offsets"][:, None]
         rope = meta["d_rope"]
+    return positions, tables, ctx, pages, offs, rope
+
+
+def _paged_self_attention(cfg: ArchConfig, p, xs: torch.Tensor,
+                          cache: torch.Tensor, meta: Mapping[str, torch.Tensor],
+                          is_prefill: bool) -> torch.Tensor:
+    """Project, write pages (in place), attend.  Returns the attention
+    output."""
+    positions, tables, ctx, pages, offs, rope = _phase_rows(meta,
+                                                            is_prefill)
 
     q, k, v = _qkv_rows(cfg, p, xs, rope)
     new_kv = torch.stack([k, v], dim=2)                   # [S, T, 2, KH, hd]
     attn.write_kv_pages(cache, new_kv, pages, offs)
     o = attn.paged_attention(q, cache, tables, ctx, positions)
     return o.reshape(o.shape[:-2] + (-1,)) @ p["wo"]
+
+
+def _paged_mla_attention(cfg: ArchConfig, p, xs: torch.Tensor,
+                         cache: torch.Tensor, meta: Mapping[str, torch.Tensor],
+                         is_prefill: bool) -> torch.Tensor:
+    """MLA: project, write the normed latent and the rotated rope key into
+    the latent pool (in place), attend (`attention.paged_attention_mla`).
+    Returns the attention output."""
+    S, T, _ = xs.shape
+    H = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    klr = cfg.kv_lora_rank
+    positions, tables, ctx, pages, offs, rope = _phase_rows(meta,
+                                                            is_prefill)
+    cq = rmsnorm(xs @ p["w_dq"], p["q_norm_g"], cfg.norm_eps)
+    q = (cq @ p["w_uq"]).reshape(S, T, H, dn + dr)
+    q = torch.cat([q[..., :dn], rotate(q[..., dn:], *rope)], dim=-1)
+    ckv_full = xs @ p["w_dkv"]
+    ckv = rmsnorm(ckv_full[..., :klr], p["kv_norm_g"], cfg.norm_eps)
+    k_rope = rotate(ckv_full[..., None, klr:], *rope)[..., 0, :]
+    attn.write_kv_pages(cache, torch.cat([ckv, k_rope], dim=-1), pages, offs)
+    o = attn.paged_attention_mla(q, cache, p["w_ukv"], tables, ctx,
+                                 positions, kv_lora_rank=klr,
+                                 qk_nope_dim=dn, v_head_dim=dv)
+    return o.reshape(S, T, H * dv) @ p["wo"]
 
 
 # ----------------------------------------------------------------------------
@@ -401,19 +473,55 @@ def _mamba_serve(cfg: ArchConfig, p, xs: torch.Tensor,
     return out.masked_fill(~valid[..., None], 0)
 
 
+def _enc_dec_serve(cfg: ArchConfig, kind: BlockKind, p, norm,
+                   xp: torch.Tensor, xd: torch.Tensor,
+                   cache: Optional[Dict[str, torch.Tensor]],
+                   meta: Mapping[str, torch.Tensor], dims: ServeDims,
+                   enc_h: Optional[torch.Tensor]):
+    """One whisper block.  ENC_LAYER: bidirectional self-attention and MLP
+    over the prefill payload's encoder slice; decode rows pass through.
+    DEC_LAYER: paged causal self-attention, cross-attention and MLP over the
+    payload's decoder slice (to the encoder slice beside it) and over the
+    decode rows (to their snapshot `enc_h` [Sd, Te, d])."""
+    Sp, Sd, Te = dims.Sp, dims.Sd, dims.Te
+    if Sp:
+        enc, dec = xp[:, :Te], xp[:, Te:]
+        if kind == BlockKind.ENC_LAYER:
+            q, k, v = _qkv_rows(cfg, p, norm("ln1", enc), meta["e_rope"])
+            o = attn.cross_attention(q, k, v)            # bidirectional
+            enc = enc + o.reshape(Sp, Te, -1) @ p["wo"]
+            enc = enc + mlp_apply(norm("ln2", enc), p, cfg.act)
+        else:
+            dec = dec + _paged_self_attention(cfg, p, norm("ln1", dec),
+                                              cache["kv"], meta, True)
+            dec = dec + cross_attend(cfg, p, norm("ln3", dec),
+                                     *cross_kv(cfg, p, enc))
+            dec = dec + mlp_apply(norm("ln2", dec), p, cfg.act)
+        xp = torch.cat([enc, dec], dim=1)
+    if Sd and kind == BlockKind.DEC_LAYER:
+        xd = xd + _paged_self_attention(cfg, p, norm("ln1", xd), cache["kv"],
+                                        meta, False)
+        xd = xd + cross_attend(cfg, p, norm("ln3", xd),
+                               *cross_kv(cfg, p, enc_h))
+        xd = xd + mlp_apply(norm("ln2", xd), p, cfg.act)
+    return xp, xd
+
+
 def block_apply_serve(cfg: ArchConfig, kind: BlockKind, p,
                       xp: torch.Tensor, xd: torch.Tensor,
-                      cache: Dict[str, torch.Tensor],
-                      meta: Mapping[str, torch.Tensor], dims: ServeDims):
-    """One block over the stage's micro-batch: xp [Sp, C, d] prefill
-    payload, xd [Sd, 1, d] decode rows.  Both phases run whenever their
-    bucket is non-empty (`dims.Sp`/`dims.Sd`), whatever rows are live.  A
-    recurrent block runs prefill first, and decode reads the state prefill
-    left.
+                      cache: Optional[Dict[str, torch.Tensor]],
+                      meta: Mapping[str, torch.Tensor], dims: ServeDims,
+                      enc_h: Optional[torch.Tensor] = None):
+    """One block over the stage's micro-batch: xp [Sp, W, d] prefill
+    payload (W = Te + C for whisper, C otherwise), xd [Sd, 1, d] decode
+    rows.  Both phases run whenever their bucket is non-empty
+    (`dims.Sp`/`dims.Sd`), whatever rows are live.  A recurrent block runs
+    prefill first, and decode reads the state prefill left.  A DEC_LAYER's
+    decode rows cross-attend to `enc_h` [Sd, Te, d], their encoder
+    snapshots.
     The MoE FFN routes only the live rows (``meta["row_valid"]``, see
     `stage_forward_serve`): padding rows consume no expert capacity.
     Returns (xp, xd, cache); the cache is updated in place."""
-    _check_kind(kind)
     if kind == BlockKind.RWKV:
         if dims.Sp:
             xp = _rwkv_serve(cfg, p, xp, cache, meta, "p")
@@ -427,6 +535,11 @@ def block_apply_serve(cfg: ArchConfig, kind: BlockKind, p,
             keys["b"] = p[f"{name}_b"]
         return apply_norm(h, keys, cfg.norm, cfg.norm_eps)
 
+    if kind in ENC_DEC_KINDS:
+        xp, xd = _enc_dec_serve(cfg, kind, p, norm, xp, xd, cache, meta,
+                                dims, enc_h)
+        return xp, xd, cache
+
     Sp, Sd = dims.Sp, dims.Sd
     if kind in MAMBA_KINDS:
         if Sp:
@@ -434,12 +547,12 @@ def block_apply_serve(cfg: ArchConfig, kind: BlockKind, p,
         if Sd:
             xd = xd + _mamba_serve(cfg, p, norm("ln1", xd), cache, meta, "d")
     else:
+        mixer = (_paged_mla_attention if kind == BlockKind.MLA_MLP
+                 else _paged_self_attention)
         if Sp:
-            xp = xp + _paged_self_attention(cfg, p, norm("ln1", xp),
-                                            cache["kv"], meta, True)
+            xp = xp + mixer(cfg, p, norm("ln1", xp), cache["kv"], meta, True)
         if Sd:
-            xd = xd + _paged_self_attention(cfg, p, norm("ln1", xd),
-                                            cache["kv"], meta, False)
+            xd = xd + mixer(cfg, p, norm("ln1", xd), cache["kv"], meta, False)
 
     # ffn over all rows (flattened)
     parts = []
@@ -462,6 +575,15 @@ def block_apply_serve(cfg: ArchConfig, kind: BlockKind, p,
     return xp, xd, cache
 
 
+def _rope_for(cfg: ArchConfig, positions: torch.Tensor, dim: int):
+    """(cos, sin) for `positions` [..., T]: RoPE, or M-RoPE with the three
+    position streams equal (text tokens)."""
+    if cfg.mrope:
+        pos3 = positions.expand((3,) + tuple(positions.shape))
+        return mrope_tables(pos3, cfg.mrope_sections, dim, cfg.rope_theta)
+    return rope_tables(positions, dim, cfg.rope_theta)
+
+
 def stage_forward_serve(cfg: ArchConfig, stage_params, caches, xp, xd, meta,
                         dims: ServeDims, *, stage: int = 0):
     """Apply one stage's blocks to its micro-batch, a Python loop over the
@@ -472,23 +594,30 @@ def stage_forward_serve(cfg: ArchConfig, stage_params, caches, xp, xd, meta,
 
     The loop runs eagerly, one launch per op, so per-tick work that every
     layer shares is done once here: the RoPE tables of both phases (added
-    to `meta` as ``p_rope``/``d_rope``), the MoE blocks' live-row mask
+    to `meta` as ``p_rope``/``d_rope``, at the MLA rope width for MLA; the
+    encoder's as ``e_rope``), the MoE blocks' live-row mask
     (``row_valid``: prefill rows inside their chunk, then live decode rows,
     in the order the FFN flattens them) and the per-layer views (one
     ``unbind`` per leaf).  Recurrent blocks (RWKV, Mamba) use no RoPE; they
     share each phase's [rows, T] live-position mask (``p_mask``/``d_mask``).
     The RoPE tables are built only when the pattern has an attention
-    block."""
-    head_dim, theta = cfg.head_dim, cfg.rope_theta
+    block.  After each ENC_LAYER group a prefill row's encoder slice is
+    written into the group's snapshot at its slot (padding rows: the
+    scratch slot, `host_meta`'s ``p_write_slots``); each DEC_LAYER group's
+    decode rows read the snapshot of the encoder group before it, gathered
+    once for the group."""
     meta = dict(meta)
     kinds = {bs.kind for bs in cfg.pattern}
-    if kinds & set(ATTN_KINDS):
+    if kinds & set(PAGED_KINDS):
+        dim = cfg.qk_rope_dim if cfg.mla else cfg.head_dim
         if dims.Sp:
-            meta["p_rope"] = rope_tables(meta["p_positions"], head_dim,
-                                         theta)
+            meta["p_rope"] = _rope_for(cfg, meta["p_positions"], dim)
         if dims.Sd:
-            meta["d_rope"] = rope_tables(meta["d_positions"][:, None],
-                                         head_dim, theta)
+            meta["d_rope"] = _rope_for(cfg, meta["d_positions"][:, None],
+                                       dim)
+    if BlockKind.ENC_LAYER in kinds and dims.Sp:
+        meta["e_rope"] = _rope_for(
+            cfg, torch.arange(dims.Te, device=xp.device), cfg.head_dim)
     if kinds & set(STATE_KINDS):
         if dims.Sp:
             cols = torch.arange(dims.C, device=xp.device)
@@ -505,18 +634,29 @@ def stage_forward_serve(cfg: ArchConfig, stage_params, caches, xp, xd, meta,
             valid.append(meta["d_valid"] > 0)
         meta["row_valid"] = torch.cat(valid)
     off = 0
+    enc_snapshot = None
     for i, bs in enumerate(cfg.pattern):
         key = _block_key(i, bs)
         layers = {name: t[stage].unbind(0)
                   for name, t in stage_params[key].items()}
-        states = {name: t[stage].unbind(0)
-                  for name, t in caches[key].items()}
+        enc_h = None
+        if bs.kind == BlockKind.ENC_LAYER:
+            states = {}
+        else:
+            states = {name: t[stage].unbind(0)
+                      for name, t in caches[key].items()}
+            if bs.kind == BlockKind.DEC_LAYER and dims.Sd:
+                enc_h = enc_snapshot[meta["d_state_slots"]]
         for r in range(bs.repeat):
             if stage * cfg.layers_per_stage + off + r >= cfg.num_layers:
                 continue
             pr = {name: views[r] for name, views in layers.items()}
             cr = {name: views[r] for name, views in states.items()}
             xp, xd, _ = block_apply_serve(cfg, bs.kind, pr, xp, xd, cr,
-                                          meta, dims)
+                                          meta, dims, enc_h)
         off += bs.repeat
+        if bs.kind == BlockKind.ENC_LAYER:
+            enc_snapshot = caches[key]["h"][stage]
+            if dims.Sp:
+                enc_snapshot[meta["p_write_slots"]] = xp[:, :dims.Te]
     return xp, xd, caches

@@ -1,5 +1,6 @@
-"""The stacked transformer (``repro.models.transformer``): ATTN_MLP,
-ATTN_MOE, RWKV, MAMBA_MLP and MAMBA_MOE blocks.
+"""The stacked transformer (``repro.models.transformer``): every block kind
+of the JAX package (ATTN_MLP, ATTN_MOE, MLA_MLP, RWKV, MAMBA_MLP,
+MAMBA_MOE, and whisper's ENC_LAYER and DEC_LAYER).
 
 Parameters are *stacked* as in the JAX package: every block leaf carries
 leading dims ``[S, R, ...]`` (S = pipeline stages, R = the block's repeat
@@ -10,7 +11,9 @@ the same array in both packages and carrying weights across needs no
 transposes (``x @ w``, ``w`` is ``[d_in, d_out]``).
 
 Train mode (`block_apply_train`) runs full sequences with a plain causal
-softmax; the dense reference (`models/reference.py`) is built on it.
+softmax; the dense reference (`models/reference.py`) is built on it.  An
+encoder-decoder's blocks work on the two halves of one payload, the
+encoder stream first (`enc_width` rows), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,22 +28,19 @@ from repro_torch.configs.base import ArchConfig, BlockKind, BlockSpec
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import apply_norm, apply_rope, mlp_apply
+from repro_torch.models.layers import (
+    apply_mrope,
+    apply_norm,
+    apply_rope,
+    mlp_apply,
+    rmsnorm,
+)
 
 Leaf = Tuple[Tuple[int, ...], str]      # (shape, init kind)
 
-_PORTED_KINDS = (BlockKind.ATTN_MLP, BlockKind.ATTN_MOE, BlockKind.RWKV,
-                 BlockKind.MAMBA_MLP, BlockKind.MAMBA_MOE)
 MAMBA_KINDS = (BlockKind.MAMBA_MLP, BlockKind.MAMBA_MOE)
 MOE_KINDS = (BlockKind.ATTN_MOE, BlockKind.MAMBA_MOE)
-
-
-def _check_kind(kind: BlockKind) -> None:
-    if kind not in _PORTED_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind.value} is not yet ported to repro_torch "
-            f"(ROADMAP Queue 1 item 5); ported: "
-            f"{[k.value for k in _PORTED_KINDS]}")
+ENC_DEC_KINDS = (BlockKind.ENC_LAYER, BlockKind.DEC_LAYER)
 
 
 def _norm_defs(cfg: ArchConfig, name: str) -> Dict[str, Leaf]:
@@ -59,17 +59,33 @@ def _mlp_defs(cfg: ArchConfig) -> Dict[str, Leaf]:
             "w_down": ((ff, d), "residual")}
 
 
-def _attn_defs(cfg: ArchConfig) -> Dict[str, Leaf]:
+def _attn_defs(cfg: ArchConfig, prefix: str = "") -> Dict[str, Leaf]:
     d, q, kv = cfg.d_model, cfg.q_dim, cfg.kv_dim
     out: Dict[str, Leaf] = {
-        "wq": ((d, q), "normal"), "wk": ((d, kv), "normal"),
-        "wv": ((d, kv), "normal"), "wo": ((q, d), "residual"),
+        f"{prefix}wq": ((d, q), "normal"), f"{prefix}wk": ((d, kv), "normal"),
+        f"{prefix}wv": ((d, kv), "normal"),
+        f"{prefix}wo": ((q, d), "residual"),
     }
     if cfg.qkv_bias:
-        out["bq"] = ((q,), "zeros")
-        out["bk"] = ((kv,), "zeros")
-        out["bv"] = ((kv,), "zeros")
+        out[f"{prefix}bq"] = ((q,), "zeros")
+        out[f"{prefix}bk"] = ((kv,), "zeros")
+        out[f"{prefix}bv"] = ((kv,), "zeros")
     return out
+
+
+def _mla_defs(cfg: ArchConfig) -> Dict[str, Leaf]:
+    d, H = cfg.d_model, cfg.num_heads
+    qlr, klr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "w_dq": ((d, qlr), "normal"),
+        "q_norm_g": ((qlr,), "ones"),
+        "w_uq": ((qlr, H * (dn + dr)), "normal"),
+        "w_dkv": ((d, klr + dr), "normal"),
+        "kv_norm_g": ((klr,), "ones"),
+        "w_ukv": ((klr, H * (dn + dv)), "normal"),
+        "wo": ((H * dv, d), "residual"),
+    }
 
 
 def _moe_defs(cfg: ArchConfig) -> Dict[str, Leaf]:
@@ -132,13 +148,20 @@ def _rwkv_defs(cfg: ArchConfig) -> Dict[str, Leaf]:
 
 
 def block_param_defs(cfg: ArchConfig, kind: BlockKind) -> Dict[str, Leaf]:
-    _check_kind(kind)
     if kind == BlockKind.RWKV:
         return _rwkv_defs(cfg)
     defs: Dict[str, Leaf] = {}
     defs.update(_norm_defs(cfg, "ln1"))
     defs.update(_norm_defs(cfg, "ln2"))
-    defs.update(_mamba_defs(cfg) if kind in MAMBA_KINDS else _attn_defs(cfg))
+    if kind in MAMBA_KINDS:
+        defs.update(_mamba_defs(cfg))
+    elif kind == BlockKind.MLA_MLP:
+        defs.update(_mla_defs(cfg))
+    else:
+        defs.update(_attn_defs(cfg))
+    if kind == BlockKind.DEC_LAYER:
+        defs.update(_attn_defs(cfg, prefix="x_"))
+        defs.update(_norm_defs(cfg, "ln3"))
     if kind in MOE_KINDS:
         defs.update(_moe_defs(cfg))
     else:
@@ -187,6 +210,10 @@ def _as_module(tree: Mapping[str, Any]) -> nn.Module:
     return nn.ModuleDict({k: _as_module(v) for k, v in tree.items()})
 
 
+# the largest float32 draw `init_params` makes at once
+_F32_DRAW_BYTES = 1 << 30
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, *,
                 dtype: Optional[torch.dtype] = None,
                 device: torch.device | str = "cpu") -> TransformerParams:
@@ -221,11 +248,21 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
             scale = 0.02 / math.sqrt(max(1, 2 * cfg.num_layers))
         elif init != "normal":
             raise NotImplementedError(f"init {init!r} is not yet ported")
-        # in place: a bf16 leaf holds one f32 copy at a time (jamba's
-        # w_gate is 12.9 GB in f32)
-        w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                        device=device)
-        return w.mul_(scale).to(dtype)
+        if math.prod(shape) * 4 <= _F32_DRAW_BYTES:
+            w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                            device=device)
+            return w.mul_(scale).to(dtype)
+        # a large leaf is drawn in slices over its leading dims, each in
+        # f32 at most _F32_DRAW_BYTES (qwen2.5-32b's stacked w_gate is
+        # 36 GB in f32 beside 66 GB of bf16 weights)
+        k = next(i for i in range(len(shape))
+                 if math.prod(shape[i:]) * 4 <= _F32_DRAW_BYTES)
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for part in out.view((-1,) + tuple(shape[k:])):
+            w = torch.randn(part.shape, generator=gen, dtype=torch.float32,
+                            device=device)
+            part.copy_(w.mul_(scale))
+        return out
 
     def walk(tree):
         if isinstance(tree, tuple):
@@ -260,27 +297,81 @@ def _heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return x.reshape(x.shape[:-1] + (n, hd))
 
 
-def _attn_train(cfg: ArchConfig, p, x: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
-    """x [B, T, d] -> causal self-attention output [B, T, d]."""
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = apply_rope(_heads(q, cfg.num_heads, cfg.head_dim), positions,
-                   cfg.rope_theta)
-    k = apply_rope(_heads(k, cfg.num_kv_heads, cfg.head_dim), positions,
-                   cfg.rope_theta)
+def _rope(cfg: ArchConfig, x: torch.Tensor,
+          positions: torch.Tensor) -> torch.Tensor:
+    """RoPE, or M-RoPE with the three position streams equal (text)."""
+    if cfg.mrope:
+        pos3 = positions.expand((3,) + tuple(positions.shape))
+        return apply_mrope(x, pos3, cfg.mrope_sections, cfg.rope_theta)
+    return apply_rope(x, positions, cfg.rope_theta)
+
+
+def _attn_train(cfg: ArchConfig, p, x: torch.Tensor, positions: torch.Tensor,
+                *, causal: bool = True, prefix: str = "") -> torch.Tensor:
+    """x [B, T, d] -> self-attention output [B, T, d]."""
+    q = x @ p[f"{prefix}wq"]
+    k = x @ p[f"{prefix}wk"]
+    v = x @ p[f"{prefix}wv"]
+    if cfg.qkv_bias and f"{prefix}bq" in p:
+        q = q + p[f"{prefix}bq"]
+        k = k + p[f"{prefix}bk"]
+        v = v + p[f"{prefix}bv"]
+    q = _rope(cfg, _heads(q, cfg.num_heads, cfg.head_dim), positions)
+    k = _rope(cfg, _heads(k, cfg.num_kv_heads, cfg.head_dim), positions)
     v = _heads(v, cfg.num_kv_heads, cfg.head_dim)
-    o = attn.causal_attention(q, k, v)
-    return o.reshape(o.shape[:-2] + (-1,)) @ p["wo"]
+    o = attn.causal_attention(q, k, v, causal=causal)
+    return o.reshape(o.shape[:-2] + (-1,)) @ p[f"{prefix}wo"]
+
+
+def _mla_train(cfg: ArchConfig, p, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    """MLA over full sequences, with the latent expanded into per-head K
+    and V as the JAX package's train path does."""
+    B, T, _ = x.shape
+    H = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    klr = cfg.kv_lora_rank
+    cq = rmsnorm(x @ p["w_dq"], p["q_norm_g"], cfg.norm_eps)
+    q = (cq @ p["w_uq"]).reshape(B, T, H, dn + dr)
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    ckv_full = x @ p["w_dkv"]                              # [B, T, klr + dr]
+    ckv = rmsnorm(ckv_full[..., :klr], p["kv_norm_g"], cfg.norm_eps)
+    k_rope = apply_rope(ckv_full[..., None, klr:], positions, cfg.rope_theta)
+    kv = (ckv @ p["w_ukv"]).reshape(B, T, H, dn + dv)
+    q = torch.cat([q[..., :dn], q_rope], dim=-1)
+    k = torch.cat([kv[..., :dn], k_rope.expand(B, T, H, dr)], dim=-1)
+    o = attn.causal_attention(q, k, kv[..., dn:])
+    return o.reshape(B, T, H * dv) @ p["wo"]
+
+
+def cross_kv(cfg: ArchConfig, p, enc: torch.Tensor):
+    """The cross-attention's K and V from the encoder stream enc [B, Te,
+    d]: [B, Te, KH, hd] each."""
+    k, v = enc @ p["x_wk"], enc @ p["x_wv"]
+    if "x_bk" in p:
+        k, v = k + p["x_bk"], v + p["x_bv"]
+    return (_heads(k, cfg.num_kv_heads, cfg.head_dim),
+            _heads(v, cfg.num_kv_heads, cfg.head_dim))
+
+
+def cross_attend(cfg: ArchConfig, p, h: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> torch.Tensor:
+    """The decoder's cross-attention: h [B, T, d] (normed) over the
+    encoder's K and V (`cross_kv`), projected out: [B, T, d]."""
+    q = h @ p["x_wq"]
+    if "x_bq" in p:
+        q = q + p["x_bq"]
+    o = attn.cross_attention(_heads(q, cfg.num_heads, cfg.head_dim), k, v)
+    return o.reshape(o.shape[:-2] + (-1,)) @ p["x_wo"]
 
 
 def block_apply_train(cfg: ArchConfig, kind: BlockKind, p,
-                      x: torch.Tensor) -> torch.Tensor:
-    """One block over full sequences: x [B, T, d] -> x."""
-    _check_kind(kind)
+                      x: torch.Tensor, enc_width: int = 0) -> torch.Tensor:
+    """One block over full sequences: x [B, T, d] -> x.  Whisper's blocks
+    work on the encoder half ``x[:, :enc_width]`` (ENC_LAYER: bidirectional
+    self-attention) or the decoder half (DEC_LAYER: causal self-attention,
+    then cross-attention to the encoder half as it stands), the other half
+    passed through."""
     if kind == BlockKind.RWKV:
         x, _ = ssm_lib.rwkv_block(x, p, head_dim=cfg.rwkv_head_dim,
                                   norm_eps=cfg.norm_eps)
@@ -292,12 +383,29 @@ def block_apply_train(cfg: ArchConfig, kind: BlockKind, p,
             keys["b"] = p[f"{name}_b"]
         return apply_norm(h, keys, cfg.norm, cfg.norm_eps)
 
+    positions = torch.arange(x.shape[1], device=x.device)
+    if kind in ENC_DEC_KINDS:
+        Te = enc_width
+        enc, dec = x[:, :Te], x[:, Te:]
+        if kind == BlockKind.ENC_LAYER:
+            enc = enc + _attn_train(cfg, p, norm("ln1", enc), positions[:Te],
+                                    causal=False)
+            enc = enc + mlp_apply(norm("ln2", enc), p, cfg.act)
+        else:
+            dec = dec + _attn_train(cfg, p, norm("ln1", dec),
+                                    positions[:dec.shape[1]])
+            dec = dec + cross_attend(cfg, p, norm("ln3", dec),
+                                     *cross_kv(cfg, p, enc))
+            dec = dec + mlp_apply(norm("ln2", dec), p, cfg.act)
+        return torch.cat([enc, dec], dim=1)
+
     if kind in MAMBA_KINDS:
         mix, _ = ssm_lib.mamba_mixer(norm("ln1", x), p,
                                      d_state=cfg.mamba_d_state,
                                      d_conv=cfg.mamba_d_conv)
+    elif kind == BlockKind.MLA_MLP:
+        mix = _mla_train(cfg, p, norm("ln1", x), positions)
     else:
-        positions = torch.arange(x.shape[1], device=x.device)
         mix = _attn_train(cfg, p, norm("ln1", x), positions)
     x = x + mix
     h = norm("ln2", x)

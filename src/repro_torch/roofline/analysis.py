@@ -23,9 +23,10 @@ NVLINK_BW = 450e9            # bytes/s per direction
 def param_count(cfg, active_only: bool = False) -> float:
     """Analytic parameter count from the config (MoE: active experts only
     when `active_only`).  The stage pattern times `cfg.plan.pp`, as the JAX
-    module counts: the published config, its `single_stage` fold and every
-    `stage_config` staging of it give one count when the pattern carries
-    no padding layers (no ported arch does)."""
+    module counts: the published config and every `stage_config` staging
+    of it give one count; its `single_stage` fold drops the padding layers
+    (kimi-k2-1t-a32b: 61 of 64, minicpm3-4b: 62 of 64) and counts only the
+    layers that exist."""
     from repro_torch.configs.base import BlockKind
     per = cfg.params_per_layer_estimate()
     total = 0.0

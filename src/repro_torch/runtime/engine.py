@@ -17,9 +17,17 @@ temperature rows after it, copies the tokens back behind an event and
 returns a deferred `ExecResult`: the readback lives in its `pending` thunk
 and `ready()` is the event's ``query()`` (always True on the CPU).
 
+An encoder-decoder request carries its encoder input (`add_request`'s
+``enc_embeds`` [Te, d], zeros when not given, cut to ``Te``), which the
+backend keeps until the request finishes or aborts (a preempted request
+recomputes from it) and stages, like the token ids, into a static
+device buffer the tick reads (`pipeline.build_serve_tick`'s ``p_enc``).
+
 The live-migration hooks (`export/import_kv_pages`,
 `export/import_request_state`) speak the JAX engine's wire format, so a
-payload exported by either package imports into the other.  Every device
+payload exported by either package imports into the other (an
+encoder-decoder's state but for its snapshot leaves: one per encoder
+group here, `models/serve.py`, one per stage in JAX).  Every device
 operation of the backend runs on the device and stream it was built on
 (`_on_stream`), whichever thread steps it: the CUDA graphs hold the pools'
 addresses, so imports write into the pools in place, and an export's gather
@@ -214,6 +222,17 @@ class TorchBackend(ExecutionBackend):
         self._ring_slot = 0
         self.capture_s = 0.0        # warm_start: seconds spent
         self.graph_pool_bytes = 0   # warm_start: device memory it reserved
+        # an encoder-decoder's per-request encoder input (f32, [<=Te, d]),
+        # and the static device buffer the tick reads the entering prefill
+        # rows' from, staged through two pinned buffers like the metadata
+        self.enc_embeds: Dict[str, torch.Tensor] = {}
+        self._enc = self._enc_staging = None
+        if dims.Te:
+            shape = (dims.Sp, dims.Te, cfg.d_model)
+            self._enc = torch.zeros(shape, dtype=self.dtype, device=device)
+            self._enc_staging = [torch.zeros(shape, dtype=self.dtype,
+                                             pin_memory=cuda)
+                                 for _ in range(2)]
 
     def _on_stream(self):
         """Run on the backend's device and stream (a no-op on the CPU)."""
@@ -234,6 +253,8 @@ class TorchBackend(ExecutionBackend):
             zero = ((None, self._zm),) * self.depth
             prog = _BucketProgram(tick, self._fields(zero, bucket, None),
                                   self.device)
+            if self._enc is not None:
+                prog.meta["p_enc"] = self._enc
             self._programs[key] = prog
         return prog
 
@@ -331,11 +352,14 @@ class TorchBackend(ExecutionBackend):
         return {**{k: np.stack([f[k] for f in stages]) for k in stages[0]},
                 **tokens}
 
-    def _load(self, prog: _BucketProgram,
-              fields: Dict[str, np.ndarray]) -> None:
+    def _load(self, prog: _BucketProgram, fields: Dict[str, np.ndarray],
+              entering: Optional[ScheduledBatch] = None) -> None:
         """Pack `fields` into this ring slot's staging buffer (once the
         device has read what it held before) and copy it into `prog`'s
-        static buffer: one non-blocking copy on CUDA."""
+        static buffer: one non-blocking copy on CUDA.  For an
+        encoder-decoder whose entering batch holds prefill rows, their
+        encoder inputs go the same way into the encoder buffer (zeros past
+        a short input and on rows without a request)."""
         if [a.shape for a in fields.values()] != list(prog.shapes.values()):
             raise ValueError("tick metadata does not fit its bucket program")
         slot = self._ring_slot
@@ -345,6 +369,15 @@ class TorchBackend(ExecutionBackend):
         np.concatenate([a.reshape(-1) for a in fields.values()],
                        out=staging.numpy())
         prog.static.copy_(staging, non_blocking=True)
+        if self._enc is not None and entering is not None \
+                and entering.prefill:
+            enc = self._enc_staging[slot]
+            enc.zero_()
+            for s, seq in enumerate(entering.prefill):
+                src = self.enc_embeds.get(seq.request.request_id)
+                if src is not None:
+                    enc[s, :src.shape[0]].copy_(src)
+            self._enc.copy_(enc, non_blocking=True)
         if self.device.type == "cuda":
             self._copied[slot] = torch.cuda.Event()
             self._copied[slot].record()
@@ -424,7 +457,7 @@ class TorchBackend(ExecutionBackend):
         prog = self._program(bucket)
         entering = (self.scheduler.get_batch(ring[0][0])
                     if ring[0][0] is not None else None)
-        self._load(prog, self._fields(ring, bucket, entering))
+        self._load(prog, self._fields(ring, bucket, entering), entering)
         slot, self._ring_slot = self._ring_slot, self._ring_slot ^ 1
         logits, tokens = self._run(prog)
         sampling = self._build_sampling(exiting_id, bucket)
@@ -498,20 +531,24 @@ class TorchBackend(ExecutionBackend):
 
     def finish_request(self, req: Request) -> None:
         self.slots.release(req.request_id)
+        self.enc_embeds.pop(req.request_id, None)
 
     def release_resident_state(self, req: Request) -> None:
         """Preemption/abort recovery: the request lost residency, so its
-        state slot can be reassigned."""
+        state slot can be reassigned.  Its encoder input stays: the
+        recompute needs it."""
         self.slots.release(req.request_id)
 
     # ------------------------------------------------- live migration (§9)
     # The JAX engine's wire format: a paged "kv" leaf [S, R, pages, page, 2,
     # KH, hd] moves as one gather/scatter on its (page, offset) axes, the
     # payload "{group}/kv" [S, R, n, 2, KH, hd] in sequence order; the
-    # slot-indexed recurrent leaves move by state slot on axis 2.  The
+    # slot-indexed recurrent leaves move by state slot on axis 2, an
+    # encoder group's snapshot "h" [S, slots, Te, d] on axis 1.  The
     # scratch page (index `pages`) and slot (index `slots`) never move.
 
-    _SLOT_LEAF_AXIS = {"conv": 2, "ssm": 2, "tm_x": 2, "cm_x": 2, "wkv": 2}
+    _SLOT_LEAF_AXIS = {"conv": 2, "ssm": 2, "tm_x": 2, "cm_x": 2, "wkv": 2,
+                       "h": 1}
 
     def _page_index(self, slots: Sequence[Tuple[int, int]]
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -573,9 +610,13 @@ class TorchBackend(ExecutionBackend):
     @_pinned
     @torch.inference_mode()
     def export_request_state(self, req: Request) -> dict:
-        """Copies of the request's recurrent state slots (none for a model
-        without them); releases its slot here."""
-        state: Dict[str, Any] = {"enc": None, "slot_leaves": {}}
+        """Copies of the request's state slots (recurrent state, encoder
+        snapshots; none for a model without them) and its encoder input
+        (``"enc"``, f32 numpy as the JAX engine exports it); releases its
+        slot and input here."""
+        enc = self.enc_embeds.pop(req.request_id, None)
+        state: Dict[str, Any] = {
+            "enc": None if enc is None else enc.numpy(), "slot_leaves": {}}
         s = self.slots.owner.get(req.request_id)
         if s is not None:
             for gk, grp in self.caches.items():
@@ -592,13 +633,14 @@ class TorchBackend(ExecutionBackend):
     def import_request_state(self, req: Request, state: Optional[dict],
                              resident: bool = True) -> None:
         """Attach exported state in a fresh slot, in place (`MemoryError`
-        when no slot is free).  A non-resident arrival recomputes from
-        position 0, from zero state, so it takes no slot."""
+        when no slot is free), and keep its encoder input.  A non-resident
+        arrival recomputes from position 0, from zero state (and its
+        encoder input), so it takes no slot."""
         if state is None:
             return
         if state.get("enc") is not None:
-            raise ValueError("encoder state cannot arrive: the port serves "
-                             "no encoder-decoder model yet")
+            self.enc_embeds[req.request_id] = torch.as_tensor(
+                np.asarray(state["enc"], np.float32)).clone()
         leaves = (state.get("slot_leaves") or {}) if resident else {}
         if not leaves:
             return
@@ -735,6 +777,11 @@ class PipelineEngine:
                 "recurrent state of its RWKV/Mamba blocks lives in slots: "
                 "a request that adopted a prefix would start past position "
                 "0 on state it never computed")
+        if enable_prefix_caching and cfg.is_encoder_decoder:
+            raise ValueError(
+                f"{cfg.name}: prefix caching shares KV pages by prompt, but "
+                "an encoder-decoder's decoder KV depends on the request's "
+                "encoder input as well")
         wdev = params["embed"]["tok"].device
         if wdev.type != self.device.type:
             raise ValueError(f"params lie on {wdev}, the engine runs on "
@@ -788,6 +835,10 @@ class PipelineEngine:
         return self.backend.stats
 
     @property
+    def enc_embeds(self) -> Dict[str, torch.Tensor]:
+        return self.backend.enc_embeds
+
+    @property
     def finished(self) -> List[Request]:
         return self.loop.finished
 
@@ -805,10 +856,20 @@ class PipelineEngine:
 
     def add_request(self, prompt: Sequence[int],
                     sampling: Optional[SamplingParams] = None,
-                    request_id: Optional[str] = None) -> Request:
+                    request_id: Optional[str] = None,
+                    enc_embeds: Optional[np.ndarray] = None) -> Request:
+        """Queue a request.  An encoder-decoder's takes its encoder input
+        `enc_embeds` [<=Te, d] (zeros when None; cut to ``Te``), as the JAX
+        engine does; other models ignore it."""
         rid = request_id or f"req-{next(PipelineEngine._req_counter)}"
         req = Request(rid, list(prompt), sampling or SamplingParams())
         req.metrics.arrival_time = self._now_fn()
+        if self.cfg.is_encoder_decoder:
+            Te = self.dims.Te
+            enc = (np.zeros((Te, self.cfg.d_model), np.float32)
+                   if enc_embeds is None else enc_embeds)
+            self.enc_embeds[rid] = torch.as_tensor(
+                np.asarray(enc, np.float32)[:Te]).clone()
         if self._trace_lock is None:
             self.scheduler.add_request(req)
         else:

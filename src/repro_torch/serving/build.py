@@ -71,8 +71,8 @@ def _throttle_config(spec: ServeSpec, pipeline_depth: int, *,
 
 def _build_engine(spec: ServeSpec, *, device, dtype, cuda_graphs: bool,
                   cut, pp: int = 1) -> Tuple[Any, Any]:
-    from repro_torch.launch.serve import (FULL_DIMS, REDUCED_DIMS,
-                                          build_params, serve_config)
+    from repro_torch.launch.serve import (build_params, serve_config,
+                                          serve_dims)
     from repro_torch.runtime.engine import PipelineEngine, resolve_device
 
     es = spec.engine
@@ -84,7 +84,7 @@ def _build_engine(spec: ServeSpec, *, device, dtype, cuda_graphs: bool,
         # dropless, as the JAX builder makes the reduced MoE
         cfg = dataclasses.replace(
             cfg, moe_capacity_factor=float(max(cfg.num_experts, 1)))
-    dims = REDUCED_DIMS if es.reduced else FULL_DIMS
+    dims = serve_dims(cfg, es.reduced)     # Te = 16 reduced, as JAX's
     if es.dims:
         dims = dataclasses.replace(dims, **es.dims)
     th = _throttle_config(spec, cfg.plan.pp, reduced=es.reduced)

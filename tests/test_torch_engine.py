@@ -218,8 +218,9 @@ def _jax_tree(cfg):
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "kimi-k2-1t-a32b"])
 def test_params_from_numpy_carries_moe_tree(arch):
     """Router, expert and (kimi-k2) shared-expert leaves carry across key
-    for key, unchanged.  kimi-k2's port config is built from the JAX one
-    (the arch itself is not yet ported; its MoE block is)."""
+    for key, unchanged.  The port config is built from the JAX one field
+    by field (the port's registry holds the same configs:
+    tests/test_torch_archs.py)."""
     import repro_torch.configs.base as tbase
     jcfg = jax_make_reduced(jax_get_config(arch)).with_plan(
         pp=1, tp=1, ep_over_data=False)

@@ -66,15 +66,23 @@ def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_unported_arch_and_pp_raise():
-    """An unported arch raises; a pipelined config builds its tick, which
-    raises without the ring's carry; a heterogeneous pattern is pinned to
-    its stage count (jamba's fold stays one stage)."""
+    """Every arch of the JAX registry resolves and an unknown one raises;
+    a pipelined config builds its tick, which raises without the ring's
+    carry; a heterogeneous pattern is pinned to its stage count (jamba's
+    fold stays one stage, whisper's too)."""
     from repro_torch.configs import get_config, single_stage, stage_config
     from repro_torch.distributed.pipeline import build_serve_tick
     from repro_torch.launch.serve import FULL_DIMS
 
-    with pytest.raises(KeyError, match="not yet ported"):
-        get_config("whisper-small")
+    for arch in ("qwen2-vl-7b", "kimi-k2-1t-a32b", "olmoe-1b-7b",
+                 "minicpm3-4b", "qwen2.5-14b", "qwen1.5-0.5b",
+                 "internlm2-1.8b", "whisper-small", "jamba-1.5-large-398b",
+                 "rwkv6-3b", "qwen2.5-32b", "llama3.1-100b"):
+        assert get_config(arch).name == arch
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("whisper-large")
+    with pytest.raises(ValueError, match="pinned to pp=1"):
+        stage_config(single_stage(get_config("whisper-small")), 4)
     cfg = get_config("qwen1.5-0.5b")
     tick = build_serve_tick(cfg, FULL_DIMS)
     with pytest.raises(ValueError, match="pp=8 needs the carry"):

@@ -53,7 +53,8 @@ def _both(arrays):
 
 
 def _reduced(arch):
-    """The reduced config (JAX's registry: kimi-k2 is not yet ported)."""
+    """The reduced config from JAX's registry (the port's holds the same
+    configs: tests/test_torch_archs.py)."""
     return jax_make_reduced(jax_get_config(arch))
 
 
