@@ -199,8 +199,9 @@ line; any failure raises and the script exits non-zero.
               once per layer and phase (none for MLA, which runs as plain
               PyTorch as it runs as jnp in the JAX package)
   serve-archs-bf16  serve-bf16's batch on a bucketed async graph engine in
-              bf16 for minicpm3-4b, whisper-small (1,500 frames),
-              qwen2-vl-7b and internlm2-1.8b at full width and depth,
+              bf16 for whisper-small (1,500 frames), qwen2-vl-7b and
+              internlm2-1.8b at full width and depth, minicpm3-4b at full
+              width cut to 16 of its 62 layers,
               kimi-k2-1t-a32b cut to its first ATTN_MOE layer (384
               experts, 38.9 GB) and llama3.1-100b cut to 32 of its 96
               layers in four stages of 8 (59 GB): every request finishes
@@ -221,6 +222,36 @@ line; any failure raises and the script exits non-zero.
               memory, and busy time and idle share from a profiled rerun at
               pp=1
 
+  train-f32   the GPipe train step (`distributed.pipeline.build_train_step`)
+              on full-width qwen1.5-0.5b cut to 4 layers, f32, one batch of
+              2 micro-batches of 1,024 tokens: at lr = 0 and aux_coef = 0
+              the step's loss is the dense reference's cross-entropy within
+              2e-4, at pp=1 and at pp=4 (one layer a stage); pp=4's Adam
+              moments and gnorm are pp=1's (MOMENT_TOL); then the fused-MoE
+              kernel under autograd (`moe_gemm.FusedMoEFFN`) at olmoe's
+              training shapes (E=64, C=648: 4,096 rows, top-8, capacity
+              factor 1.25; d=2048, ff=1024; ragged counts, finite garbage
+              past them), f32 and bf16: dx, dWg, dWu, dWd within
+              moe_gemm.GRAD_TOLERANCE of autograd through the plain version,
+              a backward with the sigmoid in place of silu's derivative
+              failing the same check, and in f32 the backward run on TF32
+              products failing it too; the backward's time, its bound, and
+              the plain version's and the torch.bmm sequence's forward +
+              backward
+  train-bf16  `python -m repro_torch.launch.train --arch qwen1.5-0.5b --full
+              --seq 4096 --steps 30 --lr 1e-4` in process (full width and depth,
+              bf16, SyntheticLM, checkpointing at steps 15 and 30): the
+              loss at step 29 below step 0's; median ms a step over steps
+              5-29, tokens/s, peak GB, model TFLOP/s; then olmoe-1b-7b cut
+              to 4 of 16 layers (~1.9 B parameters), 10 steps, the same
+              report and the MoE kernel's launches: layers x M x 2 a step
+              (each forward again in the backward's recomputation)
+  train-ckpt  the checkpoint train-bf16 wrote restores into a fresh tree bit
+              for bit; `--resume` loads it and starts below the fresh
+              run's first loss; an eager bf16 qwen engine's
+              `snapshot_state` -> `restore_requests` restart finishes the
+              unfinished requests with their emitted prefix kept
+
 The kernel phase also holds paged attention at qwen2-vl-7b's 28:4 heads
 (G = 7) and internlm2-1.8b's 16:8 heads of 128 (G = 2), and the moe-kernel
 phase the fused MoE at kimi-k2's E=384, C=16, d=7168, ff=2048 (bf16), full
@@ -240,6 +271,7 @@ from __future__ import annotations
 import gc
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -262,6 +294,7 @@ PEAK_FLOPS = {"float32": 67e12,           # f32 outside the tensor cores
 # clock (CUDA C Programming Guide, throughput table, compute capability
 # 9.0) x 132 SMs x 1.98 GHz (H100 SXM boost clock)
 SFU_PER_S = 16 * 132 * 1.98e9
+SPIN_HZ = 1.98e9            # `torch.cuda._sleep` cycles a second (boost)
 ARCH = "qwen1.5-0.5b"
 LAYERS = 24
 MOE_ARCH = "olmoe-1b-7b"
@@ -314,27 +347,31 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     events, after `warmup` calls).  The calls queue behind a spin on the
     card, so that the host has enqueued all of them before the card
     reaches the first: a call shorter than its own launch overhead is then
-    timed on the card, not on the host.  The spin grows until the card is
-    still spinning when the host is done (at most ~2 s); a call that
-    synchronises (the WKV plain version picks its rows on the host) is
-    timed with the host in it."""
+    timed on the card, not on the host.  When a 1 ms spin is not enough,
+    the calls run once more behind a spin four times as long as the host
+    took to enqueue them; a call that synchronises (the WKV and Mamba plain
+    versions pick their rows on the host) can never get ahead of the card,
+    and is timed with the host in it on that second run."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    spin = 1 << 21                        # clock cycles, ~1 ms
+    spin, sized = 1 << 21, False          # clock cycles, ~1 ms
     while True:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(spin)
         start.record()
+        t0 = time.perf_counter()
         for _ in range(iters):
             fn()
+        host_s = time.perf_counter() - t0
         end.record()
         ahead = not start.query()         # the card is still spinning
         end.synchronize()
-        if ahead or spin >= 1 << 32:
+        if ahead or sized:
             return start.elapsed_time(end) / iters
-        spin <<= 2
+        spin = min(max(spin << 2, int(4 * host_s * SPIN_HZ)), 1 << 33)
+        sized = True
 
 
 # ---------------------------------------------------------------- phases
@@ -2037,6 +2074,11 @@ ARCHS_F32 = (("minicpm3-4b", 4), ("whisper-small", 0), ("qwen2-vl-7b", 4),
 KIMI_ARCH = "kimi-k2-1t-a32b"
 LLAMA_ARCH = "llama3.1-100b"
 LLAMA_LAYERS = 32           # of 96: 59 GB of bf16 weights, 8 a stage at PP
+# minicpm3-4b, of 62: its plain f32 MLA makes it the slowest serve at full
+# depth (~70 s of ~880 in a full run of this script), cut to keep the
+# script inside its time limit on the slower hosts (full depth: PERF.md §5)
+MINICPM_ARCH = "minicpm3-4b"
+MINICPM_BF16_LAYERS = 16
 ARCHS_BF16 = ("minicpm3-4b", "whisper-small", "qwen2-vl-7b",
               "internlm2-1.8b", KIMI_ARCH, LLAMA_ARCH)
 BIG_ARCH = "qwen2.5-32b"    # the paper's mid-size model, 65.5 GB in bf16
@@ -2190,7 +2232,8 @@ def _archs_engine(arch: str, build_engine):
     """The bf16 bucketed async graph engine serve-archs-bf16 measures:
     `arch` at full width and depth, kimi-k2 cut to its first ATTN_MOE
     layer (`cut_to_kinds`: 38.9 GB), llama3.1-100b cut to its first
-    LLAMA_LAYERS layers in PP stages."""
+    LLAMA_LAYERS layers in PP stages, minicpm3-4b to its first
+    MINICPM_BF16_LAYERS layers."""
     import dataclasses
 
     from repro_torch.configs import BlockKind, BlockSpec, stage_config
@@ -2202,15 +2245,18 @@ def _archs_engine(arch: str, build_engine):
               async_dispatch=True)
     if arch == KIMI_ARCH:
         return build_engine(arch, cut=[BlockKind.ATTN_MOE], **kw)
-    if arch != LLAMA_ARCH:
+    cuts = {LLAMA_ARCH: (LLAMA_LAYERS, PP),
+            MINICPM_ARCH: (MINICPM_BF16_LAYERS, 1)}
+    if arch not in cuts:
         return build_engine(arch, **kw)
+    layers, pp = cuts[arch]
     cfg, dtype = serve_config(arch, dtype=torch.bfloat16)
     cfg = stage_config(dataclasses.replace(
-        cfg, num_layers=LLAMA_LAYERS,
-        pattern=(BlockSpec(BlockKind.ATTN_MLP, LLAMA_LAYERS),)), PP)
+        cfg, num_layers=layers,
+        pattern=(BlockSpec(cfg.pattern[0].kind, layers),)), pp)
     params = build_params(cfg, dtype, torch.device(DEV))
     return PipelineEngine(cfg, FULL_DIMS, params,
-                          ThrottleConfig(pipeline_depth=PP), seed=0, **kw)
+                          ThrottleConfig(pipeline_depth=pp), seed=0, **kw)
 
 
 def phase_serve_archs_bf16(pa, mg, build_engine) -> dict:
@@ -2731,6 +2777,380 @@ def phase_serve_router_bf16(pa) -> dict:
     return rows
 
 
+# ---------------------------------------------------------- train phases
+
+TRAIN_SEQ = 4096            # tokens a sequence; M = 2 micro-batches of 1
+TRAIN_STEPS = 30
+# Adam's rate of the bf16 runs: at the launcher's default 1e-3 (the JAX
+# launcher's, sized for the reduced CPU models) full-depth qwen1.5-0.5b,
+# with no warmup, rises over 30 steps in f32 as in bf16 (12.14 to 12.18
+# and 12.22, `tools/train_lr_sweep.py`); at 1e-4 both fall, to 12.05
+# (PERF.md)
+TRAIN_LR = 1e-4
+TRAIN_F32_LAYERS = 4        # qwen1.5-0.5b's depth cut of the f32 checks
+TRAIN_F32_SEQ = 1024
+MOE_TRAIN_LAYERS = 4        # olmoe-1b-7b cut to 4 of 16 layers (~1.9 B)
+MOE_TRAIN_STEPS = 10
+# the step's loss against the dense cross-entropy (the JAX package's
+# bound for its pipelined loss, tests/test_multidevice.py)
+TRAIN_LOSS_TOL = 2e-4
+# pp=4's Adam moments against pp=1's, of each leaf's largest magnitude:
+# the same products in the same order but for the embedding gradient's
+# atomic adds on the card (f32 rounding, ~1e-7 of a leaf)
+MOMENT_TOL = 1e-5
+F32_PEAK = 67e12            # f32 FMA outside the tensor cores (no TF32)
+
+
+def _train_cfg(arch: str, layers: int, dtype: str):
+    """Full-width `arch` folded to one stage and cut to its first `layers`
+    layers (a uniform pattern), in `dtype`."""
+    import dataclasses
+
+    from repro_torch.configs import BlockSpec, get_config, single_stage
+
+    cfg = single_stage(get_config(arch))
+    return dataclasses.replace(
+        cfg, num_layers=layers, dtype=dtype,
+        pattern=(BlockSpec(cfg.pattern[0].kind, layers),))
+
+
+def _model_flops(cfg, tokens: int, seq: int) -> float:
+    """6 N + 12 L H hd T flops a token (N: the matmul parameters a token
+    uses, the layers' and the head's; for MoE the router and the top-k
+    experts), times `tokens`."""
+    est = cfg.params_per_layer_estimate()
+    per_layer = est["attn"] + (est["moe_active"] if cfg.is_moe
+                               else est["mlp"])
+    n = cfg.num_layers * per_layer + cfg.d_model * cfg.padded_vocab
+    attn = 12 * cfg.num_layers * cfg.num_heads * cfg.head_dim * seq
+    return (6 * n + attn) * tokens
+
+
+def _train_report(run: dict, cfg, seq: int, first: int = 5) -> dict:
+    steps = sorted(run["step_s"][first:])
+    ms = steps[len(steps) // 2] * 1e3
+    return {"loss": run["loss"], "gnorm": run["gnorm"],
+            "median_ms_per_step": ms,
+            "steps_timed": len(run["step_s"]) - first,
+            "tokens_per_s": run["tokens_per_step"] / ms * 1e3,
+            "model_tflops_per_s": _model_flops(
+                cfg, run["tokens_per_step"], seq) / ms * 1e-9,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _moe_train_case(dtype, seed):
+    """olmoe's training shapes: C for 4,096 rows at top-8 and capacity
+    factor 1.25; ragged counts (648 down to 81 rows), finite garbage past
+    them; a unit-variance output gradient."""
+    from repro_torch.models.moe import capacity
+
+    E, d, ff = 64, 2048, 1024
+    C = capacity(TRAIN_SEQ, 8, E, 1.25)
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn(E, C, d, generator=g, device=DEV).to(dtype)
+    ws = [(torch.randn(*sh, generator=g, device=DEV) * 0.02).to(dtype)
+          for sh in ((E, d, ff), (E, d, ff), (E, ff, d))]
+    dout = torch.randn(E, C, d, generator=g, device=DEV).to(dtype)
+    counts = torch.arange(C, C - 9 * E, -9, device=DEV, dtype=torch.int32)
+    return [x] + ws + [counts], dout
+
+
+def _grad_excess(mg, grads, args, dout, experts: int = 8):
+    """`moe_gemm.grad_excess` a few experts at a time: (worst, max err)."""
+    E = dout.shape[0]
+    parts = [mg.grad_excess([g[e:e + experts] for g in grads],
+                            *(a[e:e + experts] for a in args),
+                            dout[e:e + experts])
+             for e in range(0, E, experts)]
+    return max(p[0] for p in parts), max(p[1] for p in parts)
+
+
+def _moe_backward_bound(args):
+    """Least time of the backward: x and dout's live rows and the three
+    weights read once, dx and the three weight gradients written once, at
+    the HBM rate, against 16 (live rows) d ff flops (g, u, dWd, dh, dWg,
+    dWu and dx's two products, on the live rows) at the f32 peak (the
+    products run in f32)."""
+    x, w_gate, _, _, counts = args
+    E, C, d = x.shape
+    ff = w_gate.shape[2]
+    elt = x.element_size()
+    rows = int(counts.sum())
+    nbytes = (2 * rows * d + E * C * d + 6 * E * d * ff) * elt
+    flops = 16 * rows * d * ff
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_PEAK * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, flops
+
+
+def _library_fwd_bwd(args, dout):
+    """The torch.bmm gate/up/silu-mul/down sequence in x's dtype, forward
+    and backward by autograd (a sequence of calls; never used by the
+    port)."""
+    leaves = [t.detach().requires_grad_(True) for t in args[:4]]
+    fwd = _moe_library_fn(*leaves, args[4])
+
+    def run():
+        return torch.autograd.grad(fwd(), leaves, dout)
+    return run
+
+
+def _moe_train_rows(mg, ops) -> list:
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        args, dout = _moe_train_case(dtype, seed=300 + len(rows))
+        leaves = [t.detach().requires_grad_(True) for t in args[:4]]
+        out = ops.fused_moe_ffn(*leaves, args[4])     # FusedMoEFFN
+        if out.grad_fn is None:
+            raise AssertionError("train-f32: the MoE kernel under autograd "
+                                 "returned no gradient")
+        grads = torch.autograd.grad(out, leaves, dout)
+        del out
+        excess, err = _grad_excess(mg, grads, args, dout)
+        del grads
+        planted = mg.fused_moe_ffn_backward(*args, dout, dsilu=torch.sigmoid)
+        planted_excess, _ = _grad_excess(mg, planted, args, dout)
+        del planted
+        tf32_excess = None
+        if dtype == torch.float32:      # the same backward on TF32 products
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                planted = mg.fused_moe_ffn_backward(*args, dout)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            tf32_excess, _ = _grad_excess(mg, planted, args, dout)
+            del planted
+        E, C, d = args[0].shape
+        rtol, htol, acc = mg.GRAD_TOLERANCE[dtype]
+        row = {"phase": "train-f32", "check": "moe-backward",
+               "shape": "olmoe train", "dtype": str(dtype).split(".")[-1],
+               "E": E, "C": C, "d": d, "ff": args[1].shape[2],
+               "live_rows": int(args[4].sum()), "max_abs_err": err,
+               "rtol": rtol, "htol": htol, "acc": acc, "excess": excess,
+               "planted_excess": planted_excess,
+               "planted_tf32_excess": tf32_excess}
+        if not excess <= 1.0:
+            emit(row)
+            raise AssertionError(f"the MoE backward disagrees with autograd "
+                                 f"through the plain version: {row}")
+        if not planted_excess > 1.0:
+            emit(row)
+            raise AssertionError(f"the check passes a backward with the "
+                                 f"sigmoid for silu's derivative: {row}")
+        if tf32_excess is not None and not tf32_excess > 1.0:
+            emit(row)
+            raise AssertionError(f"the check passes an f32 backward on TF32 "
+                                 f"products: {row}")
+        row["backward_ms"] = time_ms(
+            lambda: mg.fused_moe_ffn_backward(*args, dout), 5)
+        row["fn_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            ops.fused_moe_ffn(*leaves, args[4]), leaves, dout), 5)
+        row["plain_fwd_bwd_ms"] = time_ms(
+            lambda: mg.fused_moe_ffn_ref_grads(*args, dout), 3, warmup=1)
+        row["library_fwd_bwd_ms"] = time_ms(_library_fwd_bwd(args, dout), 5)
+        (row["backward_bound_ms"], row["backward_bound_by"], row["bytes"],
+         row["flops"]) = _moe_backward_bound(args)
+        emit(row)
+        rows.append(row)
+        del args, dout, leaves
+        _free()
+    return rows
+
+
+def phase_train_f32(mg) -> dict:
+    """The train step against the dense reference at pp=1 and pp=4, pp=4's
+    moments against pp=1's, and the MoE kernel under autograd."""
+    from repro_torch.configs import stage_config
+    from repro_torch.data.tokens import batches
+    from repro_torch.distributed.elastic import repartition_params
+    from repro_torch.distributed.optimizer import AdamConfig, adam_init
+    from repro_torch.distributed.pipeline import build_train_step
+    from repro_torch.kernels import ops
+    from repro_torch.models.reference import dense_forward
+    from repro_torch.models.transformer import (
+        cross_entropy,
+        init_params,
+        tree_items,
+    )
+
+    t0 = time.perf_counter()
+    cfg = _train_cfg(ARCH, TRAIN_F32_LAYERS, "float32")
+    params = init_params(cfg, 0, dtype=torch.float32, device=DEV)
+    batch = next(batches(cfg.vocab_size, 2, 1, TRAIN_F32_SEQ, seed=0))
+    toks = torch.as_tensor(batch["tokens"], device=DEV).reshape(
+        2, TRAIN_F32_SEQ).long()
+    labs = torch.as_tensor(batch["labels"], device=DEV).reshape(
+        2, TRAIN_F32_SEQ).long()
+    want = float(cross_entropy(dense_forward(cfg, params, toks), labs))
+    runs = {}
+    for pp in (1, PP):
+        cfg_pp = stage_config(cfg, pp) if pp > 1 else cfg
+        p = repartition_params(params, cfg, cfg_pp).trainable()
+        step = build_train_step(cfg_pp, adam=AdamConfig(lr=0.0),
+                                aux_coef=0.0, device=DEV)
+        before = {k: t.detach().clone() for k, t in tree_items(p)}
+        p, opt, m = step(p, adam_init(p), batch)
+        unchanged = all(torch.equal(t.detach(), before[k])
+                        for k, t in tree_items(p))
+        runs[pp] = {"loss": float(m["loss"]), "gnorm": float(m["gnorm"]),
+                    "unchanged_at_lr0": unchanged,
+                    "m": {k: t.reshape(-1) for k, t in tree_items(opt.m)},
+                    "v": {k: t.reshape(-1) for k, t in tree_items(opt.v)}}
+        del p, opt, before, step
+        _free()
+    worst = {}
+    for mom in ("m", "v"):
+        worst[mom] = max(
+            float((runs[PP][mom][k] - a).abs().max())
+            / max(float(a.abs().max()), 1e-30)
+            for k, a in runs[1][mom].items())
+    out = {"phase": "train-f32", "arch": ARCH, "layers": TRAIN_F32_LAYERS,
+           "seq": TRAIN_F32_SEQ, "micro_batches": 2, "dense_loss": want,
+           "loss": {pp: r["loss"] for pp, r in runs.items()},
+           "loss_err": {pp: abs(r["loss"] - want) for pp, r in runs.items()},
+           "loss_tol": TRAIN_LOSS_TOL,
+           "gnorm": {pp: r["gnorm"] for pp, r in runs.items()},
+           "moment_err_pp4_vs_pp1": worst, "moment_tol": MOMENT_TOL,
+           "unchanged_at_lr0": {pp: r["unchanged_at_lr0"]
+                                for pp, r in runs.items()}}
+    del runs, params
+    _free()
+    ok = (all(e <= TRAIN_LOSS_TOL for e in out["loss_err"].values())
+          and all(v <= MOMENT_TOL for v in worst.values())
+          and abs(out["gnorm"][PP] - out["gnorm"][1])
+          <= 1e-5 * out["gnorm"][1]
+          and all(out["unchanged_at_lr0"].values()))
+    out["moe_backward"] = _moe_train_rows(mg, ops)
+    out["s"] = time.perf_counter() - t0
+    emit(out)
+    if not ok:
+        raise AssertionError(f"train-f32: the step disagrees: {out}")
+    return out
+
+
+def phase_train_bf16(mg, ckpt_dir: Path) -> dict:
+    """qwen1.5-0.5b through the launcher (checkpointing into `ckpt_dir`),
+    then the olmoe cut through `launch.train.train`, kernel launches
+    counted from 0 around each run."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_lib
+
+    out = {"phase": "train-bf16", "seq": TRAIN_SEQ, "micro_batches": 2}
+    for m in ops.COUNTED:
+        m.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train_lib.main(["--arch", ARCH, "--full", "--seq", str(TRAIN_SEQ),
+                          "--steps", str(TRAIN_STEPS), "--lr", str(TRAIN_LR),
+                          "--ckpt", str(ckpt_dir), "--ckpt-every", "15"])
+    launches = {m.__name__.split(".")[-1]: m.launches for m in ops.COUNTED}
+    cfg = _train_cfg(ARCH, 24, "bfloat16")
+    qwen = {"arch": ARCH, "layers": 24, "steps": TRAIN_STEPS,
+            "s": time.perf_counter() - t0, "launches": launches,
+            **_train_report(run, cfg, TRAIN_SEQ)}
+    out["qwen"] = qwen
+    losses = run["loss"]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        emit(out)
+        raise AssertionError(f"train-bf16: qwen's loss did not fall: "
+                             f"{losses}")
+    final = run["params"]
+    del run
+    _free()
+
+    cfg = _train_cfg(MOE_ARCH, MOE_TRAIN_LAYERS, "bfloat16")
+    for m in ops.COUNTED:
+        m.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train_lib.train(cfg, steps=MOE_TRAIN_STEPS, seq=TRAIN_SEQ,
+                          lr=TRAIN_LR, device=DEV)
+    launches = {m.__name__.split(".")[-1]: m.launches for m in ops.COUNTED}
+    want = MOE_TRAIN_STEPS * MOE_TRAIN_LAYERS * 2 * 2
+    olmoe = {"arch": MOE_ARCH, "layers": MOE_TRAIN_LAYERS,
+             "steps": MOE_TRAIN_STEPS, "s": time.perf_counter() - t0,
+             "launches": launches, "moe_launches_want": want,
+             "moe_launches_per_step": launches["moe_gemm"] / MOE_TRAIN_STEPS,
+             **_train_report(run, cfg, TRAIN_SEQ, first=2)}
+    out["olmoe"] = olmoe
+    del run
+    _free()
+    emit(out)
+    if launches["moe_gemm"] != want or not all(np.isfinite(olmoe["loss"])):
+        raise AssertionError(f"train-bf16: olmoe launched the MoE kernel "
+                             f"{launches['moe_gemm']} times, want {want}, or "
+                             f"its loss is not finite")
+    return out, final
+
+
+def phase_train_ckpt(final, ckpt_dir: Path, first_loss: float,
+                     build_engine) -> dict:
+    """The checkpoint restores bit for bit, --resume loads it, and an
+    engine restarts from its snapshot."""
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models.transformer import abstract_params, tree_items
+    from repro_torch.runtime.checkpoint import load_manifest, restore_checkpoint
+    from repro_torch.runtime.engine import PipelineEngine
+
+    t0 = time.perf_counter()
+    cfg = _train_cfg(ARCH, 24, "bfloat16")
+    got = restore_checkpoint(str(ckpt_dir),
+                             abstract_params(cfg, torch.bfloat16), device=DEV)
+    mismatched = [k for (k, a), (_, b) in zip(tree_items(got),
+                                              tree_items(final))
+                  if not torch.equal(a.view(torch.int16),
+                                     b.detach().view(torch.int16))]
+    manifest = load_manifest(str(ckpt_dir))
+    del got, final
+    _free()
+    run = train_lib.main(["--arch", ARCH, "--full", "--seq", str(TRAIN_SEQ),
+                          "--steps", "2", "--lr", str(TRAIN_LR), "--ckpt",
+                          str(ckpt_dir), "--resume"])
+    resumed = {"resumed": run["resumed"], "loss": run["loss"],
+               "fresh_first_loss": first_loss}
+    del run
+    _free()
+
+    eng = build_engine(ARCH, device=DEV, dtype=torch.bfloat16,
+                       cuda_graphs=False)
+    prompts = _prompts(14, 4, eng.cfg.vocab_size)
+    reqs = [eng.add_request(p, _sampling(0.0)) for p in prompts]
+    while not any(0 < r.num_output_tokens < MAX_NEW for r in reqs):
+        eng.step()
+    for _ in range(3):
+        eng.step()
+    snap = eng.snapshot_state()
+    partial = {r.request_id: list(r.output_token_ids) for r in reqs}
+    spec, eng = _spec(eng), None
+    eng2, _ = _sibling(spec, cuda_graphs=False)
+    PipelineEngine.restore_requests(eng2, snap)
+    eng2.drain()
+    done = {r.request_id: r for r in eng2.finished}
+    restart = {"requests": len(snap["requests"]),
+               "emitted_before": {k: len(v) for k, v in partial.items()},
+               "finished": sum(r.is_finished and r.num_output_tokens
+                               == MAX_NEW for r in done.values()),
+               "prefix_kept": all(
+                   done[k].output_token_ids[:len(v)] == v
+                   for k, v in partial.items() if k in done)}
+    del eng2, spec
+    _free()
+    out = {"phase": "train-ckpt", "arch": ARCH,
+           "leaves": len(manifest["leaves"]), "extra": manifest["extra"],
+           "mismatched_leaves": mismatched, "resume": resumed,
+           "engine_restart": restart, "s": time.perf_counter() - t0}
+    emit(out)
+    ok = (not mismatched and manifest["extra"] == {"step": TRAIN_STEPS - 1}
+          and resumed["resumed"] and resumed["loss"][0] < first_loss
+          and restart["requests"] == len(prompts)
+          and restart["finished"] == len(prompts) and restart["prefix_kept"]
+          and any(0 < len(v) < MAX_NEW for v in partial.values()))
+    if not ok:
+        raise AssertionError(f"train-ckpt failed: {out}")
+    return out
+
+
 def _launches(run: dict, name: str) -> list:
     """A router run's launches of kernel `name`, one count per replica."""
     return [r["launches"][name] for r in run["replicas_run"]]
@@ -2817,6 +3237,13 @@ def main() -> int:
     archs_bf16 = phase_serve_archs_bf16(pa, mg, build_engine)
     big_bf16 = phase_serve_pp_bf16(pa, build_engine, BIG_ARCH,
                                    "serve-32b-bf16", profiled=(1,))
+    train_f32 = phase_train_f32(mg)
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    train_bf16, final = phase_train_bf16(mg, ckpt_dir)
+    phase_train_ckpt(final, ckpt_dir, train_bf16["qwen"]["loss"][0],
+                     build_engine)
+    del final
 
     pa_entry = _kernel_entry(
         "paged_flash_attention",
@@ -2851,7 +3278,18 @@ def main() -> int:
         "serve-olmoe-bf16": olmoe["launches"]["fused_moe_ffn"],
         "serve-jamba-bf16": jamba["launches"]["fused_moe_ffn"],
         f"serve-archs-bf16 {KIMI_ARCH}":
-            archs_bf16[KIMI_ARCH]["launches"]["fused_moe_ffn"]}
+            archs_bf16[KIMI_ARCH]["launches"]["fused_moe_ffn"],
+        "train-bf16 olmoe cut (10 steps)":
+            train_bf16["olmoe"]["launches"]["moe_gemm"]}
+    # under autograd (train-f32): the kernel forward, the f32 bmm backward
+    moe_entry["backward"] = [
+        {k: r[k] for k in ("shape", "dtype", "live_rows", "max_abs_err",
+                           "excess", "planted_excess",
+                           "planted_tf32_excess", "backward_ms",
+                           "backward_bound_ms", "backward_bound_by",
+                           "fn_fwd_bwd_ms", "plain_fwd_bwd_ms",
+                           "library_fwd_bwd_ms")}
+        for r in train_f32["moe_backward"]]
     rwkv_entry = _kernel_entry(
         "rwkv6_chunked_scan", "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         "src/repro/kernels/rwkv6_scan.py:78",

@@ -8,18 +8,24 @@ interleave, a depth cut of several kinds) keeps its stage structure, so only
 its tp factor may change.  On one card the reshape of a contiguous tensor
 is a view: engines at pp=1 and at pp=4 serve from one set of weights.
 
-The JAX module's checkpoint restore (`elastic_restore`) belongs to the
-checkpoint slice (ROADMAP Queue 1 item 8).
+`elastic_restore` loads a checkpoint saved under one factoring into
+another: restored against the old config's tree, re-tiled, and placed on
+the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, BlockSpec
-from repro_torch.models.transformer import TransformerParams
+from repro_torch.models.transformer import (
+    TransformerParams,
+    abstract_params,
+    tree_map,
+)
 
 
 def replan(cfg: ArchConfig, new_pp: int, new_tp: int) -> ArchConfig:
@@ -60,3 +66,16 @@ def repartition_params(params: TransformerParams, cfg_old: ArchConfig,
               for g, leaves in params["stages"].items()}
     return TransformerParams({k: stages if k == "stages" else dict(v.items())
                               for k, v in params.items()})
+
+
+def elastic_restore(ckpt_dir: str, cfg_old: ArchConfig, cfg_new: ArchConfig,
+                    *, device: torch.device | str = "cpu",
+                    dtype: Optional[torch.dtype] = None) -> TransformerParams:
+    """The checkpoint at `ckpt_dir`, saved under `cfg_old`, as `cfg_new`'s
+    parameters on `device` (in `dtype`, or as saved)."""
+    from repro_torch.runtime.checkpoint import restore_checkpoint
+
+    host = restore_checkpoint(ckpt_dir, abstract_params(cfg_old))
+    host = repartition_params(host, cfg_old, cfg_new)
+    return TransformerParams(tree_map(
+        lambda t: t.to(device=device, dtype=dtype or t.dtype), host))

@@ -1,5 +1,21 @@
-"""The serving tick (``repro.distributed.pipeline.build_serve_tick``) on
-one device, at one bucket shape, at pp = S stages.
+"""Pipeline execution on one device, at pp = S stages: the GPipe train
+step (``repro.distributed.pipeline.build_train_step``) and the serving tick
+(``build_serve_tick``), at one bucket shape.
+
+**The train step.**  JAX runs the GPipe schedule inside one ``shard_map``:
+M + S - 1 ticks, stage s on micro-batch t - s, the activations hopping one
+stage on per tick (`lax.ppermute`); on a bubble tick a stage computes on
+zeros and masks the result.  Here the same ticks run the S stages one
+after the other (last to first, so that stage s reads the carry slot that
+stage s-1 wrote on the tick before), and a bubble tick does no work.  The
+loss is the cross-entropy over all T positions of every micro-batch: the
+sum of nll over the micro-batches over the count of unmasked labels, each
+micro-batch's head and loss recomputed in backward so that one
+``[mbg, T, V]`` f32 logits tensor is live at a time.  `aux` is the MoE
+load-balancing loss summed over micro-batches and layers, and the step
+minimises ``loss + aux_coef * aux``.  The gradients are cast to f32 and
+synced (`collectives.compressed_psum`, at one rank), their global norm taken
+and Adam applied in place.
 
 **The ring on one card.**  The JAX tick runs S stages at once, one per
 device of the `stage` axis: stage s applies its `layers_per_stage` layers
@@ -31,14 +47,162 @@ peer copy or NCCL) are a later slice of the port.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+import functools
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, BlockKind
+from repro_torch.distributed.collectives import compressed_psum
+from repro_torch.distributed.optimizer import (
+    AdamConfig,
+    AdamState,
+    adam_update,
+)
 from repro_torch.models import serve as serve_lib
 from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import apply_norm
 from repro_torch.models.serve import ServeDims
+
+# block kinds the train step refuses: the port's RWKV and Mamba blocks run
+# the serve scans, which advance a slot pool in place and have no backward
+UNTRAINED_KINDS = (BlockKind.RWKV, BlockKind.MAMBA_MLP, BlockKind.MAMBA_MOE)
+
+
+# ----------------------------------------------------------------------------
+# Training: the GPipe schedule, the loss, gradients and Adam
+# ----------------------------------------------------------------------------
+
+def _stage_params(stages, s: int):
+    """Stage s's leaves ``[R, ...]`` of the stacked ``[S, R, ...]`` tree."""
+    return {g: {k: v[s] for k, v in leaves.items()}
+            for g, leaves in stages.items()}
+
+
+def _pipeline_scan(cfg: ArchConfig, stages, h: torch.Tensor, *,
+                   enc_width: int = 0
+                   ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """GPipe schedule over h [M, mb, T, d]: (the last stage's output of
+    each micro-batch, aux summed over micro-batches and stages)."""
+    S, M = cfg.plan.pp, h.shape[0]
+    weights = [_stage_params(stages, s) for s in range(S)]
+    carry: List[Optional[torch.Tensor]] = [None] * S
+    out: List[Optional[torch.Tensor]] = [None] * M
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for t in range(M + S - 1):
+        for s in reversed(range(S)):
+            if not 0 <= t - s < M:          # a bubble: no work on one card
+                continue
+            y, a = tfm.stage_forward_train(
+                cfg, weights[s], h[t - s] if s == 0 else carry[s - 1],
+                enc_width=enc_width, stage=s)
+            aux = aux + a
+            if s == S - 1:
+                out[t - s] = y
+            else:
+                carry[s] = y
+    return out, aux
+
+
+def _loss_mb(cfg: ArchConfig, fn, w: torch.Tensor, h: torch.Tensor,
+             labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of nll, count of unmasked labels) of one micro-batch h [mb, T,
+    d]: the final norm, the head in the weights' dtype, logits in f32
+    shifted by their (stop-gradient) max, the logsumexp over all padded
+    vocab columns; labels < 0 are masked."""
+    h = apply_norm(h, fn, "layernorm" if "b" in fn else "rmsnorm",
+                   cfg.norm_eps)
+    logits = (h.to(w.dtype) @ w).float()                 # [mb, T, V]
+    m = torch.amax(logits.detach(), dim=-1)
+    lse = m + torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
+    gold = torch.gather(logits, -1, torch.clamp(labels, min=0)[..., None])
+    mask = (labels >= 0).float()
+    return torch.sum((lse - gold[..., 0]) * mask), torch.sum(mask)
+
+
+def _sharded_loss(cfg: ArchConfig, params, hid: List[torch.Tensor],
+                  labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of nll, count) over every micro-batch, each recomputed in
+    backward (JAX's ``jax.checkpoint(loss_mb)``).  On one card the head is
+    whole: JAX shards its vocab over the stages."""
+    fn = dict(params["final_norm"].items())
+    w = params["embed"]["tok"].T if cfg.tie_embeddings \
+        else params["lm_head"]["w"]
+    loss_mb = functools.partial(_loss_mb, cfg)
+    nll = cnt = torch.zeros((), dtype=torch.float32, device=labels.device)
+    for h_m, lab in zip(hid, labels):
+        n, c = checkpoint(loss_mb, fn, w, h_m, lab, use_reentrant=False)
+        nll, cnt = nll + n, cnt + c
+    return nll, cnt
+
+
+def build_train_step(cfg: ArchConfig, *, adam: AdamConfig = AdamConfig(),
+                     aux_coef: float = 0.01, enc_width: int = 0,
+                     grad_compression: Optional[str] = None,
+                     device: Optional[torch.device | str] = None):
+    """Returns step(params, opt, batch) -> (params, opt, metrics), which
+    updates `params` (a `TransformerParams.trainable` tree on `device`)
+    and `opt` (`optimizer.adam_init`) in place.
+
+    batch = {"tokens", "labels": [M, mbg, T] ints (labels < 0 masked),
+    optional "embeds": [M, mbg, Tv, d], the vlm/audio frontend-stub rows,
+    which replace the first Tv token embeddings}; numpy or tensors.
+    metrics = {"loss", "aux", "total", "gnorm"}: f32 scalars on the device.
+    The step runs at `cfg.plan.pp` stages on the one device; `device` is
+    CUDA unless the CPU is asked for."""
+    from repro_torch.runtime.engine import resolve_device
+
+    untrained = sorted({bs.kind.value for bs in cfg.pattern
+                        if bs.kind in UNTRAINED_KINDS})
+    if untrained:
+        raise NotImplementedError(
+            f"{cfg.name}: training {untrained} blocks is not yet ported "
+            f"(ROADMAP Queue 1 item 8: differentiable chunked forms of the "
+            f"RWKV and Mamba scans)")
+    dev = resolve_device(device)
+
+    def step(params, opt: AdamState, batch):
+        leaves = list(tfm.tree_items(params))
+        if any(not t.requires_grad for _, t in leaves):
+            raise ValueError("the train step updates a trainable tree: "
+                             "pass params.trainable()")
+        if leaves[0][1].device.type != dev.type:
+            raise ValueError(f"params lie on {leaves[0][1].device}, the "
+                             f"step runs on {dev}")
+        tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+        labels = torch.as_tensor(batch["labels"], device=dev).long()
+        for _, t in leaves:
+            t.grad = None
+        h = tfm.embed_apply(cfg, params, tokens)           # [M, mbg, T, d]
+        if batch.get("embeds") is not None:
+            emb = torch.as_tensor(batch["embeds"], device=dev).to(h.dtype)
+            h = torch.cat([emb, h[:, :, emb.shape[2]:]], dim=2)
+        hid, aux = _pipeline_scan(cfg, params["stages"], h,
+                                  enc_width=enc_width)
+        nll, cnt = _sharded_loss(cfg, params, hid, labels)
+        loss = nll / torch.clamp(cnt, min=1.0)
+        total = loss + aux_coef * aux
+        total.backward()
+        del hid, h
+
+        def sync(t):
+            g = t.grad if t.grad is not None else torch.zeros_like(t)
+            t.grad = None
+            return compressed_psum(g, grad_compression)
+
+        grads = tfm.tree_map(sync, params)      # f32; the bf16 grads freed
+        params, opt, gnorm = adam_update(adam, grads, params, opt)
+        metrics = {"loss": loss.detach(), "aux": aux.detach(),
+                   "total": total.detach(), "gnorm": gnorm}
+        return params, opt, metrics
+
+    return step
+
+
+# ----------------------------------------------------------------------------
+# Serving: one pipeline tick
+# ----------------------------------------------------------------------------
 
 # meta fields of the entering batch alone (its token ids, and an
 # encoder-decoder's encoder input); every other field is stacked over

@@ -21,7 +21,18 @@ about that.
 `fused_moe_ffn_ref` is the plain PyTorch version, mirroring
 ``repro/kernels/ref.py::fused_moe_ffn_ref``: f32 einsums, cast at the end
 (the hidden is not rounded), rows past `counts` masked to zero.  The CPU
-path uses it; on the card only the checks call it.
+path uses it (autograd differentiates it there); on the card only the
+checks call it.
+
+Under autograd the kernel runs inside `FusedMoEFFN`, whose backward is
+`fused_moe_ffn_backward`: it recomputes ``g = x Wg`` and ``u = x Wu`` in
+f32, takes the hidden rounded to x's dtype as the kernel's forward rounds
+it, and returns dx, dWg, dWu and dWd from batched f32 products
+(``torch.bmm``); rows at or past ``counts[e]`` contribute nothing and get a
+zero dx.  The JAX package has no backward kernel either (its gradient is
+what autodiff derives); a hand-written one is ROADMAP Queue 2 work.
+`GRAD_TOLERANCE` and `grad_excess` hold it to autograd through the plain
+version.
 """
 
 from __future__ import annotations
@@ -215,3 +226,168 @@ def fused_moe_ffn_ref(x: torch.Tensor, w_gate: torch.Tensor,
     if counts is None:
         return out
     return torch.where(_live(x, counts), out, out.new_zeros(()))
+
+
+# ------------------------------------------------------------------ backward
+
+# Largest |d^2 silu(g) / dg^2| (at g = 0): how far an error in g moves
+# silu'(g).
+_DSILU_SLOPE = 0.5
+
+
+def _dsilu(g: torch.Tensor) -> torch.Tensor:
+    """silu'(g) = sigmoid(g) (1 + g (1 - sigmoid(g)))."""
+    s = torch.sigmoid(g)
+    return s * (1 + g * (1 - s))
+
+
+def fused_moe_ffn_backward(x, w_gate, w_up, w_down, counts, dout, *,
+                           dsilu=_dsilu):
+    """(dx, dWg, dWu, dWd) of ``fused_moe_ffn`` at (x, weights) for the
+    output gradient `dout` [E, C, d], each in its input's dtype.  f32
+    batched products; the hidden rounded to x's dtype for dWd; rows past
+    `counts` masked out of x and dout.  `dsilu` is silu's derivative (a
+    check passes a wrong one to see its comparison fail)."""
+    xf, dof = x.float(), dout.float()
+    if counts is not None:
+        live = _live(x, counts)
+        xf = torch.where(live, xf, xf.new_zeros(()))
+        dof = torch.where(live, dof, dof.new_zeros(()))
+    wg, wu, wd = w_gate.float(), w_up.float(), w_down.float()
+    g = torch.bmm(xf, wg)
+    u = torch.bmm(xf, wu)
+    s = F.silu(g)
+    h = (s * u).to(x.dtype).float()
+    dwd = torch.bmm(h.transpose(1, 2), dof)
+    del h
+    dh = torch.bmm(dof, wd.transpose(1, 2))
+    du = dh * s
+    dg = dh.mul_(u).mul_(dsilu(g))
+    del g, u, s
+    xt = xf.transpose(1, 2)
+    dwg, dwu = torch.bmm(xt, dg), torch.bmm(xt, du)
+    dx = torch.bmm(dg, wg.transpose(1, 2)).add_(
+        torch.bmm(du, wu.transpose(1, 2)))
+    return (dx.to(x.dtype), dwg.to(w_gate.dtype), dwu.to(w_up.dtype),
+            dwd.to(w_down.dtype))
+
+
+class FusedMoEFFN(torch.autograd.Function):
+    """The Hopper kernel forward (`fused_moe_ffn`, counted) and
+    `fused_moe_ffn_backward`."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up, w_down, counts):
+        ctx.save_for_backward(x, w_gate, w_up, w_down, counts)
+        return fused_moe_ffn(x, w_gate, w_up, w_down, counts)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w_gate, w_up, w_down, counts = ctx.saved_tensors
+        grads = fused_moe_ffn_backward(x, w_gate, w_up, w_down, counts, dout)
+        return grads + (None,)
+
+
+# Gradients of `fused_moe_ffn_backward` against autograd through
+# `fused_moe_ffn_ref` on the same inputs, elementwise:
+#   |got - want| <= rtol * |want| + (the f32 terms below)
+#                 + htol * sqrt(h**2 @ dout**2)            (dWd only)
+# Both sides compute in f32 from the same inputs, in different orders.  The
+# terms of every sum here have independent, symmetric signs (random rows,
+# weights and output gradient, as in every check), so a sum's partial sums
+# grow as sqrt(k), and its rounding error, a sum of n independent errors
+# each <= u |partial sum|, is held by lam u sum|terms| (Hoeffding; lam = 8,
+# u = 2**-24, both versions: acc = 2 lam u), not by `TOLERANCE`'s
+# worst-order lam sqrt(n) u sum|terms|.  A sum's error then reaches what
+# follows it; later sums add those errors with the independent signs of
+# their other factor (as `TOLERANCE` carries h's error through w_down), so
+# they are held by their root-square scale, with |silu'| <= 1.1 and
+# |silu''| <= 0.5:
+#   eg = acc |x|@|Wg|, eu = acc |x|@|Wu|, edh = acc |dout|@|Wd|^T
+#   eh  = 1.1 |u| eg + |silu(g)| eu                        (h = silu(g) u)
+#   edg = 1.1 |u| edh + 1.1 |dh| eu + 0.5 |dh| |u| eg      (dg = dh u silu'(g))
+#   edu = |silu(g)| edh + 1.1 |dh| eg                      (du = dh silu(g))
+#   dWd: acc |h|^T@|dout| + sqrt(eh^2^T @ dout^2)
+#   dWg: acc |x|^T@|dg| + sqrt(x^2^T @ edg^2)              (dWu: du, edu)
+#   dx:  acc (|dg|@|Wg|^T + |du|@|Wu|^T) + sqrt(edg^2 @ Wg^2^T)
+#        + sqrt(edu^2 @ Wu^2^T)
+# A TF32 backward (each product's operands rounded to 2**-11) is off by
+# ~2**-11 of each sum's root-square scale, ~30x this at olmoe's training
+# shapes, and fails; the worst-order form would pass it (excess ~0.05).
+# bf16 adds: both versions round their f32 gradient to bf16 (one ulp apart
+# at most, <= 2**-7 |want|: the excess reads up to ~0.995 where the two
+# round a gradient just above a power of two one ulp apart, which this term
+# holds exactly; two ulps fail), and dWd here takes the hidden rounded to
+# bf16, as the kernel's forward holds it (|error| <= 2**-8 |h| for each term,
+# independent of dout's signs: lam 2**-8 times the root-square scale, as in
+# `TOLERANCE`).  A backward with silu's derivative replaced by the sigmoid
+# moves dg by g sigmoid(g) (1 - sigmoid(g)) dh u, O(1) of dg where |g| ~ 1:
+# far outside this.
+GRAD_TOLERANCE = {torch.float32: (0.0, 0.0, 2 * 8 * 2 ** -24),
+                  torch.bfloat16: (2 ** -7, 8 * 2 ** -8, 2 * 8 * 2 ** -24)}
+
+
+def fused_moe_ffn_ref_grads(x, w_gate, w_up, w_down, counts, dout):
+    """(dx, dWg, dWu, dWd) by autograd through `fused_moe_ffn_ref`."""
+    leaves = [t.detach().requires_grad_(True)
+              for t in (x, w_gate, w_up, w_down)]
+    with torch.enable_grad():
+        out = fused_moe_ffn_ref(*leaves, counts)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+def grad_excess(grads, x, w_gate, w_up, w_down, counts, dout
+                ) -> Tuple[float, float]:
+    """(excess, max_abs_err) of `grads` (dx, dWg, dWu, dWd) against
+    autograd through the plain version: excess is the largest error over
+    its `GRAD_TOLERANCE` bound, at most 1 when they agree.  Each expert's
+    gradients depend on its own rows and weights only, so a caller may
+    check a slice of experts at a time."""
+    rtol, htol, acc = GRAD_TOLERANCE[x.dtype]
+    want = fused_moe_ffn_ref_grads(x, w_gate, w_up, w_down, counts, dout)
+    xf, dof = x.float(), dout.float()
+    if counts is not None:
+        live = _live(x, counts)
+        xf = torch.where(live, xf, xf.new_zeros(()))
+        dof = torch.where(live, dof, dof.new_zeros(()))
+    wg, wu, wd = w_gate.float(), w_up.float(), w_down.float()
+    ax, ado = xf.abs(), dof.abs()
+    awg, awu = wg.abs(), wu.abs()
+    g, u = torch.bmm(xf, wg), torch.bmm(xf, wu)
+    s, ds = F.silu(g), _dsilu(g)
+    dh = torch.bmm(dof, wd.transpose(1, 2))
+    dg, du = dh * u * ds, dh * s
+    eg = acc * torch.bmm(ax, awg)
+    eu = acc * torch.bmm(ax, awu)
+    edh = acc * torch.bmm(ado, wd.abs().transpose(1, 2))
+    au, as_, adh = u.abs(), s.abs(), dh.abs()
+    eh = _SILU_SLOPE * au * eg + as_ * eu
+    edg = _SILU_SLOPE * (au * edh + adh * eu) + _DSILU_SLOPE * adh * au * eg
+    edu = as_ * edh + _SILU_SLOPE * adh * eg
+    h = s * u
+    axt, x2t, do2 = ax.transpose(1, 2), (xf * xf).transpose(1, 2), dof * dof
+
+    def rs(a2, b2):
+        """The root-square scale of a @ b from the squares a2, b2."""
+        return torch.bmm(a2, b2).sqrt()
+
+    bounds = (
+        acc * (torch.bmm(dg.abs(), awg.transpose(1, 2))
+               + torch.bmm(du.abs(), awu.transpose(1, 2)))
+        + rs(edg * edg, (wg * wg).transpose(1, 2))
+        + rs(edu * edu, (wu * wu).transpose(1, 2)),
+        acc * torch.bmm(axt, dg.abs()) + rs(x2t, edg * edg),
+        acc * torch.bmm(axt, du.abs()) + rs(x2t, edu * edu),
+        acc * torch.bmm(h.abs().transpose(1, 2), ado)
+        + rs((eh * eh).transpose(1, 2), do2)
+        + htol * rs((h * h).transpose(1, 2), do2),
+    )
+    worst, err_max = 0.0, 0.0
+    for got, ref, bound in zip(grads, want, bounds):
+        ref = ref.float()
+        err = (got.float() - ref).abs()
+        bound = rtol * ref.abs() + bound
+        ratio = torch.where(err == 0, torch.zeros_like(err), err / bound)
+        worst = max(worst, float(ratio.max()))
+        err_max = max(err_max, float(err.max()))
+    return worst, err_max

@@ -1,6 +1,12 @@
 """Dispatch layer (``repro.kernels.ops``): a CUDA tensor goes to the Hopper
 kernel, a CPU tensor to the kernel's plain version.  There is no switch and
-no fallback: a CUDA input that the kernel refuses raises."""
+no fallback: a CUDA input that the kernel refuses raises.
+
+Under autograd (grad enabled, an input that requires grad) the fused MoE
+goes through `moe_gemm.FusedMoEFFN`, the kernel forward with its backward;
+the other three kernels have no backward, and raise on such a CUDA input
+rather than return an output that drops the gradient.  On the CPU the
+plain versions are plain PyTorch, which autograd differentiates."""
 
 from __future__ import annotations
 
@@ -14,11 +20,24 @@ from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import rwkv6_scan as wkv
 
 
+def _tracks_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _no_backward(name: str, *tensors: torch.Tensor) -> None:
+    if _tracks_grad(*tensors):
+        raise RuntimeError(
+            f"{name}: the Hopper kernel has no backward, and an input "
+            f"requires grad; run it under torch.no_grad() (serving), or "
+            f"train a path that does not reach it")
+
+
 def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
                     block_tables: torch.Tensor, context_lens: torch.Tensor,
                     q_positions: torch.Tensor) -> torch.Tensor:
     """Decode/prefill paged attention over the pool."""
     if q.is_cuda:
+        _no_backward("paged_attention", q, kv_pages)
         return pa.paged_flash_attention(q, kv_pages, block_tables,
                                         context_lens, q_positions)
     return pa.paged_flash_attention_ref(q, kv_pages, block_tables,
@@ -31,6 +50,9 @@ def fused_moe_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     """Grouped-expert SwiGLU over capacity-padded buffers x [E, C, d]; rows
     at or past counts[e] (int32 [E], optional) come out as zeros."""
     if x.is_cuda:
+        if _tracks_grad(x, w_gate, w_up, w_down):
+            return moe_gemm.FusedMoEFFN.apply(x, w_gate, w_up, w_down,
+                                              counts)
         return moe_gemm.fused_moe_ffn(x, w_gate, w_up, w_down, counts)
     return moe_gemm.fused_moe_ffn_ref(x, w_gate, w_up, w_down, counts)
 
@@ -43,6 +65,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     into) the state pool at `slots`; returns o [S, T, H, D] f32
     (`rwkv6_scan.rwkv6_chunked_scan` states the contract)."""
     if r.is_cuda:
+        _no_backward("rwkv6_scan", r, k, v, w, u, state)
         return wkv.rwkv6_chunked_scan(r, k, v, w, u, state, slots, lens,
                                       fresh)
     return wkv.rwkv6_scan_ref(r, k, v, w, u, state, slots, lens, fresh)
@@ -56,6 +79,7 @@ def mamba_scan(dt: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
     the state pool at `slots`; returns y [S, T, di] f32
     (`mamba_scan.mamba_chunked_scan` states the contract)."""
     if dt.is_cuda:
+        _no_backward("mamba_scan", dt, x, B, C, A, state)
         return s6.mamba_chunked_scan(dt, x, B, C, A, state, slots, lens,
                                      fresh)
     return s6.mamba_scan_ref(dt, x, B, C, A, state, slots, lens, fresh)

@@ -30,6 +30,7 @@ def dense_hidden(cfg: ArchConfig, params, tokens: torch.Tensor,
         h = torch.cat([enc_embeds.to(h.dtype), h], dim=1)
         enc_width = enc_embeds.shape[1]
     Lps = cfg.layers_per_stage
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for s in range(cfg.plan.pp):
         off = 0
         for i, bs in enumerate(cfg.pattern):
@@ -37,8 +38,8 @@ def dense_hidden(cfg: ArchConfig, params, tokens: torch.Tensor,
             for r in range(bs.repeat):
                 if s * Lps + off + r < cfg.num_layers:
                     pl = {k: v[s, r] for k, v in p.items()}
-                    h = tfm.block_apply_train(cfg, bs.kind, pl, h,
-                                              enc_width=enc_width)
+                    h, _ = tfm.block_apply_train(cfg, bs.kind, pl, h, aux,
+                                                 enc_width=enc_width)
             off += bs.repeat
     return h
 

@@ -10,19 +10,23 @@ are the JAX tree's keys, so ``params["stages"]["b0_attn_mlp"]["wq"]`` names
 the same array in both packages and carrying weights across needs no
 transposes (``x @ w``, ``w`` is ``[d_in, d_out]``).
 
-Train mode (`block_apply_train`) runs full sequences with a plain causal
-softmax; the dense reference (`models/reference.py`) is built on it.  An
-encoder-decoder's blocks work on the two halves of one payload, the
-encoder stream first (`enc_width` rows), as in the JAX package.
+Train mode (`block_apply_train`, `stage_forward_train`) runs full
+sequences with a plain causal softmax; the dense reference
+(`models/reference.py`) and the train step (`distributed/pipeline.py`) are
+built on it.  An encoder-decoder's blocks work on the two halves of one
+payload, the encoder stream first (`enc_width` rows), as in the JAX
+package.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, BlockKind, BlockSpec
 from repro_torch.models import attention as attn
@@ -197,17 +201,48 @@ def model_param_defs(cfg: ArchConfig) -> Dict[str, Dict[str, Any]]:
 class TransformerParams(nn.ModuleDict):
     """The parameter tree as modules: a dict of tensors becomes an
     ``nn.ParameterDict``, a dict of dicts an ``nn.ModuleDict``.  Parameters
-    do not require gradients (this package serves)."""
+    do not require gradients: engines serve from a frozen tree, and the
+    train step takes a `trainable` copy."""
 
     def __init__(self, tree: Mapping[str, Any]) -> None:
         super().__init__({k: _as_module(v) for k, v in tree.items()})
 
+    def trainable(self) -> "TransformerParams":
+        """A copy whose every leaf requires grad (new storage: an engine
+        serving from this tree keeps its weights while the copy trains)."""
+        return TransformerParams(tree_map(
+            lambda t: t.detach().clone().requires_grad_(True), self))
+
 
 def _as_module(tree: Mapping[str, Any]) -> nn.Module:
     if all(isinstance(v, torch.Tensor) for v in tree.values()):
-        return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+        return nn.ParameterDict({k: nn.Parameter(v, requires_grad=v.requires_grad)
                                  for k, v in tree.items()})
     return nn.ModuleDict({k: _as_module(v) for k, v in tree.items()})
+
+
+def is_node(x: Any) -> bool:
+    return isinstance(x, (Mapping, nn.ModuleDict, nn.ParameterDict))
+
+
+def tree_items(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(path, leaf) of a nested mapping (dicts, `TransformerParams`), keys
+    sorted and the path ``/``-joined: the order and the names of
+    ``jax.tree_util.tree_flatten_with_path`` on the JAX tree."""
+    for k in sorted(tree.keys()):
+        path = f"{prefix}/{k}" if prefix else k
+        if is_node(tree[k]):
+            yield from tree_items(tree[k], path)
+        else:
+            yield path, tree[k]
+
+
+def tree_map(fn, tree, *rest) -> Dict[str, Any]:
+    """`fn` over the leaves of `tree` (and the same leaves of `rest`), as
+    nested dicts."""
+    return {k: (tree_map(fn, v, *(r[k] for r in rest)) if is_node(v)
+                else fn(v, *(r[k] for r in rest)))
+            for k, v in tree.items()}
 
 
 # the largest float32 draw `init_params` makes at once
@@ -272,6 +307,20 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
     return TransformerParams(walk(model_param_defs(cfg)))
 
 
+def abstract_params(cfg: ArchConfig, dtype: Optional[torch.dtype] = None
+                    ) -> TransformerParams:
+    """`cfg`'s parameter tree of shapes only (meta tensors): the target a
+    checkpoint restores into."""
+    dtype = dtype or getattr(torch, cfg.dtype)
+
+    def walk(tree):
+        if isinstance(tree, tuple):
+            return torch.empty(tree[0], dtype=dtype, device="meta")
+        return {k: walk(v) for k, v in tree.items()}
+
+    return TransformerParams(walk(model_param_defs(cfg)))
+
+
 # ----------------------------------------------------------------------------
 # Embedding / head
 # ----------------------------------------------------------------------------
@@ -287,6 +336,19 @@ def head_apply(cfg: ArchConfig, params, h: torch.Tensor) -> torch.Tensor:
     w = params["embed"]["tok"].T if cfg.tie_embeddings \
         else params["lm_head"]["w"]
     return h @ w
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy in f32 (over `mask`'s ones when
+    given), as the JAX package's `cross_entropy`."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
 
 
 # ----------------------------------------------------------------------------
@@ -366,16 +428,18 @@ def cross_attend(cfg: ArchConfig, p, h: torch.Tensor, k: torch.Tensor,
 
 
 def block_apply_train(cfg: ArchConfig, kind: BlockKind, p,
-                      x: torch.Tensor, enc_width: int = 0) -> torch.Tensor:
-    """One block over full sequences: x [B, T, d] -> x.  Whisper's blocks
-    work on the encoder half ``x[:, :enc_width]`` (ENC_LAYER: bidirectional
-    self-attention) or the decoder half (DEC_LAYER: causal self-attention,
-    then cross-attention to the encoder half as it stands), the other half
-    passed through."""
+                      x: torch.Tensor, aux: torch.Tensor,
+                      enc_width: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block over full sequences: x [B, T, d] -> (x, aux), the MoE
+    load-balancing loss of an MoE block added to `aux` (f32 scalar), as in
+    the JAX package.  Whisper's blocks work on the encoder half
+    ``x[:, :enc_width]`` (ENC_LAYER: bidirectional self-attention) or the
+    decoder half (DEC_LAYER: causal self-attention, then cross-attention to
+    the encoder half as it stands), the other half passed through."""
     if kind == BlockKind.RWKV:
         x, _ = ssm_lib.rwkv_block(x, p, head_dim=cfg.rwkv_head_dim,
                                   norm_eps=cfg.norm_eps)
-        return x
+        return x, aux
 
     def norm(name, h):
         keys = {"g": p[f"{name}_g"]}
@@ -397,7 +461,7 @@ def block_apply_train(cfg: ArchConfig, kind: BlockKind, p,
             dec = dec + cross_attend(cfg, p, norm("ln3", dec),
                                      *cross_kv(cfg, p, enc))
             dec = dec + mlp_apply(norm("ln2", dec), p, cfg.act)
-        return torch.cat([enc, dec], dim=1)
+        return torch.cat([enc, dec], dim=1), aux
 
     if kind in MAMBA_KINDS:
         mix, _ = ssm_lib.mamba_mixer(norm("ln1", x), p,
@@ -410,9 +474,31 @@ def block_apply_train(cfg: ArchConfig, kind: BlockKind, p,
     x = x + mix
     h = norm("ln2", x)
     if kind in MOE_KINDS:
-        # the auxiliary load-balancing loss is for training; serving drops it
-        y, _ = moe_lib.moe_apply(h.reshape(-1, cfg.d_model), p,
+        y, a = moe_lib.moe_apply(h.reshape(-1, cfg.d_model), p,
                                  top_k=cfg.num_experts_per_tok,
                                  capacity_factor=cfg.moe_capacity_factor)
-        return x + y.reshape(x.shape)
-    return x + mlp_apply(h, p, cfg.act)
+        return x + y.reshape(x.shape), aux + a
+    return x + mlp_apply(h, p, cfg.act), aux
+
+
+def stage_forward_train(cfg: ArchConfig, stage_params, x: torch.Tensor, *,
+                        enc_width: int = 0,
+                        stage: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pipeline stage `stage`'s layers over x [B, T, d] -> (x, aux).
+    `stage_params` holds that stage's leaves, ``[R, ...]`` per block group
+    (the JAX package's stage-local view).  A padded layer (global index >=
+    ``num_layers``) is the identity and adds no aux.  Each layer is
+    recomputed in backward (`torch.utils.checkpoint`, the JAX package's
+    full ``jax.checkpoint``): only the layer inputs stay live."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    off = stage * cfg.layers_per_stage
+    for i, bs in enumerate(cfg.pattern):
+        p = stage_params[_block_key(i, bs)]
+        fn = functools.partial(block_apply_train, cfg, bs.kind,
+                               enc_width=enc_width)
+        for r in range(bs.repeat):
+            if off + r < cfg.num_layers:
+                pl = {k: v[r] for k, v in p.items()}
+                x, aux = checkpoint(fn, pl, x, aux, use_reentrant=False)
+        off += bs.repeat
+    return x, aux

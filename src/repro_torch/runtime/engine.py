@@ -931,3 +931,45 @@ class PipelineEngine:
                     break
                 out.extend(self.loop.step(self._now_fn()))
         return out
+
+    # -------------------------------------------------------- checkpointing
+    def snapshot_state(self) -> dict:
+        """Scheduler state for engine checkpoint/restart: every unfinished
+        request with its prompt, emitted tokens, budget and arrival time
+        (a request inside the ring is recovered by recompute: it goes back
+        to the waiting queue), as the JAX engine's.  An encoder-decoder's
+        requests also carry their encoder input ([Te, d] as lists)."""
+        reqs = []
+        seen = set()
+        for group in (list(self.scheduler.waiting),
+                      self.scheduler.running_prefill,
+                      self.scheduler.running_decode):
+            for r in group:
+                if r.request_id in seen:
+                    continue
+                seen.add(r.request_id)
+                snap = {
+                    "request_id": r.request_id,
+                    "prompt": list(r.prompt_token_ids),
+                    "output": list(r.output_token_ids),
+                    "max_new_tokens": r.sampling.max_new_tokens,
+                    "arrival": r.metrics.arrival_time,
+                }
+                if self.cfg.is_encoder_decoder:
+                    snap["enc_embeds"] = self.enc_embeds[r.request_id].tolist()
+                reqs.append(snap)
+        return {"requests": reqs, "ticks": self.stats.ticks}
+
+    @staticmethod
+    def restore_requests(engine: "PipelineEngine", snap: dict) -> None:
+        """Queue `snap`'s requests on a fresh `engine`: each re-prefills its
+        prompt and emitted tokens from scratch and keeps them."""
+        for r in snap["requests"]:
+            req = Request(r["request_id"], list(r["prompt"]),
+                          SamplingParams(max_new_tokens=r["max_new_tokens"]))
+            req.output_token_ids = list(r["output"])
+            req.metrics.arrival_time = r["arrival"]
+            if engine.cfg.is_encoder_decoder:
+                engine.enc_embeds[req.request_id] = torch.tensor(
+                    r["enc_embeds"], dtype=torch.float32)
+            engine.scheduler.add_request(req)

@@ -42,7 +42,8 @@ def test_port_files_found():
     assert {"paged_attention.py", "moe_gemm.py", "rwkv6_scan.py",
             "mamba_scan.py", "ssm.py", "engine.py", "serve.py",
             "pipeline.py", "elastic.py", "trace.py", "simulator.py",
-            "analysis.py", "chip_smoke.py"} <= names
+            "analysis.py", "optimizer.py", "collectives.py",
+            "checkpoint.py", "train.py", "chip_smoke.py"} <= names
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -98,6 +99,35 @@ def test_unported_arch_and_pp_raise():
     assert one.plan.pp == 1 and one.layers_per_stage == jamba.num_layers == 72
     assert [b.kind for b in one.pattern[:9]] == [b.kind
                                                  for b in jamba.pattern]
+
+
+def test_train_launcher_runs_reduced_on_cpu_and_resumes(tmp_path):
+    """`launch.train --device cpu` trains the reduced config; with --ckpt
+    it checkpoints, and --resume restarts from the checkpoint."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    ck = str(tmp_path / "ck")
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--device",
+            "cpu", "--steps", "3"]
+    res = subprocess.run(base + ["--ckpt", ck, "--ckpt-every", "3"], env=env,
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "step    2 loss=" in res.stdout
+    assert f"checkpointed to {ck}" in res.stdout
+    assert (tmp_path / "ck" / "manifest.json").exists()
+    res = subprocess.run(base + ["--ckpt", ck, "--resume"], env=env,
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert f"resumed from {ck}" in res.stdout
+
+
+def test_train_launcher_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--steps", "1"])
 
 
 def test_launcher_runs_reduced_on_cpu():
