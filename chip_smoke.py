@@ -251,6 +251,29 @@ line; any failure raises and the script exits non-zero.
               run's first loss; an eager bf16 qwen engine's
               `snapshot_state` -> `restore_requests` restart finishes the
               unfinished requests with their emitted prefix kept
+  train-ssm-f32  RWKV and Mamba training (`ssm.wkv6_train`,
+              `ssm.selective_scan_train`): one lr-0 step of the reduced f32
+              rwkv6-3b and jamba-1.5-large-398b configs at widths the
+              kernels take (d = 128, heads of 64, d_state 16; jamba's 9
+              layers hold all three kinds, so MAMBA_MOE and ATTN_MOE run
+              `FusedMoEFFN` under autograd) and of full-width rwkv6-3b cut
+              to 4 layers, 2 micro-batches of 1,024 tokens: the loss is
+              the cross-entropy of `dense_forward`, which runs the Hopper
+              scan kernels, within 2e-4, the weights unchanged, the scan
+              kernels launched 0 times by the step; the train forms'
+              outputs and gradients against autograd of the sequential
+              recurrence (`models/ssm_check.py`, its GRAD_TOL) at init,
+              strong (-log w to 22,026; exp(dt A) exactly 0) and no decay,
+              and the planted copies (o_t reading S_t, the product of w
+              as a quotient of cumulative decays, y_t reading h_{t-1})
+              failing it at strong decay
+  train-ssm-bf16  `python -m repro_torch.launch.train --arch rwkv6-3b --full
+              --seq 4096 --steps 10 --lr 1e-4` in process (full width and
+              depth, 32 layers, ~3.07 B parameters, bf16), then
+              jamba-1.5-large-398b cut to two MAMBA_MLP layers at full
+              width (~3.1 B with the embedding and head) through
+              `launch.train.train`, 8 steps: finite, falling losses, the
+              train-bf16 report, and the scan kernels launched 0 times
 
 The kernel phase also holds paged attention at qwen2-vl-7b's 28:4 heads
 (G = 7) and internlm2-1.8b's 16:8 heads of 128 (G = 2), and the moe-kernel
@@ -270,6 +293,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -2817,12 +2841,26 @@ def _train_cfg(arch: str, layers: int, dtype: str):
 def _model_flops(cfg, tokens: int, seq: int) -> float:
     """6 N + 12 L H hd T flops a token (N: the matmul parameters a token
     uses, the layers' and the head's; for MoE the router and the top-k
-    experts), times `tokens`."""
+    experts; L the attention layers), times `tokens`.  An RWKV or
+    MAMBA_MLP layer's N is every weight matrix of its block
+    (`block_param_defs`); the recurrences' own flops (~0.1% of 6 N at
+    rwkv6-3b) are left out."""
+    from repro_torch.configs import BlockKind
+    from repro_torch.models.transformer import block_param_defs
+
     est = cfg.params_per_layer_estimate()
-    per_layer = est["attn"] + (est["moe_active"] if cfg.is_moe
-                               else est["mlp"])
-    n = cfg.num_layers * per_layer + cfg.d_model * cfg.padded_vocab
-    attn = 12 * cfg.num_layers * cfg.num_heads * cfg.head_dim * seq
+    n = cfg.d_model * cfg.padded_vocab
+    attn_layers = 0
+    for bs in cfg.pattern:
+        if bs.kind in (BlockKind.RWKV, BlockKind.MAMBA_MLP):
+            n += bs.repeat * sum(
+                math.prod(shape) for shape, _ in
+                block_param_defs(cfg, bs.kind).values() if len(shape) > 1)
+        else:
+            attn_layers += bs.repeat
+            n += bs.repeat * (est["attn"] + (est["moe_active"] if cfg.is_moe
+                                             else est["mlp"]))
+    attn = 12 * attn_layers * cfg.num_heads * cfg.head_dim * seq
     return (6 * n + attn) * tokens
 
 
@@ -3151,9 +3189,201 @@ def phase_train_ckpt(final, ckpt_dir: Path, first_loss: float,
     return out
 
 
+# ------------------------------------------------------ train-ssm phases
+
+SSM_F32_SEQ = 1024          # train-ssm-f32's tokens a sequence
+RWKV_TRAIN_LAYERS = 4       # full-width rwkv6-3b's depth cut in f32
+RWKV_TRAIN_STEPS = 10
+JAMBA_TRAIN_LAYERS = 2      # jamba cut to two MAMBA_MLP layers (of 36)
+JAMBA_TRAIN_STEPS = 8
+# the train forms' check: (B or S, T, H, D) for WKV6 (rwkv6-3b's head of
+# 64), (S, T, di, ds) for Mamba (jamba's d_state); T = 300: four 64-token
+# chunks and a partial one
+WKV_CHECK = (2, 300, 4, 64)
+MAMBA_CHECK = (2, 300, 256, 16)
+
+
+def _counts() -> dict:
+    from repro_torch.kernels import ops
+    return {m.__name__.split(".")[-1]: m.launches for m in ops.COUNTED}
+
+
+def _zero_counts() -> None:
+    from repro_torch.kernels import ops
+    for m in ops.COUNTED:
+        m.launches = 0
+
+
+def _ssm_reduced(arch: str):
+    """`arch`'s reduced f32 config at widths the kernels take: d = 128
+    (whole tiles of the MoE kernel, expert ff 128), RWKV heads of 64 and
+    Mamba's d_state 16 (the scan kernels'), one stage."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, make_reduced
+
+    cfg = make_reduced(get_config(arch), d_model=128, d_ff=256)
+    return dataclasses.replace(cfg.with_plan(pp=1, tp=1), dtype="float32",
+                               rwkv_head_dim=64, mamba_d_state=16,
+                               moe_d_ff=128 if cfg.moe_d_ff else 0)
+
+
+def _lr0_step(name: str, cfg, seq: int) -> dict:
+    """One lr-0 step of `cfg` in f32 against the cross-entropy of the dense
+    reference on the same batch (its recurrences through the kernels)."""
+    from repro_torch.data.tokens import batches
+    from repro_torch.distributed.optimizer import AdamConfig, adam_init
+    from repro_torch.distributed.pipeline import build_train_step
+    from repro_torch.models.reference import dense_forward
+    from repro_torch.models.transformer import (
+        cross_entropy,
+        init_params,
+        tree_items,
+    )
+
+    params = init_params(cfg, 0, dtype=torch.float32, device=DEV)
+    batch = next(batches(cfg.vocab_size, 2, 1, seq, seed=0))
+    toks, labs = (torch.as_tensor(batch[k], device=DEV).reshape(2, seq).long()
+                  for k in ("tokens", "labels"))
+    _zero_counts()
+    want = float(cross_entropy(dense_forward(cfg, params, toks), labs))
+    dense = _counts()
+    p = params.trainable()
+    step = build_train_step(cfg, adam=AdamConfig(lr=0.0), aux_coef=0.0,
+                            device=DEV)
+    before = {k: t.detach().clone() for k, t in tree_items(p)}
+    _zero_counts()
+    p, _, m = step(p, adam_init(p), batch)
+    row = {"config": name, "layers": min(cfg.num_layers, cfg.padded_layers),
+           "d": cfg.d_model,
+           "kinds": sorted({bs.kind.value for bs in cfg.pattern}),
+           "seq": seq, "dense_loss": want, "loss": float(m["loss"]),
+           "loss_err": abs(float(m["loss"]) - want),
+           "gnorm": float(m["gnorm"]),
+           "unchanged_at_lr0": all(torch.equal(t.detach(), before[k])
+                                   for k, t in tree_items(p)),
+           "dense_launches": dense, "step_launches": _counts()}
+    del params, p, before, step
+    _free()
+    return row
+
+
+def _grad_checks() -> list:
+    """The train forms and their planted copies against the sequential
+    recurrence, at each decay of `ssm_check`."""
+    from repro_torch.models import ssm
+    from repro_torch.models import ssm_check as sc
+
+    forms = {"wkv": (ssm.wkv6_train, sc.sequential_wkv6, sc.wkv_case,
+                     WKV_CHECK),
+             "mamba": (ssm.selective_scan_train, sc.sequential_selective_scan,
+                       sc.mamba_case, MAMBA_CHECK)}
+    rows = []
+    for i, (name, (form, seq_fn, case, shape)) in enumerate(forms.items()):
+        for decay in sc.WKV_DECAYS:
+            inputs = case(*shape, decay, seed=400 + i, device=DEV)
+            res = sc.check(form, seq_fn, inputs)
+            res["planted"] = {
+                plant: sc.check(sc.planted(plant), seq_fn, inputs)["grad"]
+                for plant in sc.PLANTS if plant.startswith(name)}
+            rows.append({"form": name, "shape": list(shape), "decay": decay,
+                         **res})
+    return rows
+
+
+def phase_train_ssm_f32() -> dict:
+    """RWKV and Mamba training in f32: lr-0 steps against the dense
+    reference, and the train forms' gradient check."""
+    from repro_torch.models import ssm_check as sc
+
+    t0 = time.perf_counter()
+    steps = [_lr0_step(f"{arch} reduced", _ssm_reduced(arch), SSM_F32_SEQ)
+             for arch in (RWKV_ARCH, JAMBA_ARCH)]
+    steps.append(_lr0_step(
+        f"{RWKV_ARCH} full width, {RWKV_TRAIN_LAYERS} layers",
+        _train_cfg(RWKV_ARCH, RWKV_TRAIN_LAYERS, "float32"), SSM_F32_SEQ))
+    checks = _grad_checks()
+    out = {"phase": "train-ssm-f32", "micro_batches": 2,
+           "loss_tol": TRAIN_LOSS_TOL, "grad_tol": sc.GRAD_TOL,
+           "steps": steps, "grad_checks": checks,
+           "s": time.perf_counter() - t0}
+    emit(out)
+    bad = [r["config"] for r in steps
+           if not (r["loss_err"] <= TRAIN_LOSS_TOL and r["unchanged_at_lr0"]
+                   and r["step_launches"]["rwkv6_scan"] == 0
+                   and r["step_launches"]["mamba_scan"] == 0
+                   and r["dense_launches"]["rwkv6_scan"]
+                   + r["dense_launches"]["mamba_scan"] > 0)]
+    bad += [f"{r['form']} {r['decay']}" for r in checks
+            if not (r["out"] <= 1.0 and r["grad"] <= 1.0)]
+    bad += [f"{r['form']} {plant} passes" for r in checks
+            if r["decay"] == "strong"
+            for plant, ex in r["planted"].items() if not ex > 1.0]
+    if bad:
+        raise AssertionError(f"train-ssm-f32 failed: {bad}")
+    return out
+
+
+def phase_train_ssm_bf16() -> dict:
+    """rwkv6-3b at full width and depth through the launcher, then the
+    jamba cut through `launch.train.train`, the kernels' launches counted
+    from 0 around each run."""
+    from repro_torch.launch import train as train_lib
+
+    out = {"phase": "train-ssm-bf16", "seq": TRAIN_SEQ, "micro_batches": 2,
+           "lr": TRAIN_LR}
+    runs = (
+        (RWKV_ARCH, _train_cfg(RWKV_ARCH, 32, "bfloat16"), RWKV_TRAIN_STEPS,
+         3, lambda: train_lib.main(
+             ["--arch", RWKV_ARCH, "--full", "--seq", str(TRAIN_SEQ),
+              "--steps", str(RWKV_TRAIN_STEPS), "--lr", str(TRAIN_LR)])),
+        (JAMBA_ARCH, _train_cfg(JAMBA_ARCH, JAMBA_TRAIN_LAYERS, "bfloat16"),
+         JAMBA_TRAIN_STEPS, 2, None))
+    for arch, cfg, steps, first, launch in runs:
+        _zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = launch() if launch else train_lib.train(
+            cfg, steps=steps, seq=TRAIN_SEQ, lr=TRAIN_LR, device=DEV)
+        row = {"arch": arch, "layers": cfg.num_layers,
+               "kinds": sorted({bs.kind.value for bs in cfg.pattern}),
+               "params": sum(t.numel() for t in run["params"].parameters()),
+               "steps": steps, "s": time.perf_counter() - t0,
+               "launches": _counts(), **_train_report(run, cfg, TRAIN_SEQ,
+                                                      first=first)}
+        out[arch] = row
+        del run
+        _free()
+        losses = row["loss"]
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+                and row["launches"]["rwkv6_scan"] == 0
+                and row["launches"]["mamba_scan"] == 0):
+            emit(out)
+            raise AssertionError(f"train-ssm-bf16: {arch}'s loss did not "
+                                 f"fall, or a scan kernel launched: {row}")
+    emit(out)
+    return out
+
+
 def _launches(run: dict, name: str) -> list:
     """A router run's launches of kernel `name`, one count per replica."""
     return [r["launches"][name] for r in run["replicas_run"]]
+
+
+def _train_launches(ssm_f32: dict, ssm_bf16: dict, module: str) -> dict:
+    """A scan kernel's launches on the training paths (0: the train forms
+    are plain PyTorch; the dense reference runs the kernel)."""
+    out = {}
+    for r in ssm_f32["steps"]:
+        out[f"train-ssm-f32 {r['config']} (lr-0 step)"] = \
+            r["step_launches"][module]
+        out[f"train-ssm-f32 {r['config']} (dense reference)"] = \
+            r["dense_launches"][module]
+    for arch in (RWKV_ARCH, JAMBA_ARCH):
+        row = ssm_bf16[arch]
+        out[f"train-ssm-bf16 {arch} ({row['layers']} layers, "
+            f"{row['steps']} steps)"] = row["launches"][module]
+    return out
 
 
 def _kernel_entry(name, source, replaces, launches, rows, main_row):
@@ -3244,6 +3474,8 @@ def main() -> int:
     phase_train_ckpt(final, ckpt_dir, train_bf16["qwen"]["loss"][0],
                      build_engine)
     del final
+    ssm_f32 = phase_train_ssm_f32()
+    ssm_bf16 = phase_train_ssm_bf16()
 
     pa_entry = _kernel_entry(
         "paged_flash_attention",
@@ -3280,7 +3512,9 @@ def main() -> int:
         f"serve-archs-bf16 {KIMI_ARCH}":
             archs_bf16[KIMI_ARCH]["launches"]["fused_moe_ffn"],
         "train-bf16 olmoe cut (10 steps)":
-            train_bf16["olmoe"]["launches"]["moe_gemm"]}
+            train_bf16["olmoe"]["launches"]["moe_gemm"],
+        **{f"train-ssm-f32 {r['config']} (lr-0 step)":
+           r["step_launches"]["moe_gemm"] for r in ssm_f32["steps"]}}
     # under autograd (train-f32): the kernel forward, the f32 bmm backward
     moe_entry["backward"] = [
         {k: r[k] for k in ("shape", "dtype", "live_rows", "max_abs_err",
@@ -3299,7 +3533,8 @@ def main() -> int:
     rwkv_entry["launches_by_path"] = {
         "serve-rwkv-bf16": rwkv["launches"]["rwkv6_chunked_scan"],
         "serve-router-rwkv-f32": _launches(router_rwkv,
-                                           "rwkv6_chunked_scan")}
+                                           "rwkv6_chunked_scan"),
+        **_train_launches(ssm_f32, ssm_bf16, "rwkv6_scan")}
     mamba_entry = _kernel_entry(
         "mamba_chunked_scan", "src/repro_torch/kernels/csrc/mamba_scan.cu",
         "src/repro/kernels/mamba_scan.py:60",
@@ -3307,7 +3542,8 @@ def main() -> int:
         next(r for r in mamba_shapes if r["shape"] == "jamba decode"
              and r["dtype"] == "bfloat16"))
     mamba_entry["launches_by_path"] = {
-        "serve-jamba-bf16": jamba["launches"]["mamba_chunked_scan"]}
+        "serve-jamba-bf16": jamba["launches"]["mamba_chunked_scan"],
+        **_train_launches(ssm_f32, ssm_bf16, "mamba_scan")}
     emit({"phase": "done"})
     emit({"kernels": [pa_entry, moe_entry, rwkv_entry, mamba_entry]})
     print(device["nvidia_smi"], flush=True)

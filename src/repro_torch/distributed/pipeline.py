@@ -53,7 +53,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig, BlockKind
+from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.collectives import compressed_psum
 from repro_torch.distributed.optimizer import (
     AdamConfig,
@@ -64,10 +64,6 @@ from repro_torch.models import serve as serve_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import apply_norm
 from repro_torch.models.serve import ServeDims
-
-# block kinds the train step refuses: the port's RWKV and Mamba blocks run
-# the serve scans, which advance a slot pool in place and have no backward
-UNTRAINED_KINDS = (BlockKind.RWKV, BlockKind.MAMBA_MLP, BlockKind.MAMBA_MOE)
 
 
 # ----------------------------------------------------------------------------
@@ -153,13 +149,6 @@ def build_train_step(cfg: ArchConfig, *, adam: AdamConfig = AdamConfig(),
     CUDA unless the CPU is asked for."""
     from repro_torch.runtime.engine import resolve_device
 
-    untrained = sorted({bs.kind.value for bs in cfg.pattern
-                        if bs.kind in UNTRAINED_KINDS})
-    if untrained:
-        raise NotImplementedError(
-            f"{cfg.name}: training {untrained} blocks is not yet ported "
-            f"(ROADMAP Queue 1 item 8: differentiable chunked forms of the "
-            f"RWKV and Mamba scans)")
     dev = resolve_device(device)
 
     def step(params, opt: AdamState, batch):

@@ -13,9 +13,10 @@ transposes (``x @ w``, ``w`` is ``[d_in, d_out]``).
 Train mode (`block_apply_train`, `stage_forward_train`) runs full
 sequences with a plain causal softmax; the dense reference
 (`models/reference.py`) and the train step (`distributed/pipeline.py`) are
-built on it.  An encoder-decoder's blocks work on the two halves of one
-payload, the encoder stream first (`enc_width` rows), as in the JAX
-package.
+built on it, the train step with the RWKV and Mamba recurrences in their
+differentiable train forms (`models/ssm.py`).  An encoder-decoder's
+blocks work on the two halves of one payload, the encoder stream first
+(`enc_width` rows), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -429,16 +430,21 @@ def cross_attend(cfg: ArchConfig, p, h: torch.Tensor, k: torch.Tensor,
 
 def block_apply_train(cfg: ArchConfig, kind: BlockKind, p,
                       x: torch.Tensor, aux: torch.Tensor,
-                      enc_width: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                      enc_width: int = 0, *, train_forms: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block over full sequences: x [B, T, d] -> (x, aux), the MoE
     load-balancing loss of an MoE block added to `aux` (f32 scalar), as in
     the JAX package.  Whisper's blocks work on the encoder half
     ``x[:, :enc_width]`` (ENC_LAYER: bidirectional self-attention) or the
     decoder half (DEC_LAYER: causal self-attention, then cross-attention to
-    the encoder half as it stands), the other half passed through."""
+    the encoder half as it stands), the other half passed through.  RWKV
+    and Mamba blocks run their recurrences through the differentiable
+    train forms with `train_forms` (the train step), else through the
+    serve scans from a zero state (the dense reference: the Hopper kernels
+    on the card, which have no backward)."""
     if kind == BlockKind.RWKV:
         x, _ = ssm_lib.rwkv_block(x, p, head_dim=cfg.rwkv_head_dim,
-                                  norm_eps=cfg.norm_eps)
+                                  norm_eps=cfg.norm_eps, train=train_forms)
         return x, aux
 
     def norm(name, h):
@@ -466,7 +472,8 @@ def block_apply_train(cfg: ArchConfig, kind: BlockKind, p,
     if kind in MAMBA_KINDS:
         mix, _ = ssm_lib.mamba_mixer(norm("ln1", x), p,
                                      d_state=cfg.mamba_d_state,
-                                     d_conv=cfg.mamba_d_conv)
+                                     d_conv=cfg.mamba_d_conv,
+                                     train=train_forms)
     elif kind == BlockKind.MLA_MLP:
         mix = _mla_train(cfg, p, norm("ln1", x), positions)
     else:
@@ -487,15 +494,16 @@ def stage_forward_train(cfg: ArchConfig, stage_params, x: torch.Tensor, *,
     """Pipeline stage `stage`'s layers over x [B, T, d] -> (x, aux).
     `stage_params` holds that stage's leaves, ``[R, ...]`` per block group
     (the JAX package's stage-local view).  A padded layer (global index >=
-    ``num_layers``) is the identity and adds no aux.  Each layer is
-    recomputed in backward (`torch.utils.checkpoint`, the JAX package's
-    full ``jax.checkpoint``): only the layer inputs stay live."""
+    ``num_layers``) is the identity and adds no aux.  RWKV and Mamba
+    blocks run the train forms.  Each layer is recomputed in backward
+    (`torch.utils.checkpoint`, the JAX package's full ``jax.checkpoint``):
+    only the layer inputs stay live."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     off = stage * cfg.layers_per_stage
     for i, bs in enumerate(cfg.pattern):
         p = stage_params[_block_key(i, bs)]
         fn = functools.partial(block_apply_train, cfg, bs.kind,
-                               enc_width=enc_width)
+                               enc_width=enc_width, train_forms=True)
         for r in range(bs.repeat):
             if off + r < cfg.num_layers:
                 pl = {k: v[r] for k, v in p.items()}

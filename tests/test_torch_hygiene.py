@@ -43,7 +43,8 @@ def test_port_files_found():
             "mamba_scan.py", "ssm.py", "engine.py", "serve.py",
             "pipeline.py", "elastic.py", "trace.py", "simulator.py",
             "analysis.py", "optimizer.py", "collectives.py",
-            "checkpoint.py", "train.py", "chip_smoke.py"} <= names
+            "checkpoint.py", "train.py", "ssm_check.py",
+            "chip_smoke.py"} <= names
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -120,6 +121,20 @@ def test_train_launcher_runs_reduced_on_cpu_and_resumes(tmp_path):
                          timeout=300)
     assert res.returncode == 0, res.stderr
     assert f"resumed from {ck}" in res.stdout
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-1.5-large-398b"])
+def test_train_launcher_trains_recurrent_archs_on_cpu(arch):
+    """`launch.train --arch ARCH --device cpu` trains the reduced f32
+    config of an RWKV and of a Mamba arch (the train forms).  One
+    intra-op thread: tiny tensors beside other test processes."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
+         "--arch", arch, "--steps", "3"], env=env, cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "step    2 loss=" in res.stdout
 
 
 def test_train_launcher_defaults_to_cuda_and_raises_without_it(monkeypatch):

@@ -5,20 +5,22 @@ Reduced configs in f32, the JAX parameters carried across with
 `params_from_numpy`, the same seeded numpy batch (some labels masked): one
 step of JAX's jitted `build_train_step` on a (1, 1, 1) mesh against the
 port's, for qwen1.5-0.5b, olmoe-1b-7b (MoE aux loss), minicpm3-4b (MLA),
-qwen2-vl-7b (M-RoPE, with frontend ``embeds``) and whisper-small
-(``enc_width = T // 2``).  Compared: loss, aux, gnorm and total to 1e-5
-relative, and the returned Adam moments ``m`` and ``v`` (which carry the
-clipped gradients) elementwise within 1e-5 of each leaf's largest
-magnitude; the two packages differ there by f32 rounding only (<= 1e-6 of
-it).  Updated parameters are not compared elementwise: Adam's first step
-is ~lr sign(g), and where |g| sits at rounding level the sign is noise.
+qwen2-vl-7b (M-RoPE, with frontend ``embeds``), whisper-small
+(``enc_width = T // 2``), rwkv6-3b (RWKV) and jamba-1.5-large-398b
+(MAMBA_MLP, MAMBA_MOE and ATTN_MOE); at T = 16 the JAX package runs its
+per-token scans, the port its chunked train forms (`models/ssm.py`).
+Compared: loss, aux, gnorm and total to 1e-5 relative, and the returned
+Adam moments ``m`` and ``v`` (which carry the clipped gradients)
+elementwise within 1e-5 of each leaf's largest magnitude; the two
+packages differ there by f32 rounding only (<= 1e-6 of it).  Updated
+parameters are not compared elementwise: Adam's first step is
+~lr sign(g), and where |g| sits at rounding level the sign is noise.
 
 Beside it: the bf16 step against JAX's bf16 step (qwen1.5-0.5b and
 olmoe-1b-7b; to a bf16 bound); the port at pp=2 against JAX at pp=1 on the
-same logical layers; ``grad_compression="int8"`` against JAX's (which
-quantises every large gradient once on that mesh); a padded layer; the
-loss falling over 30 steps on `SyntheticLM`; RWKV and Mamba patterns
-refused.
+same logical layers (olmoe-1b-7b, rwkv6-3b); ``grad_compression="int8"``
+against JAX's (which quantises every large gradient once on that mesh); a
+padded layer; the loss falling over 30 steps on `SyntheticLM`.
 """
 
 import dataclasses
@@ -49,7 +51,7 @@ from repro_torch.models.reference import dense_forward
 from repro_torch.models.transformer import cross_entropy, init_params, tree_items
 
 ARCHS = ("qwen1.5-0.5b", "olmoe-1b-7b", "minicpm3-4b", "qwen2-vl-7b",
-         "whisper-small")
+         "whisper-small", "rwkv6-3b", "jamba-1.5-large-398b")
 M, MBG, T = 2, 2, 16
 REL = 1e-5          # loss, aux, gnorm, total
 MOMENT_TOL = 1e-5   # m, v: of each leaf's largest magnitude
@@ -207,13 +209,19 @@ def test_lr0_loss_is_the_dense_cross_entropy(twin):
         assert torch.equal(t.detach(), before[k]), k
 
 
+def _two_layers(arch: str, seed: int) -> dict:
+    """`arch` with two layers of its first kind in one stage: JAX's step
+    at pp=1."""
+    jc, tc = _cfgs(arch, layers=2)
+    batch = _batch(jc, seed=seed)
+    host, *want = _jax_step(jc, batch)
+    return dict(jc=jc, tc=tc, batch=batch, host=host, want=tuple(want))
+
+
 @pytest.fixture(scope="module")
 def olmoe_two_layers():
     """olmoe with two ATTN_MOE layers in one stage: JAX's step at pp=1."""
-    jc, tc = _cfgs("olmoe-1b-7b", layers=2)
-    batch = _batch(jc, seed=1)
-    host, *want = _jax_step(jc, batch)
-    return dict(jc=jc, tc=tc, batch=batch, host=host, want=tuple(want))
+    return _two_layers("olmoe-1b-7b", seed=1)
 
 
 # bf16 against JAX's bf16 step.  Each side's gradients carry the bf16
@@ -268,7 +276,15 @@ def test_pp2_matches_jax_pp1(olmoe_two_layers):
     """The port at pp=2 (one layer a stage, the GPipe ticks of two
     micro-batches; the aux summed over both stages) on the same logical
     layers as JAX's pp=1 step."""
-    run = olmoe_two_layers
+    _check_pp2(olmoe_two_layers)
+
+
+def test_rwkv_pp2_matches_jax_pp1():
+    """The same for two RWKV layers: the train forms in two stages."""
+    _check_pp2(_two_layers("rwkv6-3b", seed=4))
+
+
+def _check_pp2(run: dict) -> None:
     tc2 = stage_config(run["tc"], 2)
     assert tc2.plan.pp == 2 and tc2.layers_per_stage == 1
     params = repartition_params(params_from_numpy(run["tc"], run["host"]),
@@ -334,13 +350,6 @@ def test_loss_falls_over_30_steps_on_synthetic_lm():
         losses.append(float(m["loss"]))
     assert all(np.isfinite(losses))
     assert losses[-1] < losses[0] - 0.2, losses
-
-
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-1.5-large-398b"])
-def test_recurrent_patterns_raise(arch):
-    cfg = make_reduced(get_config(arch)).with_plan(pp=1, tp=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        build_train_step(cfg, device="cpu")
 
 
 def test_step_refuses_frozen_params():

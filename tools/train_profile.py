@@ -13,8 +13,13 @@ random weights from seed 0; each step takes 2 micro-batches of one
 does.  Three warm steps, then two steps timed by the host clock and two
 more under the profiler (device activity only).  Prints one JSON line:
 wall ms per step, device busy ms per step (the union of the device's
-activity, `launch.profile.device_time`), the idle share, and the twelve
-kernels with the most device time, per step.
+activity, `launch.profile.device_time`), the idle share, device ms per
+step by class of kernel (`CLASSES`, from the kernels' names), and the
+twelve kernels with the most device time, per step.  RWKV and Mamba
+archs train through the train forms of `models/ssm.py`, e.g.
+
+    python3 tools/train_profile.py --arch rwkv6-3b --lr 1e-4
+    python3 tools/train_profile.py --arch jamba-1.5-large-398b --layers 2
 """
 
 from __future__ import annotations
@@ -43,6 +48,29 @@ from repro_torch.distributed.optimizer import AdamConfig, adam_init  # noqa: E40
 from repro_torch.distributed.pipeline import build_train_step  # noqa: E402
 from repro_torch.launch.profile import device_time  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
+
+
+# (class, substrings of the kernel names it takes), first match wins: the
+# port's kernels, cuBLAS GEMMs (`nvjet_*` among them), cumulative sums,
+# reductions, copies and concatenations, then the elementwise kernels
+CLASSES = (("port kernels", ("moe_", "wkv6_", "mamba_", "paged_attention")),
+           ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_",
+                     "ampere_")),
+           ("scan", ("scan",)),
+           ("reduce", ("reduce", "Reduce")),
+           ("copy", ("copy", "Copy", "Memcpy", "CatArray", "cat_")),
+           ("elementwise", ("elementwise", "vectorized", "Elementwise")))
+
+
+def by_class(by_kernel) -> dict:
+    """Device us by `CLASSES` (the rest as "other")."""
+    out = {name: 0.0 for name, _ in CLASSES}
+    out["other"] = 0.0
+    for kernel, us in by_kernel.items():
+        cls = next((name for name, keys in CLASSES
+                    if any(k in kernel for k in keys)), "other")
+        out[cls] += us
+    return out
 
 
 def main() -> None:
@@ -93,6 +121,8 @@ def main() -> None:
         "wall_ms_per_step": wall_ms, "busy_ms_per_step": busy_ms,
         "idle_share": 1 - busy_ms / wall_ms,
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "class_ms_per_step": {k: us / 2e3 for k, us in
+                              by_class(by_kernel).items()},
         "top_kernels_ms_per_step": [[name[:120], us / 2e3]
                                     for name, us in top]}), flush=True)
 
