@@ -103,9 +103,10 @@ line; any failure raises and the script exits non-zero.
               tokens, equal to the port's dense reference (its scan on the
               plain version) up to a near-tie; the kernel ran once per layer
               and phase
-  serve-rwkv-bf16  full-width, full-depth rwkv6-3b in bf16, the serve-bf16
-              batch on serve-bf16's two engines: every request finishes
-              with valid tokens, launches = 32 per phase a tick runs;
+  serve-rwkv-bf16  full-width rwkv6-3b cut to 8 of its 32 layers (to keep
+              the script inside its time), bf16, the serve-bf16 batch on
+              serve-bf16's two engines: every request finishes with valid
+              tokens, launches = 8 per phase a tick runs;
               tokens/s, host/device time, memory and the device's idle
               share from a profiled rerun
   mamba-kernel  the Mamba selective-scan kernel against its plain version
@@ -201,10 +202,10 @@ line; any failure raises and the script exits non-zero.
   serve-archs-bf16  serve-bf16's batch on a bucketed async graph engine in
               bf16 for whisper-small (1,500 frames), qwen2-vl-7b and
               internlm2-1.8b at full width and depth, minicpm3-4b at full
-              width cut to 16 of its 62 layers,
+              width cut to 8 of its 62 layers,
               kimi-k2-1t-a32b cut to its first ATTN_MOE layer (384
-              experts, 38.9 GB) and llama3.1-100b cut to 32 of its 96
-              layers in four stages of 8 (59 GB): every request finishes
+              experts, 38.9 GB) and llama3.1-100b cut to 16 of its 96
+              layers in four stages of 4 (~32 GB): every request finishes
               with valid tokens, launches as `_launch_want` says; tokens/s,
               ms per tick, padded rows and peak memory; busy time and
               idle share from a profiled rerun for minicpm3 and whisper
@@ -214,9 +215,11 @@ line; any failure raises and the script exits non-zero.
               512-token chunk, whisper-small's encoder self-attention and
               cross-attention (decode tick, 512-token chunk): ms, bound,
               SDPA's ms (MLA's over K/V expanded ahead of the call)
-  serve-32b-bf16  qwen2.5-32b (the paper's mid-size model: 64 layers,
-              d 5120, 40:8 heads, 65.5 GB in bf16) at full width and depth,
-              as serve-pp-bf16: pp=1, then pp=4 on views of the same
+  serve-32b-bf16  qwen2.5-32b (the paper's mid-size model: d 5120, 40:8
+              heads; 64 layers, 65.5 GB in bf16) at full width cut to 16
+              layers (to keep the script inside its time), as
+              serve-pp-bf16: pp=1,
+              then pp=4 (4 layers a stage) on views of the same
               weights once the pp=1 engine's KV pool and graphs are freed;
               tokens/s, ms per tick, bubble stage-ticks, padded rows, peak
               memory, and busy time and idle share from a profiled rerun at
@@ -267,16 +270,45 @@ line; any failure raises and the script exits non-zero.
               and the planted copies (o_t reading S_t, the product of w
               as a quotient of cumulative decays, y_t reading h_{t-1})
               failing it at strong decay
-  train-ssm-bf16  `python -m repro_torch.launch.train --arch rwkv6-3b --full
-              --seq 4096 --steps 10 --lr 1e-4` in process (full width and
-              depth, 32 layers, ~3.07 B parameters, bf16), then
-              jamba-1.5-large-398b cut to two MAMBA_MLP layers at full
-              width (~3.1 B with the embedding and head) through
-              `launch.train.train`, 8 steps: finite, falling losses, the
+  train-ssm-bf16  rwkv6-3b at full width cut to 8 of its 32 layers (to
+              keep the script inside its time), bf16, T = 4,096, 10 steps at
+              lr 1e-4,
+              then jamba-1.5-large-398b cut to two MAMBA_MLP layers at full
+              width (~3.1 B with the embedding and head), 8 steps, both
+              through `launch.train.train`: finite, falling losses, the
               train-bf16 report, and the scan kernels launched 0 times
 
+  serve-ranks-f32  qwen2.5-14b at full width cut to 4 layers, f32, served
+              over pp=2 x tp=2 ranks: four processes on the one card under
+              gloo (`launch.ranks.spawn`, `launch.serve.serve_rank`), each
+              holding one stage at its tensor shard (20:4 heads, d_ff 6,912)
+              drawn from the seed as the whole tree draws it; 8 requests:
+              greedy tokens equal to the single-process pp=2 engine's on
+              the same weights and to the dense reference, up to a near-tie;
+              the batch of every tick equal to the single-process ring's;
+              paged attention launched on every rank once per layer of its
+              stage for each phase a tick runs
+  serve-ranks-bf16  qwen2.5-14b at full width and depth (48 layers, 24 a
+              stage), bf16, pp=2 x tp=2 ranks, bucketed, eager and sync:
+              serve-bf16's batch of 32 (4 at temperature 0.8, drawn by
+              Gumbel-max over the vocab slices); every request finishes
+              with valid tokens, launches as in serve-ranks-f32; output
+              tokens/s and ms a tick beside serve-pp-bf16's pp=1 and pp=4
+              rows of the same weights; per rank host, device and
+              collective time, bytes a tick per hop and per TP all-reduce,
+              bytes staged through host memory, peak memory.  It measures
+              the protocol's cost on one shared card (the ranks' kernels
+              time-slice the card, gloo stages through the host), not
+              pipelining's gain
+  train-ranks  qwen1.5-0.5b at full width over dp=2 x pp=2 x tp=2 = 8
+              ranks on the one card (`launch.train.train_rank`): a 4-layer
+              f32 cut's lr-0 loss equal to the dense cross-entropy within
+              2e-4; then full depth in bf16, `ring8` gradient compression,
+              a few steps on one batch: finite losses that fall
+
 The kernel phase also holds paged attention at qwen2-vl-7b's 28:4 heads
-(G = 7) and internlm2-1.8b's 16:8 heads of 128 (G = 2), and the moe-kernel
+(G = 7), internlm2-1.8b's 16:8 heads of 128 (G = 2) and qwen2.5-14b's
+per-rank 20:4 heads at tp=2 (G = 5), and the moe-kernel
 phase the fused MoE at kimi-k2's E=384, C=16, d=7168, ff=2048 (bf16), full
 and as a decode tick with most experts empty.
 The kernel and moe-kernel phases also hold their kernels at jamba's shapes:
@@ -325,6 +357,7 @@ MOE_ARCH = "olmoe-1b-7b"
 MOE_F32_LAYERS = 4          # depth cut of the f32 serve (full: 16)
 RWKV_ARCH = "rwkv6-3b"
 RWKV_F32_LAYERS = 4         # depth cut of the f32 serve (full: 32)
+RWKV_BF16_LAYERS = 8        # and of the bf16 serve (the script's time)
 JAMBA_ARCH = "jamba-1.5-large-398b"
 # depth cuts of jamba (72 layers, 870 GB in bf16): the first layer of each
 # kind; the f32 serve drops the MAMBA_MOE layer to fit (47.7 GB)
@@ -689,6 +722,11 @@ def phase_kernel(pa, planted_src: str) -> list:
          (24, 25)),
         ("internlm2-1.8b prefill", 1, 512, 16, 8, 128, 16, 128, [2000],
          (26, 27)),
+        # qwen2.5-14b at tp=2: one tensor rank's 20 query and 4 KV heads
+        ("qwen2.5-14b tp=2 decode", 32, 1, 20, 4, 128, 16, 128, decode_ctx,
+         (28, 29)),
+        ("qwen2.5-14b tp=2 prefill", 1, 512, 20, 4, 128, 16, 128, [2000],
+         (30, 31)),
     ]
     results = []
     for d_idx, dtype in enumerate((torch.float32, torch.bfloat16)):
@@ -1308,8 +1346,9 @@ def phase_serve_pp_f32(pa, build_engine, greedy_trace) -> dict:
 
 def phase_serve_pp_bf16(pa, build_engine, arch: str = PP_ARCH,
                         phase: str = "serve-pp-bf16",
-                        profiled=(1, PP)) -> dict:
-    """`arch` at full width and depth in bf16, serve-bf16's batch on a
+                        profiled=(1, PP), layers: int = 0) -> dict:
+    """`arch` at full width and depth (cut to its first `layers` when > 0)
+    in bf16, serve-bf16's batch on a
     bucketed async graph engine at pp=1, then on one at pp=PP whose weights
     are views of the first's (`repartition_params`; the pp=1 engine, its
     KV pool and graphs freed first), each measured by `_serve_measured`,
@@ -1323,8 +1362,9 @@ def phase_serve_pp_bf16(pa, build_engine, arch: str = PP_ARCH,
     counted = {"paged_flash_attention": pa}
     _free()
     t0 = time.perf_counter()
-    eng = build_engine(arch, device=DEV, dtype=torch.bfloat16,
-                       bucketed=True, async_dispatch=True)
+    kw = dict(bucketed=True, async_dispatch=True)
+    eng = _cut_engine(arch, layers, **kw) if layers else build_engine(
+        arch, device=DEV, dtype=torch.bfloat16, **kw)
     build_s = time.perf_counter() - t0
     one, params = eng.cfg, eng.params
     weight_bytes = sum(t.numel() * t.element_size()
@@ -1878,11 +1918,26 @@ def phase_serve_rwkv_f32(wkv, greedy_trace) -> dict:
     return out
 
 
+def _cut_engine(arch: str, layers: int, **kw):
+    """A bf16 engine at FULL_DIMS for full-width `arch` cut to its first
+    `layers` layers, one stage (`_train_cfg`), random weights from seed 0;
+    `kw` goes to `PipelineEngine`."""
+    from repro_torch.core import ThrottleConfig
+    from repro_torch.launch.serve import FULL_DIMS, build_params
+    from repro_torch.runtime.engine import PipelineEngine
+
+    cfg = _train_cfg(arch, layers, "bfloat16")
+    params = build_params(cfg, torch.bfloat16, torch.device(DEV))
+    return PipelineEngine(cfg, FULL_DIMS, params,
+                          ThrottleConfig(pipeline_depth=1), device=DEV,
+                          dtype=torch.bfloat16, seed=0, **kw)
+
+
 def phase_serve_rwkv_bf16(wkv, build_engine) -> dict:
-    """serve-bf16's batch on full-width, full-depth rwkv6-3b."""
+    """serve-bf16's batch on full-width rwkv6-3b cut to RWKV_BF16_LAYERS
+    of its 32 layers."""
     return _serve_bf16(
-        lambda: build_engine(RWKV_ARCH, device=DEV, dtype=torch.bfloat16,
-                             cuda_graphs=False),
+        lambda: _cut_engine(RWKV_ARCH, RWKV_BF16_LAYERS, cuda_graphs=False),
         {"rwkv6_chunked_scan": wkv}, "serve-rwkv-bf16")
 
 
@@ -2097,15 +2152,16 @@ ARCHS_F32 = (("minicpm3-4b", 4), ("whisper-small", 0), ("qwen2-vl-7b", 4),
              ("internlm2-1.8b", 4))
 KIMI_ARCH = "kimi-k2-1t-a32b"
 LLAMA_ARCH = "llama3.1-100b"
-LLAMA_LAYERS = 32           # of 96: 59 GB of bf16 weights, 8 a stage at PP
+LLAMA_LAYERS = 16           # of 96: ~32 GB of bf16 weights, 4 a stage at PP
 # minicpm3-4b, of 62: its plain f32 MLA makes it the slowest serve at full
 # depth (~70 s of ~880 in a full run of this script), cut to keep the
 # script inside its time limit on the slower hosts (full depth: PERF.md §5)
 MINICPM_ARCH = "minicpm3-4b"
-MINICPM_BF16_LAYERS = 16
+MINICPM_BF16_LAYERS = 8
 ARCHS_BF16 = ("minicpm3-4b", "whisper-small", "qwen2-vl-7b",
               "internlm2-1.8b", KIMI_ARCH, LLAMA_ARCH)
 BIG_ARCH = "qwen2.5-32b"    # the paper's mid-size model, 65.5 GB in bf16
+BIG_LAYERS = 16             # served cut to 16 of its 64 (the script's time)
 # the archs whose attention runs (partly) as plain PyTorch: their
 # serve-archs-bf16 line gets a profiled rerun for busy time and idle share
 PROFILED_ARCHS = ("minicpm3-4b", "whisper-small")
@@ -3193,6 +3249,7 @@ def phase_train_ckpt(final, ckpt_dir: Path, first_loss: float,
 
 SSM_F32_SEQ = 1024          # train-ssm-f32's tokens a sequence
 RWKV_TRAIN_LAYERS = 4       # full-width rwkv6-3b's depth cut in f32
+RWKV_BF16_TRAIN_LAYERS = 8   # and in bf16 (of 32: the script's time)
 RWKV_TRAIN_STEPS = 10
 JAMBA_TRAIN_LAYERS = 2      # jamba cut to two MAMBA_MLP layers (of 36)
 JAMBA_TRAIN_STEPS = 8
@@ -3325,26 +3382,24 @@ def phase_train_ssm_f32() -> dict:
 
 
 def phase_train_ssm_bf16() -> dict:
-    """rwkv6-3b at full width and depth through the launcher, then the
-    jamba cut through `launch.train.train`, the kernels' launches counted
-    from 0 around each run."""
+    """rwkv6-3b at full width cut to RWKV_BF16_TRAIN_LAYERS layers, then
+    the jamba cut, through `launch.train.train`, the kernels' launches
+    counted from 0 around each run."""
     from repro_torch.launch import train as train_lib
 
     out = {"phase": "train-ssm-bf16", "seq": TRAIN_SEQ, "micro_batches": 2,
            "lr": TRAIN_LR}
     runs = (
-        (RWKV_ARCH, _train_cfg(RWKV_ARCH, 32, "bfloat16"), RWKV_TRAIN_STEPS,
-         3, lambda: train_lib.main(
-             ["--arch", RWKV_ARCH, "--full", "--seq", str(TRAIN_SEQ),
-              "--steps", str(RWKV_TRAIN_STEPS), "--lr", str(TRAIN_LR)])),
+        (RWKV_ARCH, _train_cfg(RWKV_ARCH, RWKV_BF16_TRAIN_LAYERS,
+                               "bfloat16"), RWKV_TRAIN_STEPS, 3),
         (JAMBA_ARCH, _train_cfg(JAMBA_ARCH, JAMBA_TRAIN_LAYERS, "bfloat16"),
-         JAMBA_TRAIN_STEPS, 2, None))
-    for arch, cfg, steps, first, launch in runs:
+         JAMBA_TRAIN_STEPS, 2))
+    for arch, cfg, steps, first in runs:
         _zero_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        run = launch() if launch else train_lib.train(
-            cfg, steps=steps, seq=TRAIN_SEQ, lr=TRAIN_LR, device=DEV)
+        run = train_lib.train(cfg, steps=steps, seq=TRAIN_SEQ, lr=TRAIN_LR,
+                              device=DEV)
         row = {"arch": arch, "layers": cfg.num_layers,
                "kinds": sorted({bs.kind.value for bs in cfg.pattern}),
                "params": sum(t.numel() for t in run["params"].parameters()),
@@ -3363,6 +3418,292 @@ def phase_train_ssm_bf16() -> dict:
                                  f"fall, or a scan kernel launched: {row}")
     emit(out)
     return out
+
+
+# ------------------------------------------------------------ rank phases
+
+RANK_ARCH = PP_ARCH         # qwen2.5-14b: pp=2 x tp=2 a rank 20:4 heads
+RANK_PP, RANK_TP = 2, 2
+RANK_F32_LAYERS = 4
+RANK_TRAIN_SEQ = 1024       # tokens a sequence, one a data rank
+RANK_TRAIN_STEPS = 3
+# each launch's wall budget (spawn, rendezvous, weights, serving)
+RANK_BUDGET_S = {"serve-ranks-f32": 240, "serve-ranks-bf16": 420,
+                 "train-ranks": 240}
+
+
+def _rank_cfg(arch: str, layers: int, dtype: str, pp: int, tp: int):
+    """`arch` at full width (cut to `layers` when > 0) staged in `pp`
+    stages, planned at `tp`."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, single_stage, stage_config
+
+    cfg = _train_cfg(arch, layers, dtype) if layers else dataclasses.replace(
+        single_stage(get_config(arch)), dtype=dtype)
+    return stage_config(cfg, pp).with_plan(tp=tp)
+
+
+def _spawn_ranks(fn, layout, job: dict, phase: str) -> list:
+    """`fn(ranks, job)` on every rank of `layout`, one process each on the
+    card (gloo: the ranks share it), inside the phase's wall budget; a
+    rank's exception fails the phase."""
+    from repro_torch.launch import ranks as rk
+
+    store = ROOT / "build" / "ranks" / phase
+    shutil.rmtree(store, ignore_errors=True)
+    return rk.spawn(fn, layout, (job,), backend="gloo", store_dir=str(store),
+                    threads=1, timeout_s=RANK_BUDGET_S[phase],
+                    group_timeout_s=RANK_BUDGET_S[phase])
+
+
+def _rank_rows(out: list, ticks: int) -> list:
+    """Per rank: coordinates, the seconds of its ticks split into host
+    work, collectives (transport and the wait for peers) and the wait for
+    its own device work, its device compute seconds, bytes a tick per hop
+    and per TP all-reduce, bytes staged, peak memory."""
+    rows = []
+    for o in out:
+        st, tr = o["rank_stats"], o["rank_stats"]["traffic"]
+        calls = tr["calls"].get("tp", 0)
+        rows.append({
+            "rank": o["rank"], "coords": o["coords"],
+            "host_s": st["host_s"], "device_s": st["device_s"],
+            "comm_s": st["comm_s"], "wait_s": st["wait_s"],
+            "tick_s": st["tick_s"],
+            "comm_s_by_kind": tr["seconds"],
+            "hop_bytes_per_tick": tr["bytes"].get("hop", 0) / max(ticks, 1),
+            "tp_bytes_per_allreduce": (tr["bytes"].get("tp", 0) / calls
+                                       if calls else 0),
+            "tp_bytes_per_tick": tr["bytes"].get("tp", 0) / max(ticks, 1),
+            "staged_bytes_per_tick": tr["staged_bytes"] / max(ticks, 1),
+            "weight_bytes": o["weight_bytes"], "peak_bytes": o["peak_bytes"],
+            "params_s": o["params_s"], "engine_s": o.get("engine_s"),
+            "launches": o["launches"]})
+    return rows
+
+
+def _rank_launches_ok(out: list, cfg) -> dict:
+    """paged attention on every rank: once per layer of its stage for each
+    phase a tick runs."""
+    st = out[0]["stats"]
+    per_stage = cfg.layers_per_stage
+    want = (st["prefill_ticks"] + st["decode_ticks"]) * per_stage
+    got = {o["rank"]: o["launches"]["paged_attention"] for o in out}
+    if any(n != want for n in got.values()):
+        raise AssertionError(f"paged attention launched {got} times on the "
+                             f"ranks, want {want} each")
+    return {"want_per_rank": want, "per_rank": got}
+
+
+def phase_serve_ranks_f32(greedy_trace) -> dict:
+    """serve-f32's batch on qwen2.5-14b cut to 4 layers in f32, over pp=2 x
+    tp=2 ranks, against the single-process pp=2 engine on the same weights
+    (tokens and the batch of every tick) and the dense reference."""
+    from repro_torch.core import ThrottleConfig
+    from repro_torch.launch.mesh import rank_layout
+    from repro_torch.launch.serve import FULL_DIMS, serve_rank
+    from repro_torch.models.transformer import init_params
+    from repro_torch.runtime.engine import PipelineEngine
+
+    phase = "serve-ranks-f32"
+    t0 = time.perf_counter()
+    cfg = _rank_cfg(RANK_ARCH, RANK_F32_LAYERS, "float32", RANK_PP, RANK_TP)
+    one = cfg.with_plan(tp=1)
+    prompts = _prompts(11, 8, cfg.vocab_size)
+    throttle = ThrottleConfig(pipeline_depth=RANK_PP)
+    _free()
+    params = init_params(one, 0, dtype=torch.float32, device=DEV)
+    eng = PipelineEngine(one, FULL_DIMS, params, throttle, device=DEV,
+                         dtype=torch.float32, cuda_graphs=False)
+    ticks = []
+    inner = eng.backend.execute
+
+    def execute(ring, exiting_id, now):
+        b = (eng.scheduler.get_batch(ring[0][0])
+             if ring[0][0] is not None else None)
+        ticks.append(None if b is None else [
+            [[q.request.request_id, q.start_pos, q.num_tokens]
+             for q in b.prefill],
+            [q.request.request_id for q in b.decode]])
+        return inner(ring, exiting_id, now)
+
+    eng.backend.execute = execute
+    reqs = [eng.add_request(p, _sampling(0.0), request_id=f"r{i}")
+            for i, p in enumerate(prompts)]
+    eng.drain()
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    single = [r.output_token_ids for r in reqs]
+    traces = [greedy_trace(one, params, p, MAX_NEW) for p in prompts]
+    del eng, params
+    _free()
+    t1 = time.perf_counter()
+    job = dict(cfg=cfg, dims=FULL_DIMS, throttle=throttle, prompts=prompts,
+               max_new=MAX_NEW, device=DEV, dtype="float32", seed=0)
+    out = _spawn_ranks(serve_rank, rank_layout(1, RANK_PP, RANK_TP), job,
+                       phase)
+    ranks_s = time.perf_counter() - t1
+    head = out[0]
+    compared, near_ties, bad = 0, [], []
+    for i, ((want, gaps), mine, got) in enumerate(zip(traces, single,
+                                                      head["tokens"])):
+        stop = next((k for k, g in enumerate(gaps) if g < NEAR_TIE), MAX_NEW)
+        if stop < MAX_NEW:
+            near_ties.append({"request": i, "step": stop, "gap": gaps[stop]})
+        if not (head["finished"][i] and len(got) == MAX_NEW
+                and got[:stop] == mine[:stop] == want[:stop]):
+            bad.append({"request": i, "ranks": got, "single": mine,
+                        "reference": want, "compared": stop})
+        compared += stop
+    row = {"phase": phase, "arch": RANK_ARCH, "layers": RANK_F32_LAYERS,
+           "pp": RANK_PP, "tp": RANK_TP, "ranks": len(out),
+           "backend": "gloo", "requests": len(prompts),
+           "tokens_compared": compared, "near_ties": near_ties,
+           "ticks": head["stats"]["ticks"],
+           "ticks_equal_single": head["ticks"] == ticks,
+           "single_ticks": len(ticks), "single_s": single_s,
+           "ranks_s": ranks_s, "wall_s": head["wall_s"],
+           "per_rank": _rank_rows(out, head["stats"]["ticks"])}
+    try:
+        row["launches"] = _rank_launches_ok(out, cfg)
+    finally:
+        row["s"] = time.perf_counter() - t0
+        emit(row)
+    if bad or not row["ticks_equal_single"]:
+        raise AssertionError(f"{phase}: tokens or ticks differ from the "
+                             f"single-process engine's: {bad}")
+    return row
+
+
+def phase_serve_ranks_bf16(pp_rows: dict) -> dict:
+    """serve-bf16's batch on qwen2.5-14b at full width and depth in bf16
+    over pp=2 x tp=2 ranks, bucketed, eager and sync."""
+    from repro_torch.core import ThrottleConfig
+    from repro_torch.launch.mesh import rank_layout
+    from repro_torch.launch.serve import FULL_DIMS, serve_rank
+
+    phase = "serve-ranks-bf16"
+    t0 = time.perf_counter()
+    cfg = _rank_cfg(RANK_ARCH, 0, "bfloat16", RANK_PP, RANK_TP)
+    prompts = _prompts(12, 32, cfg.vocab_size)
+    temps = [0.8 if i % 8 == 7 else 0.0 for i in range(len(prompts))]
+    job = dict(cfg=cfg, dims=FULL_DIMS,
+               throttle=ThrottleConfig(pipeline_depth=RANK_PP),
+               prompts=prompts, temps=temps, max_new=MAX_NEW, device=DEV,
+               dtype="bfloat16", seed=0, bucketed=True)
+    _free()
+    out = _spawn_ranks(serve_rank, rank_layout(1, RANK_PP, RANK_TP), job,
+                       phase)
+    head = out[0]
+    st = head["stats"]
+    toks = sum(len(t) for t in head["tokens"])
+    vocab = cfg.vocab_size
+    ok = all(f and len(t) == MAX_NEW and all(0 <= x < vocab for x in t)
+             for f, t in zip(head["finished"], head["tokens"]))
+    row = {"phase": phase, "arch": RANK_ARCH, "layers": cfg.num_layers,
+           "layers_per_stage": cfg.layers_per_stage, "pp": RANK_PP,
+           "tp": RANK_TP, "ranks": len(out), "backend": "gloo",
+           "bucketed": True, "cuda_graphs": False, "async_dispatch": False,
+           "requests": len(prompts), "temperature_requests": sum(
+               t > 0 for t in temps),
+           "output_tokens": toks, "wall_s": head["wall_s"],
+           "output_tokens_per_s": toks / head["wall_s"],
+           "ticks": st["ticks"], "prefill_ticks": st["prefill_ticks"],
+           "decode_ticks": st["decode_ticks"],
+           "ms_per_tick": head["wall_s"] / st["ticks"] * 1e3,
+           "bubble_stage_ticks": st["bubble_stage_ticks"],
+           "padded_prefill": st["padded_prefill"],
+           "padded_decode": st["padded_decode"],
+           "per_rank": _rank_rows(out, st["ticks"]),
+           "single_process": {
+               f"pp{pp}": {k: r[k] for k in ("output_tokens_per_s",
+                                             "ms_per_tick", "ticks",
+                                             "cuda_graphs", "bucketed",
+                                             "async_dispatch")}
+               for pp, r in pp_rows.items()},
+           "note": "one card shared by 4 processes: the protocol's cost, "
+                   "not pipelining's gain"}
+    try:
+        row["launches"] = _rank_launches_ok(out, cfg)
+    finally:
+        row["s"] = time.perf_counter() - t0
+        emit(row)
+    if not ok:
+        raise AssertionError(f"{phase}: a request did not finish with "
+                             f"{MAX_NEW} valid tokens")
+    return row
+
+
+def _train_runs(ranks, jobs: list) -> list:
+    """`launch.train.train_rank` of each job in turn on the same ranks (one
+    launch: the processes start once)."""
+    from repro_torch.launch.train import train_rank
+
+    out = []
+    for job in jobs:
+        out.append(train_rank(ranks, job))
+        _free()
+    return out
+
+
+def phase_train_ranks() -> dict:
+    """qwen1.5-0.5b at full width over dp=2 x pp=2 x tp=2 ranks: the lr-0
+    loss of a 4-layer f32 cut against the dense cross-entropy, then full
+    depth in bf16 with ring8 for a few steps on one batch."""
+    from repro_torch.data.tokens import batches
+    from repro_torch.launch.mesh import rank_layout
+    from repro_torch.models.reference import dense_forward
+    from repro_torch.models.transformer import cross_entropy, init_params
+
+    phase = "train-ranks"
+    t0 = time.perf_counter()
+    layout = rank_layout(2, 2, 2)
+    cut = _train_cfg(ARCH, TRAIN_F32_LAYERS, "float32")
+    batch = next(batches(cut.vocab_size, 2, 2, RANK_TRAIN_SEQ, seed=0))
+    params = init_params(cut, 0, dtype=torch.float32, device=DEV)
+    toks, labs = (torch.as_tensor(batch[k], device=DEV).reshape(
+        4, RANK_TRAIN_SEQ).long() for k in ("tokens", "labels"))
+    want = float(cross_entropy(dense_forward(cut, params, toks), labs))
+    del params, toks, labs
+    _free()
+    staged = _rank_cfg(ARCH, TRAIN_F32_LAYERS, "float32", 2, 2)
+    full = _rank_cfg(ARCH, 0, "bfloat16", 2, 2)
+    b16 = next(batches(full.vocab_size, 2, 2, RANK_TRAIN_SEQ, seed=1))
+    runs = _spawn_ranks(_train_runs, layout, [
+        dict(cfg=staged, steps=1, batches=[batch], lr=0.0, aux_coef=0.0,
+             device=DEV, dtype="float32", seed=0),
+        dict(cfg=full, steps=RANK_TRAIN_STEPS,
+             batches=[b16] * RANK_TRAIN_STEPS, lr=TRAIN_LR,
+             grad_compression="ring8", device=DEV, dtype="bfloat16",
+             seed=0)], phase)
+    f32, bf16 = [r[0] for r in runs], [r[1] for r in runs]
+    loss = f32[0]["loss"][0]
+    losses = bf16[0]["loss"]
+    row = {"phase": phase, "arch": ARCH, "dp": 2, "pp": 2, "tp": 2,
+           "ranks": layout.world, "backend": "gloo", "seq": RANK_TRAIN_SEQ,
+           "micro_batches": 2, "sequences_per_micro_batch": 2,
+           "f32": {"layers": TRAIN_F32_LAYERS, "dense_loss": want,
+                   "loss": loss, "loss_err": abs(loss - want),
+                   "loss_tol": TRAIN_LOSS_TOL,
+                   "same_on_every_rank": len({o["loss"][0] for o in f32})
+                   == 1},
+           "bf16": {"layers": full.num_layers, "grad_compression": "ring8",
+                    "lr": TRAIN_LR, "steps": RANK_TRAIN_STEPS,
+                    "batch": "one batch, repeated", "loss": losses,
+                    "gnorm": bf16[0]["gnorm"], "step_s": bf16[0]["step_s"],
+                    "params_s": bf16[0]["params_s"],
+                    "per_rank": [{"rank": o["rank"],
+                                  "peak_bytes": o["peak_bytes"],
+                                  "weight_bytes": o["weight_bytes"],
+                                  "traffic": o["traffic"]} for o in bf16]},
+           "s": time.perf_counter() - t0}
+    emit(row)
+    if not (row["f32"]["loss_err"] <= TRAIN_LOSS_TOL
+            and row["f32"]["same_on_every_rank"]
+            and all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{phase}: the loss disagrees or did not fall")
+    return row
 
 
 def _launches(run: dict, name: str) -> list:
@@ -3466,7 +3807,8 @@ def main() -> int:
     phase_attention_plain()
     archs_bf16 = phase_serve_archs_bf16(pa, mg, build_engine)
     big_bf16 = phase_serve_pp_bf16(pa, build_engine, BIG_ARCH,
-                                   "serve-32b-bf16", profiled=(1,))
+                                   "serve-32b-bf16", profiled=(1,),
+                                   layers=BIG_LAYERS)
     train_f32 = phase_train_f32(mg)
     ckpt_dir = ROOT / "build" / "train_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -3476,6 +3818,9 @@ def main() -> int:
     del final
     ssm_f32 = phase_train_ssm_f32()
     ssm_bf16 = phase_train_ssm_bf16()
+    ranks_f32 = phase_serve_ranks_f32(greedy_trace)
+    ranks_bf16 = phase_serve_ranks_bf16(pp_bf16)
+    phase_train_ranks()
 
     pa_entry = _kernel_entry(
         "paged_flash_attention",
@@ -3499,7 +3844,9 @@ def main() -> int:
         **{f"serve-archs-bf16 {arch}": row["launches"]["paged_flash_attention"]
            for arch, row in archs_bf16.items()},
         **{f"serve-32b-bf16 pp={pp}": row["launches"]["paged_flash_attention"]
-           for pp, row in big_bf16.items()}}
+           for pp, row in big_bf16.items()},
+        **{f"{r['phase']} rank {rank}": n for r in (ranks_f32, ranks_bf16)
+           for rank, n in r["launches"]["per_rank"].items()}}
     moe_entry = _kernel_entry(
         "fused_moe_ffn", "src/repro_torch/kernels/csrc/moe_ffn.cu",
         "src/repro/kernels/moe_gemm.py:53",

@@ -1,67 +1,403 @@
-"""Gradient sync, optionally compressed (``repro.distributed.collectives``),
-at one rank.
+"""Collectives across ranks (``repro.distributed.collectives``): gradient
+sync, optionally compressed; the two Megatron operators of tensor
+parallelism; and the stage hop.
 
-The JAX module sums each gradient over the mesh axes its parameter is
-replicated on.  On its ``(1, 1, 1)`` mesh every axis has size 1, and what
-remains of each mode is what the port computes here:
+An axis here is a `launch.mesh.AxisGroup`, one rank's line of a mesh axis
+(its process group, its index on it).  JAX's ``psum`` over a tuple of axes
+runs as one all-reduce per axis, one after the other: a sum over the
+product of the axes.  An axis of size 1 is no axis: with none, each mode
+computes what the JAX module computes on its ``(1, 1, 1)`` mesh.
 
-  None     — the f32 cast (`psum_f32`).
-  "int8"   — quantise with the leaf's own absmax / 127 scale and dequantise
-             (`int8_psum`: the global absmax over one rank is the leaf's):
-             every gradient of 4,096 elements or more is rounded to 255
-             levels once, as JAX's train step does on that mesh.
-  "ring8"  — the f32 cast (`ring_psum_int8` returns early for one rank).
+Gradient modes (`compressed_psum`), as in the JAX module:
+
+  None     — f32 sum (`psum_f32`).
+  "int8"   — quantise with the global absmax / 127 scale (an all-reduce of
+             max), sum exactly in int32, dequantise (`int8_psum`):
+             identical on every rank, bit for bit JAX's.
+  "ring8"  — a ring all-reduce with an int8 wire format over each axis in
+             turn (`ring_psum_int8`): N-1 reduce-scatter hops, the chunk in
+             hand requantised at ``scale0 * (hop + 1)`` per hop, then N-1
+             all-gather hops of the reduced chunks at ``scale0 * N``.  JAX
+             keeps each rank's own reduced chunk unquantised, so the
+             replicas of one leaf end up with different gradients (and
+             their copies of the leaf drift apart); here the own chunk is
+             quantised too, so every replica holds the same sum.
 
 Leaves with ``ndim == 0`` or fewer than 4,096 elements are never
-compressed.  An initialised default process group of more than one rank
-raises: the collectives across cards are ROADMAP Queue 1 item 6.
+compressed.
+
+**Megatron operators.**  `copy_to_tensor` (identity forward, all-reduce of
+the gradient over `tensor` backward) enters a column-parallel product;
+`reduce_from_tensor` (all-reduce forward, identity backward) leaves a
+row-parallel one.  ``torch.distributed.nn.functional.all_reduce`` is not
+the second: its backward all-reduces the gradient again, which scales the
+gradient of every replicated leaf by tp.  `gather_from_tensor` (all-gather
+of the last dim forward, this rank's slice of the gradient backward) reads
+the embedding, whose width is split over `tensor`.
+
+**Transport.**  On ``nccl`` every tensor moves as it lies.  ``gloo`` sums
+and gathers CPU tensors, and its point-to-point ``send``/``recv`` take no
+CUDA tensor: a CUDA tensor under gloo is staged through host memory (one
+copy out, the collective, one copy back), a transport of the backend,
+counted in `TRAFFIC` (``staged`` bytes) beside each kind's payload bytes
+and the seconds spent inside the calls.  The copy out would first wait for
+this rank's queued kernels, so the stream is synchronised before a staged
+call's clock starts: a kind's seconds are its transport and the wait for
+its peers, and the wait for the rank's own device work is counted apart
+(``wait_s``).  `CLOCK`, when started, brackets the device work between
+collectives with CUDA events.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import time
+from collections import defaultdict
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 
-def _one_rank() -> None:
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "repro_torch.distributed.collectives: gradient sync across "
-            "ranks is not yet ported (ROADMAP Queue 1 item 6); the train "
-            "step runs at one rank")
+class Traffic:
+    """Payload bytes, calls and seconds of this process's collectives, by
+    kind (``hop``, ``tp``, ``grad``, ``head``, ``meta``, ...), and the
+    bytes staged through host memory."""
+
+    def __init__(self) -> None:
+        self.reset()
+
+    def reset(self) -> None:
+        self.bytes = defaultdict(int)
+        self.calls = defaultdict(int)
+        self.seconds = defaultdict(float)
+        self.staged = 0
+        self.wait = 0.0
+
+    def snapshot(self) -> dict:
+        return {"bytes": dict(self.bytes), "calls": dict(self.calls),
+                "seconds": dict(self.seconds), "staged_bytes": self.staged,
+                "wait_s": self.wait}
 
 
-def psum_f32(x: torch.Tensor) -> torch.Tensor:
-    _one_rank()
-    return x.float()
+TRAFFIC = Traffic()
 
 
-def int8_psum(x: torch.Tensor) -> torch.Tensor:
-    """Quantise with the (global) absmax / 127 scale, sum exactly in int32,
-    dequantise: at one rank, the leaf rounded to 255 levels."""
-    _one_rank()
+class DeviceClock:
+    """The device time of a rank's compute: between `start` and `stop`,
+    a CUDA event pair brackets each stretch of work between two
+    collectives (every collective call cuts the current stretch and opens
+    the next), so the time the device spends inside a collective, or
+    waiting for one, is not counted.  A stretch includes any idle gaps
+    inside it.  Inactive (every call a no-op) until started."""
+
+    def __init__(self) -> None:
+        self.device = None
+        self.open = None
+        self.spans: list = []
+
+    def start(self, device: torch.device) -> None:
+        self.device, self.spans = device, []
+        self.resume()
+
+    def resume(self) -> None:
+        if self.device is not None:
+            self.open = torch.cuda.Event(enable_timing=True)
+            self.open.record(torch.cuda.current_stream(self.device))
+
+    def cut(self) -> None:
+        if self.open is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(torch.cuda.current_stream(self.device))
+            self.spans.append((self.open, end))
+            self.open = None
+
+    def stop(self) -> float:
+        """Seconds of device work since `start`; the host's wait for the
+        last stretch to end counts in `TRAFFIC.wait`."""
+        self.cut()
+        w0 = time.perf_counter()
+        if self.spans:
+            self.spans[-1][1].synchronize()
+        TRAFFIC.wait += time.perf_counter() - w0
+        total = sum(a.elapsed_time(b) for a, b in self.spans) / 1e3
+        self.device, self.spans = None, []
+        return total
+
+
+CLOCK = DeviceClock()
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _staged(t: torch.Tensor) -> bool:
+    return t.is_cuda and dist.get_backend() == "gloo"
+
+
+class _Timed:
+    """One collective call of `kind` on tensor `t`, into `TRAFFIC`: a staged
+    call first waits for the device (``wait_s``), then its clock starts."""
+
+    def __init__(self, kind: str, nbytes: int, t: torch.Tensor) -> None:
+        self.kind, self.nbytes, self.t = kind, nbytes, t
+
+    def __enter__(self):
+        CLOCK.cut()
+        if _staged(self.t):
+            w0 = time.perf_counter()
+            torch.cuda.current_stream(self.t.device).synchronize()
+            TRAFFIC.wait += time.perf_counter() - w0
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        TRAFFIC.seconds[self.kind] += time.perf_counter() - self.t0
+        TRAFFIC.bytes[self.kind] += self.nbytes
+        TRAFFIC.calls[self.kind] += 1
+        CLOCK.resume()
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    TRAFFIC.staged += _nbytes(t)
+    return t.detach().to("cpu")
+
+
+def _back(t: torch.Tensor, host: torch.Tensor) -> None:
+    TRAFFIC.staged += _nbytes(host)
+    t.copy_(host)
+
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(t: torch.Tensor, axis, op: str = "sum",
+               kind: str = "reduce") -> torch.Tensor:
+    """`t` reduced over `axis` in place (and returned); a no-op for no
+    axis."""
+    if axis is None or axis.size == 1:
+        return t
+    with _Timed(kind, _nbytes(t), t):
+        if _staged(t):
+            host = _host(t)
+            dist.all_reduce(host, op=_OPS[op], group=axis.group)
+            _back(t, host)
+        else:
+            dist.all_reduce(t, op=_OPS[op], group=axis.group)
+    return t
+
+
+def all_gather(t: torch.Tensor, axis, kind: str = "gather"
+               ) -> List[torch.Tensor]:
+    """Every rank's `t` along `axis`, in axis order."""
+    if axis is None or axis.size == 1:
+        return [t]
+    with _Timed(kind, _nbytes(t), t):
+        src = _host(t) if _staged(t) else t.contiguous()
+        out = [torch.empty_like(src) for _ in range(axis.size)]
+        dist.all_gather(out, src, group=axis.group)
+        if src.device != t.device:
+            TRAFFIC.staged += _nbytes(t) * axis.size
+            out = [o.to(t.device) for o in out]
+    return out
+
+
+def broadcast(t: torch.Tensor, axis, src: int, kind: str = "broadcast"
+              ) -> torch.Tensor:
+    """`t` of the rank at index `src` of `axis`, in place on every rank of
+    it."""
+    if axis is None or axis.size == 1:
+        return t
+    with _Timed(kind, _nbytes(t), t):
+        if _staged(t):
+            host = _host(t) if axis.index == src else torch.empty(
+                t.shape, dtype=t.dtype)
+            dist.broadcast(host, src=axis.ranks[src], group=axis.group)
+            if axis.index != src:
+                _back(t, host)
+        else:
+            dist.broadcast(t, src=axis.ranks[src], group=axis.group)
+    return t
+
+
+def exchange(send: Optional[Tuple[torch.Tensor, int]] = None,
+             recv: Optional[Tuple[torch.Tensor, int]] = None,
+             kind: str = "hop") -> None:
+    """One point-to-point step: `send` = (tensor, global rank) goes out
+    while `recv` = (tensor, global rank) is filled in place, both posted
+    together (``batch_isend_irecv``) so that a ring of such steps cannot
+    deadlock.  Under gloo a CUDA tensor travels through a host copy."""
+    if send is None and recv is None:
+        return
+    nbytes = (_nbytes(send[0]) if send else 0) + (
+        _nbytes(recv[0]) if recv else 0)
+    with _Timed(kind, nbytes, (send or recv)[0]):
+        ops, back = [], None
+        if send is not None:
+            t, peer = send
+            t = _host(t) if _staged(t) else t.contiguous()
+            ops.append(dist.P2POp(dist.isend, t, peer))
+        if recv is not None:
+            t, peer = recv
+            buf = torch.empty(t.shape, dtype=t.dtype) if _staged(t) else t
+            if buf is not t:
+                back = (t, buf)
+            ops.append(dist.P2POp(dist.irecv, buf, peer))
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        if back is not None:
+            _back(*back)
+
+
+# ----------------------------------------------------------------------------
+# Gradient sync
+# ----------------------------------------------------------------------------
+
+def psum_f32(x: torch.Tensor, axes: Sequence = ()) -> torch.Tensor:
+    out = x.float()
+    if axes and out is x:               # the sum runs in place
+        out = out.clone()
+    for ax in axes:
+        all_reduce(out, ax, kind="grad")
+    return out
+
+
+def _absmax(x: torch.Tensor, axes: Sequence) -> torch.Tensor:
+    m = torch.max(torch.abs(x))
+    for ax in axes:
+        all_reduce(m, ax, op="max", kind="grad")
+    return m
+
+
+def _quantise(v: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(v / scale), -127, 127).to(torch.int8)
+
+
+def int8_psum(x: torch.Tensor, axes: Sequence = ()) -> torch.Tensor:
+    """Quantise with the global absmax / 127 scale, sum exactly in int32,
+    dequantise: the same on every rank."""
     x = x.float()
-    scale = torch.clamp(torch.max(torch.abs(x)) / 127.0, min=1e-30)
-    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
-    return q.to(torch.int32).float() * scale
+    scale = torch.clamp(_absmax(x, axes) / 127.0, min=1e-30)
+    s = _quantise(x, scale).to(torch.int32)
+    for ax in axes:
+        all_reduce(s, ax, kind="grad")
+    return s.float() * scale
 
 
-def ring_psum_int8(x: torch.Tensor) -> torch.Tensor:
-    """Ring all-reduce with an int8 wire format: at one rank there is no
-    hop, and the value is returned in f32."""
-    _one_rank()
-    return x.float()
+def ring_psum_int8(x: torch.Tensor, axis=None) -> torch.Tensor:
+    """Ring all-reduce over one axis with an int8 wire format: N-1
+    reduce-scatter hops (the partial chunk requantised at ``scale0 * (hop
+    + 1)``), then N-1 all-gather hops of the reduced chunks at
+    ``scale0 * N``; every rank, its own chunk included, ends with the
+    dequantised chunks."""
+    n = 1 if axis is None else axis.size
+    if n == 1:
+        return x.float()
+    idx = axis.index
+    flat = x.float().reshape(-1)
+    pad = (-flat.numel()) % n
+    acc = torch.nn.functional.pad(flat, (0, pad)).reshape(n, -1).clone()
+    scale0 = torch.clamp(_absmax(flat, [axis]) / 127.0, min=1e-30)
+    right, left = axis.peer(1), axis.peer(-1)
+    got = torch.empty(acc.shape[1], dtype=torch.int8, device=acc.device)
+    for hop in range(n - 1):
+        s = scale0 * (hop + 1.0)
+        payload = _quantise(acc[(idx - hop) % n], s)
+        exchange((payload, right), (got, left), kind="grad")
+        acc[(idx - hop - 1) % n] += got.float() * s
+    own = (idx + 1) % n
+    scale_f = scale0 * n
+    cur = _quantise(acc[own], scale_f)
+    out = torch.empty_like(acc)
+    out[own] = cur.float() * scale_f
+    for hop in range(n - 1):
+        nxt = torch.empty_like(cur)
+        exchange((cur, right), (nxt, left), kind="grad")
+        out[(own - hop - 1) % n] = nxt.float() * scale_f
+        cur = nxt
+    out = out.reshape(-1)
+    return (out[:flat.numel()] if pad else out).reshape(x.shape)
 
 
-def compressed_psum(g: torch.Tensor,
-                    mode: Optional[str] = None) -> torch.Tensor:
+def compressed_psum(g: torch.Tensor, mode: Optional[str] = None,
+                    axes: Sequence = ()) -> torch.Tensor:
+    """`g` summed in f32 over `axes` (`launch.mesh.AxisGroup`s; none at one
+    rank), by `mode`."""
+    axes = [a for a in axes if a is not None and a.size > 1]
     if mode is None or g.dim() == 0 or g.numel() < 4096:
-        return psum_f32(g)
+        return psum_f32(g, axes)
     if mode == "int8":
-        return int8_psum(g)
+        return int8_psum(g, axes)
     if mode == "ring8":
-        return ring_psum_int8(g)
+        out = g.float()
+        for ax in axes:
+            out = ring_psum_int8(out, ax)
+        return out
     raise ValueError(f"unknown grad-compression mode {mode!r}")
+
+
+# ----------------------------------------------------------------------------
+# Tensor parallelism
+# ----------------------------------------------------------------------------
+
+class _CopyToTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.axis, kind="tp"), None
+
+
+class _ReduceFromTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, kind):
+        return all_reduce(x.contiguous().clone(), axis, kind=kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFromTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis, ctx.width = axis, x.shape[-1]
+        return torch.cat(all_gather(x, axis, kind="tp"), dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.axis.index * ctx.width
+        return g[..., lo:lo + ctx.width], None
+
+
+def _split(axis) -> bool:
+    return axis is not None and axis.size > 1
+
+
+def copy_to_tensor(x: torch.Tensor, axis) -> torch.Tensor:
+    """Identity forward; the gradient all-reduced over `axis` backward."""
+    return _CopyToTensor.apply(x, axis) if _split(axis) else x
+
+
+def reduce_from_tensor(x: torch.Tensor, axis, kind: str = "tp"
+                       ) -> torch.Tensor:
+    """All-reduce over `axis` forward; the gradient as it is backward."""
+    return _ReduceFromTensor.apply(x, axis, kind) if _split(axis) else x
+
+
+def reduce_over(x: torch.Tensor, axes: Sequence, kind: str = "reduce"
+                ) -> torch.Tensor:
+    """`reduce_from_tensor` over each axis of `axes` in turn: a sum whose
+    gradient each rank takes as its own (the quantity it feeds is the same
+    on every rank)."""
+    for ax in axes:
+        x = reduce_from_tensor(x, ax, kind)
+    return x
+
+
+def gather_from_tensor(x: torch.Tensor, axis) -> torch.Tensor:
+    """Every rank's last-dim slice concatenated in axis order forward; this
+    rank's slice of the gradient backward."""
+    return _GatherFromTensor.apply(x, axis) if _split(axis) else x

@@ -11,6 +11,12 @@ is a view: engines at pp=1 and at pp=4 serve from one set of weights.
 `elastic_restore` loads a checkpoint saved under one factoring into
 another: restored against the old config's tree, re-tiled, and placed on
 the device.
+
+Across ranks, `replan_to` re-plans a config onto a rank layout's stage and
+tensor sizes, and `shard_views` (defined beside `transformer.shard_params`,
+which copies its blocks) gives one rank's block of every leaf
+(`transformer.shard_slices`) as views of a whole tree: the weights of one
+stage at one tensor shard, with no copy.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from repro_torch.configs.base import ArchConfig, BlockSpec
 from repro_torch.models.transformer import (
     TransformerParams,
     abstract_params,
+    shard_views,  # noqa: F401  (re-exported)
     tree_map,
 )
 
@@ -43,6 +50,12 @@ def replan(cfg: ArchConfig, new_pp: int, new_tp: int) -> ArchConfig:
     return dataclasses.replace(
         cfg, pattern=pattern,
         plan=dataclasses.replace(cfg.plan, pp=new_pp, tp=new_tp))
+
+
+def replan_to(cfg: ArchConfig, layout) -> ArchConfig:
+    """`replan` onto a rank layout (`launch.mesh.Layout`): its stage and
+    tensor sizes."""
+    return replan(cfg, layout.size("stage"), layout.size("tensor"))
 
 
 def repartition_params(params: TransformerParams, cfg_old: ArchConfig,

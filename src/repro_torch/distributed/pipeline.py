@@ -41,8 +41,18 @@ its live rows; what lies past them in a slot is padding, never read into a
 live row.
 
 At one stage the ring collapses: no carry, the batch that enters the tick
-is the one that exits it.  Stages on separate cards (the carry hop as a
-peer copy or NCCL) are a later slice of the port.
+is the one that exits it.
+
+**Across ranks.**  With `ranks` (`launch.mesh.RankGroups` of more than one
+process), each rank holds one stage's leaves at its tensor shard
+(`transformer.shard_params`) and both programs run as JAX's ``shard_map``
+programs do, one stage a rank: `build_rank_serve_tick` runs the rank's
+stage on its micro-batch and hands the output one stage on (the stage
+hop, `collectives.exchange`, JAX's ``ppermute``), so that all stages run at
+once on different micro-batches; the train step runs the GPipe schedule
+with the hop forward and an explicit reverse schedule backward, the
+vocab-sharded loss, the gradient sync over the axes each leaf is
+replicated on and the global norm over the axes that split it.
 """
 
 from __future__ import annotations
@@ -54,6 +64,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.collectives import compressed_psum
 from repro_torch.distributed.optimizer import (
     AdamConfig,
@@ -136,7 +147,8 @@ def _sharded_loss(cfg: ArchConfig, params, hid: List[torch.Tensor],
 def build_train_step(cfg: ArchConfig, *, adam: AdamConfig = AdamConfig(),
                      aux_coef: float = 0.01, enc_width: int = 0,
                      grad_compression: Optional[str] = None,
-                     device: Optional[torch.device | str] = None):
+                     device: Optional[torch.device | str] = None,
+                     ranks=None):
     """Returns step(params, opt, batch) -> (params, opt, metrics), which
     updates `params` (a `TransformerParams.trainable` tree on `device`)
     and `opt` (`optimizer.adam_init`) in place.
@@ -146,10 +158,20 @@ def build_train_step(cfg: ArchConfig, *, adam: AdamConfig = AdamConfig(),
     which replace the first Tv token embeddings}; numpy or tensors.
     metrics = {"loss", "aux", "total", "gnorm"}: f32 scalars on the device.
     The step runs at `cfg.plan.pp` stages on the one device; `device` is
-    CUDA unless the CPU is asked for."""
+    CUDA unless the CPU is asked for.
+
+    With `ranks` (`launch.mesh.RankGroups` over more than one process),
+    each rank runs `_rank_train_step` on its shard (`shard_params` /
+    `init_params(layout=)`): stage ``ranks.index("stage")`` of `cfg`, at
+    its tensor shard, on the batch's micro-batch rows of its data index;
+    every rank passes the whole batch."""
     from repro_torch.runtime.engine import resolve_device
 
     dev = resolve_device(device)
+    if ranks is not None and ranks.layout.world > 1:
+        return _rank_train_step(cfg, ranks, adam=adam, aux_coef=aux_coef,
+                                enc_width=enc_width,
+                                grad_compression=grad_compression, dev=dev)
 
     def step(params, opt: AdamState, batch):
         leaves = list(tfm.tree_items(params))
@@ -187,6 +209,200 @@ def build_train_step(cfg: ArchConfig, *, adam: AdamConfig = AdamConfig(),
         return params, opt, metrics
 
     return step
+
+
+# ----------------------------------------------------------------------------
+# Training across ranks
+# ----------------------------------------------------------------------------
+
+MANUAL_AXES = ("data", "stage")     # JAX's manual axes; `tensor` is GSPMD's
+
+
+def grad_sync_axes(spec) -> Tuple[str, ...]:
+    """JAX's ``_grad_sync_axes``: the manual axes a leaf is replicated on,
+    over which its gradient is summed.  Over `tensor` the Megatron
+    operators already leave every replica the whole gradient."""
+    used = set(tfm.spec_axes(spec))
+    return tuple(a for a in MANUAL_AXES if a not in used)
+
+
+def _rank_loss(params, hn: Optional[torch.Tensor],
+               shape, labels: torch.Tensor, cnt: float, ranks,
+               dev: torch.device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """JAX's ``_sharded_loss`` for one micro-batch, its backward run here:
+    the last stage's normed hidden state `hn` [mb, T, d] is broadcast in f32
+    over the stage group; every (stage, tensor) rank takes its vocab slice
+    of the logits; the max, the sum of exp and the gold logit are reduced
+    over the slices; ``sum(nll) / cnt`` is differentiated, the head's
+    gradient accumulated in place, and the gradient of the hidden state
+    summed over the slices.  Returns (sum of nll, that gradient in f32 on
+    the last stage, else None)."""
+    stage, tensor = ranks["stage"], ranks["tensor"]
+    S, last = stage.size, stage.index == stage.size - 1
+    h32 = hn.detach().float() if last else torch.empty(
+        shape, dtype=torch.float32, device=dev)
+    coll.broadcast(h32, stage, S - 1, kind="loss")
+    hb = h32.requires_grad_(True)
+    w = params["lm_head"]["w"]
+    vs = w.shape[-1]
+    off = (stage.index * tensor.size + tensor.index) * vs
+    slices = [tensor, stage]
+    logits = (hb.to(w.dtype) @ w).float()                     # [mb, T, Vs]
+    m = torch.amax(logits.detach(), dim=-1)
+    for ax in slices:
+        coll.all_reduce(m, ax, op="max", kind="loss")
+    se = coll.reduce_over(torch.sum(torch.exp(logits - m[..., None]), -1),
+                          slices, kind="loss")
+    lab = torch.clamp(labels, min=0)
+    inside = (lab >= off) & (lab < off + vs)
+    gold = torch.gather(logits, -1, torch.clamp(lab - off, 0, vs - 1)[..., None])
+    gold = coll.reduce_over(torch.where(inside, gold[..., 0], 0.0), slices,
+                            kind="loss")
+    nll = torch.sum((m + torch.log(se) - gold) * (labels >= 0).float())
+    (nll / cnt).backward()
+    g = hb.grad
+    for ax in slices:
+        coll.all_reduce(g, ax, kind="loss")
+    return nll.detach(), (g if last else None)
+
+
+def _rank_train_step(cfg: ArchConfig, ranks, *, adam: AdamConfig,
+                     aux_coef: float, enc_width: int,
+                     grad_compression: Optional[str], dev: torch.device):
+    """One rank's GPipe train step (see `build_train_step`)."""
+    layout = ranks.layout
+    tfm.check_shardable(cfg, layout)
+    S, dp = layout.size("stage"), layout.size("data")
+    s, d = ranks.index("stage"), ranks.index("data")
+    stage = ranks["stage"]
+    tp = ranks["tensor"] if ranks.size("tensor") > 1 else None
+    local = tfm.shard_config(cfg, layout.size("tensor"))
+    specs = dict(tfm.tree_items(tfm.param_pspecs(cfg)))
+    sync_axes = {p: [ranks[a] for a in grad_sync_axes(sp)]
+                 for p, sp in specs.items()}
+    # the axes that split a leaf, by which its squares are summed once
+    norm_axes = {p: tuple(a for a in ranks.layout.names
+                          if a in tfm.spec_axes(sp))
+                 for p, sp in specs.items()}
+
+    def step(params, opt: AdamState, batch):
+        leaves = dict(tfm.tree_items(params))
+        if any(not t.requires_grad for t in leaves.values()):
+            raise ValueError("the train step updates a trainable tree: "
+                             "pass params.trainable()")
+        tokens = torch.as_tensor(batch["tokens"]).long()
+        labels = torch.as_tensor(batch["labels"]).long()
+        M, mbg, T = tokens.shape
+        if mbg % dp:
+            raise ValueError(f"{mbg} sequences a micro-batch do not split "
+                             f"over dp={dp}")
+        cnt = float((labels >= 0).sum())
+        rows = slice(d * mbg // dp, (d + 1) * mbg // dp)
+        tokens, labels = tokens[:, rows].to(dev), labels[:, rows].to(dev)
+        for t in leaves.values():
+            t.grad = None
+        shape = tuple(tokens.shape[1:]) + (cfg.d_model,)
+        dtype = getattr(torch, cfg.dtype)
+        weights = _stage_params(params["stages"], 0)
+        xs, ys, auxes = [], [], []
+        # the GPipe schedule: stage s takes micro-batch t - s at tick t;
+        # its input hops from stage s-1, its output on to stage s+1
+        for t in range(M + S - 1):
+            mi = t - s
+            if not 0 <= mi < M:
+                continue
+            if s == 0:
+                x = tfm.embed_apply(cfg, params, tokens[mi], tp)
+                if batch.get("embeds") is not None:
+                    emb = torch.as_tensor(batch["embeds"])[mi, rows]
+                    emb = emb.to(device=dev, dtype=x.dtype)
+                    x = torch.cat([emb, x[:, emb.shape[1]:]], dim=1)
+            else:
+                x = torch.empty(shape, dtype=dtype, device=dev)
+                coll.exchange(recv=(x, stage.peer(-1)))
+                x.requires_grad_(True)
+            y, a = tfm.stage_forward_train(local, weights, x,
+                                           enc_width=enc_width, stage=s,
+                                           tp=tp)
+            if s < S - 1:
+                coll.exchange(send=(y.detach(), stage.peer(1)))
+            xs.append(x)
+            ys.append(y)
+            auxes.append(a)
+        # the loss, micro-batch by micro-batch, on every (stage, tensor)
+        nll = torch.zeros((), dtype=torch.float32, device=dev)
+        dys: List[Optional[torch.Tensor]] = [None] * M
+        for mi in range(M):
+            hn = None
+            if s == S - 1:
+                yd = ys[mi].detach().requires_grad_(True)
+                fn = dict(params["final_norm"].items())
+                hn = apply_norm(yd, fn, "layernorm" if "b" in fn
+                                else "rmsnorm", cfg.norm_eps)
+            n, g = _rank_loss(params, hn, shape, labels[mi], cnt, ranks,
+                              dev)
+            nll = nll + n
+            if s == S - 1:
+                hn.backward(g.to(hn.dtype))
+                dys[mi] = yd.grad
+        # the reverse schedule: dL/dy from stage s+1, backward through the
+        # stage's micro-batch, dL/dx on to stage s-1
+        coef = aux_coef / dp
+        for mi in reversed(range(M)):
+            dy = dys[mi]
+            if dy is None:
+                dy = torch.empty(shape, dtype=dtype, device=dev)
+                coll.exchange(recv=(dy, stage.peer(1)))
+            outs, grads = [ys[mi]], [dy]
+            if auxes[mi].requires_grad and coef:
+                outs.append(auxes[mi])
+                grads.append(torch.full((), coef, device=dev))
+            torch.autograd.backward(outs, grads)
+            if s > 0:
+                coll.exchange(send=(xs[mi].grad, stage.peer(-1)))
+        del xs, ys, dys
+        aux = torch.stack([a.detach() for a in auxes]).sum() if auxes \
+            else torch.zeros((), device=dev)
+        coll.all_reduce(nll, ranks["data"], kind="metrics")
+        for ax in (stage, ranks["data"]):
+            coll.all_reduce(aux, ax, kind="metrics")
+        loss = nll / max(cnt, 1.0)
+        aux = aux / dp
+        total = loss + aux_coef * aux
+
+        grads = {}
+        for path, t in leaves.items():
+            g = t.grad if t.grad is not None else torch.zeros_like(t)
+            t.grad = None
+            grads[path] = compressed_psum(g, grad_compression,
+                                          sync_axes[path])
+        by_axes: Dict[Tuple[str, ...], torch.Tensor] = {}
+        for path, g in grads.items():
+            key = norm_axes[path]
+            sq = torch.sum(torch.square(g))
+            by_axes[key] = by_axes[key] + sq if key in by_axes else sq
+        gsq = torch.zeros((), dtype=torch.float32, device=dev)
+        for key, sq in sorted(by_axes.items()):
+            for a in key:
+                coll.all_reduce(sq, ranks[a], kind="metrics")
+            gsq = gsq + sq
+        gnorm = torch.sqrt(gsq)
+        params, opt, _ = adam_update(adam, _unflatten(grads, params),
+                                     params, opt, gnorm=gnorm)
+        return params, opt, {"loss": loss, "aux": aux, "total": total,
+                             "gnorm": gnorm}
+
+    return step
+
+
+def _unflatten(flat: Dict[str, torch.Tensor], like) -> Dict:
+    """`flat` (path -> tensor, `tree_items` paths) as `like`'s nesting."""
+    def walk(t, prefix):
+        return {k: (walk(t[k], f"{prefix}/{k}" if prefix else k)
+                    if tfm.is_node(t[k]) else
+                    flat[f"{prefix}/{k}" if prefix else k])
+                for k in t.keys()}
+    return walk(like, "")
 
 
 # ----------------------------------------------------------------------------
@@ -301,5 +517,142 @@ def build_serve_tick(cfg: ArchConfig, dims: ServeDims, *,
                 else samples[0]
             logits = tfm.head_apply(cfg, params, h_last).float()
         return caches, logits
+
+    return tick
+
+
+# ----------------------------------------------------------------------------
+# Serving across ranks: one stage a rank
+# ----------------------------------------------------------------------------
+
+def init_rank_carry(cfg: ArchConfig, dims: ServeDims, ranks,
+                    dtype: torch.dtype, device: torch.device | str
+                    ) -> Optional[Dict[str, torch.Tensor]]:
+    """A rank's activation carry: what stage s-1 handed it on the last
+    tick, ``xp`` [Sp, W, d] and ``xd`` [Sd, 1, d] at the full dims, and
+    ``buf``, one flat buffer the hop lands in; None on stage 0."""
+    if ranks.index("stage") == 0:
+        return None
+    d, W = cfg.d_model, dims.prefill_width
+    return {"xp": torch.zeros((dims.Sp, W, d), dtype=dtype, device=device),
+            "xd": torch.zeros((dims.Sd, 1, d), dtype=dtype, device=device),
+            "buf": torch.zeros((dims.Sp * W + dims.Sd) * d, dtype=dtype,
+                               device=device)}
+
+
+def vocab_argmax(scores: torch.Tensor, offset: int, axes) -> torch.Tensor:
+    """The first index of the largest score over the vocab split across
+    `axes`: scores [rows, Vs] is this rank's slice, starting at global
+    column `offset`.  Each axis gathers every slice's (max, index) pairs
+    and keeps the larger, the lower index on a tie: ``torch.argmax`` of
+    the whole row."""
+    v, i = torch.max(scores, dim=-1)
+    v, i = v.double(), (i + offset).double()
+    for ax in axes:
+        if ax is None or ax.size == 1:
+            continue
+        parts = torch.stack(coll.all_gather(torch.stack([v, i], dim=-1), ax,
+                                            kind="head"))
+        v = parts[..., 0].max(dim=0).values
+        i = torch.where(parts[..., 0] == v, parts[..., 1],
+                        torch.full_like(parts[..., 1], float("inf"))
+                        ).min(dim=0).values
+    return i.to(torch.int32)
+
+
+def build_rank_serve_tick(cfg: ArchConfig, dims: ServeDims, ranks, *,
+                          carry_dims: Optional[ServeDims] = None,
+                          dtype: Optional[torch.dtype] = None):
+    """One rank's part of the serve tick of `build_serve_tick`: returns
+    tick_fn(params, caches, meta, carry, temps=None, gen=None) -> (caches,
+    tokens), on every rank the same int32 [Sp+Sd] tokens of the micro-batch
+    exiting the ring.
+
+    `params` is the rank's shard, `caches` its stage's pools at its KV
+    heads (`serve.init_caches` of `shard_config`), `carry` its
+    `init_rank_carry`; `meta` as `build_serve_tick`'s, every stage's entry
+    (each rank reads its own).  Stage 0 embeds the entering rows (the
+    width gathered over `tensor`); every stage applies its layers to its
+    micro-batch (its tensor group reducing the row-parallel products); the
+    outputs hop one stage on (stage s-1's arrive in `carry` for the next
+    tick); the last stage's sample rows are broadcast over the stage
+    group, every (stage, tensor) rank takes its vocab slice of the logits,
+    and `vocab_argmax` combines the slices: greedy rows get the whole
+    row's argmax; rows with ``temps`` > 0 an exact draw from
+    softmax(logits / T) by Gumbel-max (each slice's noise from `gen`, a
+    generator seeded per rank), a different draw from the one-device
+    engine's ``multinomial``."""
+    full = carry_dims or dims
+    if (dims.pages, dims.page, dims.slots, dims.Te) != \
+            (full.pages, full.page, full.slots, full.Te) or \
+            dims.Sp > full.Sp or dims.C > full.C or dims.Sd > full.Sd:
+        raise ValueError(f"bucket {dims} does not fit the full dims {full}")
+    dtype = dtype or getattr(torch, cfg.dtype)
+    Sp, Sd, C, W = dims.Sp, dims.Sd, dims.C, dims.prefill_width
+    S, s = ranks.size("stage"), ranks.index("stage")
+    stage, tensor = ranks["stage"], ranks["tensor"]
+    tp = tensor if tensor.size > 1 else None
+    local = tfm.shard_config(cfg, tensor.size)
+    d = cfg.d_model
+    rows = Sp + Sd
+
+    def tick(params, caches, meta: Mapping[str, torch.Tensor],
+             carry: Optional[Dict[str, torch.Tensor]] = None,
+             temps: Optional[torch.Tensor] = None,
+             gen: Optional[torch.Generator] = None):
+        m = meta if S == 1 else {k: v if k in TOKEN_FIELDS else v[s]
+                                 for k, v in meta.items()}
+        if s == 0:
+            tok = params["embed"]["tok"]
+            xp = coll.gather_from_tensor(tok[meta["p_tok"][:Sp, :C]],
+                                         tp).to(dtype)
+            if dims.Te:
+                xp = torch.cat([meta["p_enc"][:Sp].to(dtype), xp], dim=1)
+            xd = coll.gather_from_tensor(tok[meta["d_tok"][:Sd]],
+                                         tp).to(dtype)[:, None]
+        else:
+            xp = carry["xp"][:Sp, :W]
+            xd = carry["xd"][:Sd]
+        xp2, xd2, caches = serve_lib.stage_forward_serve(
+            local, params["stages"], caches, xp, xd, m, dims, stage=s,
+            index=0, tp=tp)
+        if S > 1:                       # the hop: JAX's ppermute
+            n = Sp * W * d
+            send = recv = None
+            if s < S - 1:
+                send = (torch.cat([xp2.reshape(-1), xd2.reshape(-1)]),
+                        stage.peer(1))
+            if s > 0:
+                recv = (carry["buf"][:n + Sd * d], stage.peer(-1))
+            coll.exchange(send, recv, kind="hop")
+            if s > 0:
+                carry["xp"][:Sp, :W].copy_(carry["buf"][:n].view(Sp, W, d))
+                carry["xd"][:Sd].copy_(
+                    carry["buf"][n:n + Sd * d].view(Sd, 1, d))
+        if s == S - 1:
+            samples = []
+            if Sp:
+                idx = dims.Te + torch.clamp(m["p_chunk_lens"] - 1, min=0)
+                samples.append(xp2[torch.arange(Sp, device=xp2.device),
+                                   idx.long()])
+            if Sd:
+                samples.append(xd2[:, 0, :])
+            h = torch.cat(samples, dim=0) if len(samples) > 1 \
+                else samples[0]
+        else:
+            h = torch.empty((rows, d), dtype=dtype, device=xp2.device)
+        coll.broadcast(h, stage, S - 1, kind="head")
+        scores = tfm.head_apply(cfg, params, h).float()      # [rows, Vs]
+        vs = scores.shape[-1]
+        if temps is not None:
+            u = torch.rand(scores.shape, generator=gen,
+                           device=scores.device).clamp_(min=1e-20)
+            hot = temps > 0.0
+            scaled = scores / torch.clamp(temps, min=1e-3)[:, None] \
+                - torch.log(-torch.log(u))
+            scores = torch.where(hot[:, None], scaled, scores)
+        tokens = vocab_argmax(
+            scores, (s * tensor.size + tensor.index) * vs, (tensor, stage))
+        return caches, tokens
 
     return tick

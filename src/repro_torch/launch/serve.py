@@ -214,6 +214,120 @@ def build_engine(arch: str = "qwen1.5-0.5b", *, reduced: bool = False,
                           cuda_graphs=cuda_graphs)
 
 
+# ----------------------------------------------------------------------------
+# Serving across ranks
+# ----------------------------------------------------------------------------
+
+def rank_params(cfg, ranks, *, dtype: torch.dtype, device,
+                seed: int = 0, npz: Optional[str] = None):
+    """The rank's shard: drawn from `seed` as `init_params` draws the whole
+    tree (`init_params(layout=)`), or cut from the numpy tree saved at
+    `npz` (``/``-joined paths, `convert.shard_from_numpy`)."""
+    if npz is None:
+        return init_params(cfg, seed, dtype=dtype, device=device,
+                           layout=ranks.layout, rank=ranks.rank)
+    from repro_torch.models.convert import shard_from_numpy
+    with np.load(npz) as f:
+        tree: dict = {}
+        for path in f.files:
+            node = tree
+            *heads, leaf = path.split("/")
+            for h in heads:
+                node = node.setdefault(h, {})
+            node[leaf] = f[path]
+    return shard_from_numpy(cfg, tree, ranks.layout, ranks.rank,
+                            device=device, dtype=dtype)
+
+
+def serve_rank(ranks, job: dict) -> dict:
+    """One rank of a served batch (`launch.ranks.spawn`'s `fn`).  `job`:
+    ``cfg`` (staged at pp = the layout's stages), ``dims``, ``throttle``,
+    ``prompts``, ``max_new``, optional ``temps`` (one per prompt),
+    ``device`` ("cuda" or "cpu"), ``dtype``, ``seed`` or ``npz``,
+    ``bucketed``.  Rank 0 drives a `PipelineEngine(ranks=)` over the batch
+    and returns the tokens, the entering batch of every tick (each prefill
+    row's request, start and length; each decode row's request), the
+    engine's stats, its rank stats, the kernels' launches (counted from 0
+    after warm-up), its peak memory and the wall time; every other rank
+    serves in `RankBackend.serve_loop` and returns its rank stats,
+    launches and peak memory.  Every rank also returns the seconds its
+    shard took to draw (rank 0: and its engine to build, warm-up
+    included)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import rank_device
+    from repro_torch.runtime.engine import RankBackend
+
+    cfg, dims = job["cfg"], job["dims"]
+    dtype = getattr(torch, job.get("dtype", cfg.dtype))
+    cuda = job.get("device", "cuda") == "cuda"
+    dev = torch.device(rank_device(
+        ranks.rank, "cuda" if cuda else "cpu",
+        torch.cuda.device_count() if cuda else 0))
+    if cuda:
+        torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    params = rank_params(cfg, ranks, dtype=dtype, device=dev,
+                         seed=job.get("seed", 0), npz=job.get("npz"))
+    params_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in params.parameters())
+
+    def counts() -> dict:
+        return {m.__name__.split(".")[-1]: m.launches for m in ops.COUNTED}
+
+    out = {"rank": ranks.rank, "coords": ranks.coords,
+           "weight_bytes": weight_bytes, "params_s": params_s}
+    if ranks.rank != 0:
+        backend = RankBackend(cfg, dims, params, None, device=dev,
+                              dtype=dtype, seed=job.get("seed", 0),
+                              bucketed=job.get("bucketed", False),
+                              ranks=ranks)
+        st = backend.serve_loop()
+    else:
+        t0 = time.perf_counter()
+        eng = PipelineEngine(cfg, dims, params, job["throttle"], device=dev,
+                             dtype=dtype, seed=job.get("seed", 0),
+                             bucketed=job.get("bucketed", False),
+                             cuda_graphs=False, ranks=ranks)
+        out["engine_s"] = time.perf_counter() - t0
+        backend = eng.backend
+        ticks = []
+        inner = backend.execute
+
+        def execute(ring, exiting_id, now):
+            b = (eng.scheduler.get_batch(ring[0][0])
+                 if ring[0][0] is not None else None)
+            ticks.append(None if b is None else [
+                [[q.request.request_id, q.start_pos, q.num_tokens]
+                 for q in b.prefill],
+                [q.request.request_id for q in b.decode]])
+            return inner(ring, exiting_id, now)
+
+        backend.execute = execute
+        backend.reset_counters()
+        temps = job.get("temps") or [0.0] * len(job["prompts"])
+        t0 = time.perf_counter()
+        reqs = [eng.add_request(p, SamplingParams(
+                    max_new_tokens=job["max_new"], temperature=t),
+                    request_id=f"r{i}")
+                for i, (p, t) in enumerate(zip(job["prompts"], temps))]
+        try:
+            eng.drain(max_ticks=job.get("max_ticks", 100000))
+        finally:
+            backend.stop()
+        if cuda:
+            torch.cuda.synchronize(dev)
+        st = backend.rank_stats
+        out.update(tokens=[r.output_token_ids for r in reqs],
+                   finished=[r.is_finished for r in reqs], ticks=ticks,
+                   wall_s=time.perf_counter() - t0,
+                   stats=dataclasses.asdict(eng.stats))
+    out.update(rank_stats=st.as_dict(), launches=counts(),
+               peak_bytes=(torch.cuda.max_memory_allocated(dev) if cuda
+                           else None))
+    return out
+
+
 def add_cut_argument(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--cut", default=None,
                     help="comma-separated block kinds (e.g. "
@@ -225,8 +339,9 @@ def add_engine_arguments(ap: argparse.ArgumentParser) -> None:
     """`--bucketed`, `--async`, `--eager` and `--pp`, `build_engine`'s
     options."""
     ap.add_argument("--pp", type=int, default=1,
-                    help="pipeline stages on the one card (micro-batches "
-                    "in flight; Token Throttling at that depth)")
+                    help="pipeline stages (micro-batches in flight; Token "
+                    "Throttling at that depth): one process each with a "
+                    "card each or with --tp, else a ring on one device")
     ap.add_argument("--bucketed", action="store_true",
                     help="serve the bucket ladder (each tick in the "
                     "smallest shape that covers it)")
@@ -236,6 +351,94 @@ def add_engine_arguments(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--eager", dest="cuda_graphs", action="store_false",
                     help="on CUDA, run every tick eagerly instead of "
                     "replaying one CUDA graph per bucket")
+
+
+def add_rank_arguments(ap: argparse.ArgumentParser) -> None:
+    """`--tp`, `--backend` and `--store`: a layout of processes
+    (`launch.ranks`), one a stage and tensor shard (`mesh.use_ranks`)."""
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks a stage (one process each)")
+    ap.add_argument("--backend", default=None, choices=["gloo", "nccl"],
+                    help="the process group's backend (default: nccl when "
+                    "every rank has a card of its own, else gloo)")
+    ap.add_argument("--store", default=None, metavar="DIR",
+                    help="the ranks' FileStore directory (default: a fresh "
+                    "temporary one)")
+
+
+def ranks_asked(args, dp: int = 1) -> bool:
+    """`mesh.use_ranks` for the launcher's flags: processes at tp or dp >
+    1, or at pp > 1 with a card a stage."""
+    from repro_torch.launch.mesh import use_ranks
+
+    cuda = (args.device or "cuda") != "cpu"
+    return use_ranks(dp, args.pp, args.tp, "cuda" if cuda else "cpu",
+                     torch.cuda.device_count() if cuda else 0)
+
+
+def rank_launch(fn, layout, job: dict, args) -> list:
+    """Run ``fn(ranks, job)`` on every rank of `layout`: under torchrun
+    (``RANK`` set) as this process's rank, whose result alone is returned
+    (None on the other ranks), else one spawned process a rank."""
+    import os
+
+    from repro_torch.launch import ranks as rk
+    from repro_torch.launch.mesh import choose_backend
+
+    cuda = job["device"] == "cuda"
+    backend = choose_backend(layout.world, "cuda" if cuda else "cpu",
+                             torch.cuda.device_count() if cuda else 0,
+                             args.backend)
+    if "RANK" in os.environ:
+        import torch.distributed as dist
+        ranks = rk.from_env(layout, backend)
+        try:
+            out = fn(ranks, job)
+        finally:
+            dist.destroy_process_group()
+        return [out] if ranks.rank == 0 else None
+    return rk.spawn(fn, layout, (job,), backend=backend,
+                    store_dir=args.store,
+                    threads=None if cuda else 1)
+
+
+def _serve_ranks(args) -> None:
+    """The launcher's workload over pp x tp ranks (`serve_rank`)."""
+    from repro_torch.launch.mesh import rank_layout
+
+    if args.spec or args.http is not None or args.replicas > 1 or \
+            args.trace_out or args.async_dispatch:
+        raise SystemExit("serving over ranks runs the launcher's synthetic "
+                         "workload on one engine, eager and sync")
+    dev = resolve_device(args.device)
+    dtype = getattr(torch, args.dtype) if args.dtype else None
+    cfg, dtype = serve_config(args.arch, reduced=args.reduced, dtype=dtype,
+                              cut=parse_cut(args.cut), pp=args.pp)
+    cfg = cfg.with_plan(tp=args.tp)
+    dims = serve_dims(cfg, args.reduced)
+    throttle = ThrottleConfig(pipeline_depth=args.pp, **(
+        REDUCED_THROTTLE if args.reduced else {}))
+    rng = np.random.default_rng(args.seed)
+    prompts = [[int(t) for t in rng.integers(
+        0, cfg.vocab_size, int(np.clip(rng.lognormal(3.0, 0.8), 4, 300)))]
+        for _ in range(args.requests)]
+    layout = rank_layout(1, args.pp, args.tp)
+    job = dict(cfg=cfg, dims=dims, throttle=throttle, prompts=prompts,
+               max_new=args.max_new, device=dev.type,
+               dtype=str(dtype).split(".")[-1], seed=args.seed,
+               bucketed=args.bucketed)
+    out = rank_launch(serve_rank, layout, job, args)
+    if out is None:
+        return
+    head = out[0]
+    done = sum(head["finished"])
+    toks = sum(len(t) for t in head["tokens"])
+    print(f"[{cfg.name} | {dev.type} {cfg.dtype}] {done}/{len(prompts)} "
+          f"requests, {toks} tokens in {head['wall_s']:.2f}s; "
+          f"ticks={head['stats']['ticks']} ranks={layout.world} "
+          f"(pp={args.pp} tp={args.tp})")
+    if done != len(prompts):
+        raise SystemExit("not every request finished")
 
 
 def parse_cut(text: Optional[str]) -> Optional[list]:
@@ -281,6 +484,7 @@ def main() -> None:
     ap.add_argument("--dtype", default=None, choices=["float32", "bfloat16"])
     add_cut_argument(ap)
     add_engine_arguments(ap)
+    add_rank_arguments(ap)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--replicas", type=int, default=1,
                     help="data-parallel engine replicas behind the router "
@@ -313,6 +517,9 @@ def main() -> None:
                     help="serve the spec over HTTP on PORT (0 = ephemeral) "
                     "instead of running the synthetic workload")
     args = ap.parse_args()
+    if ranks_asked(args):
+        _serve_ranks(args)
+        return
 
     from repro_torch.serving import ServeSpec, TraceSpec, build
 

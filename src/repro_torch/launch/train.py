@@ -4,6 +4,13 @@ step with Adam on one device, async checkpointing and restart.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
         --full --seq 4096 --steps 30 [--ckpt DIR --resume] [--pp 4]
 
+``--dp D --tp T`` trains over D x pp x T processes (`train_rank`,
+`launch.ranks`; gloo on the CPU and on a shared card), and so does
+``--pp`` alone when every stage has a card of its own (`mesh.use_ranks`):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --steps 4 --dp 2 --pp 2 --tp 2
+
 Without ``--full`` it trains the reduced f32 config (``--device cpu`` runs
 it on the CPU, through the kernels' plain versions); with it, the published
 config in its dtype, folded to one stage (`configs.single_stage`) or staged
@@ -29,7 +36,13 @@ import torch
 from repro_torch.data.tokens import batches
 from repro_torch.distributed.optimizer import AdamConfig, adam_init
 from repro_torch.distributed.pipeline import build_train_step
-from repro_torch.launch.serve import build_params, serve_config
+from repro_torch.launch.serve import (
+    add_rank_arguments,
+    build_params,
+    rank_launch,
+    ranks_asked,
+    serve_config,
+)
 from repro_torch.models.transformer import abstract_params
 from repro_torch.runtime.checkpoint import (
     AsyncCheckpointer,
@@ -93,6 +106,91 @@ def train(cfg, *, steps: int, seq: int, lr: float = 1e-3,
     return out
 
 
+def train_rank(ranks, job: dict) -> dict:
+    """One rank of a training run (`launch.ranks.spawn`'s `fn`).  `job`:
+    ``cfg`` (at pp = the layout's stages), ``steps``, ``batches`` (a list
+    of batches, taken in turn) or ``seq`` (then `data.tokens.batches` of
+    ``M`` micro-batches of ``mbg`` sequences), ``lr``, optional
+    ``grad_compression``, ``aux_coef``, ``device``, ``dtype``, ``seed`` or
+    ``npz`` (`launch.serve.rank_params`), ``keep`` (a step count: return
+    the shard's leaves after that many steps, as numpy).  Returns the
+    per-step loss, gnorm and seconds, the seconds the shard took to
+    draw, the traffic and peak memory."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.mesh import rank_device
+    from repro_torch.launch.serve import rank_params
+    from repro_torch.models.transformer import tree_items
+
+    cfg = job["cfg"]
+    dtype = getattr(torch, job.get("dtype", cfg.dtype))
+    cuda = job.get("device", "cuda") == "cuda"
+    dev = torch.device(rank_device(
+        ranks.rank, "cuda" if cuda else "cpu",
+        torch.cuda.device_count() if cuda else 0))
+    if cuda:
+        torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    params = rank_params(cfg, ranks, dtype=dtype, device=dev,
+                         seed=job.get("seed", 0),
+                         npz=job.get("npz")).trainable()
+    params_s = time.perf_counter() - t0
+    opt = adam_init(params)
+    step = build_train_step(
+        cfg, adam=AdamConfig(lr=job.get("lr", 1e-3)),
+        aux_coef=job.get("aux_coef", 0.01),
+        grad_compression=job.get("grad_compression"), device=dev,
+        ranks=ranks)
+    data = iter(job["batches"]) if "batches" in job else batches(
+        cfg.vocab_size, job.get("M", M), job.get("mbg", 2), job["seq"],
+        seed=0)
+    coll.TRAFFIC.reset()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = {"rank": ranks.rank, "coords": ranks.coords, "loss": [],
+           "gnorm": [], "step_s": [], "params_s": params_s}
+    for i in range(job["steps"]):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, next(data))
+        out["loss"].append(float(m["loss"]))
+        out["gnorm"].append(float(m["gnorm"]))
+        out["step_s"].append(time.perf_counter() - t0)
+        if job.get("keep") == i + 1:
+            out["params"] = {k: t.detach().float().cpu().numpy().copy()
+                             for k, t in tree_items(params)}
+    out["traffic"] = coll.TRAFFIC.snapshot()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda \
+        else None
+    out["weight_bytes"] = sum(t.numel() * t.element_size()
+                              for t in params.parameters())
+    return out
+
+
+def _train_ranks(cfg, args) -> Optional[dict]:
+    """The launcher's run over dp x pp x tp ranks (`train_rank`): M = 2
+    micro-batches of dp sequences a step, one a data rank."""
+    from repro_torch.launch.mesh import rank_layout
+
+    if args.ckpt or args.resume:
+        raise SystemExit("checkpoints at more than one rank are not yet "
+                         "ported (ROADMAP Queue 1 item 6.6)")
+    dev = resolve_device(args.device)
+    cfg = cfg.with_plan(tp=args.tp)
+    layout = rank_layout(args.dp, args.pp, args.tp)
+    job = dict(cfg=cfg, steps=args.steps, seq=args.seq, M=M, mbg=args.dp,
+               lr=args.lr, grad_compression=args.grad_compression,
+               device=dev.type)
+    out = rank_launch(train_rank, layout, job, args)
+    if out is None:
+        return None
+    head = out[0]
+    for i, (loss, gnorm) in enumerate(zip(head["loss"], head["gnorm"])):
+        if i % 10 == 0 or i == args.steps - 1:
+            print(f"step {i:4d} loss={loss:.4f} gnorm={gnorm:.3f}")
+    print(f"[{cfg.name} | {dev.type} {cfg.dtype}] ranks={layout.world} "
+          f"(dp={args.dp} pp={args.pp} tp={args.tp})", flush=True)
+    return head
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen1.5-0.5b")
@@ -108,11 +206,17 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     help="the published config in its dtype (default: the "
                     "reduced f32 config)")
     ap.add_argument("--pp", type=int, default=1,
-                    help="pipeline stages on the one device")
+                    help="pipeline stages: one process each with a card "
+                    "each or with --tp / --dp, else on the one device")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel ranks (one process each)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    add_rank_arguments(ap)
     args = ap.parse_args(argv)
     cfg, _ = serve_config(args.arch, reduced=not args.full, pp=args.pp)
+    if ranks_asked(args, args.dp):
+        return _train_ranks(cfg, args)
     return train(cfg, steps=args.steps, seq=args.seq, lr=args.lr,
                  ckpt=args.ckpt, ckpt_every=args.ckpt_every,
                  resume=args.resume, grad_compression=args.grad_compression,

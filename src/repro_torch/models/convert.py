@@ -46,3 +46,16 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any], *,
         return out
 
     return TransformerParams(walk(defs, tree, ""))
+
+
+def shard_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any], layout,
+                     rank: int, *, device: torch.device | str = "cpu",
+                     dtype: Optional[torch.dtype] = None
+                     ) -> TransformerParams:
+    """`params_from_numpy` of the whole tree, then rank `rank`'s shard of
+    it over `layout` (`transformer.shard_params`): carries the JAX
+    package's ``init_params`` tree onto every rank."""
+    from repro_torch.models.transformer import shard_params
+
+    full = params_from_numpy(cfg, tree, dtype=dtype)
+    return shard_params(cfg, full, layout, rank, device=device)

@@ -13,6 +13,8 @@ from typing import Mapping, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as coll
+
 
 def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     dt = x.dtype
@@ -118,7 +120,19 @@ def gelu_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 
 def mlp_apply(x: torch.Tensor, p: Mapping[str, torch.Tensor],
-              act: str) -> torch.Tensor:
+              act: str, tp=None) -> torch.Tensor:
+    """The block's MLP.  At a tensor rank `tp` (a `launch.mesh.AxisGroup`
+    of more than one rank) the rank holds the columns of the first
+    products and the rows of the last: its partial sum is reduced over the
+    group (`collectives.reduce_from_tensor`), then the replicated output
+    bias added."""
+    if tp is None or tp.size == 1:
+        if act == "gelu":
+            return gelu_mlp(x, p["w1"], p["b1"], p["w2"], p["b2"])
+        return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+    x = coll.copy_to_tensor(x, tp)
     if act == "gelu":
-        return gelu_mlp(x, p["w1"], p["b1"], p["w2"], p["b2"])
-    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+        y = F.gelu(x @ p["w1"] + p["b1"], approximate="tanh") @ p["w2"]
+        return coll.reduce_from_tensor(y, tp) + p["b2"]
+    return coll.reduce_from_tensor(
+        swiglu(x, p["w_gate"], p["w_up"], p["w_down"]), tp)

@@ -58,12 +58,14 @@ from repro_torch.models.layers import (
     rope_tables,
     rotate,
 )
+from repro_torch.distributed import collectives as coll
 from repro_torch.models.transformer import (
     ENC_DEC_KINDS,
     MAMBA_KINDS,
     MOE_KINDS,
     _block_key,
     _heads,
+    _tp_kind,
     cross_attend,
     cross_kv,
 )
@@ -384,17 +386,33 @@ def _phase_rows(meta: Mapping[str, torch.Tensor], is_prefill: bool):
 
 def _paged_self_attention(cfg: ArchConfig, p, xs: torch.Tensor,
                           cache: torch.Tensor, meta: Mapping[str, torch.Tensor],
-                          is_prefill: bool) -> torch.Tensor:
+                          is_prefill: bool, tp=None) -> torch.Tensor:
     """Project, write pages (in place), attend.  Returns the attention
-    output."""
+    output; at a tensor rank `tp` (the heads, the pool's KV heads and the
+    out-projection's rows the rank's) the rank's partial sum of it, which
+    the caller reduces over the group (`_reduce_rows`)."""
     positions, tables, ctx, pages, offs, rope = _phase_rows(meta,
                                                             is_prefill)
 
-    q, k, v = _qkv_rows(cfg, p, xs, rope)
+    q, k, v = _qkv_rows(cfg, p, coll.copy_to_tensor(xs, tp), rope)
     new_kv = torch.stack([k, v], dim=2)                   # [S, T, 2, KH, hd]
     attn.write_kv_pages(cache, new_kv, pages, offs)
     o = attn.paged_attention(q, cache, tables, ctx, positions)
     return o.reshape(o.shape[:-2] + (-1,)) @ p["wo"]
+
+
+def _reduce_rows(tp, *parts: torch.Tensor):
+    """`parts` summed over the tensor group in one all-reduce (the
+    prefill and decode phases' partial attention outputs of a layer)."""
+    if tp is None:
+        return parts
+    flat = coll.reduce_from_tensor(
+        torch.cat([t.reshape(-1) for t in parts]), tp)
+    out, off = [], 0
+    for t in parts:
+        out.append(flat[off:off + t.numel()].view(t.shape))
+        off += t.numel()
+    return out
 
 
 def _paged_mla_attention(cfg: ArchConfig, p, xs: torch.Tensor,
@@ -511,7 +529,7 @@ def block_apply_serve(cfg: ArchConfig, kind: BlockKind, p,
                       xp: torch.Tensor, xd: torch.Tensor,
                       cache: Optional[Dict[str, torch.Tensor]],
                       meta: Mapping[str, torch.Tensor], dims: ServeDims,
-                      enc_h: Optional[torch.Tensor] = None):
+                      enc_h: Optional[torch.Tensor] = None, tp=None):
     """One block over the stage's micro-batch: xp [Sp, W, d] prefill
     payload (W = Te + C for whisper, C otherwise), xd [Sd, 1, d] decode
     rows.  Both phases run whenever their bucket is non-empty
@@ -521,7 +539,10 @@ def block_apply_serve(cfg: ArchConfig, kind: BlockKind, p,
     snapshots.
     The MoE FFN routes only the live rows (``meta["row_valid"]``, see
     `stage_forward_serve`): padding rows consume no expert capacity.
+    `tp`: an ATTN_MLP block at a tensor rank (`_paged_self_attention`,
+    `layers.mlp_apply`); any other kind there raises.
     Returns (xp, xd, cache); the cache is updated in place."""
+    _tp_kind(kind, tp)
     if kind == BlockKind.RWKV:
         if dims.Sp:
             xp = _rwkv_serve(cfg, p, xp, cache, meta, "p")
@@ -549,10 +570,21 @@ def block_apply_serve(cfg: ArchConfig, kind: BlockKind, p,
     else:
         mixer = (_paged_mla_attention if kind == BlockKind.MLA_MLP
                  else _paged_self_attention)
+        if tp is not None and tp.size == 1:
+            tp = None
+        kw = {} if tp is None else {"tp": tp}
+        outs = []
         if Sp:
-            xp = xp + mixer(cfg, p, norm("ln1", xp), cache["kv"], meta, True)
+            outs.append(mixer(cfg, p, norm("ln1", xp), cache["kv"], meta,
+                              True, **kw))
         if Sd:
-            xd = xd + mixer(cfg, p, norm("ln1", xd), cache["kv"], meta, False)
+            outs.append(mixer(cfg, p, norm("ln1", xd), cache["kv"], meta,
+                              False, **kw))
+        outs = list(_reduce_rows(tp, *outs))
+        if Sp:
+            xp = xp + outs.pop(0)
+        if Sd:
+            xd = xd + outs.pop(0)
 
     # ffn over all rows (flattened)
     parts = []
@@ -566,7 +598,7 @@ def block_apply_serve(cfg: ArchConfig, kind: BlockKind, p,
                                  capacity_factor=cfg.moe_capacity_factor,
                                  row_valid=meta["row_valid"])
     else:
-        y = mlp_apply(flat, p, cfg.act)
+        y = mlp_apply(flat, p, cfg.act, tp)
     n = Sp * xp.shape[1] if Sp else 0
     if Sp:
         xp = xp + y[:n].reshape(xp.shape)
@@ -585,11 +617,14 @@ def _rope_for(cfg: ArchConfig, positions: torch.Tensor, dim: int):
 
 
 def stage_forward_serve(cfg: ArchConfig, stage_params, caches, xp, xd, meta,
-                        dims: ServeDims, *, stage: int = 0):
+                        dims: ServeDims, *, stage: int = 0,
+                        index: Optional[int] = None, tp=None):
     """Apply one stage's blocks to its micro-batch, a Python loop over the
     repeats.  `stage_params` leaves are ``[S, R, ...]``; layer ``(stage, r)``
-    uses the views ``p[stage, r]`` and ``cache[stage, r]``, the latter
-    updated in place.  Padded layers (global index >= num_layers) are the
+    uses the views ``p[i, r]`` and ``cache[i, r]``, the latter updated in
+    place, at ``i = index`` (a rank that holds only its stage's leaves and
+    caches passes 0), else ``i = stage``.  `tp`: the rank's tensor group
+    (`block_apply_serve`).  Padded layers (global index >= num_layers) are the
     identity, as the JAX mask makes them.  Returns (xp, xd, caches).
 
     The loop runs eagerly, one launch per op, so per-tick work that every
@@ -607,6 +642,7 @@ def stage_forward_serve(cfg: ArchConfig, stage_params, caches, xp, xd, meta,
     decode rows read the snapshot of the encoder group before it, gathered
     once for the group."""
     meta = dict(meta)
+    at = stage if index is None else index
     kinds = {bs.kind for bs in cfg.pattern}
     if kinds & set(PAGED_KINDS):
         dim = cfg.qk_rope_dim if cfg.mla else cfg.head_dim
@@ -637,13 +673,13 @@ def stage_forward_serve(cfg: ArchConfig, stage_params, caches, xp, xd, meta,
     enc_snapshot = None
     for i, bs in enumerate(cfg.pattern):
         key = _block_key(i, bs)
-        layers = {name: t[stage].unbind(0)
+        layers = {name: t[at].unbind(0)
                   for name, t in stage_params[key].items()}
         enc_h = None
         if bs.kind == BlockKind.ENC_LAYER:
             states = {}
         else:
-            states = {name: t[stage].unbind(0)
+            states = {name: t[at].unbind(0)
                       for name, t in caches[key].items()}
             if bs.kind == BlockKind.DEC_LAYER and dims.Sd:
                 enc_h = enc_snapshot[meta["d_state_slots"]]
@@ -653,10 +689,10 @@ def stage_forward_serve(cfg: ArchConfig, stage_params, caches, xp, xd, meta,
             pr = {name: views[r] for name, views in layers.items()}
             cr = {name: views[r] for name, views in states.items()}
             xp, xd, _ = block_apply_serve(cfg, bs.kind, pr, xp, xd, cr,
-                                          meta, dims, enc_h)
+                                          meta, dims, enc_h, tp)
         off += bs.repeat
         if bs.kind == BlockKind.ENC_LAYER:
-            enc_snapshot = caches[key]["h"][stage]
+            enc_snapshot = caches[key]["h"][at]
             if dims.Sp:
                 enc_snapshot[meta["p_write_slots"]] = xp[:, :dims.Te]
     return xp, xd, caches

@@ -21,7 +21,9 @@ blocks work on the two halves of one payload, the encoder stream first
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import itertools
 import math
 from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
@@ -29,7 +31,13 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig, BlockKind, BlockSpec
+from repro_torch.configs.base import (
+    ArchConfig,
+    BlockKind,
+    BlockSpec,
+    ParallelPlan,
+)
+from repro_torch.distributed import collectives as coll
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -199,6 +207,156 @@ def model_param_defs(cfg: ArchConfig) -> Dict[str, Dict[str, Any]]:
     return tree
 
 
+# ----------------------------------------------------------------------------
+# Sharding: which dims of each leaf are split over which mesh axes
+# ----------------------------------------------------------------------------
+
+Spec = Tuple[Any, ...]    # per dim: None, an axis name, or a tuple of names
+
+_COL, _ROW, _VEC = (None, "tensor"), ("tensor", None), ("tensor",)
+# JAX's specs by leaf name (`repro.models.transformer`'s ``_*_defs``):
+# column-parallel products split their output dim over `tensor`,
+# row-parallel ones their input dim; norms, mixing coefficients, the MLA
+# down-projections and the router are replicated
+_LEAF_SPECS: Dict[str, Spec] = {
+    **{k: _COL for k in ("wq", "wk", "wv", "w1", "w_gate", "w_up", "w_uq",
+                         "w_ukv", "s_gate", "s_up", "in_proj", "conv_w",
+                         "dt_proj", "w_r", "w_k", "w_v", "w_g", "cm_k")},
+    **{k: _ROW for k in ("wo", "w2", "w_down", "s_down", "x_proj", "A_log",
+                         "out_proj", "w_o", "cm_v")},
+    **{k: _VEC for k in ("bq", "bk", "bv", "b1", "conv_b", "dt_bias", "D")},
+}
+
+
+def _leaf_spec(cfg: ArchConfig, kind: BlockKind, name: str) -> Spec:
+    base = name[2:] if kind == BlockKind.DEC_LAYER and \
+        name.startswith("x_") else name
+    if kind in MOE_KINDS and base in ("w_gate", "w_up", "w_down"):
+        ep = "data" if cfg.plan.ep_over_data else None
+        return (ep,) + _LEAF_SPECS[base]
+    return _LEAF_SPECS.get(base, ())
+
+
+def param_pspecs(cfg: ArchConfig) -> Dict[str, Any]:
+    """Each leaf's split, as JAX's ``param_pspecs``: a tuple with one entry
+    per dim, None or the mesh axis (or tuple of axes, major first) that dim
+    is split over.  Stage leaves ``[S, R, ...]`` split S over `stage`; the
+    embedding splits d over `tensor`; the head splits the vocab over
+    ``(stage, tensor)``; whatever a leaf's spec does not name, it is
+    replicated over."""
+    defs = model_param_defs(cfg)
+    stages = {g: {k: ("stage", None) + _leaf_spec(cfg, bs.kind, k)
+                  for k in defs["stages"][g]}
+              for g, bs in zip(defs["stages"], cfg.pattern)}
+    tree: Dict[str, Any] = {
+        "embed": {"tok": (None, "tensor")},
+        "stages": stages,
+        "final_norm": {k: () for k in defs["final_norm"]},
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = {"w": (None, ("stage", "tensor"))}
+    return tree
+
+
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """The mesh axes a spec splits over."""
+    out = []
+    for e in spec:
+        for a in (e if isinstance(e, tuple) else (e,)):
+            if a is not None:
+                out.append(a)
+    return tuple(out)
+
+
+def shard_slices(spec: Spec, shape: Tuple[int, ...], layout,
+                 rank: int) -> Tuple[slice, ...]:
+    """Rank `rank`'s block of a leaf of `shape` split by `spec` over
+    `layout` (`launch.mesh.Layout`): a dim split over axes (a, b) has
+    ``size(a) * size(b)`` blocks, block ``i_a * size(b) + i_b`` on the rank
+    at ``(i_a, i_b)``.  Raises where a dim does not divide."""
+    coords = layout.coords(rank)
+    out = []
+    for n, e in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        parts, i = 1, 0
+        for a in (e if isinstance(e, tuple) else (e,)):
+            if a is not None:
+                parts, i = parts * layout.size(a), i * layout.size(a) + \
+                    coords.get(a, 0)
+        if n % parts:
+            raise ValueError(f"dim {n} does not split into {parts} over "
+                             f"{e}")
+        w = n // parts
+        out.append(slice(i * w, (i + 1) * w))
+    return tuple(out)
+
+
+def check_shardable(cfg: ArchConfig, layout) -> None:
+    """Raise unless `cfg` splits over `layout` (`launch.mesh.Layout`): its
+    stage count, `shard_config`'s widths, no expert parallelism and no
+    tied head across ranks (not yet ported)."""
+    tp = layout.size("tensor")
+    if layout.size("stage") != cfg.plan.pp:
+        raise ValueError(f"{cfg.name}: layout of {layout.size('stage')} "
+                         f"stages, config of pp={cfg.plan.pp}")
+    if tp > 1:
+        shard_config(cfg, tp)
+    if cfg.plan.ep_over_data and layout.size("data") > 1 and cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: expert parallelism over `data` is not yet ported "
+            f"(ROADMAP Queue 1 item 6.2)")
+    if cfg.tie_embeddings and layout.world > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: a tied head across ranks is not yet ported")
+
+
+def shard_config(cfg: ArchConfig, tp: int) -> ArchConfig:
+    """The widths one tensor rank of one stage computes at: heads, KV heads
+    and d_ff over `tp`, one stage (its caches and carry have one stage
+    slot).  Raises where a width does not divide, and for any block kind
+    but ATTN_MLP at tp > 1."""
+    if tp > 1:
+        other = sorted({bs.kind.value for bs in cfg.pattern} - {"attn_mlp"})
+        if other:
+            raise NotImplementedError(
+                f"{cfg.name}: tensor parallelism of {other} blocks is not "
+                f"yet ported (ROADMAP Queue 1 item 6.1); tp > 1 takes "
+                f"attn_mlp only")
+        for what, n in (("num_heads", cfg.num_heads),
+                        ("num_kv_heads", cfg.num_kv_heads),
+                        ("d_ff", cfg.d_ff)):
+            if n % tp:
+                raise ValueError(f"{cfg.name}: {what}={n} does not split "
+                                 f"over tp={tp}")
+    return dataclasses.replace(
+        cfg, num_heads=cfg.num_heads // tp,
+        num_kv_heads=cfg.num_kv_heads // tp, d_ff=cfg.d_ff // tp,
+        plan=ParallelPlan(pp=1, tp=1))
+
+
+def shard_views(tree, cfg: ArchConfig, layout, rank: int
+                ) -> "TransformerParams":
+    """Rank `rank`'s block (`shard_slices` of `param_pspecs`) of every leaf
+    of `tree` (`cfg`'s whole tree, a `TransformerParams` or nested dict of
+    tensors, at `layout`'s stage count), as views of the same storage: the
+    stage's weights at its tensor shard."""
+    def walk(t, s):
+        if not is_node(t):
+            return t.detach()[shard_slices(s, tuple(t.shape), layout, rank)]
+        return {k: walk(t[k], s[k]) for k in t.keys()}
+
+    return TransformerParams(walk(tree, param_pspecs(cfg)))
+
+
+def shard_params(cfg: ArchConfig, tree, layout, rank: int, *,
+                 device: torch.device | str = "cpu") -> "TransformerParams":
+    """`shard_views` of the full tree `tree`, as contiguous copies on
+    `device`."""
+    check_shardable(cfg, layout)
+    return TransformerParams(tree_map(
+        lambda t: t.to(device).contiguous(),
+        shard_views(tree, cfg, layout, rank)))
+
+
 class TransformerParams(nn.ModuleDict):
     """The parameter tree as modules: a dict of tensors becomes an
     ``nn.ParameterDict``, a dict of dicts an ``nn.ModuleDict``.  Parameters
@@ -250,62 +408,94 @@ def tree_map(fn, tree, *rest) -> Dict[str, Any]:
 _F32_DRAW_BYTES = 1 << 30
 
 
+def _draw(cfg: ArchConfig, leaf: Leaf, gen: torch.Generator,
+          dtype: torch.dtype, device, idx: Optional[Tuple[slice, ...]]
+          ) -> torch.Tensor:
+    """Block `idx` (all of it when None) of the leaf `init_params` draws
+    next from `gen`: the same draws in the same order whatever the block,
+    so that every rank's block is the slice of the one-process leaf."""
+    shape, init = leaf
+    idx = idx or tuple(slice(0, n) for n in shape)
+    out_shape = tuple(s.stop - s.start for s in idx)
+    if init == "zeros":
+        return torch.zeros(out_shape, dtype=dtype, device=device)
+    if init == "ones":
+        return torch.ones(out_shape, dtype=dtype, device=device)
+    if init == "mu":
+        return torch.rand(shape, generator=gen, dtype=torch.float32,
+                          device=device)[idx].to(dtype).contiguous()
+    if init == "decay":
+        return torch.full(out_shape, -1.0, dtype=dtype, device=device)
+    if init == "a_log":              # correctly rounded log(1..d_state)
+        base = torch.log(torch.arange(1, shape[-1] + 1,
+                                      dtype=torch.float64, device=device))
+        return base.to(dtype).expand(shape)[idx].contiguous()
+    scale = 0.02
+    if init == "residual":
+        scale = 0.02 / math.sqrt(max(1, 2 * cfg.num_layers))
+    elif init != "normal":
+        raise NotImplementedError(f"init {init!r} is not yet ported")
+    if math.prod(shape) * 4 <= _F32_DRAW_BYTES:
+        w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        return w[idx].mul_(scale).to(dtype).contiguous()
+    # a large leaf is drawn in parts, each in f32 at most _F32_DRAW_BYTES
+    # (qwen2.5-32b's stacked w_gate is 36 GB in f32 beside 66 GB of bf16
+    # weights): for each index of its leading dims, runs of `step` rows of
+    # dim k; a block keeps its part of each
+    k = next(i for i in range(len(shape))
+             if math.prod(shape[i + 1:]) * 4 <= _F32_DRAW_BYTES)
+    inner = tuple(shape[k + 1:])
+    step = max(1, _F32_DRAW_BYTES // (math.prod(inner) * 4))
+    out = torch.empty(out_shape, dtype=dtype, device=device)
+    for lead in itertools.product(*(range(n) for n in shape[:k])):
+        keep = all(s.start <= i < s.stop for i, s in zip(lead, idx))
+        at = tuple(i - s.start for i, s in zip(lead, idx))
+        for lo in range(0, shape[k], step):
+            hi = min(lo + step, shape[k])
+            w = torch.randn((hi - lo,) + inner, generator=gen,
+                            dtype=torch.float32, device=device)
+            a, b = max(lo, idx[k].start), min(hi, idx[k].stop)
+            if keep and a < b:
+                rows = slice(a - idx[k].start, b - idx[k].start)
+                out[at + (rows,)].copy_(
+                    w[(slice(a - lo, b - lo),) + idx[k + 1:]].mul_(scale))
+    return out
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, *,
                 dtype: Optional[torch.dtype] = None,
-                device: torch.device | str = "cpu") -> TransformerParams:
+                device: torch.device | str = "cpu",
+                layout=None, rank: int = 0) -> TransformerParams:
     """Random weights from `seed`, drawn on `device` with an explicit
     ``torch.Generator`` (the JAX package's kinds: normal at 0.02,
     0.02/sqrt(2L) for residual projections, RWKV's mixing coefficients
     uniform in [0, 1) and decay base -1, Mamba's A_log = log(1..d_state)
     on every channel).  The draws differ from
     ``jax.random``; tests carry the JAX weights across with
-    `repro_torch.models.convert.params_from_numpy` instead."""
+    `repro_torch.models.convert.params_from_numpy` instead.
+
+    With a `layout` (`launch.mesh.Layout`), rank `rank`'s shard only
+    (`shard_params` of the whole tree, which is never built): every leaf
+    is drawn as the whole tree draws it, a large one in parts, and only
+    the rank's block of each is kept."""
     dtype = dtype or getattr(torch, cfg.dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    specs = None
+    if layout is not None:
+        check_shardable(cfg, layout)
+        specs = param_pspecs(cfg)
 
-    def make(leaf: Leaf) -> torch.Tensor:
-        shape, init = leaf
-        if init == "zeros":
-            return torch.zeros(shape, dtype=dtype, device=device)
-        if init == "ones":
-            return torch.ones(shape, dtype=dtype, device=device)
-        if init == "mu":
-            return torch.rand(shape, generator=gen, dtype=torch.float32,
-                              device=device).to(dtype)
-        if init == "decay":
-            return torch.full(shape, -1.0, dtype=dtype, device=device)
-        if init == "a_log":          # correctly rounded log(1..d_state)
-            base = torch.log(torch.arange(1, shape[-1] + 1,
-                                          dtype=torch.float64, device=device))
-            return base.to(dtype).expand(shape).contiguous()
-        scale = 0.02
-        if init == "residual":
-            scale = 0.02 / math.sqrt(max(1, 2 * cfg.num_layers))
-        elif init != "normal":
-            raise NotImplementedError(f"init {init!r} is not yet ported")
-        if math.prod(shape) * 4 <= _F32_DRAW_BYTES:
-            w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                            device=device)
-            return w.mul_(scale).to(dtype)
-        # a large leaf is drawn in slices over its leading dims, each in
-        # f32 at most _F32_DRAW_BYTES (qwen2.5-32b's stacked w_gate is
-        # 36 GB in f32 beside 66 GB of bf16 weights)
-        k = next(i for i in range(len(shape))
-                 if math.prod(shape[i:]) * 4 <= _F32_DRAW_BYTES)
-        out = torch.empty(shape, dtype=dtype, device=device)
-        for part in out.view((-1,) + tuple(shape[k:])):
-            w = torch.randn(part.shape, generator=gen, dtype=torch.float32,
-                            device=device)
-            part.copy_(w.mul_(scale))
-        return out
-
-    def walk(tree):
+    def walk(tree, spec):
         if isinstance(tree, tuple):
-            return make(tree)
-        return {k: walk(v) for k, v in tree.items()}
+            idx = None if spec is None else shard_slices(
+                spec, tree[0], layout, rank)
+            return _draw(cfg, tree, gen, dtype, device, idx)
+        return {k: walk(v, None if spec is None else spec[k])
+                for k, v in tree.items()}
 
-    return TransformerParams(walk(model_param_defs(cfg)))
+    return TransformerParams(walk(model_param_defs(cfg), specs))
 
 
 def abstract_params(cfg: ArchConfig, dtype: Optional[torch.dtype] = None
@@ -326,8 +516,11 @@ def abstract_params(cfg: ArchConfig, dtype: Optional[torch.dtype] = None
 # Embedding / head
 # ----------------------------------------------------------------------------
 
-def embed_apply(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"]["tok"][tokens]
+def embed_apply(cfg: ArchConfig, params, tokens: torch.Tensor,
+                tp=None) -> torch.Tensor:
+    """Token embeddings; a tensor rank holds d / tp of the width, and the
+    tensor group gathers the rest (`collectives.gather_from_tensor`)."""
+    return coll.gather_from_tensor(params["embed"]["tok"][tokens], tp)
 
 
 def head_apply(cfg: ArchConfig, params, h: torch.Tensor) -> torch.Tensor:
@@ -370,8 +563,12 @@ def _rope(cfg: ArchConfig, x: torch.Tensor,
 
 
 def _attn_train(cfg: ArchConfig, p, x: torch.Tensor, positions: torch.Tensor,
-                *, causal: bool = True, prefix: str = "") -> torch.Tensor:
-    """x [B, T, d] -> self-attention output [B, T, d]."""
+                *, causal: bool = True, prefix: str = "",
+                tp=None) -> torch.Tensor:
+    """x [B, T, d] -> self-attention output [B, T, d].  At tensor rank
+    `tp` the heads are the rank's (`cfg` at local widths, `shard_config`)
+    and the out-projection's partial sums are reduced over the group."""
+    x = coll.copy_to_tensor(x, tp)
     q = x @ p[f"{prefix}wq"]
     k = x @ p[f"{prefix}wk"]
     v = x @ p[f"{prefix}wv"]
@@ -383,7 +580,8 @@ def _attn_train(cfg: ArchConfig, p, x: torch.Tensor, positions: torch.Tensor,
     k = _rope(cfg, _heads(k, cfg.num_kv_heads, cfg.head_dim), positions)
     v = _heads(v, cfg.num_kv_heads, cfg.head_dim)
     o = attn.causal_attention(q, k, v, causal=causal)
-    return o.reshape(o.shape[:-2] + (-1,)) @ p[f"{prefix}wo"]
+    return coll.reduce_from_tensor(
+        o.reshape(o.shape[:-2] + (-1,)) @ p[f"{prefix}wo"], tp)
 
 
 def _mla_train(cfg: ArchConfig, p, x: torch.Tensor,
@@ -430,8 +628,8 @@ def cross_attend(cfg: ArchConfig, p, h: torch.Tensor, k: torch.Tensor,
 
 def block_apply_train(cfg: ArchConfig, kind: BlockKind, p,
                       x: torch.Tensor, aux: torch.Tensor,
-                      enc_width: int = 0, *, train_forms: bool = False
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+                      enc_width: int = 0, *, train_forms: bool = False,
+                      tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block over full sequences: x [B, T, d] -> (x, aux), the MoE
     load-balancing loss of an MoE block added to `aux` (f32 scalar), as in
     the JAX package.  Whisper's blocks work on the encoder half
@@ -441,7 +639,10 @@ def block_apply_train(cfg: ArchConfig, kind: BlockKind, p,
     and Mamba blocks run their recurrences through the differentiable
     train forms with `train_forms` (the train step), else through the
     serve scans from a zero state (the dense reference: the Hopper kernels
-    on the card, which have no backward)."""
+    on the card, which have no backward).  `tp` (a `launch.mesh.AxisGroup`
+    of more than one rank) runs an ATTN_MLP block tensor-parallel at the
+    widths of `cfg` (`shard_config`)."""
+    _tp_kind(kind, tp)
     if kind == BlockKind.RWKV:
         x, _ = ssm_lib.rwkv_block(x, p, head_dim=cfg.rwkv_head_dim,
                                   norm_eps=cfg.norm_eps, train=train_forms)
@@ -477,7 +678,7 @@ def block_apply_train(cfg: ArchConfig, kind: BlockKind, p,
     elif kind == BlockKind.MLA_MLP:
         mix = _mla_train(cfg, p, norm("ln1", x), positions)
     else:
-        mix = _attn_train(cfg, p, norm("ln1", x), positions)
+        mix = _attn_train(cfg, p, norm("ln1", x), positions, tp=tp)
     x = x + mix
     h = norm("ln2", x)
     if kind in MOE_KINDS:
@@ -485,25 +686,32 @@ def block_apply_train(cfg: ArchConfig, kind: BlockKind, p,
                                  top_k=cfg.num_experts_per_tok,
                                  capacity_factor=cfg.moe_capacity_factor)
         return x + y.reshape(x.shape), aux + a
-    return x + mlp_apply(h, p, cfg.act), aux
+    return x + mlp_apply(h, p, cfg.act, tp), aux
+
+
+def _tp_kind(kind: BlockKind, tp) -> None:
+    if tp is not None and tp.size > 1 and kind != BlockKind.ATTN_MLP:
+        raise NotImplementedError(
+            f"tensor parallelism of {kind.value} blocks is not yet ported "
+            f"(ROADMAP Queue 1 item 6.1)")
 
 
 def stage_forward_train(cfg: ArchConfig, stage_params, x: torch.Tensor, *,
-                        enc_width: int = 0,
-                        stage: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                        enc_width: int = 0, stage: int = 0,
+                        tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pipeline stage `stage`'s layers over x [B, T, d] -> (x, aux).
     `stage_params` holds that stage's leaves, ``[R, ...]`` per block group
     (the JAX package's stage-local view).  A padded layer (global index >=
     ``num_layers``) is the identity and adds no aux.  RWKV and Mamba
     blocks run the train forms.  Each layer is recomputed in backward
     (`torch.utils.checkpoint`, the JAX package's full ``jax.checkpoint``):
-    only the layer inputs stay live."""
+    only the layer inputs stay live.  `tp`: as `block_apply_train`."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     off = stage * cfg.layers_per_stage
     for i, bs in enumerate(cfg.pattern):
         p = stage_params[_block_key(i, bs)]
         fn = functools.partial(block_apply_train, cfg, bs.kind,
-                               enc_width=enc_width, train_forms=True)
+                               enc_width=enc_width, train_forms=True, tp=tp)
         for r in range(bs.repeat):
             if off + r < cfg.num_layers:
                 pl = {k: v[r] for k, v in p.items()}

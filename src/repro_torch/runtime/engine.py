@@ -33,6 +33,10 @@ operation of the backend runs on the device and stream it was built on
 addresses, so imports write into the pools in place, and an export's gather
 is queued behind every tick already replayed.
 
+Across ranks, `RankBackend` runs one stage at one tensor shard a process:
+rank 0's backend drives the tick loop and sends every tick's input buffer
+to the other ranks, which run it in `RankBackend.serve_loop`.
+
 With ``trace_path`` the engine logs every tick to a replayable JSONL trace
 (`runtime/trace.py`, the JAX package's schema): a `TraceRecorder` wraps the
 backend as the `TickLoop`'s backend, and a lock serialises intake against
@@ -61,14 +65,18 @@ from repro_torch.core import (
     ScheduledBatch,
     ThrottleConfig,
 )
+from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.pipeline import (
+    build_rank_serve_tick,
     build_serve_tick,
     init_carry,
+    init_rank_carry,
     sample_tokens,
 )
 from repro_torch.kernels import ops
 from repro_torch.models import serve as serve_lib
 from repro_torch.models.serve import ServeDims
+from repro_torch.models.transformer import shard_config
 from repro_torch.runtime.core import ExecResult, ExecutionBackend, TickLoop
 
 
@@ -203,8 +211,7 @@ class TorchBackend(ExecutionBackend):
                         if device.type == "cuda" else None)
         self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
         self._programs: Dict[Tuple[int, ...], _BucketProgram] = {}
-        self.caches = serve_lib.init_caches(cfg, dims, self.dtype, device)
-        self.carry = init_carry(cfg, dims, self.dtype, device)
+        self.caches, self.carry = self._make_state()
         self._gen = torch.Generator(device=device)
         self._gen.manual_seed(seed)
         self._zm = serve_lib.zero_meta(dims)
@@ -233,6 +240,12 @@ class TorchBackend(ExecutionBackend):
             self._enc_staging = [torch.zeros(shape, dtype=self.dtype,
                                              pin_memory=cuda)
                                  for _ in range(2)]
+
+    def _make_state(self):
+        """The KV and state pools and the ring's activation carry."""
+        return (serve_lib.init_caches(self.cfg, self.dims, self.dtype,
+                                      self.device),
+                init_carry(self.cfg, self.dims, self.dtype, self.device))
 
     def _on_stream(self):
         """Run on the backend's device and stream (a no-op on the CPU)."""
@@ -728,6 +741,243 @@ class TorchBackend(ExecutionBackend):
         return p_tok, d_tok
 
 
+def _refuse_at_ranks(*, async_dispatch: bool, cuda_graphs: bool, device,
+                     enable_prefix_caching: bool,
+                     trace_path: Optional[str]) -> None:
+    """What the engine does not yet do at more than one rank raises, named
+    by its ROADMAP item; nothing falls back to one rank."""
+    dev = torch.device("cuda" if device is None else device)
+    if cuda_graphs and dev.type == "cuda":
+        raise ValueError(
+            "CUDA graphs at more than one rank are not yet ported (ROADMAP "
+            "Queue 1 item 6.5; gloo's collectives cannot be captured, "
+            "NCCL's can once every rank has its card): pass "
+            "cuda_graphs=False")
+    if async_dispatch:
+        raise ValueError("async dispatch at more than one rank is not yet "
+                         "ported (ROADMAP Queue 1 item 6.5)")
+    if enable_prefix_caching:
+        raise NotImplementedError("prefix caching at more than one rank is "
+                                  "not yet ported (ROADMAP Queue 1 item 6.6)")
+    if trace_path is not None:
+        raise NotImplementedError("tick traces at more than one rank are "
+                                  "not yet ported (ROADMAP Queue 1 item 6.6)")
+
+
+@dataclass
+class RankStats:
+    """One rank's serving time: ticks; the wall time of its ticks
+    (``tick_s``, the message included); of it, the time inside collectives
+    (``comm_s``: the transport, staging copies included, and the wait for
+    peers), the time the host waited for its own device work (``wait_s``:
+    before each staged collective and at the tick's end), and the rest,
+    the host's own work (``host_s``); the device time of its compute
+    (``device_s``: `collectives.CLOCK`'s stretches between collectives,
+    idle gaps inside a stretch included); and its collectives' traffic
+    (`collectives.TRAFFIC`)."""
+
+    ticks: int = 0
+    tick_s: float = 0.0
+    comm_s: float = 0.0
+    wait_s: float = 0.0
+    device_s: float = 0.0
+
+    def as_dict(self) -> dict:
+        return {"ticks": self.ticks, "tick_s": self.tick_s,
+                "comm_s": self.comm_s, "wait_s": self.wait_s,
+                "host_s": self.tick_s - self.comm_s - self.wait_s,
+                "device_s": self.device_s,
+                "traffic": coll.TRAFFIC.snapshot()}
+
+
+class RankBackend(TorchBackend):
+    """`TorchBackend` across ranks: every rank holds one stage of the model
+    at its tensor shard (`params`: its `shard_params`), its stage's pools
+    at its KV heads and its carry (`pipeline.init_rank_carry`), and runs
+    `pipeline.build_rank_serve_tick`.
+
+    gLLM's runtime of one leading rank and workers: rank 0's backend sits
+    under the scheduler and the `TickLoop` (`PipelineEngine(ranks=)`); per
+    tick it picks the bucket and builds the static input buffer (every
+    stage's metadata and
+    the entering token ids, as at one rank), then broadcasts a header
+    (command, bucket index, buffer size, message size) and the message
+    (the buffer, then any exiting rows' temperatures as f32 bits) to every
+    rank, and runs its own stage.  Every other rank builds the same backend
+    without a scheduler and runs `serve_loop` until the stop message
+    (`stop`).  Eager and sync: the tokens every rank gets from the head
+    (`vocab_argmax`) are read back on rank 0 as at one rank.  The buffers
+    travel as host tensors under gloo (the backend stages CUDA tensors
+    through host memory anyway) and as device tensors under nccl."""
+
+    def __init__(self, cfg: ArchConfig, dims: ServeDims, params, kv, *,
+                 device: torch.device, ranks, dtype=None, seed: int = 0,
+                 bucketed: bool = False) -> None:
+        if ranks.size("data") > 1:
+            raise NotImplementedError(
+                "the serve tick's data axis is not yet ported (ROADMAP "
+                "Queue 1 item 6.4): serve at dp=1")
+        self.ranks = ranks
+        self.local = shard_config(cfg, ranks.size("tensor"))
+        super().__init__(cfg, dims, params, kv, device=device, dtype=dtype,
+                         seed=seed, bucketed=bucketed, cuda_graphs=False)
+        self.world = ranks.world_axis()
+        self.rank_stats = RankStats()
+        self._exiting: Optional[int] = None
+        self._temps: Optional[torch.Tensor] = None
+        self._rank_gen = torch.Generator(device=device)
+        self._rank_gen.manual_seed(seed * 1_000_003 + ranks.rank)
+
+    def _make_state(self):
+        return (serve_lib.init_caches(self.local, self.dims, self.dtype,
+                                      self.device),
+                init_rank_carry(self.cfg, self.dims, self.ranks, self.dtype,
+                                self.device))
+
+    def _program(self, bucket: ServeDims) -> _BucketProgram:
+        key = (bucket.Sp, bucket.C, bucket.Sd, bucket.Bp, bucket.Bd)
+        prog = self._programs.get(key)
+        if prog is None:
+            tick = build_rank_serve_tick(self.cfg, bucket, self.ranks,
+                                         carry_dims=self.dims,
+                                         dtype=self.dtype)
+            zero = ((None, self._zm),) * self.depth
+            prog = _BucketProgram(tick, self._fields(zero, bucket, None),
+                                  self.device)
+            prog.bucket = bucket
+            self._programs[key] = prog
+        return prog
+
+    # ------------------------------------------------------------ messages
+    def _bcast(self, t: torch.Tensor) -> torch.Tensor:
+        """Host tensor `t` from rank 0 to every rank, in place."""
+        if self.ranks.backend == "nccl":
+            dev = t.to(self.device)
+            coll.broadcast(dev, self.world, 0, kind="meta")
+            t.copy_(dev.cpu())
+        else:
+            coll.broadcast(t, self.world, 0, kind="meta")
+        return t
+
+    def _send(self, cmd: int, index: int = 0, body=None,
+              temps: Optional[np.ndarray] = None) -> None:
+        """The header (command: 1 a tick, 2 reset the counters, 0 stop;
+        bucket index, buffer size, message size), then a tick's message:
+        the buffer, and the temperatures' f32 bits."""
+        msg = None
+        if cmd == 1:
+            msg = body.clone() if temps is None else torch.cat(
+                [body, torch.from_numpy(temps.view(np.int32))])
+        self._bcast(torch.tensor(
+            [cmd, index, 0 if body is None else body.numel(),
+             0 if msg is None else msg.numel()], dtype=torch.int32))
+        if msg is not None:
+            self._bcast(msg)
+
+    def _load(self, prog: _BucketProgram, fields: Dict[str, np.ndarray],
+              entering: Optional[ScheduledBatch] = None) -> None:
+        """`TorchBackend._load`, then the tick's message to every rank."""
+        super()._load(prog, fields, entering)
+        temps = self._exit_temps(prog.bucket)
+        self._temps = None if temps is None else serve_lib.host_to_device(
+            torch.from_numpy(temps), self.device)
+        self._send(1, self.ladder.index(prog.bucket),
+                   self._staging[self._ring_slot][:prog.size], temps)
+
+    def _exit_temps(self, bucket: ServeDims) -> Optional[np.ndarray]:
+        batch = (self.scheduler.get_batch(self._exiting)
+                 if self._exiting is not None else None)
+        if batch is None:
+            return None
+        temps = np.zeros(bucket.Sp + bucket.Sd, np.float32)
+        for i, seq in enumerate(batch.prefill):
+            temps[i] = seq.request.sampling.temperature
+        for j, seq in enumerate(batch.decode):
+            temps[bucket.Sp + j] = seq.request.sampling.temperature
+        return temps if temps.any() else None
+
+    def _build_sampling(self, exiting_id, bucket: ServeDims):
+        return None                     # the tick drew the hot rows
+
+    def execute(self, ring, exiting_id, now):
+        self._exiting = exiting_id
+        return super().execute(ring, exiting_id, now)
+
+    def _run(self, prog: _BucketProgram):
+        st = self.rank_stats
+        t0 = time.perf_counter()
+        c0, w0 = sum(coll.TRAFFIC.seconds.values()), coll.TRAFFIC.wait
+        cuda = self.device.type == "cuda"
+        if cuda:
+            coll.CLOCK.start(self.device)
+        _, tokens = prog.tick(self.params, self.caches, prog.meta,
+                              self.carry, self._temps, self._rank_gen)
+        if cuda:
+            st.device_s += coll.CLOCK.stop()
+        st.ticks += 1
+        st.tick_s += time.perf_counter() - t0
+        st.comm_s += sum(coll.TRAFFIC.seconds.values()) - c0
+        st.wait_s += coll.TRAFFIC.wait - w0
+        return None, tokens
+
+    # ------------------------------------------------------------- workers
+    @torch.inference_mode()
+    def serve_loop(self) -> RankStats:
+        """A worker rank's loop: run every tick rank 0 sends, until its
+        stop message.  Returns the rank's stats."""
+        if self.ranks.rank == 0:
+            raise ValueError("rank 0 drives the engine; serve_loop is for "
+                             "the other ranks")
+        header = torch.zeros(4, dtype=torch.int32)
+        while True:
+            self._bcast(header)
+            cmd, index, n, size = (int(v) for v in header)
+            if not cmd:
+                return self.rank_stats
+            if cmd == 2:
+                self.reset_counters()
+                continue
+            msg = self._bcast(torch.empty(size, dtype=torch.int32))
+            prog = self._program(self.ladder[index])
+            prog.static.copy_(msg[:n])
+            self._temps = (msg[n:].view(torch.float32).to(self.device)
+                           if size > n else None)
+            self._run(prog)
+
+    def stop(self) -> None:
+        """Rank 0: end every worker's `serve_loop`."""
+        self._send(0)
+
+    def reset_counters(self) -> None:
+        """Zero this rank's stats, traffic, kernel launch counts and peak
+        memory; on rank 0, every rank's (after warm-up, before the batch
+        that is measured)."""
+        if self.ranks.rank == 0:
+            self._send(2)
+        self.rank_stats = RankStats()
+        coll.TRAFFIC.reset()
+        for mod in ops.COUNTED:
+            mod.launches = 0
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+
+    def export_kv_pages(self, request_id, slots):
+        raise NotImplementedError("KV migration at more than one rank is "
+                                  "not yet ported (ROADMAP Queue 1 item 6.6)")
+
+    def import_kv_pages(self, request_id, payload, slots):
+        self.export_kv_pages(request_id, slots)
+
+    def export_request_state(self, req):
+        raise NotImplementedError("state migration at more than one rank "
+                                  "is not yet ported (ROADMAP Queue 1 item "
+                                  "6.6)")
+
+    def import_request_state(self, req, state, resident=True):
+        self.export_request_state(req)
+
+
 class PipelineEngine:
     """Single-device engine binding scheduler + KV + `TorchBackend` under
     the shared `TickLoop`.  Runs on CUDA unless `device="cpu"` is asked for;
@@ -745,7 +995,13 @@ class PipelineEngine:
     admission adopt the cached full pages of a prompt's prefix (attention
     models only: a model with recurrent blocks raises `ValueError`).
     `trace_path` records every tick to that file (`runtime/trace.py`);
-    with `async_dispatch` it raises `ValueError`."""
+    with `async_dispatch` it raises `ValueError`.
+
+    With `ranks` (`launch.mesh.RankGroups` over more than one process),
+    this is rank 0's engine over a layout of ranks (`RankBackend`): `params`
+    is its shard, the other ranks run `RankBackend.serve_loop`, and
+    `backend.stop()` ends them.  Eager and sync only: graphs, async
+    dispatch, prefix caching and traces raise (`_refuse_at_ranks`)."""
 
     def __init__(
         self,
@@ -762,7 +1018,14 @@ class PipelineEngine:
         cuda_graphs: bool = True,
         enable_prefix_caching: bool = False,
         trace_path: Optional[str] = None,
+        ranks=None,
     ) -> None:
+        multi = ranks is not None and ranks.layout.world > 1
+        if multi:
+            _refuse_at_ranks(async_dispatch=async_dispatch,
+                             cuda_graphs=cuda_graphs, device=device,
+                             enable_prefix_caching=enable_prefix_caching,
+                             trace_path=trace_path)
         if trace_path is not None and async_dispatch:
             # the recorder writes each tick's exit tokens at execute time;
             # a deferred retire would interleave records out of order and
@@ -797,11 +1060,19 @@ class PipelineEngine:
             max_prefill_seqs=max(dims.Sp, 0),
             max_chunk_tokens=max(dims.C, 1),
             max_decode_seqs=dims.Sd)
-        self.backend = TorchBackend(cfg, dims, params, self.kv,
-                                    device=self.device, dtype=dtype, seed=seed,
-                                    bucketed=bucketed,
-                                    cuda_graphs=cuda_graphs)
-        if bucketed or self.backend.graphs:
+        if multi:
+            self.backend = RankBackend(cfg, dims, params, self.kv,
+                                       device=self.device, dtype=dtype,
+                                       seed=seed, bucketed=bucketed,
+                                       ranks=ranks)
+        else:
+            self.backend = TorchBackend(cfg, dims, params, self.kv,
+                                        device=self.device, dtype=dtype,
+                                        seed=seed, bucketed=bucketed,
+                                        cuda_graphs=cuda_graphs)
+        # across ranks the engine is eager: no graph to capture, and the
+        # kernels were built before the ranks started, so no bubble ticks
+        if (bucketed or self.backend.graphs) and not multi:
             self.backend.warm_start()
         # With a trace, every tick is logged by a recorder that wraps the
         # backend as the loop's backend; warm-up, graphs, migration and

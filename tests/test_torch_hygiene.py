@@ -44,7 +44,7 @@ def test_port_files_found():
             "pipeline.py", "elastic.py", "trace.py", "simulator.py",
             "analysis.py", "optimizer.py", "collectives.py",
             "checkpoint.py", "train.py", "ssm_check.py",
-            "chip_smoke.py"} <= names
+            "mesh.py", "ranks.py", "chip_smoke.py"} <= names
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -224,3 +224,84 @@ def test_profile_launcher_profiles_jamba_cut_on_cpu():
                       if l.startswith("{")][-1])
     assert out["arch"] == "jamba-1.5-large-398b" and out["ticks"] > 0
     assert sorted(out["kinds"]) == ["attn_moe", "mamba_mlp", "mamba_moe"]
+
+
+def test_mesh_module_touches_no_device_or_group():
+    """Importing `launch.mesh` and building layouts needs no device and no
+    process group (JAX's ``make_production_mesh`` is a function for the
+    same reason)."""
+    code = ("import sys; import torch.distributed as dist; "
+            "from repro_torch.launch import mesh; "
+            "l = mesh.derive_pipeline_mesh(mesh.make_production_mesh(), 4, 4); "
+            "assert l.shape == (16, 4, 4) and not dist.is_initialized(); "
+            "assert 'jax' not in sys.modules and 'repro' not in sys.modules; "
+            "print('ok')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and "ok" in res.stdout, res.stderr
+
+
+def _fake_ranks(dp=1, pp=2, tp=2):
+    """Rank 0's groups of a layout, with no process group behind them:
+    enough for the checks that run before any collective."""
+    from repro_torch.launch.mesh import AxisGroup, RankGroups, rank_layout
+
+    lay = rank_layout(dp, pp, tp)
+    return RankGroups(lay, 0, {n: AxisGroup(n, tuple(lay.line(n, 0)), 0)
+                               for n in lay.names})
+
+
+def test_engine_at_ranks_refuses_what_it_does_not_do():
+    """At world > 1: CUDA graphs and async dispatch raise `ValueError`,
+    prefix caching, traces, KV and state migration and the serve tick's
+    data axis `NotImplementedError`, each naming its ROADMAP item; nothing
+    falls back to one rank."""
+    from repro_torch.configs import get_config, make_reduced
+    from repro_torch.core import ThrottleConfig
+    from repro_torch.launch.serve import REDUCED_DIMS
+    from repro_torch.runtime.engine import PipelineEngine, RankBackend
+
+    cfg = make_reduced(get_config("qwen1.5-0.5b")).with_plan(pp=2, tp=2)
+    th = ThrottleConfig(pipeline_depth=2)
+    ranks = _fake_ranks()
+    with pytest.raises(ValueError, match="item 6.5"):
+        PipelineEngine(cfg, REDUCED_DIMS, None, th, ranks=ranks)
+    with pytest.raises(ValueError, match="item 6.5"):
+        PipelineEngine(cfg, REDUCED_DIMS, None, th, ranks=ranks,
+                       device="cpu", async_dispatch=True)
+    with pytest.raises(NotImplementedError, match="item 6.6"):
+        PipelineEngine(cfg, REDUCED_DIMS, None, th, ranks=ranks,
+                       device="cpu", enable_prefix_caching=True)
+    with pytest.raises(NotImplementedError, match="item 6.6"):
+        PipelineEngine(cfg, REDUCED_DIMS, None, th, ranks=ranks,
+                       device="cpu", trace_path="/dev/null")
+    with pytest.raises(NotImplementedError, match="item 6.4"):
+        RankBackend(cfg, REDUCED_DIMS, None, None, device=torch.device("cpu"),
+                    ranks=_fake_ranks(dp=2))
+    backend = object.__new__(RankBackend)
+    with pytest.raises(NotImplementedError, match="item 6.6"):
+        backend.export_kv_pages("r", [(0, 0)])
+    with pytest.raises(NotImplementedError, match="item 6.6"):
+        backend.import_request_state(None, {})
+
+
+def test_collectives_have_no_one_rank_guard():
+    from repro_torch.distributed import collectives
+
+    assert not hasattr(collectives, "_one_rank")
+    g = torch.arange(5000, dtype=torch.float32) / 5000
+    assert torch.equal(collectives.compressed_psum(g, None), g)
+    assert torch.equal(collectives.compressed_psum(g, "ring8"), g)
+
+
+def test_rank_launchers_default_to_cuda_and_raise_without_it(monkeypatch):
+    from repro_torch.launch import serve, train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--steps", "1", "--pp", "2", "--tp", "2"])
+    monkeypatch.setattr(sys, "argv", ["serve", "--reduced", "--pp", "2",
+                                      "--tp", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main()
