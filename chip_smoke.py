@@ -305,12 +305,37 @@ line; any failure raises and the script exits non-zero.
               f32 cut's lr-0 loss equal to the dense cross-entropy within
               2e-4; then full depth in bf16, `ring8` gradient compression,
               a few steps on one batch: finite losses that fall
+  serve-tp-f32  tensor parallelism of every other block kind at full width
+              and cut depth, f32, over ranks on the card: minicpm3-4b
+              (MLA_MLP, 4 layers), rwkv6-3b (RWKV, 4 layers) and jamba's
+              first MAMBA_MLP layer at tp=2 in one launch, olmoe-1b-7b
+              (ATTN_MOE, 4 layers) and whisper-small (ENC_LAYER and
+              DEC_LAYER, whole, 1,500 encoder frames) at tp=4 in another;
+              each model's one-process engine serves 4 requests first (and
+              is freed), on the weights the ranks draw; the ranks' greedy
+              tokens equal its tokens and the dense reference's up to a
+              near-tie, the batch of every tick equal; every rank launches
+              each kernel as `_launch_want` says for the batch
+  serve-tp-bf16  the jamba cut (MAMBA_MLP, MAMBA_MOE and ATTN_MOE, 44.0 GB
+              in bf16) at tp=2 in the tp=2 launch, bucketed, one batch of
+              16: valid tokens, launches, ms a tick, each rank's split of
+              its tick into host, collectives and own-device wait, peak
+              memory a rank
+  train-tp    olmoe-1b-7b at full width cut to 2 layers, f32, dropless, at
+              tp=4 in the tp=4 launch: the lr-0 loss against the dense
+              cross-entropy within 2e-4, the fused MoE kernel launched
+              under autograd at ff = 256 a rank
 
 The kernel phase also holds paged attention at qwen2-vl-7b's 28:4 heads
 (G = 7), internlm2-1.8b's 16:8 heads of 128 (G = 2) and qwen2.5-14b's
 per-rank 20:4 heads at tp=2 (G = 5), and the moe-kernel
 phase the fused MoE at kimi-k2's E=384, C=16, d=7168, ff=2048 (bf16), full
 and as a decode tick with most experts empty.
+The kernel phases also hold bf16 rows at one tensor rank's shapes
+(`TP_ROWS`): paged attention at whisper's 3:3 heads of 64 and olmoe's 4:4
+of 128 (tp=4), the fused MoE at olmoe's ff = 256 (tp=4) and jamba's
+12,288 (tp=2), WKV6 at rwkv6-3b's 20 heads and the selective scan at
+jamba's 8,192 channels (tp=2).
 The kernel and moe-kernel phases also hold their kernels at jamba's shapes:
 paged attention decode and prefill with 64 query heads over 8 KV heads of
 128, and the fused MoE (bf16) at E=16, C=88, d=8192, ff=24576, full and as
@@ -636,6 +661,13 @@ def phase_build(build, planted: dict) -> None:
               k: round(build.build_log[k]["seconds"], 3) for k in planted}})
 
 
+# kernel rows at one tensor rank's shapes, run in bf16 only
+TP_ROWS = ("whisper tp=4 decode", "whisper tp=4 prefill", "olmoe tp=4 decode",
+           "olmoe tp=4 prefill", "olmoe tp=4 serve", "jamba tp=2 serve",
+           "rwkv6-3b tp=2 decode", "rwkv6-3b tp=2 prefill",
+           "jamba tp=2 decode", "jamba tp=2 prefill")
+
+
 def _attention_case(S, TQ, H, KH, D, page, B, dtype, ctx, seed):
     """Inputs on the card: distinct pages per sequence, dead pages
     NaN-poisoned, q positions the last TQ positions of each context."""
@@ -727,11 +759,24 @@ def phase_kernel(pa, planted_src: str) -> list:
          (28, 29)),
         ("qwen2.5-14b tp=2 prefill", 1, 512, 20, 4, 128, 16, 128, [2000],
          (30, 31)),
+        # one tensor rank's heads (bf16 only, `TP_ROWS`): whisper-small at
+        # tp=4 (3 query and 3 KV heads of 64), olmoe-1b-7b at tp=4 (4:4
+        # of 128)
+        ("whisper tp=4 decode", 32, 1, 3, 3, 64, 16, 128, decode_ctx,
+         (32, 33)),
+        ("whisper tp=4 prefill", 1, 512, 3, 3, 64, 16, 128, [2000],
+         (34, 35)),
+        ("olmoe tp=4 decode", 32, 1, 4, 4, 128, 16, 128, decode_ctx,
+         (36, 37)),
+        ("olmoe tp=4 prefill", 1, 512, 4, 4, 128, 16, 128, [2000],
+         (38, 39)),
     ]
     results = []
     for d_idx, dtype in enumerate((torch.float32, torch.bfloat16)):
         atol, rtol, vtol = pa.TOLERANCE[dtype]
         for name, S, TQ, H, KH, D, page, B, ctx, seeds in shapes:
+            if name in TP_ROWS and dtype != torch.bfloat16:
+                continue
             q, kv, clean, tables, ctx_t, qpos = _attention_case(
                 S, TQ, H, KH, D, page, B, dtype, ctx, seed=seeds[d_idx])
             out = pa.paged_flash_attention(q, kv, tables, ctx_t, qpos)
@@ -1527,13 +1572,18 @@ def phase_moe_kernel(mg, planted_src: str, tf32_src: str) -> list:
         # decode tick routes 32 x 8 rows, most experts empty
         ("kimi-k2 serve", 384, 16, 7168, 2048, 0),
         ("kimi-k2 decode tick", 384, 16, 7168, 2048, 8),
+        # one tensor rank's ff columns of every expert (bf16 only,
+        # `TP_ROWS`): olmoe-1b-7b at tp=4, jamba at tp=2.  The planted
+        # fault drops 64 of olmoe's 256 down terms, 64 of jamba's 12,288
+        ("olmoe tp=4 serve", 64, 88, 2048, 256, 0),
+        ("jamba tp=2 serve", 16, 88, 8192, 12288, 0),
     ]
     results = []
     for dtype in (torch.float32, torch.bfloat16):
         rtol, htol, acc = mg.TOLERANCE[dtype]
         f32 = dtype == torch.float32
         for name, E, C, d, ff, top_k in shapes:
-            if E * d * ff > 1 << 30 and f32:
+            if (E * d * ff > 1 << 30 or name in TP_ROWS) and f32:
                 continue
             args = _moe_case(E, C, d, ff, dtype, seed=100 + len(results),
                              top_k=top_k)
@@ -1764,11 +1814,17 @@ def phase_rwkv_kernel(wkv, planted: dict) -> list:
         ("rwkv6-3b prefill", 1, 512, 40, [300], [0], 64, RWKV_DECAY),
         ("small ragged", 3, 70, 2, [70, 33, 0], [1, 0, 0], 4, RWKV_DECAY),
         ("strong decay prefill", 1, 512, 40, [300], [0], 64, RWKV_STRONG),
+        # one tensor rank's 20 heads of rwkv6-3b at tp=2 (bf16 only)
+        ("rwkv6-3b tp=2 decode", 32, 1, 20, [1] * 28 + [0] * 4, [0] * 32,
+         64, RWKV_DECAY),
+        ("rwkv6-3b tp=2 prefill", 1, 512, 20, [300], [0], 64, RWKV_DECAY),
     ]
     results = []
     for dtype in (torch.float32, torch.bfloat16):
         f32 = dtype == torch.float32
         for name, S, T, H, lens, fresh, n, decay in shapes:
+            if name in TP_ROWS and f32:
+                continue
             args = _rwkv_case(S, T, H, lens, fresh, n, dtype,
                               seed=200 + len(results), decay=decay)
             before = args[5]
@@ -2020,10 +2076,16 @@ def phase_mamba_kernel(s6, planted: dict) -> list:
          MAMBA_DT),
         ("strong decay prefill", 1, 512, 16384, 16, [300], [0], 64,
          MAMBA_STRONG),
+        # one tensor rank's 8,192 channels of jamba at tp=2 (bf16 only)
+        ("jamba tp=2 decode", 32, 1, 8192, 16, [1] * 28 + [0] * 4, [0] * 32,
+         64, MAMBA_DT),
+        ("jamba tp=2 prefill", 1, 512, 8192, 16, [300], [0], 64, MAMBA_DT),
     ]
     results = []
     for dtype in (torch.float32, torch.bfloat16):
         for name, S, T, di, ds, lens, fresh, n, dt_range in shapes:
+            if name in TP_ROWS and dtype != torch.bfloat16:
+                continue
             args = _mamba_case(S, T, di, ds, lens, fresh, n, dtype,
                                seed=300 + len(results), dt_range=dt_range)
             before = args[5]
@@ -3429,7 +3491,8 @@ RANK_TRAIN_SEQ = 1024       # tokens a sequence, one a data rank
 RANK_TRAIN_STEPS = 3
 # each launch's wall budget (spawn, rendezvous, weights, serving)
 RANK_BUDGET_S = {"serve-ranks-f32": 240, "serve-ranks-bf16": 420,
-                 "train-ranks": 240}
+                 "train-ranks": 240, "serve-tp-f32": 240,
+                 "serve-tp-bf16": 240, "train-tp": 120}
 
 
 def _rank_cfg(arch: str, layers: int, dtype: str, pp: int, tp: int):
@@ -3444,17 +3507,17 @@ def _rank_cfg(arch: str, layers: int, dtype: str, pp: int, tp: int):
     return stage_config(cfg, pp).with_plan(tp=tp)
 
 
-def _spawn_ranks(fn, layout, job: dict, phase: str) -> list:
+def _spawn_ranks(fn, layout, job, phase: str, budget_s: float = 0) -> list:
     """`fn(ranks, job)` on every rank of `layout`, one process each on the
-    card (gloo: the ranks share it), inside the phase's wall budget; a
-    rank's exception fails the phase."""
+    card (gloo: the ranks share it), inside the phase's wall budget (or
+    `budget_s`); a rank's exception fails the phase."""
     from repro_torch.launch import ranks as rk
 
+    budget_s = budget_s or RANK_BUDGET_S[phase]
     store = ROOT / "build" / "ranks" / phase
     shutil.rmtree(store, ignore_errors=True)
     return rk.spawn(fn, layout, (job,), backend="gloo", store_dir=str(store),
-                    threads=1, timeout_s=RANK_BUDGET_S[phase],
-                    group_timeout_s=RANK_BUDGET_S[phase])
+                    threads=1, timeout_s=budget_s, group_timeout_s=budget_s)
 
 
 def _rank_rows(out: list, ticks: int) -> list:
@@ -3496,6 +3559,25 @@ def _rank_launches_ok(out: list, cfg) -> dict:
     return {"want_per_rank": want, "per_rank": got}
 
 
+def _record_ticks(eng) -> list:
+    """The entering batch of every tick of `eng`, as `serve_rank` records
+    it on rank 0."""
+    ticks = []
+    inner = eng.backend.execute
+
+    def execute(ring, exiting_id, now):
+        b = (eng.scheduler.get_batch(ring[0][0])
+             if ring[0][0] is not None else None)
+        ticks.append(None if b is None else [
+            [[q.request.request_id, q.start_pos, q.num_tokens]
+             for q in b.prefill],
+            [q.request.request_id for q in b.decode]])
+        return inner(ring, exiting_id, now)
+
+    eng.backend.execute = execute
+    return ticks
+
+
 def phase_serve_ranks_f32(greedy_trace) -> dict:
     """serve-f32's batch on qwen2.5-14b cut to 4 layers in f32, over pp=2 x
     tp=2 ranks, against the single-process pp=2 engine on the same weights
@@ -3516,19 +3598,7 @@ def phase_serve_ranks_f32(greedy_trace) -> dict:
     params = init_params(one, 0, dtype=torch.float32, device=DEV)
     eng = PipelineEngine(one, FULL_DIMS, params, throttle, device=DEV,
                          dtype=torch.float32, cuda_graphs=False)
-    ticks = []
-    inner = eng.backend.execute
-
-    def execute(ring, exiting_id, now):
-        b = (eng.scheduler.get_batch(ring[0][0])
-             if ring[0][0] is not None else None)
-        ticks.append(None if b is None else [
-            [[q.request.request_id, q.start_pos, q.num_tokens]
-             for q in b.prefill],
-            [q.request.request_id for q in b.decode]])
-        return inner(ring, exiting_id, now)
-
-    eng.backend.execute = execute
+    ticks = _record_ticks(eng)
     reqs = [eng.add_request(p, _sampling(0.0), request_id=f"r{i}")
             for i, p in enumerate(prompts)]
     eng.drain()
@@ -3635,24 +3705,14 @@ def phase_serve_ranks_bf16(pp_rows: dict) -> dict:
     return row
 
 
-def _train_runs(ranks, jobs: list) -> list:
-    """`launch.train.train_rank` of each job in turn on the same ranks (one
-    launch: the processes start once)."""
-    from repro_torch.launch.train import train_rank
-
-    out = []
-    for job in jobs:
-        out.append(train_rank(ranks, job))
-        _free()
-    return out
-
-
 def phase_train_ranks() -> dict:
     """qwen1.5-0.5b at full width over dp=2 x pp=2 x tp=2 ranks: the lr-0
     loss of a 4-layer f32 cut against the dense cross-entropy, then full
     depth in bf16 with ring8 for a few steps on one batch."""
     from repro_torch.data.tokens import batches
+    from repro_torch.launch import ranks as rk
     from repro_torch.launch.mesh import rank_layout
+    from repro_torch.launch.train import train_rank
     from repro_torch.models.reference import dense_forward
     from repro_torch.models.transformer import cross_entropy, init_params
 
@@ -3670,13 +3730,14 @@ def phase_train_ranks() -> dict:
     staged = _rank_cfg(ARCH, TRAIN_F32_LAYERS, "float32", 2, 2)
     full = _rank_cfg(ARCH, 0, "bfloat16", 2, 2)
     b16 = next(batches(full.vocab_size, 2, 2, RANK_TRAIN_SEQ, seed=1))
-    runs = _spawn_ranks(_train_runs, layout, [
-        dict(cfg=staged, steps=1, batches=[batch], lr=0.0, aux_coef=0.0,
-             device=DEV, dtype="float32", seed=0),
-        dict(cfg=full, steps=RANK_TRAIN_STEPS,
-             batches=[b16] * RANK_TRAIN_STEPS, lr=TRAIN_LR,
-             grad_compression="ring8", device=DEV, dtype="bfloat16",
-             seed=0)], phase)
+    runs = _spawn_ranks(rk.run_each, layout, [
+        (train_rank, dict(cfg=staged, steps=1, batches=[batch], lr=0.0,
+                          aux_coef=0.0, device=DEV, dtype="float32",
+                          seed=0)),
+        (train_rank, dict(cfg=full, steps=RANK_TRAIN_STEPS,
+                          batches=[b16] * RANK_TRAIN_STEPS, lr=TRAIN_LR,
+                          grad_compression="ring8", device=DEV,
+                          dtype="bfloat16", seed=0))], phase)
     f32, bf16 = [r[0] for r in runs], [r[1] for r in runs]
     loss = f32[0]["loss"][0]
     losses = bf16[0]["loss"]
@@ -3704,6 +3765,263 @@ def phase_train_ranks() -> dict:
             and all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"{phase}: the loss disagrees or did not fall")
     return row
+
+
+# ------------------------------------------------------ tensor-parallel phases
+
+# serve-tp-f32's models, full width, f32: (arch, tp, layers, kinds), a
+# uniform pattern cut to its first `layers` layers, jamba to its first
+# MAMBA_MLP layer (`cut_to_kinds`; 8.3 GB with its embedding and head),
+# whisper-small whole (24 layers, 1.0 GB); olmoe's 4 layers are 7.5 GB
+TP_F32 = (("minicpm3-4b", 2, 4, ()), ("rwkv6-3b", 2, 4, ()),
+          (JAMBA_ARCH, 2, 0, ("mamba_mlp",)),
+          (MOE_ARCH, 4, 4, ()), ("whisper-small", 4, 0, ()))
+TP_MAX_NEW = 8
+TP_BF16_REQUESTS = 16       # serve-tp-bf16: the jamba cut's one batch
+TP_TRAIN_LAYERS = 2         # train-tp: olmoe-1b-7b cut to 2 of 16 layers
+# a rank's launches by kernel: its wrapper's name, its module's
+WRAPPERS = {"paged_flash_attention": "paged_attention",
+            "fused_moe_ffn": "moe_gemm",
+            "rwkv6_chunked_scan": "rwkv6_scan",
+            "mamba_chunked_scan": "mamba_scan"}
+
+
+def _gb(nbytes: int) -> float:
+    return nbytes / 1e9
+
+
+def _tp_reference(arch: str, layers: int, kinds, greedy_trace,
+                  seed: int) -> tuple:
+    """The one-process engine of serve-tp-f32's `arch` (`_f32_engine`) over
+    a batch of four prompts: (the ranks' serve job at the same weights, the
+    engine's tokens and ticks, the dense reference's tokens and top-2 gaps,
+    seconds).  The engine and its weights are freed before returning."""
+    from repro_torch.core import SamplingParams
+    from repro_torch.launch.serve import enc_inputs
+
+    t0 = time.perf_counter()
+    eng = _f32_engine(arch, layers, kinds)
+    cfg = eng.cfg
+    rng = np.random.default_rng(seed)
+    lens = [16, 200] + [int(x) for x in rng.integers(16, 201, 2)]
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, L)]
+               for L in lens]
+    encs = [enc_inputs(cfg, eng.dims, rng).get("enc_embeds")
+            for _ in prompts]
+    ticks = _record_ticks(eng)
+    reqs = [eng.add_request(p, SamplingParams(max_new_tokens=TP_MAX_NEW),
+                            request_id=f"r{i}",
+                            **({} if e is None else {"enc_embeds": e}))
+            for i, (p, e) in enumerate(zip(prompts, encs))]
+    eng.drain()
+    torch.cuda.synchronize()
+    traces = [greedy_trace(cfg, eng.params, p, TP_MAX_NEW, e)
+              for p, e in zip(prompts, encs)]
+    job = dict(cfg=cfg, dims=eng.dims, throttle=eng.scheduler.cfg,
+               prompts=prompts, encs=encs if cfg.is_encoder_decoder
+               else None, max_new=TP_MAX_NEW, device=DEV, dtype="float32",
+               seed=0)
+    single = [r.output_token_ids for r in reqs]
+    del eng, reqs
+    _free()
+    return job, single, ticks, traces, time.perf_counter() - t0
+
+
+def _tp_launches(out: list, cfg) -> dict:
+    """Each rank's launches of every kernel against `_launch_want` for the
+    batch rank 0's engine served (every rank runs every layer of its
+    stage, at pp=1 all of them)."""
+    st = out[0]["stats"]
+    want = _launch_want(cfg, st["ticks"], st["prefill_ticks"],
+                        st["decode_ticks"], WRAPPERS)
+    got = {o["rank"]: {w: o["launches"][m] for w, m in WRAPPERS.items()}
+           for o in out}
+    if any(g != want for g in got.values()):
+        raise AssertionError(f"{cfg.name}: the ranks launched {got}, want "
+                             f"{want} each")
+    return {"want_per_rank": want, "per_rank": got}
+
+
+def _tp_f32_row(arch: str, tp: int, job: dict, single, ticks, traces,
+                out: list, ref_s: float) -> dict:
+    """serve-tp-f32's line of one arch: the ranks' tokens against the
+    one-process engine's up to the dense reference's first near-tie, the
+    engine's against the reference's, the ticks, and each rank's
+    launches."""
+    head = out[0]
+    compared, near_ties, bad = 0, [], []
+    for i, ((want, gaps), mine, got) in enumerate(zip(traces, single,
+                                                      head["tokens"])):
+        stop = next((k for k, g in enumerate(gaps) if g < NEAR_TIE),
+                    TP_MAX_NEW)
+        if stop < TP_MAX_NEW:
+            near_ties.append({"request": i, "step": stop, "gap": gaps[stop]})
+        if not (head["finished"][i] and len(got) == TP_MAX_NEW
+                and got[:stop] == mine[:stop] == want[:stop]):
+            bad.append({"request": i, "ranks": got, "single": mine,
+                        "reference": want, "compared": stop})
+        compared += stop
+    cfg = job["cfg"]
+    row = {"phase": "serve-tp-f32", "arch": arch, "tp": tp,
+           "layers": cfg.num_layers,
+           "kinds": sorted({b.kind.value for b in cfg.pattern}),
+           "ranks": len(out), "backend": "gloo",
+           "requests": len(job["prompts"]),
+           "prompt_lens": [len(p) for p in job["prompts"]],
+           "tokens_compared": compared, "near_ties": near_ties,
+           "ticks": head["stats"]["ticks"],
+           "ticks_equal_single": head["ticks"] == ticks,
+           "reference_s": ref_s, "wall_s": head["wall_s"],
+           "per_rank": _rank_rows(out, head["stats"]["ticks"])}
+    try:
+        row["launches"] = _tp_launches(out, cfg)
+    finally:
+        emit(row)
+    if bad or not row["ticks_equal_single"]:
+        raise AssertionError(f"serve-tp-f32 {arch}: tokens or ticks differ "
+                             f"from the single-process engine's: {bad}")
+    return row
+
+
+def _tp_bf16_job() -> dict:
+    """serve-tp-bf16's job: the jamba cut (MAMBA_MLP, MAMBA_MOE and
+    ATTN_MOE; 44.0 GB in bf16) at tp=2, bucketed, one batch."""
+    from repro_torch.configs import BlockKind
+    from repro_torch.core import ThrottleConfig
+    from repro_torch.launch.serve import FULL_DIMS, serve_config
+
+    cfg, _ = serve_config(JAMBA_ARCH, dtype=torch.bfloat16,
+                          cut=[BlockKind(k) for k in JAMBA_KINDS])
+    return dict(cfg=cfg.with_plan(tp=2), dims=FULL_DIMS,
+                throttle=ThrottleConfig(pipeline_depth=1),
+                prompts=_prompts(12, TP_BF16_REQUESTS, cfg.vocab_size),
+                max_new=MAX_NEW, device=DEV, dtype="bfloat16", seed=0,
+                bucketed=True)
+
+
+def _tp_bf16_row(job: dict, out: list, s: float) -> dict:
+    head = out[0]
+    st = head["stats"]
+    cfg = job["cfg"]
+    toks = sum(len(t) for t in head["tokens"])
+    valid = sum(len(t) == MAX_NEW and all(0 <= x < cfg.vocab_size
+                                          for x in t)
+                for t in head["tokens"])
+    row = {"phase": "serve-tp-bf16", "arch": JAMBA_ARCH,
+           "kinds": list(JAMBA_KINDS), "tp": 2, "ranks": len(out),
+           "backend": "gloo", "bucketed": True, "cuda_graphs": False,
+           "requests": len(job["prompts"]), "valid_requests": valid,
+           "finished": sum(head["finished"]), "output_tokens": toks,
+           "wall_s": head["wall_s"], "ticks": st["ticks"],
+           "prefill_ticks": st["prefill_ticks"],
+           "decode_ticks": st["decode_ticks"],
+           "ms_per_tick": head["wall_s"] / st["ticks"] * 1e3,
+           "peak_gb_per_rank": [_gb(o["peak_bytes"]) for o in out],
+           "per_rank": _rank_rows(out, st["ticks"]), "s": s,
+           "note": "two processes share one card: the protocol's cost, "
+                   "not tensor parallelism's gain"}
+    try:
+        row["launches"] = _tp_launches(out, cfg)
+    finally:
+        emit(row)
+    if valid != len(job["prompts"]) or not all(head["finished"]):
+        raise AssertionError(f"serve-tp-bf16: {valid} of "
+                             f"{len(job['prompts'])} requests finished with "
+                             f"{MAX_NEW} valid tokens")
+    return row
+
+
+def phase_tp(greedy_trace) -> dict:
+    """serve-tp-f32, serve-tp-bf16 and train-tp, in two launches of ranks
+    that share the card: at tp=2, minicpm3-4b (MLA_MLP), rwkv6-3b (RWKV)
+    and jamba's MAMBA_MLP layer in f32, then the jamba cut in bf16; at
+    tp=4, olmoe-1b-7b (ATTN_MOE) and whisper-small (ENC_LAYER, DEC_LAYER)
+    in f32, then olmoe's lr-0 train step.  Each f32 model's one-process
+    engine runs (and is freed) before its ranks, on the same weights."""
+    import dataclasses
+
+    from repro_torch.data.tokens import batches
+    from repro_torch.launch import ranks as rk
+    from repro_torch.launch.mesh import rank_layout
+    from repro_torch.launch.serve import serve_rank
+    from repro_torch.launch.train import train_rank
+    from repro_torch.models.reference import dense_forward
+    from repro_torch.models.transformer import cross_entropy, init_params
+
+    rows = {"serve-tp-f32": {}}
+    for tp in (2, 4):
+        t0 = time.perf_counter()
+        refs, jobs = [], []
+        for i, (arch, t, layers, kinds) in enumerate(TP_F32):
+            if t != tp:
+                continue
+            job, single, ticks, traces, ref_s = _tp_reference(
+                arch, layers, kinds, greedy_trace, seed=60 + i)
+            job["cfg"] = job["cfg"].with_plan(tp=tp)
+            refs.append((arch, job, single, ticks, traces, ref_s))
+            jobs.append((serve_rank, job))
+        phases = ["serve-tp-f32"]
+        if tp == 2:
+            bf16 = _tp_bf16_job()
+            jobs.append((serve_rank, bf16))
+            phases.append("serve-tp-bf16")
+        else:
+            # dropless: no expert can hold more rows than there are, so a
+            # capacity factor of E / top_k drops none, in the dense forward
+            # over both sequences as in the step over one
+            cut = _train_cfg(MOE_ARCH, TP_TRAIN_LAYERS, "float32")
+            cut = dataclasses.replace(cut, moe_capacity_factor=(
+                cut.num_experts / cut.num_experts_per_tok))
+            batch = next(batches(cut.vocab_size, 2, 1, RANK_TRAIN_SEQ,
+                                 seed=0))
+            params = init_params(cut, 0, dtype=torch.float32, device=DEV)
+            toks, labs = (torch.as_tensor(batch[k], device=DEV).reshape(
+                2, RANK_TRAIN_SEQ).long() for k in ("tokens", "labels"))
+            dense = float(cross_entropy(dense_forward(cut, params, toks),
+                                        labs))
+            del params, toks, labs
+            _free()
+            jobs.append((train_rank, dict(
+                cfg=cut.with_plan(tp=tp), steps=1, batches=[batch], lr=0.0,
+                aux_coef=0.0, device=DEV, dtype="float32", seed=0)))
+            phases.append("train-tp")
+        t1 = time.perf_counter()
+        runs = _spawn_ranks(rk.run_each, rank_layout(1, 1, tp), jobs,
+                            f"tp={tp}", sum(RANK_BUDGET_S[p]
+                                            for p in phases))
+        launch_s = time.perf_counter() - t1
+        for k, (arch, job, single, ticks, traces, ref_s) in enumerate(refs):
+            rows["serve-tp-f32"][arch] = _tp_f32_row(
+                arch, tp, job, single, ticks, traces, [r[k] for r in runs],
+                ref_s)
+        last = [r[-1] for r in runs]
+        if tp == 2:
+            rows["serve-tp-bf16"] = _tp_bf16_row(bf16, last, launch_s)
+            continue
+        loss = last[0]["loss"][0]
+        row = {"phase": "train-tp", "arch": MOE_ARCH,
+               "layers": TP_TRAIN_LAYERS, "tp": tp, "ranks": len(last),
+               "backend": "gloo", "seq": RANK_TRAIN_SEQ,
+               "micro_batches": 2, "dense_loss": dense, "loss": loss,
+               "loss_err": abs(loss - dense), "loss_tol": TRAIN_LOSS_TOL,
+               "same_on_every_rank": len({o["loss"][0] for o in last}) == 1,
+               "moe_ff_per_rank": cut.moe_d_ff // tp,
+               "launches": {o["rank"]: o["launches"] for o in last},
+               "step_s": last[0]["step_s"], "params_s": last[0]["params_s"],
+               "peak_gb_per_rank": [_gb(o["peak_bytes"]) for o in last],
+               "launch_s": launch_s, "s": time.perf_counter() - t0}
+        emit(row)
+        rows["train-tp"] = row
+        # at least once a layer and micro-batch (the backward's
+        # recompute of each layer launches it again)
+        layers_moe = TP_TRAIN_LAYERS * 2
+        if not (row["loss_err"] <= TRAIN_LOSS_TOL
+                and row["same_on_every_rank"]
+                and all(o["launches"]["moe_gemm"] >= layers_moe
+                        for o in last)):
+            raise AssertionError(f"train-tp: the loss disagrees or the MoE "
+                                 f"kernel did not run under autograd: {row}")
+    return rows
 
 
 def _launches(run: dict, name: str) -> list:
@@ -3821,6 +4139,20 @@ def main() -> int:
     ranks_f32 = phase_serve_ranks_f32(greedy_trace)
     ranks_bf16 = phase_serve_ranks_bf16(pp_bf16)
     phase_train_ranks()
+    tp = phase_tp(greedy_trace)
+
+    def tp_launches(kernel: str) -> dict:
+        """`kernel`'s launches on every rank of the tensor-parallel serve
+        phases (those of the paths it is on)."""
+        out = {}
+        runs = [(f"serve-tp-f32 {arch}", row)
+                for arch, row in tp["serve-tp-f32"].items()]
+        runs.append(("serve-tp-bf16 jamba cut", tp["serve-tp-bf16"]))
+        for name, row in runs:
+            if row["launches"]["want_per_rank"][kernel]:
+                for rank, n in row["launches"]["per_rank"].items():
+                    out[f"{name} rank {rank}"] = n[kernel]
+        return out
 
     pa_entry = _kernel_entry(
         "paged_flash_attention",
@@ -3846,7 +4178,8 @@ def main() -> int:
         **{f"serve-32b-bf16 pp={pp}": row["launches"]["paged_flash_attention"]
            for pp, row in big_bf16.items()},
         **{f"{r['phase']} rank {rank}": n for r in (ranks_f32, ranks_bf16)
-           for rank, n in r["launches"]["per_rank"].items()}}
+           for rank, n in r["launches"]["per_rank"].items()},
+        **tp_launches("paged_flash_attention")}
     moe_entry = _kernel_entry(
         "fused_moe_ffn", "src/repro_torch/kernels/csrc/moe_ffn.cu",
         "src/repro/kernels/moe_gemm.py:53",
@@ -3861,7 +4194,10 @@ def main() -> int:
         "train-bf16 olmoe cut (10 steps)":
             train_bf16["olmoe"]["launches"]["moe_gemm"],
         **{f"train-ssm-f32 {r['config']} (lr-0 step)":
-           r["step_launches"]["moe_gemm"] for r in ssm_f32["steps"]}}
+           r["step_launches"]["moe_gemm"] for r in ssm_f32["steps"]},
+        **tp_launches("fused_moe_ffn"),
+        **{f"train-tp {MOE_ARCH} (lr-0 step) rank {rank}": n["moe_gemm"]
+           for rank, n in tp["train-tp"]["launches"].items()}}
     # under autograd (train-f32): the kernel forward, the f32 bmm backward
     moe_entry["backward"] = [
         {k: r[k] for k in ("shape", "dtype", "live_rows", "max_abs_err",
@@ -3881,7 +4217,8 @@ def main() -> int:
         "serve-rwkv-bf16": rwkv["launches"]["rwkv6_chunked_scan"],
         "serve-router-rwkv-f32": _launches(router_rwkv,
                                            "rwkv6_chunked_scan"),
-        **_train_launches(ssm_f32, ssm_bf16, "rwkv6_scan")}
+        **_train_launches(ssm_f32, ssm_bf16, "rwkv6_scan"),
+        **tp_launches("rwkv6_chunked_scan")}
     mamba_entry = _kernel_entry(
         "mamba_chunked_scan", "src/repro_torch/kernels/csrc/mamba_scan.cu",
         "src/repro/kernels/mamba_scan.py:60",
@@ -3890,7 +4227,8 @@ def main() -> int:
              and r["dtype"] == "bfloat16"))
     mamba_entry["launches_by_path"] = {
         "serve-jamba-bf16": jamba["launches"]["mamba_chunked_scan"],
-        **_train_launches(ssm_f32, ssm_bf16, "mamba_scan")}
+        **_train_launches(ssm_f32, ssm_bf16, "mamba_scan"),
+        **tp_launches("mamba_chunked_scan")}
     emit({"phase": "done"})
     emit({"kernels": [pa_entry, moe_entry, rwkv_entry, mamba_entry]})
     print(device["nvidia_smi"], flush=True)

@@ -192,6 +192,26 @@ class ArchConfig:
         return counts
 
 
+@dataclass(frozen=True)
+class RankConfig(ArchConfig):
+    """`cfg` at the widths one tensor rank of one stage computes at
+    (`models.transformer.shard_config`): the head counts and FFN widths
+    already divided over the ranks, and `tensor_parts`, the ranks the widths
+    derived from the whole ``d_model`` are divided over (Mamba's d_inner,
+    RWKV's heads), since ``d_model`` itself, the residual stream's width,
+    stays whole on every rank."""
+
+    tensor_parts: int = 1
+
+    @property
+    def mamba_d_inner(self) -> int:
+        return self.mamba_expand * self.d_model // self.tensor_parts
+
+    @property
+    def num_rwkv_heads(self) -> int:
+        return self.d_model // self.rwkv_head_dim // self.tensor_parts
+
+
 def make_reduced(cfg: ArchConfig, *, d_model: int = 64, d_ff: int = 128,
                  vocab: int = 256) -> ArchConfig:
     """A tiny same-family variant for CPU smoke tests (one block per kind)."""

@@ -33,7 +33,9 @@ row-parallel one.  ``torch.distributed.nn.functional.all_reduce`` is not
 the second: its backward all-reduces the gradient again, which scales the
 gradient of every replicated leaf by tp.  `gather_from_tensor` (all-gather
 of the last dim forward, this rank's slice of the gradient backward) reads
-the embedding, whose width is split over `tensor`.
+the embedding, whose width is split over `tensor`; `slice_for_tensor` (the
+rank's block of a replicated tensor forward, the gradient all-reduced
+backward) hands a replicated leaf's columns to the rank's channels.
 
 **Transport.**  On ``nccl`` every tensor moves as it lies.  ``gloo`` sums
 and gathers CPU tensors, and its point-to-point ``send``/``recv`` take no
@@ -395,6 +397,19 @@ def reduce_over(x: torch.Tensor, axes: Sequence, kind: str = "reduce"
     for ax in axes:
         x = reduce_from_tensor(x, ax, kind)
     return x
+
+
+def slice_for_tensor(x: torch.Tensor, axis) -> torch.Tensor:
+    """This rank's block of the last dim of `x`, a tensor replicated over
+    `axis` whose columns act on the rank's channels (RWKV's decay, bonus
+    and group-norm gain; the decay LoRA's columns): the slice forward, and
+    backward the block's gradient, zeros elsewhere, all-reduced over
+    `axis` (`copy_to_tensor`), so that every replica gets the whole
+    gradient."""
+    if not _split(axis):
+        return x
+    w = x.shape[-1] // axis.size
+    return copy_to_tensor(x, axis)[..., axis.index * w:(axis.index + 1) * w]
 
 
 def gather_from_tensor(x: torch.Tensor, axis) -> torch.Tensor:

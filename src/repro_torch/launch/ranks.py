@@ -21,7 +21,7 @@ import pickle
 import tempfile
 import time
 from pathlib import Path
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -104,4 +104,20 @@ def spawn(fn: Callable, layout: Layout, args: Sequence[Any] = (), *,
     if own:
         import shutil
         shutil.rmtree(store_dir, ignore_errors=True)
+    return out
+
+
+def run_each(ranks: RankGroups, jobs: Sequence[Tuple[Callable, Any]]
+             ) -> List[Any]:
+    """``fn(ranks, job)`` for each ``(fn, job)`` of `jobs` in turn on the
+    same ranks (`spawn`'s `fn`, with ``args=(jobs,)``): one launch, so that
+    the processes start and join their groups once for several runs.  Each
+    run's device memory is returned to the card before the next."""
+    import gc
+
+    out = []
+    for fn, job in jobs:
+        out.append(fn(ranks, job))
+        gc.collect()
+        torch.cuda.empty_cache()
     return out

@@ -88,7 +88,15 @@ from repro_torch.configs import (
 )
 from repro_torch.core import SamplingParams, ThrottleConfig
 from repro_torch.models.serve import ServeDims
-from repro_torch.models.transformer import init_params, model_param_defs
+from repro_torch.models.transformer import (
+    init_params,
+    leaf_parts,
+    model_param_defs,
+    param_pspecs,
+    parted,
+    shard_slices,
+    tree_items,
+)
 from repro_torch.runtime.engine import PipelineEngine, resolve_device
 
 # Full width on one H100: one prefill chunk of 512 tokens and 32 decode rows
@@ -134,6 +142,19 @@ def weight_bytes(cfg, dtype: torch.dtype) -> int:
             return math.prod(tree[0])
         return sum(walk(v) for v in tree.values())
     return walk(model_param_defs(cfg)) * dtype.itemsize
+
+
+def rank_weight_bytes(cfg, layout, rank: int, dtype: torch.dtype) -> int:
+    """Bytes of rank `rank`'s shard of `cfg`'s parameters over `layout`
+    (`launch.mesh.Layout`) in `dtype`: its stage's leaves at its tensor
+    shard's widths."""
+    specs = dict(tree_items(param_pspecs(cfg)))
+    n = 0
+    for path, (shape, _) in tree_items(model_param_defs(cfg)):
+        vspec, vshape = parted(specs[path], shape, leaf_parts(path))
+        n += math.prod(s.stop - s.start
+                       for s in shard_slices(vspec, vshape, layout, rank))
+    return n * dtype.itemsize
 
 
 def serve_config(arch: str = "qwen1.5-0.5b", *, reduced: bool = False,
@@ -222,7 +243,22 @@ def rank_params(cfg, ranks, *, dtype: torch.dtype, device,
                 seed: int = 0, npz: Optional[str] = None):
     """The rank's shard: drawn from `seed` as `init_params` draws the whole
     tree (`init_params(layout=)`), or cut from the numpy tree saved at
-    `npz` (``/``-joined paths, `convert.shard_from_numpy`)."""
+    `npz` (``/``-joined paths, `convert.shard_from_numpy`).  On the card,
+    the shards of every rank that shares it (`mesh.rank_device`) must fit
+    its memory together, else it raises before anything is drawn."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        cards = torch.cuda.device_count()
+        lay = ranks.layout
+        mine = [r for r in range(lay.world)
+                if r % cards == ranks.rank % cards]
+        need = sum(rank_weight_bytes(cfg, lay, r, dtype) for r in mine)
+        have = torch.cuda.get_device_properties(device).total_memory
+        if need > have:
+            raise ValueError(
+                f"{cfg.name}: the shards of ranks {mine} need {need:,} "
+                f"bytes of {dtype} weights on one card of {have:,}; cut "
+                f"the depth (cut=, --cut) or give each rank a card")
     if npz is None:
         return init_params(cfg, seed, dtype=dtype, device=device,
                            layout=ranks.layout, rank=ranks.rank)
@@ -242,7 +278,8 @@ def rank_params(cfg, ranks, *, dtype: torch.dtype, device,
 def serve_rank(ranks, job: dict) -> dict:
     """One rank of a served batch (`launch.ranks.spawn`'s `fn`).  `job`:
     ``cfg`` (staged at pp = the layout's stages), ``dims``, ``throttle``,
-    ``prompts``, ``max_new``, optional ``temps`` (one per prompt),
+    ``prompts``, ``max_new``, optional ``temps`` (one per prompt) and
+    ``encs`` (an encoder-decoder's encoder input [Te, d] per prompt),
     ``device`` ("cuda" or "cpu"), ``dtype``, ``seed`` or ``npz``,
     ``bucketed``.  Rank 0 drives a `PipelineEngine(ranks=)` over the batch
     and returns the tokens, the entering batch of every tick (each prefill
@@ -306,11 +343,14 @@ def serve_rank(ranks, job: dict) -> dict:
         backend.execute = execute
         backend.reset_counters()
         temps = job.get("temps") or [0.0] * len(job["prompts"])
+        encs = job.get("encs") or [None] * len(job["prompts"])
         t0 = time.perf_counter()
         reqs = [eng.add_request(p, SamplingParams(
                     max_new_tokens=job["max_new"], temperature=t),
-                    request_id=f"r{i}")
-                for i, (p, t) in enumerate(zip(job["prompts"], temps))]
+                    request_id=f"r{i}",
+                    **({} if e is None else {"enc_embeds": e}))
+                for i, (p, t, e) in enumerate(zip(job["prompts"], temps,
+                                                  encs))]
         try:
             eng.drain(max_ticks=job.get("max_ticks", 100000))
         finally:
@@ -422,9 +462,10 @@ def _serve_ranks(args) -> None:
     prompts = [[int(t) for t in rng.integers(
         0, cfg.vocab_size, int(np.clip(rng.lognormal(3.0, 0.8), 4, 300)))]
         for _ in range(args.requests)]
+    encs = [enc_inputs(cfg, dims, rng).get("enc_embeds") for _ in prompts]
     layout = rank_layout(1, args.pp, args.tp)
     job = dict(cfg=cfg, dims=dims, throttle=throttle, prompts=prompts,
-               max_new=args.max_new, device=dev.type,
+               encs=encs, max_new=args.max_new, device=dev.type,
                dtype=str(dtype).split(".")[-1], seed=args.seed,
                bucketed=args.bucketed)
     out = rank_launch(serve_rank, layout, job, args)

@@ -110,13 +110,17 @@ def train_rank(ranks, job: dict) -> dict:
     """One rank of a training run (`launch.ranks.spawn`'s `fn`).  `job`:
     ``cfg`` (at pp = the layout's stages), ``steps``, ``batches`` (a list
     of batches, taken in turn) or ``seq`` (then `data.tokens.batches` of
-    ``M`` micro-batches of ``mbg`` sequences), ``lr``, optional
-    ``grad_compression``, ``aux_coef``, ``device``, ``dtype``, ``seed`` or
+    ``M`` micro-batches of ``mbg`` sequences, with zero frontend rows for
+    a vlm or audio config, as `train` makes them), ``lr``, optional
+    ``grad_compression``, ``aux_coef``, ``enc_width`` (an
+    encoder-decoder's encoder half), ``device``, ``dtype``, ``seed`` or
     ``npz`` (`launch.serve.rank_params`), ``keep`` (a step count: return
     the shard's leaves after that many steps, as numpy).  Returns the
     per-step loss, gnorm and seconds, the seconds the shard took to
-    draw, the traffic and peak memory."""
+    draw, the traffic, the kernels' launches over the steps and peak
+    memory."""
     from repro_torch.distributed import collectives as coll
+    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import rank_device
     from repro_torch.launch.serve import rank_params
     from repro_torch.models.transformer import tree_items
@@ -135,15 +139,23 @@ def train_rank(ranks, job: dict) -> dict:
                          npz=job.get("npz")).trainable()
     params_s = time.perf_counter() - t0
     opt = adam_init(params)
+    ew = job.get("enc_width", 0)
     step = build_train_step(
         cfg, adam=AdamConfig(lr=job.get("lr", 1e-3)),
-        aux_coef=job.get("aux_coef", 0.01),
+        aux_coef=job.get("aux_coef", 0.01), enc_width=ew,
         grad_compression=job.get("grad_compression"), device=dev,
         ranks=ranks)
-    data = iter(job["batches"]) if "batches" in job else batches(
-        cfg.vocab_size, job.get("M", M), job.get("mbg", 2), job["seq"],
-        seed=0)
+    if "batches" in job:
+        data = iter(job["batches"])
+    else:
+        m, mbg = job.get("M", M), job.get("mbg", 2)
+        data = batches(cfg.vocab_size, m, mbg, job["seq"], seed=0)
+        if cfg.family in ("vlm", "audio"):
+            rows = np.zeros((m, mbg, max(ew, 4), cfg.d_model), np.float32)
+            data = ({**b, "embeds": rows} for b in data)
     coll.TRAFFIC.reset()
+    for mod in ops.COUNTED:
+        mod.launches = 0
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     out = {"rank": ranks.rank, "coords": ranks.coords, "loss": [],
@@ -158,6 +170,8 @@ def train_rank(ranks, job: dict) -> dict:
             out["params"] = {k: t.detach().float().cpu().numpy().copy()
                              for k, t in tree_items(params)}
     out["traffic"] = coll.TRAFFIC.snapshot()
+    out["launches"] = {m.__name__.split(".")[-1]: m.launches
+                       for m in ops.COUNTED}
     out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda \
         else None
     out["weight_bytes"] = sum(t.numel() * t.element_size()
@@ -178,6 +192,7 @@ def _train_ranks(cfg, args) -> Optional[dict]:
     layout = rank_layout(args.dp, args.pp, args.tp)
     job = dict(cfg=cfg, steps=args.steps, seq=args.seq, M=M, mbg=args.dp,
                lr=args.lr, grad_compression=args.grad_compression,
+               enc_width=args.seq // 2 if cfg.is_encoder_decoder else 0,
                device=dev.type)
     out = rank_launch(train_rank, layout, job, args)
     if out is None:

@@ -119,20 +119,26 @@ def gelu_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return F.gelu(x @ w1 + b1, approximate="tanh") @ w2 + b2
 
 
+def mlp_partial(x: torch.Tensor, p: Mapping[str, torch.Tensor],
+                act: str) -> torch.Tensor:
+    """The block's MLP without its output bias: at a tensor rank, which
+    holds the columns of the first products and the rows of the last, the
+    rank's partial sum."""
+    if act == "gelu":
+        return F.gelu(x @ p["w1"] + p["b1"], approximate="tanh") @ p["w2"]
+    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+
+
 def mlp_apply(x: torch.Tensor, p: Mapping[str, torch.Tensor],
               act: str, tp=None) -> torch.Tensor:
     """The block's MLP.  At a tensor rank `tp` (a `launch.mesh.AxisGroup`
-    of more than one rank) the rank holds the columns of the first
-    products and the rows of the last: its partial sum is reduced over the
-    group (`collectives.reduce_from_tensor`), then the replicated output
-    bias added."""
+    of more than one rank) its partial sum (`mlp_partial`) is reduced over
+    the group (`collectives.reduce_from_tensor`), then the replicated
+    output bias added."""
     if tp is None or tp.size == 1:
         if act == "gelu":
             return gelu_mlp(x, p["w1"], p["b1"], p["w2"], p["b2"])
         return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
-    x = coll.copy_to_tensor(x, tp)
-    if act == "gelu":
-        y = F.gelu(x @ p["w1"] + p["b1"], approximate="tanh") @ p["w2"]
-        return coll.reduce_from_tensor(y, tp) + p["b2"]
-    return coll.reduce_from_tensor(
-        swiglu(x, p["w_gate"], p["w_up"], p["w_down"]), tp)
+    y = coll.reduce_from_tensor(
+        mlp_partial(coll.copy_to_tensor(x, tp), p, act), tp)
+    return y + p["b2"] if act == "gelu" else y

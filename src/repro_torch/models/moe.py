@@ -17,6 +17,12 @@ or boolean-mask indexing): the capacity is a host function of the padded
 row count.  The combine is a sum
 over each row's top_k slots, which is deterministic where a CUDA
 ``index_add_`` is not.
+
+At a tensor rank (``tp``) every expert's and the shared expert's ff columns
+are the rank's: the routing is computed whole on every rank (the same rows
+in the same slots, bit for bit), the rank's expert outputs are partial sums
+over its columns, and the routed and shared partials are summed over the
+group in f32 in one all-reduce before the cast.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.kernels import ops
 from repro_torch.models.layers import swiglu
 
@@ -121,16 +128,21 @@ def moe_apply(
     ep_axis: Optional[str] = None,
     capacity_factor: float = 1.25,
     row_valid: Optional[torch.Tensor] = None,   # [T] bool: padding rows opt out
+    tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output [T, d], aux_loss).  `params` holds:
     router [d, E]; w_gate/w_up [E, d, ff]; w_down [E, ff, d]; optional
     shared-expert s_gate/s_up [d, ffs], s_down [ffs, d].  Rows with
     row_valid=False (static-tick bucket padding) are routed nowhere and
-    consume no expert capacity."""
+    consume no expert capacity.  At tensor rank `tp` (a
+    `launch.mesh.AxisGroup`; ff and ffs the rank's columns) the router is
+    replicated, x enters the expert path and the routing weights enter the
+    combine through `copy_to_tensor` (both scale the rank's partial sums),
+    and the output is reduced over the group."""
     if ep_axis is not None:
         raise NotImplementedError(
             f"moe_apply: expert parallelism (ep_axis={ep_axis!r}) is not yet "
-            f"ported to repro_torch (ROADMAP Queue 1 item 6)")
+            f"ported to repro_torch (ROADMAP Queue 1 item 6.2)")
     T, d = x.shape
     E = params["w_gate"].shape[0]
 
@@ -140,7 +152,8 @@ def moe_apply(
     src = torch.arange(T, device=x.device).repeat_interleave(top_k)
     if row_valid is not None:
         flat_e = torch.where(row_valid[src], flat_e, E)  # invalid sentinel
-    xs = x[src]                                           # [N, d]
+    xe = coll.copy_to_tensor(x, tp)          # the router reads x as it is
+    xs = xe[src]                                          # [N, d]
 
     cap = capacity(T, top_k, E, capacity_factor)
     ebuf, order, sg, pos, counts = _group_rows(xs, flat_e, E, cap)
@@ -148,11 +161,13 @@ def moe_apply(
                    counts)
     ys = _ungroup_rows(y, order, sg, pos)                 # [N, d]
 
+    w = coll.copy_to_tensor(w, tp)
     out = (ys.float().view(T, top_k, d) * w[..., None]).sum(dim=1)
     if "s_gate" in params:
-        shared = swiglu(x, params["s_gate"], params["s_up"], params["s_down"])
+        shared = swiglu(xe, params["s_gate"], params["s_up"],
+                        params["s_down"])
         out = out + shared.float()
-    return out.to(x.dtype), aux
+    return coll.reduce_from_tensor(out, tp).to(x.dtype), aux
 
 
 def moe_ref(x: torch.Tensor, params: Dict[str, torch.Tensor], *,

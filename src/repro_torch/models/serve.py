@@ -52,7 +52,9 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     apply_norm,
+    layernorm,
     mlp_apply,
+    mlp_partial,
     mrope_tables,
     rmsnorm,
     rope_tables,
@@ -65,7 +67,6 @@ from repro_torch.models.transformer import (
     MOE_KINDS,
     _block_key,
     _heads,
-    _tp_kind,
     cross_attend,
     cross_kv,
 )
@@ -297,7 +298,11 @@ def block_cache_defs(cfg: ArchConfig, kind: BlockKind, dims: ServeDims,
     """Shape per cache array of one block group (no stage dim): the JAX
     package's, plus the scratch page or slot at the end of each pool.  An
     ENC_LAYER group holds its encoder snapshot ``h`` [slots, Te, d] (one
-    for the group, not per layer)."""
+    for the group, not per layer).  At a tensor rank's widths
+    (`transformer.shard_config`) each is the rank's block of JAX's cache
+    spec: the KV heads, the WKV heads and Mamba's channels split; the MLA
+    latent pool, the RWKV shift states and the encoder snapshot, which
+    hold d_model or the latent, whole."""
     R, slots = repeat, dims.slots + 1
     if kind == BlockKind.ENC_LAYER:
         return {"h": (slots, dims.Te, cfg.d_model)}
@@ -417,10 +422,12 @@ def _reduce_rows(tp, *parts: torch.Tensor):
 
 def _paged_mla_attention(cfg: ArchConfig, p, xs: torch.Tensor,
                          cache: torch.Tensor, meta: Mapping[str, torch.Tensor],
-                         is_prefill: bool) -> torch.Tensor:
+                         is_prefill: bool, tp=None) -> torch.Tensor:
     """MLA: project, write the normed latent and the rotated rope key into
     the latent pool (in place), attend (`attention.paged_attention_mla`).
-    Returns the attention output."""
+    Returns the attention output; at a tensor rank `tp`, where the
+    down-projections and the latent pool are replicated and the heads the
+    rank's, its partial sum, which the caller reduces (`_reduce_rows`)."""
     S, T, _ = xs.shape
     H = cfg.num_heads
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -444,40 +451,64 @@ def _paged_mla_attention(cfg: ArchConfig, p, xs: torch.Tensor,
 # Serve-mode RWKV
 # ----------------------------------------------------------------------------
 
-def _rwkv_serve(cfg: ArchConfig, p, xs: torch.Tensor,
+def _rwkv_serve(cfg: ArchConfig, p, rows: Dict[str, torch.Tensor],
                 cache: Dict[str, torch.Tensor],
-                meta: Mapping[str, torch.Tensor], phase: str) -> torch.Tensor:
-    """One RWKV block over one phase's rows (`phase` "p" or "d"), from and
-    back into the rows' state slots.  Fresh rows start from zero state
-    whatever their slot holds; the WKV pool is advanced in place by the
-    scan (live tokens only); the shift states of padding rows go to the
-    scratch slot (`host_meta`).  Padding positions come out as zeros, as
-    the JAX mask makes them."""
-    slots, fresh = meta[f"{phase}_state_slots"], meta[f"{phase}_fresh"]
-    lens = meta["p_chunk_lens"] if phase == "p" else meta["d_valid"]
-    valid = meta[f"{phase}_mask"]
-    zero = (fresh > 0)[:, None]
-    state = ssm_lib.RWKVState(tm_x=cache["tm_x"][slots].masked_fill(zero, 0),
-                              cm_x=cache["cm_x"][slots].masked_fill(zero, 0),
-                              wkv=cache["wkv"], slots=slots, fresh=fresh)
-    out, new = ssm_lib.rwkv_block(xs, p, head_dim=cfg.rwkv_head_dim,
-                                  norm_eps=cfg.norm_eps, state=state,
-                                  valid=valid, chunk_lens=lens)
-    write = meta[f"{phase}_write_slots"]
-    cache["tm_x"][write] = new.tm_x
-    cache["cm_x"][write] = new.cm_x
-    return out.masked_fill(~valid[..., None], 0)
+                meta: Mapping[str, torch.Tensor], tp=None
+                ) -> Dict[str, torch.Tensor]:
+    """One RWKV block over each phase's rows (`rows`: "p" and/or "d" to
+    the phase's [rows, T, d]), from and back into the rows' state slots:
+    the time mix of every phase, then the channel mix of every phase, so
+    that at a tensor rank `tp` each mixer's partial sums of both phases are
+    reduced in one all-reduce (`_reduce_rows`).  Fresh rows start from
+    zero state whatever their slot holds; the WKV pool is advanced in place
+    by the scan (live tokens only); the shift states of padding rows go to
+    the scratch slot (`host_meta`).  Padding positions come out as zeros,
+    as the JAX mask makes them.  Prefill runs before decode in each mixer,
+    and the two phases hold different slots."""
+    hd, eps = cfg.rwkv_head_dim, cfg.norm_eps
+    states, lens, valid = {}, {}, {}
+    for ph in rows:
+        slots, fresh = meta[f"{ph}_state_slots"], meta[f"{ph}_fresh"]
+        zero = (fresh > 0)[:, None]
+        states[ph] = ssm_lib.RWKVState(
+            tm_x=cache["tm_x"][slots].masked_fill(zero, 0),
+            cm_x=cache["cm_x"][slots].masked_fill(zero, 0),
+            wkv=cache["wkv"], slots=slots, fresh=fresh)
+        lens[ph] = meta["p_chunk_lens"] if ph == "p" else meta["d_valid"]
+        valid[ph] = meta[f"{ph}_mask"][..., None]
+    att = []
+    for ph, x in rows.items():
+        out, tm_x, _ = ssm_lib.rwkv_time_mix(
+            layernorm(x, p["ln1_g"], p["ln1_b"], eps), p, head_dim=hd,
+            state=states[ph], chunk_lens=lens[ph], tp=tp)
+        cache["tm_x"][meta[f"{ph}_write_slots"]] = tm_x
+        att.append(out)
+    rows = {ph: x + a.masked_fill(~valid[ph], 0)
+            for (ph, x), a in zip(rows.items(), _reduce_rows(tp, *att))}
+    recept, value = [], []
+    for ph, x in rows.items():
+        r, kv, cm_x = ssm_lib.rwkv_channel_mix_parts(
+            layernorm(x, p["ln2_g"], p["ln2_b"], eps), p, state=states[ph],
+            chunk_lens=lens[ph], tp=tp)
+        cache["cm_x"][meta[f"{ph}_write_slots"]] = cm_x
+        recept.append(r)
+        value.append(kv)
+    return {ph: (x + r * kv).masked_fill(~valid[ph], 0)
+            for (ph, x), r, kv in zip(rows.items(), recept,
+                                      _reduce_rows(tp, *value))}
 
 
 def _mamba_serve(cfg: ArchConfig, p, xs: torch.Tensor,
                  cache: Dict[str, torch.Tensor],
-                 meta: Mapping[str, torch.Tensor], phase: str) -> torch.Tensor:
+                 meta: Mapping[str, torch.Tensor], phase: str,
+                 tp=None) -> torch.Tensor:
     """One Mamba mixer over one phase's rows (`phase` "p" or "d"), from and
     back into the rows' state slots.  Fresh rows start from zero conv and
     scan state whatever their slot holds; the scan advances the `ssm` pool
     in place (live tokens only); the conv state of padding rows goes to
     the scratch slot (`host_meta`).  Padding positions come out as zeros,
-    as the JAX mask makes them."""
+    as the JAX mask makes them.  At a tensor rank `tp` (its channels and
+    their state) the rank's partial sum, which the caller reduces."""
     slots, fresh = meta[f"{phase}_state_slots"], meta[f"{phase}_fresh"]
     lens = meta["p_chunk_lens"] if phase == "p" else meta["d_valid"]
     valid = meta[f"{phase}_mask"]
@@ -486,42 +517,66 @@ def _mamba_serve(cfg: ArchConfig, p, xs: torch.Tensor,
                                fresh=fresh)
     out, new_conv = ssm_lib.mamba_mixer(
         xs, p, d_state=cfg.mamba_d_state, d_conv=cfg.mamba_d_conv,
-        state=state, chunk_lens=lens)
+        state=state, chunk_lens=lens, tp=tp)
     cache["conv"][meta[f"{phase}_write_slots"]] = new_conv
     return out.masked_fill(~valid[..., None], 0)
+
+
+def _mlp_rows(cfg: ArchConfig, p, tp, *hs: torch.Tensor):
+    """The MLP of each of `hs`; at a tensor rank `tp` their partial sums
+    reduced in one all-reduce (`_reduce_rows`), then the output bias
+    added."""
+    if tp is None:
+        return [mlp_apply(h, p, cfg.act) for h in hs]
+    outs = _reduce_rows(tp, *(mlp_partial(h, p, cfg.act) for h in hs))
+    return [o + p["b2"] if "b2" in p else o for o in outs]
 
 
 def _enc_dec_serve(cfg: ArchConfig, kind: BlockKind, p, norm,
                    xp: torch.Tensor, xd: torch.Tensor,
                    cache: Optional[Dict[str, torch.Tensor]],
                    meta: Mapping[str, torch.Tensor], dims: ServeDims,
-                   enc_h: Optional[torch.Tensor]):
+                   enc_h: Optional[torch.Tensor], tp=None):
     """One whisper block.  ENC_LAYER: bidirectional self-attention and MLP
     over the prefill payload's encoder slice; decode rows pass through.
     DEC_LAYER: paged causal self-attention, cross-attention and MLP over the
     payload's decoder slice (to the encoder slice beside it) and over the
-    decode rows (to their snapshot `enc_h` [Sd, Te, d])."""
+    decode rows (to their snapshot `enc_h` [Sd, Te, d]), each sublayer of
+    both phases before the next, so that at a tensor rank `tp` (the heads
+    and the MLP's columns the rank's) both phases' partial sums are
+    reduced in one all-reduce."""
     Sp, Sd, Te = dims.Sp, dims.Sd, dims.Te
-    if Sp:
-        enc, dec = xp[:, :Te], xp[:, Te:]
-        if kind == BlockKind.ENC_LAYER:
+    if kind == BlockKind.ENC_LAYER:
+        if Sp:
+            enc = xp[:, :Te]
             q, k, v = _qkv_rows(cfg, p, norm("ln1", enc), meta["e_rope"])
             o = attn.cross_attention(q, k, v)            # bidirectional
-            enc = enc + o.reshape(Sp, Te, -1) @ p["wo"]
-            enc = enc + mlp_apply(norm("ln2", enc), p, cfg.act)
+            o, = _reduce_rows(tp, o.reshape(Sp, Te, -1) @ p["wo"])
+            enc = enc + o
+            enc = enc + _mlp_rows(cfg, p, tp, norm("ln2", enc))[0]
+            xp = torch.cat([enc, xp[:, Te:]], dim=1)
+        return xp, xd
+    rows, ctx = [], []
+    if Sp:
+        rows.append(("p", xp[:, Te:]))
+        ctx.append(xp[:, :Te])
+    if Sd:
+        rows.append(("d", xd))
+        ctx.append(enc_h)
+    outs = _reduce_rows(tp, *(_paged_self_attention(
+        cfg, p, norm("ln1", x), cache["kv"], meta, ph == "p", tp=tp)
+        for ph, x in rows))
+    rows = [(ph, x + o) for (ph, x), o in zip(rows, outs)]
+    outs = _reduce_rows(tp, *(cross_attend(
+        cfg, p, norm("ln3", x), *cross_kv(cfg, p, enc), tp=tp)
+        for (ph, x), enc in zip(rows, ctx)))
+    rows = [(ph, x + o) for (ph, x), o in zip(rows, outs)]
+    outs = _mlp_rows(cfg, p, tp, *(norm("ln2", x) for _, x in rows))
+    for (ph, x), o in zip(rows, outs):
+        if ph == "p":
+            xp = torch.cat([xp[:, :Te], x + o], dim=1)
         else:
-            dec = dec + _paged_self_attention(cfg, p, norm("ln1", dec),
-                                              cache["kv"], meta, True)
-            dec = dec + cross_attend(cfg, p, norm("ln3", dec),
-                                     *cross_kv(cfg, p, enc))
-            dec = dec + mlp_apply(norm("ln2", dec), p, cfg.act)
-        xp = torch.cat([enc, dec], dim=1)
-    if Sd and kind == BlockKind.DEC_LAYER:
-        xd = xd + _paged_self_attention(cfg, p, norm("ln1", xd), cache["kv"],
-                                        meta, False)
-        xd = xd + cross_attend(cfg, p, norm("ln3", xd),
-                               *cross_kv(cfg, p, enc_h))
-        xd = xd + mlp_apply(norm("ln2", xd), p, cfg.act)
+            xd = x + o
     return xp, xd
 
 
@@ -539,16 +594,21 @@ def block_apply_serve(cfg: ArchConfig, kind: BlockKind, p,
     snapshots.
     The MoE FFN routes only the live rows (``meta["row_valid"]``, see
     `stage_forward_serve`): padding rows consume no expert capacity.
-    `tp`: an ATTN_MLP block at a tensor rank (`_paged_self_attention`,
-    `layers.mlp_apply`); any other kind there raises.
-    Returns (xp, xd, cache); the cache is updated in place."""
-    _tp_kind(kind, tp)
+    `tp`: the block at a tensor rank (the widths of `cfg`,
+    `transformer.shard_config`): every mixer and FFN returns the rank's
+    partial sums, and each sublayer's of both phases are reduced in one
+    all-reduce (`_reduce_rows`; the FFN runs over both phases' rows at
+    once).  Returns (xp, xd, cache); the cache is updated in place."""
+    if tp is not None and tp.size == 1:
+        tp = None
     if kind == BlockKind.RWKV:
+        rows = {}
         if dims.Sp:
-            xp = _rwkv_serve(cfg, p, xp, cache, meta, "p")
+            rows["p"] = xp
         if dims.Sd:
-            xd = _rwkv_serve(cfg, p, xd, cache, meta, "d")
-        return xp, xd, cache
+            rows["d"] = xd
+        rows = _rwkv_serve(cfg, p, rows, cache, meta, tp)
+        return rows.get("p", xp), rows.get("d", xd), cache
 
     def norm(name, h):
         keys = {"g": p[f"{name}_g"]}
@@ -558,33 +618,32 @@ def block_apply_serve(cfg: ArchConfig, kind: BlockKind, p,
 
     if kind in ENC_DEC_KINDS:
         xp, xd = _enc_dec_serve(cfg, kind, p, norm, xp, xd, cache, meta,
-                                dims, enc_h)
+                                dims, enc_h, tp)
         return xp, xd, cache
 
     Sp, Sd = dims.Sp, dims.Sd
+    outs = []
     if kind in MAMBA_KINDS:
         if Sp:
-            xp = xp + _mamba_serve(cfg, p, norm("ln1", xp), cache, meta, "p")
+            outs.append(_mamba_serve(cfg, p, norm("ln1", xp), cache, meta,
+                                     "p", tp))
         if Sd:
-            xd = xd + _mamba_serve(cfg, p, norm("ln1", xd), cache, meta, "d")
+            outs.append(_mamba_serve(cfg, p, norm("ln1", xd), cache, meta,
+                                     "d", tp))
     else:
         mixer = (_paged_mla_attention if kind == BlockKind.MLA_MLP
                  else _paged_self_attention)
-        if tp is not None and tp.size == 1:
-            tp = None
-        kw = {} if tp is None else {"tp": tp}
-        outs = []
         if Sp:
             outs.append(mixer(cfg, p, norm("ln1", xp), cache["kv"], meta,
-                              True, **kw))
+                              True, tp=tp))
         if Sd:
             outs.append(mixer(cfg, p, norm("ln1", xd), cache["kv"], meta,
-                              False, **kw))
-        outs = list(_reduce_rows(tp, *outs))
-        if Sp:
-            xp = xp + outs.pop(0)
-        if Sd:
-            xd = xd + outs.pop(0)
+                              False, tp=tp))
+    outs = list(_reduce_rows(tp, *outs))
+    if Sp:
+        xp = xp + outs.pop(0)
+    if Sd:
+        xd = xd + outs.pop(0)
 
     # ffn over all rows (flattened)
     parts = []
@@ -596,7 +655,7 @@ def block_apply_serve(cfg: ArchConfig, kind: BlockKind, p,
     if kind in MOE_KINDS:
         y, _ = moe_lib.moe_apply(flat, p, top_k=cfg.num_experts_per_tok,
                                  capacity_factor=cfg.moe_capacity_factor,
-                                 row_valid=meta["row_valid"])
+                                 row_valid=meta["row_valid"], tp=tp)
     else:
         y = mlp_apply(flat, p, cfg.act, tp)
     n = Sp * xp.shape[1] if Sp else 0

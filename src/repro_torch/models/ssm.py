@@ -16,6 +16,13 @@ chunked plain PyTorch that autograd differentiates on either device, the
 counterparts of the jnp forms the JAX package trains through
 (``repro/models/ssm.py``'s blocked associative scan and `_wkv_chunked`).
 They keep no state and never call the kernels, which have no backward.
+
+At a tensor rank (``tp``, a `launch.mesh.AxisGroup`) the mixers compute
+the rank's channels: Mamba's d_inner / tp channels (its block of both
+halves of ``in_proj``, `transformer.PAIRED_LEAVES`), RWKV's H / tp heads
+and d_ff / tp channel-mix columns, at the whole d_model.  The mixers'
+outputs are then the rank's partial sums, which the caller reduces over
+the group, so that a serve tick reduces both phases in one all-reduce.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.kernels import ops
 from repro_torch.models.layers import layernorm
 
@@ -74,6 +82,7 @@ def mamba_mixer(
     state: Optional[MambaState] = None,
     chunk_lens: Optional[torch.Tensor] = None,
     train: bool = False,
+    tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (out, new conv state).  Rows run their first `chunk_lens`
     tokens (all T when None) through the scan; the state's `ssm` pool is
@@ -81,9 +90,13 @@ def mamba_mixer(
     tokens are not defined (the JAX masks zero them).  The new conv state
     is the last ``d_conv - 1`` live rows of ``[old state | chunk]`` (the old
     state itself for a row with no live token).  `train`: whole rows from
-    a zero state through `selective_scan_train` (no state, no lengths)."""
+    a zero state through `selective_scan_train` (no state, no lengths).
+    At tensor rank `tp` the channels are the rank's: x (the normed input,
+    which feeds nothing else) enters them, ``x_proj``'s row-parallel
+    partial sums are reduced and enter them again (dt, B and C act on the
+    rank's channels), and out is the rank's partial sum."""
     B, T, _ = x.shape
-    xz = x @ p["in_proj"]                               # [B, T, 2*di]
+    xz = coll.copy_to_tensor(x, tp) @ p["in_proj"]      # [B, T, 2*di]
     di = xz.shape[-1] // 2
     xi, z = xz[..., :di], xz[..., di:]
     _train_args(train, state, chunk_lens)
@@ -108,7 +121,8 @@ def mamba_mixer(
 
     # input-dependent SSM parameters
     dtr = p["dt_proj"].shape[0]
-    dbc = xi @ p["x_proj"]                              # [B, T, dtr + 2*ds]
+    dbc = coll.copy_to_tensor(coll.reduce_from_tensor(
+        xi @ p["x_proj"], tp), tp)                      # [B, T, dtr + 2*ds]
     Bm = dbc[..., dtr:dtr + d_state].float().contiguous()
     Cm = dbc[..., dtr + d_state:].float().contiguous()
     dt = F.softplus((dbc[..., :dtr] @ p["dt_proj"]).float()
@@ -180,35 +194,46 @@ def rwkv_time_mix(
     state: Optional[RWKVState] = None,
     chunk_lens: Optional[torch.Tensor] = None,
     train: bool = False,
+    tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (out, new_tm_x, wkv pool).  Rows run their first
     `chunk_lens` tokens (all T when None) through the recurrence; the
     pool is advanced in place at the rows' slots.  `train`: whole rows
     from a zero state through `wkv6_train` (no state, no lengths; no pool
-    comes back)."""
+    comes back).  At tensor rank `tp` the heads are the rank's (H from
+    ``w_r``'s columns): the four mixed inputs and the decay LoRA's hidden
+    enter them, the replicated ``w0``, ``u``, ``ln_x_g`` and the LoRA's
+    output columns are sliced to them (`collectives.slice_for_tensor`),
+    and out is the rank's partial sum."""
     B, T, d = x.shape
-    H = d // head_dim
+    H = p["w_r"].shape[-1] // head_dim
+    dl = H * head_dim
     _train_args(train, state, chunk_lens)
     if state is None and not train:
         state = rwkv_init_state(B, d, H, head_dim, x.dtype, x.device)
     last = (torch.zeros(B, d, dtype=x.dtype, device=x.device)
             if state is None else state.tm_x)
     sx = _token_shift(x, last)
-    xr = x + sx * p["mu_r"]
-    xk = x + sx * p["mu_k"]
-    xv = x + sx * p["mu_v"]
-    xg = x + sx * p["mu_g"]
-    xw = x + sx * p["mu_w"]
 
-    r = (xr @ p["w_r"]).reshape(B, T, H, head_dim)
-    k = (xk @ p["w_k"]).reshape(B, T, H, head_dim)
-    v = (xv @ p["w_v"]).reshape(B, T, H, head_dim)
-    g = F.silu(xg @ p["w_g"])
+    def mixed(mu):                   # an input of the rank's columns only
+        return coll.copy_to_tensor(x + sx * p[mu], tp)
+
+    def rank_cols(name):             # a replicated leaf's rank columns
+        return coll.slice_for_tensor(p[name], tp)
+
+    xw = x + sx * p["mu_w"]
+    r = (mixed("mu_r") @ p["w_r"]).reshape(B, T, H, head_dim)
+    k = (mixed("mu_k") @ p["w_k"]).reshape(B, T, H, head_dim)
+    v = (mixed("mu_v") @ p["w_v"]).reshape(B, T, H, head_dim)
+    g = F.silu(mixed("mu_g") @ p["w_g"])
     # data-dependent decay (the Finch contribution): w = exp(-exp(w0 + lora))
-    dd = torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]       # [B, T, d]
-    logw = -torch.exp(torch.clamp(p["w0"].float() + dd.float(), -20.0, 10.0))
+    dd = coll.copy_to_tensor(torch.tanh(xw @ p["w_lora_a"]), tp) \
+        @ rank_cols("w_lora_b")                               # [B, T, dl]
+    logw = -torch.exp(torch.clamp(rank_cols("w0").float() + dd.float(),
+                                  -20.0, 10.0))
     logw = logw.reshape(B, T, H, head_dim)
-    u = p["u"].reshape(H, head_dim).float()    # bonus for the current token
+    # the bonus for the current token
+    u = rank_cols("u").reshape(H, head_dim).float()
 
     if train:
         o = wkv6_train(r, k, v, logw, u)
@@ -222,10 +247,34 @@ def rwkv_time_mix(
     mu = torch.mean(o, dim=-1, keepdim=True)
     var = torch.mean(torch.square(o - mu), dim=-1, keepdim=True)
     o = (o - mu) * torch.rsqrt(var + GROUP_NORM_EPS)
-    o = (o.reshape(B, T, d) * p["ln_x_g"].float()).to(x.dtype)
+    o = (o.reshape(B, T, dl) * rank_cols("ln_x_g").float()).to(x.dtype)
     out = (o * g.to(x.dtype)) @ p["w_o"]
     return (out, _last_valid_row(x, last, chunk_lens),
             None if train else state.wkv)
+
+
+def rwkv_channel_mix_parts(
+    x: torch.Tensor,                    # [B, T, d]
+    p: Mapping[str, torch.Tensor],
+    *,
+    state: Optional[RWKVState] = None,
+    chunk_lens: Optional[torch.Tensor] = None,
+    tp=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The channel mix before its product: (receptance sigmoid(xr @ cm_r),
+    value k @ cm_v, new_cm_x); out = receptance * value.  At tensor rank
+    `tp` the receptance is replicated and the value the rank's partial sum
+    over its d_ff columns (only xk enters them), which must be reduced
+    before the product."""
+    B, T, d = x.shape
+    last = (torch.zeros(B, d, dtype=x.dtype, device=x.device)
+            if state is None else state.cm_x)
+    sx = _token_shift(x, last)
+    xk = coll.copy_to_tensor(x + sx * p["cm_mu_k"], tp)
+    xr = x + sx * p["cm_mu_r"]
+    k = torch.square(torch.relu(xk @ p["cm_k"]))
+    return (torch.sigmoid(xr @ p["cm_r"]), k @ p["cm_v"],
+            _last_valid_row(x, last, chunk_lens))
 
 
 def rwkv_channel_mix(
@@ -234,16 +283,13 @@ def rwkv_channel_mix(
     *,
     state: Optional[RWKVState] = None,
     chunk_lens: Optional[torch.Tensor] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    B, T, d = x.shape
-    last = (torch.zeros(B, d, dtype=x.dtype, device=x.device)
-            if state is None else state.cm_x)
-    sx = _token_shift(x, last)
-    xk = x + sx * p["cm_mu_k"]
-    xr = x + sx * p["cm_mu_r"]
-    k = torch.square(torch.relu(xk @ p["cm_k"]))
-    out = torch.sigmoid(xr @ p["cm_r"]) * (k @ p["cm_v"])
-    return out, _last_valid_row(x, last, chunk_lens)
+    """(out, new_cm_x): `rwkv_channel_mix_parts`, the value reduced over
+    `tp` before the product."""
+    r, kv, cm_x = rwkv_channel_mix_parts(x, p, state=state,
+                                         chunk_lens=chunk_lens, tp=tp)
+    return r * coll.reduce_from_tensor(kv, tp), cm_x
 
 
 def rwkv_block(
@@ -256,23 +302,27 @@ def rwkv_block(
     valid: Optional[torch.Tensor] = None,
     chunk_lens: Optional[torch.Tensor] = None,
     train: bool = False,
+    tp=None,
 ) -> Tuple[torch.Tensor, Optional[RWKVState]]:
     """Layernorm, time-mix, layernorm, channel-mix, each with its residual.
     `valid` [B, T] (the positions before `chunk_lens`) zeroes the padding
     positions' mixer outputs, as the JAX masks do.  `train`: the time-mix's
-    train form (`rwkv_time_mix`), and no state comes back."""
+    train form (`rwkv_time_mix`), and no state comes back.  At tensor rank
+    `tp` each mixer's partial sums are reduced before its residual."""
     if state is None and not train:
         B, _, d = x.shape
-        state = rwkv_init_state(B, d, d // head_dim, head_dim, x.dtype,
-                                x.device)
+        state = rwkv_init_state(B, d, p["w_r"].shape[-1] // head_dim,
+                                head_dim, x.dtype, x.device)
     h = layernorm(x, p["ln1_g"], p["ln1_b"], norm_eps)
     att, tm_x, wkv = rwkv_time_mix(h, p, head_dim=head_dim, state=state,
-                                   chunk_lens=chunk_lens, train=train)
+                                   chunk_lens=chunk_lens, train=train, tp=tp)
+    att = coll.reduce_from_tensor(att, tp)
     if valid is not None:
         att = att.masked_fill(~valid[..., None], 0)
     x = x + att
     h = layernorm(x, p["ln2_g"], p["ln2_b"], norm_eps)
-    ffn, cm_x = rwkv_channel_mix(h, p, state=state, chunk_lens=chunk_lens)
+    ffn, cm_x = rwkv_channel_mix(h, p, state=state, chunk_lens=chunk_lens,
+                                 tp=tp)
     if valid is not None:
         ffn = ffn.masked_fill(~valid[..., None], 0)
     x = x + ffn

@@ -36,6 +36,7 @@ from repro_torch.configs.base import (
     BlockKind,
     BlockSpec,
     ParallelPlan,
+    RankConfig,
 )
 from repro_torch.distributed import collectives as coll
 from repro_torch.models import attention as attn
@@ -258,6 +259,44 @@ def param_pspecs(cfg: ArchConfig) -> Dict[str, Any]:
     return tree
 
 
+# Leaves whose split dim holds equal parts side by side, each part split
+# over the dim's axes on its own: a rank holds its block of every part, the
+# parts in order.  Mamba's fused in_proj [d, 2 di] is x then z, and the
+# mixer cuts the product in halves, so the rank's [d, 2 di / tp] must be its
+# x columns then its z columns, not a contiguous block of the fused dim.
+# JAX's spec is the same column split (its GSPMD program computes the
+# unsharded function whatever the layout); `shard_block` reads this for
+# the rank's copy of a whole tree and `init_params` for the rank draw.
+PAIRED_LEAVES: Dict[str, int] = {"in_proj": 2}
+
+
+def leaf_parts(path: str) -> int:
+    """The parts of the leaf at `path` (its name, or a ``/``-joined
+    path): `PAIRED_LEAVES`, else 1."""
+    return PAIRED_LEAVES.get(path.rsplit("/", 1)[-1], 1)
+
+
+def _parts_dim(spec: Spec, ndim: int) -> int:
+    """The dim a leaf's parts lie along: its last split dim."""
+    spec = tuple(spec) + (None,) * (ndim - len(spec))
+    return max(i for i, e in enumerate(spec) if e is not None)
+
+
+def parted(spec: Spec, shape: Tuple[int, ...], parts: int
+           ) -> Tuple[Spec, Tuple[int, ...]]:
+    """(spec, shape) with the parts' dim (`_parts_dim`) cut into
+    ``(parts, n / parts)``, the new parts dim replicated: `shard_slices` of
+    it takes the rank's block of each part.  Unchanged at one part."""
+    if parts == 1:
+        return spec, shape
+    j = _parts_dim(spec, len(shape))
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    if shape[j] % parts:
+        raise ValueError(f"dim {shape[j]} does not hold {parts} parts")
+    return (spec[:j] + (None,) + spec[j:],
+            shape[:j] + (parts, shape[j] // parts) + shape[j + 1:])
+
+
 def spec_axes(spec: Spec) -> Tuple[str, ...]:
     """The mesh axes a spec splits over."""
     out = []
@@ -290,10 +329,23 @@ def shard_slices(spec: Spec, shape: Tuple[int, ...], layout,
     return tuple(out)
 
 
+def shard_block(t: torch.Tensor, spec: Spec, layout, rank: int,
+                parts: int = 1) -> torch.Tensor:
+    """Rank `rank`'s block of the leaf `t` split by `spec` over `layout`:
+    a view (`shard_slices`), or for a leaf of several parts
+    (`PAIRED_LEAVES`) its block of each part side by side, a copy."""
+    if parts == 1:
+        return t[shard_slices(spec, tuple(t.shape), layout, rank)]
+    vspec, vshape = parted(spec, tuple(t.shape), parts)
+    j = _parts_dim(spec, t.dim())
+    return t.view(vshape)[shard_slices(vspec, vshape, layout, rank)] \
+        .flatten(j, j + 1)
+
+
 def check_shardable(cfg: ArchConfig, layout) -> None:
     """Raise unless `cfg` splits over `layout` (`launch.mesh.Layout`): its
-    stage count, `shard_config`'s widths, no expert parallelism and no
-    tied head across ranks (not yet ported)."""
+    stage count, `shard_config`'s widths, and neither expert parallelism
+    over `data` nor a tied head across ranks (not yet ported)."""
     tp = layout.size("tensor")
     if layout.size("stage") != cfg.plan.pp:
         raise ValueError(f"{cfg.name}: layout of {layout.size('stage')} "
@@ -306,31 +358,35 @@ def check_shardable(cfg: ArchConfig, layout) -> None:
             f"(ROADMAP Queue 1 item 6.2)")
     if cfg.tie_embeddings and layout.world > 1:
         raise NotImplementedError(
-            f"{cfg.name}: a tied head across ranks is not yet ported")
+            f"{cfg.name}: a tied head across ranks is not yet ported "
+            f"(ROADMAP Queue 1 item 6)")
 
 
-def shard_config(cfg: ArchConfig, tp: int) -> ArchConfig:
-    """The widths one tensor rank of one stage computes at: heads, KV heads
-    and d_ff over `tp`, one stage (its caches and carry have one stage
-    slot).  Raises where a width does not divide, and for any block kind
-    but ATTN_MLP at tp > 1."""
-    if tp > 1:
-        other = sorted({bs.kind.value for bs in cfg.pattern} - {"attn_mlp"})
-        if other:
-            raise NotImplementedError(
-                f"{cfg.name}: tensor parallelism of {other} blocks is not "
-                f"yet ported (ROADMAP Queue 1 item 6.1); tp > 1 takes "
-                f"attn_mlp only")
-        for what, n in (("num_heads", cfg.num_heads),
-                        ("num_kv_heads", cfg.num_kv_heads),
-                        ("d_ff", cfg.d_ff)):
-            if n % tp:
-                raise ValueError(f"{cfg.name}: {what}={n} does not split "
-                                 f"over tp={tp}")
-    return dataclasses.replace(
-        cfg, num_heads=cfg.num_heads // tp,
-        num_kv_heads=cfg.num_kv_heads // tp, d_ff=cfg.d_ff // tp,
-        plan=ParallelPlan(pp=1, tp=1))
+def shard_config(cfg: ArchConfig, tp: int) -> RankConfig:
+    """The widths one tensor rank of one stage computes at (a
+    `RankConfig`): heads, KV heads, d_ff, the experts' and the shared
+    experts' ff, Mamba's d_inner and RWKV's heads over `tp`; d_model
+    whole; one stage (its caches and carry have one stage slot).  Raises
+    `ValueError` where a width the pattern uses does not divide."""
+    kinds = {bs.kind for bs in cfg.pattern}
+    widths = [("num_heads", cfg.num_heads),
+              ("num_kv_heads", cfg.num_kv_heads), ("d_ff", cfg.d_ff)]
+    if kinds & set(MOE_KINDS):
+        widths.append(("moe_d_ff", cfg.moe_d_ff))
+    if kinds & set(MAMBA_KINDS):
+        widths.append(("mamba_d_inner", cfg.mamba_d_inner))
+    if BlockKind.RWKV in kinds:
+        widths.append(("num_rwkv_heads", cfg.num_rwkv_heads))
+    for what, n in widths:
+        if n % tp:
+            raise ValueError(f"{cfg.name}: {what}={n} does not split over "
+                             f"tp={tp}")
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    fields.update(num_heads=cfg.num_heads // tp,
+                  num_kv_heads=cfg.num_kv_heads // tp, d_ff=cfg.d_ff // tp,
+                  moe_d_ff=cfg.moe_d_ff // tp, plan=ParallelPlan(pp=1, tp=1),
+                  tensor_parts=tp)
+    return RankConfig(**fields)
 
 
 def shard_views(tree, cfg: ArchConfig, layout, rank: int
@@ -338,11 +394,12 @@ def shard_views(tree, cfg: ArchConfig, layout, rank: int
     """Rank `rank`'s block (`shard_slices` of `param_pspecs`) of every leaf
     of `tree` (`cfg`'s whole tree, a `TransformerParams` or nested dict of
     tensors, at `layout`'s stage count), as views of the same storage: the
-    stage's weights at its tensor shard."""
-    def walk(t, s):
+    stage's weights at its tensor shard; a leaf of several parts
+    (`PAIRED_LEAVES`) is a copy."""
+    def walk(t, s, name=""):
         if not is_node(t):
-            return t.detach()[shard_slices(s, tuple(t.shape), layout, rank)]
-        return {k: walk(t[k], s[k]) for k in t.keys()}
+            return shard_block(t.detach(), s, layout, rank, leaf_parts(name))
+        return {k: walk(t[k], s[k], k) for k in t.keys()}
 
     return TransformerParams(walk(tree, param_pspecs(cfg)))
 
@@ -413,7 +470,9 @@ def _draw(cfg: ArchConfig, leaf: Leaf, gen: torch.Generator,
           ) -> torch.Tensor:
     """Block `idx` (all of it when None) of the leaf `init_params` draws
     next from `gen`: the same draws in the same order whatever the block,
-    so that every rank's block is the slice of the one-process leaf."""
+    so that every rank's block is the slice of the one-process leaf.  A
+    leaf of several parts comes with its parted shape (`parted`): the same
+    draws, in the same memory order."""
     shape, init = leaf
     idx = idx or tuple(slice(0, n) for n in shape)
     out_shape = tuple(s.stop - s.start for s in idx)
@@ -478,24 +537,27 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
     With a `layout` (`launch.mesh.Layout`), rank `rank`'s shard only
     (`shard_params` of the whole tree, which is never built): every leaf
     is drawn as the whole tree draws it, a large one in parts, and only
-    the rank's block of each is kept."""
+    the rank's block of each is kept (of a leaf of several parts,
+    `PAIRED_LEAVES`, its block of each part)."""
     dtype = dtype or getattr(torch, cfg.dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    specs = None
     if layout is not None:
         check_shardable(cfg, layout)
-        specs = param_pspecs(cfg)
 
-    def walk(tree, spec):
+    def walk(tree, spec, name=""):
         if isinstance(tree, tuple):
-            idx = None if spec is None else shard_slices(
-                spec, tree[0], layout, rank)
-            return _draw(cfg, tree, gen, dtype, device, idx)
-        return {k: walk(v, None if spec is None else spec[k])
-                for k, v in tree.items()}
+            vspec, vshape = parted(spec, tree[0], leaf_parts(name))
+            idx = None if layout is None else shard_slices(
+                vspec, vshape, layout, rank)
+            out = _draw(cfg, (vshape, tree[1]), gen, dtype, device, idx)
+            if vshape != tree[0]:
+                j = _parts_dim(spec, len(tree[0]))
+                out = out.flatten(j, j + 1)
+            return out
+        return {k: walk(v, spec[k], k) for k, v in tree.items()}
 
-    return TransformerParams(walk(model_param_defs(cfg), specs))
+    return TransformerParams(walk(model_param_defs(cfg), param_pspecs(cfg)))
 
 
 def abstract_params(cfg: ArchConfig, dtype: Optional[torch.dtype] = None
@@ -585,29 +647,37 @@ def _attn_train(cfg: ArchConfig, p, x: torch.Tensor, positions: torch.Tensor,
 
 
 def _mla_train(cfg: ArchConfig, p, x: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor, tp=None) -> torch.Tensor:
     """MLA over full sequences, with the latent expanded into per-head K
-    and V as the JAX package's train path does."""
+    and V as the JAX package's train path does.  At tensor rank `tp` the
+    down-projections and norms are replicated and the heads the rank's:
+    the latent, the query's latent and the shared rope key enter the
+    rank's columns (`copy_to_tensor` on each, not on x, which also feeds
+    the replicated work), and the out-projection's partial sums are
+    reduced over the group."""
     B, T, _ = x.shape
     H = cfg.num_heads
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     klr = cfg.kv_lora_rank
     cq = rmsnorm(x @ p["w_dq"], p["q_norm_g"], cfg.norm_eps)
-    q = (cq @ p["w_uq"]).reshape(B, T, H, dn + dr)
+    q = (coll.copy_to_tensor(cq, tp) @ p["w_uq"]).reshape(B, T, H, dn + dr)
     q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
     ckv_full = x @ p["w_dkv"]                              # [B, T, klr + dr]
     ckv = rmsnorm(ckv_full[..., :klr], p["kv_norm_g"], cfg.norm_eps)
-    k_rope = apply_rope(ckv_full[..., None, klr:], positions, cfg.rope_theta)
-    kv = (ckv @ p["w_ukv"]).reshape(B, T, H, dn + dv)
+    k_rope = coll.copy_to_tensor(apply_rope(
+        ckv_full[..., None, klr:], positions, cfg.rope_theta), tp)
+    kv = (coll.copy_to_tensor(ckv, tp) @ p["w_ukv"]).reshape(B, T, H,
+                                                             dn + dv)
     q = torch.cat([q[..., :dn], q_rope], dim=-1)
     k = torch.cat([kv[..., :dn], k_rope.expand(B, T, H, dr)], dim=-1)
     o = attn.causal_attention(q, k, kv[..., dn:])
-    return o.reshape(B, T, H * dv) @ p["wo"]
+    return coll.reduce_from_tensor(o.reshape(B, T, H * dv) @ p["wo"], tp)
 
 
 def cross_kv(cfg: ArchConfig, p, enc: torch.Tensor):
     """The cross-attention's K and V from the encoder stream enc [B, Te,
-    d]: [B, Te, KH, hd] each."""
+    d]: [B, Te, KH, hd] each (at a tensor rank, its KV heads: the caller
+    passes the encoder stream through `copy_to_tensor`)."""
     k, v = enc @ p["x_wk"], enc @ p["x_wv"]
     if "x_bk" in p:
         k, v = k + p["x_bk"], v + p["x_bv"]
@@ -616,10 +686,11 @@ def cross_kv(cfg: ArchConfig, p, enc: torch.Tensor):
 
 
 def cross_attend(cfg: ArchConfig, p, h: torch.Tensor, k: torch.Tensor,
-                 v: torch.Tensor) -> torch.Tensor:
+                 v: torch.Tensor, tp=None) -> torch.Tensor:
     """The decoder's cross-attention: h [B, T, d] (normed) over the
-    encoder's K and V (`cross_kv`), projected out: [B, T, d]."""
-    q = h @ p["x_wq"]
+    encoder's K and V (`cross_kv`), projected out: [B, T, d].  At tensor
+    rank `tp` (the heads the rank's), the rank's partial sum of it."""
+    q = coll.copy_to_tensor(h, tp) @ p["x_wq"]
     if "x_bq" in p:
         q = q + p["x_bq"]
     o = attn.cross_attention(_heads(q, cfg.num_heads, cfg.head_dim), k, v)
@@ -640,12 +711,17 @@ def block_apply_train(cfg: ArchConfig, kind: BlockKind, p,
     train forms with `train_forms` (the train step), else through the
     serve scans from a zero state (the dense reference: the Hopper kernels
     on the card, which have no backward).  `tp` (a `launch.mesh.AxisGroup`
-    of more than one rank) runs an ATTN_MLP block tensor-parallel at the
-    widths of `cfg` (`shard_config`)."""
-    _tp_kind(kind, tp)
+    of more than one rank) runs the block tensor-parallel at the widths of
+    `cfg` (`shard_config`): each column-parallel product's input passes
+    through `copy_to_tensor` (only a tensor that feeds nothing
+    replicated), each row-parallel product's partial sums are reduced over
+    the group, and a replicated leaf that acts on the rank's channels is
+    sliced through `collectives.slice_for_tensor`, so that every replica
+    of every leaf ends the backward with its whole gradient."""
     if kind == BlockKind.RWKV:
         x, _ = ssm_lib.rwkv_block(x, p, head_dim=cfg.rwkv_head_dim,
-                                  norm_eps=cfg.norm_eps, train=train_forms)
+                                  norm_eps=cfg.norm_eps, train=train_forms,
+                                  tp=tp)
         return x, aux
 
     def norm(name, h):
@@ -660,23 +736,27 @@ def block_apply_train(cfg: ArchConfig, kind: BlockKind, p,
         enc, dec = x[:, :Te], x[:, Te:]
         if kind == BlockKind.ENC_LAYER:
             enc = enc + _attn_train(cfg, p, norm("ln1", enc), positions[:Te],
-                                    causal=False)
-            enc = enc + mlp_apply(norm("ln2", enc), p, cfg.act)
+                                    causal=False, tp=tp)
+            enc = enc + mlp_apply(norm("ln2", enc), p, cfg.act, tp)
         else:
             dec = dec + _attn_train(cfg, p, norm("ln1", dec),
-                                    positions[:dec.shape[1]])
-            dec = dec + cross_attend(cfg, p, norm("ln3", dec),
-                                     *cross_kv(cfg, p, enc))
-            dec = dec + mlp_apply(norm("ln2", dec), p, cfg.act)
+                                    positions[:dec.shape[1]], tp=tp)
+            # the encoder half enters the rank's KV heads; as it stands it
+            # also passes through the block, replicated
+            kv = cross_kv(cfg, p, coll.copy_to_tensor(enc, tp))
+            dec = dec + coll.reduce_from_tensor(
+                cross_attend(cfg, p, norm("ln3", dec), *kv, tp=tp), tp)
+            dec = dec + mlp_apply(norm("ln2", dec), p, cfg.act, tp)
         return torch.cat([enc, dec], dim=1), aux
 
     if kind in MAMBA_KINDS:
         mix, _ = ssm_lib.mamba_mixer(norm("ln1", x), p,
                                      d_state=cfg.mamba_d_state,
                                      d_conv=cfg.mamba_d_conv,
-                                     train=train_forms)
+                                     train=train_forms, tp=tp)
+        mix = coll.reduce_from_tensor(mix, tp)
     elif kind == BlockKind.MLA_MLP:
-        mix = _mla_train(cfg, p, norm("ln1", x), positions)
+        mix = _mla_train(cfg, p, norm("ln1", x), positions, tp)
     else:
         mix = _attn_train(cfg, p, norm("ln1", x), positions, tp=tp)
     x = x + mix
@@ -684,16 +764,10 @@ def block_apply_train(cfg: ArchConfig, kind: BlockKind, p,
     if kind in MOE_KINDS:
         y, a = moe_lib.moe_apply(h.reshape(-1, cfg.d_model), p,
                                  top_k=cfg.num_experts_per_tok,
-                                 capacity_factor=cfg.moe_capacity_factor)
+                                 capacity_factor=cfg.moe_capacity_factor,
+                                 tp=tp)
         return x + y.reshape(x.shape), aux + a
     return x + mlp_apply(h, p, cfg.act, tp), aux
-
-
-def _tp_kind(kind: BlockKind, tp) -> None:
-    if tp is not None and tp.size > 1 and kind != BlockKind.ATTN_MLP:
-        raise NotImplementedError(
-            f"tensor parallelism of {kind.value} blocks is not yet ported "
-            f"(ROADMAP Queue 1 item 6.1)")
 
 
 def stage_forward_train(cfg: ArchConfig, stage_params, x: torch.Tensor, *,

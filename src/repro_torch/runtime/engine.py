@@ -793,17 +793,22 @@ class RankStats:
 class RankBackend(TorchBackend):
     """`TorchBackend` across ranks: every rank holds one stage of the model
     at its tensor shard (`params`: its `shard_params`), its stage's pools
-    at its KV heads and its carry (`pipeline.init_rank_carry`), and runs
-    `pipeline.build_rank_serve_tick`.
+    at its shard's widths (`serve.block_cache_defs` of `shard_config`: its
+    KV heads, WKV heads and Mamba channels; the MLA latent, shift states
+    and encoder snapshots whole) and its carry
+    (`pipeline.init_rank_carry`), and runs `pipeline.build_rank_serve_tick`.
+    The KV manager on rank 0 hands out pages of every rank's pool at once:
+    each pool holds the same pages, each at its rank's heads.
 
     gLLM's runtime of one leading rank and workers: rank 0's backend sits
     under the scheduler and the `TickLoop` (`PipelineEngine(ranks=)`); per
     tick it picks the bucket and builds the static input buffer (every
     stage's metadata and
     the entering token ids, as at one rank), then broadcasts a header
-    (command, bucket index, buffer size, message size) and the message
-    (the buffer, then any exiting rows' temperatures as f32 bits) to every
-    rank, and runs its own stage.  Every other rank builds the same backend
+    (command, bucket index, buffer size, message size, encoder flag) and
+    the message (the buffer, then any exiting rows' temperatures as f32
+    bits; then an encoder-decoder's entering encoder input) to every rank,
+    and runs its own stage.  Every other rank builds the same backend
     without a scheduler and runs `serve_loop` until the stop message
     (`stop`).  Eager and sync: the tokens every rank gets from the head
     (`vocab_argmax`) are read back on rank 0 as at one rank.  The buffers
@@ -845,6 +850,8 @@ class RankBackend(TorchBackend):
             prog = _BucketProgram(tick, self._fields(zero, bucket, None),
                                   self.device)
             prog.bucket = bucket
+            if self._enc is not None:
+                prog.meta["p_enc"] = self._enc
             self._programs[key] = prog
         return prog
 
@@ -860,19 +867,24 @@ class RankBackend(TorchBackend):
         return t
 
     def _send(self, cmd: int, index: int = 0, body=None,
-              temps: Optional[np.ndarray] = None) -> None:
+              temps: Optional[np.ndarray] = None, enc: bool = False) -> None:
         """The header (command: 1 a tick, 2 reset the counters, 0 stop;
-        bucket index, buffer size, message size), then a tick's message:
-        the buffer, and the temperatures' f32 bits."""
+        bucket index, buffer size, message size, 1 if an encoder input
+        follows), then a tick's message: the buffer, and the temperatures'
+        f32 bits; then, for an encoder-decoder whose entering batch holds
+        prefill rows, their encoder input (the device buffer, `_enc`)."""
         msg = None
         if cmd == 1:
             msg = body.clone() if temps is None else torch.cat(
                 [body, torch.from_numpy(temps.view(np.int32))])
         self._bcast(torch.tensor(
             [cmd, index, 0 if body is None else body.numel(),
-             0 if msg is None else msg.numel()], dtype=torch.int32))
+             0 if msg is None else msg.numel(), int(enc)],
+            dtype=torch.int32))
         if msg is not None:
             self._bcast(msg)
+        if enc:
+            coll.broadcast(self._enc, self.world, 0, kind="meta")
 
     def _load(self, prog: _BucketProgram, fields: Dict[str, np.ndarray],
               entering: Optional[ScheduledBatch] = None) -> None:
@@ -881,8 +893,10 @@ class RankBackend(TorchBackend):
         temps = self._exit_temps(prog.bucket)
         self._temps = None if temps is None else serve_lib.host_to_device(
             torch.from_numpy(temps), self.device)
+        enc = self._enc is not None and entering is not None \
+            and bool(entering.prefill)
         self._send(1, self.ladder.index(prog.bucket),
-                   self._staging[self._ring_slot][:prog.size], temps)
+                   self._staging[self._ring_slot][:prog.size], temps, enc)
 
     def _exit_temps(self, bucket: ServeDims) -> Optional[np.ndarray]:
         batch = (self.scheduler.get_batch(self._exiting)
@@ -928,10 +942,10 @@ class RankBackend(TorchBackend):
         if self.ranks.rank == 0:
             raise ValueError("rank 0 drives the engine; serve_loop is for "
                              "the other ranks")
-        header = torch.zeros(4, dtype=torch.int32)
+        header = torch.zeros(5, dtype=torch.int32)
         while True:
             self._bcast(header)
-            cmd, index, n, size = (int(v) for v in header)
+            cmd, index, n, size, enc = (int(v) for v in header)
             if not cmd:
                 return self.rank_stats
             if cmd == 2:
@@ -942,6 +956,8 @@ class RankBackend(TorchBackend):
             prog.static.copy_(msg[:n])
             self._temps = (msg[n:].view(torch.float32).to(self.device)
                            if size > n else None)
+            if enc:
+                coll.broadcast(self._enc, self.world, 0, kind="meta")
             self._run(prog)
 
     def stop(self) -> None:

@@ -69,7 +69,7 @@ from repro_torch.launch.mesh import (
     rank_layout,
     use_ranks,
 )
-from repro_torch.launch.serve import serve_rank
+from repro_torch.launch.serve import rank_weight_bytes, serve_rank
 from repro_torch.launch.train import train_rank
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.reference import greedy_generate
@@ -237,15 +237,19 @@ def test_param_pspecs_match_jax(arch):
     assert ours == jspecs
 
 
-def test_rank_draws_equal_the_slice_of_the_whole_tree(monkeypatch):
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "jamba-1.5-large-398b"])
+def test_rank_draws_equal_the_slice_of_the_whole_tree(monkeypatch, arch):
     """`init_params(layout=, rank=)` keeps each rank's block of every leaf
     exactly as the whole tree draws it, whole leaves and leaves drawn in
     parts alike (the part size patched down so that the reduced model's
-    leaves take that path too)."""
+    leaves take that path too).  jamba's fused Mamba ``in_proj`` [d, 2 di]
+    gives each rank its block of both halves (x, then z), a copy where
+    every other leaf's block is a view; jamba (expert parallelism over
+    `data`) at dp=1."""
     from repro_torch.models import transformer as tfm
 
-    cfg = _port_cfg("qwen1.5-0.5b", 2, 2)
-    lay = rank_layout(2, 2, 2)
+    cfg = _port_cfg(arch, 2, 2)
+    lay = rank_layout(1 if cfg.plan.ep_over_data else 2, 2, 2)
     for limit in (tfm._F32_DRAW_BYTES, 4096):
         monkeypatch.setattr(tfm, "_F32_DRAW_BYTES", limit)
         full = init_params(cfg, 3, dtype=torch.float32)
@@ -256,14 +260,32 @@ def test_rank_draws_equal_the_slice_of_the_whole_tree(monkeypatch):
             assert mine.keys() == want.keys()
             for k in want:
                 assert torch.equal(mine[k], want[k]), (limit, r, k)
-    views = dict(tree_items(shard_views(full, cfg, lay, 5)))
-    for k, t in tree_items(shard_params(cfg, full, lay, 5)):
+    rank = lay.world - 1
+    assert rank_weight_bytes(cfg, lay, rank, torch.float32) == sum(
+        t.numel() * 4 for t in want.values())             # the memory check
+    views = dict(tree_items(shard_views(full, cfg, lay, rank)))
+    whole = dict(tree_items(full))
+    for k, t in tree_items(shard_params(cfg, full, lay, rank)):
         assert torch.equal(views[k], t)
-        assert views[k].untyped_storage().data_ptr() == dict(tree_items(
-            full))[k].untyped_storage().data_ptr()          # no copy
+        same = views[k].untyped_storage().data_ptr() == \
+            whole[k].untyped_storage().data_ptr()
+        assert same == (tfm.leaf_parts(k) == 1), k      # a view: no copy
     assert replan_to(cfg.with_plan(tp=1), lay).plan == cfg.plan
     shard = dict(tree_items(init_params(cfg, 3, dtype=torch.float32,
-                                        layout=lay, rank=5)))
+                                        layout=lay, rank=rank)))
+    c = lay.coords(rank)
+    if arch == "jamba-1.5-large-398b":
+        di = cfg.mamba_d_inner
+        w = di // 2
+        got = shard["stages/b0_mamba_mlp/in_proj"]
+        src = whole["stages/b0_mamba_mlp/in_proj"][c["stage"]:c["stage"] + 1]
+        lo = c["tensor"] * w
+        assert got.shape == (1, 1, cfg.d_model, di)
+        assert torch.equal(got[..., :w], src[..., lo:lo + w])
+        assert torch.equal(got[..., w:], src[..., di + lo:di + lo + w])
+        assert shard["stages/b0_mamba_mlp/out_proj"].shape == (
+            1, 1, w, cfg.d_model)
+        return
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     assert shard["stages/b0_attn_mlp/wq"].shape == (1, 1, cfg.d_model,
                                                      H * hd // 2)
@@ -276,12 +298,18 @@ def test_rank_draws_equal_the_slice_of_the_whole_tree(monkeypatch):
 
 
 def test_tensor_parallelism_refuses_what_it_does_not_split():
+    """Every block kind shards at tp > 1 (olmoe's ATTN_MOE at tp=2);
+    expert parallelism over `data` at dp > 1 still raises (ROADMAP item
+    6.2); a width that does not divide raises `ValueError`."""
     cfg = _port_cfg("olmoe-1b-7b", 2, 2)
-    with pytest.raises(NotImplementedError, match="item 6.1"):
-        init_params(cfg, 0, layout=rank_layout(1, 2, 2), rank=0)
-    # across stages alone (tp=1) every kind shards
-    init_params(cfg.with_plan(pp=2, tp=1), 0, dtype=torch.float32,
-                layout=rank_layout(1, 2, 1), rank=1)
+    shard = dict(tree_items(init_params(cfg, 0, dtype=torch.float32,
+                                        layout=rank_layout(1, 2, 2),
+                                        rank=1)))
+    assert shard["stages/b0_attn_moe/w_gate"].shape == (
+        1, 1, cfg.num_experts, cfg.d_model, cfg.moe_d_ff // 2)
+    jamba = _port_cfg("jamba-1.5-large-398b", 2, 2)
+    with pytest.raises(NotImplementedError, match="item 6.2"):
+        init_params(jamba, 0, layout=rank_layout(2, 2, 2), rank=0)
     qwen = _port_cfg("qwen1.5-0.5b", 2, 3)
     with pytest.raises(ValueError, match="does not split"):
         init_params(qwen, 0, layout=rank_layout(1, 2, 3), rank=0)
@@ -350,16 +378,26 @@ def test_rwkv_across_stages_matches_one_process(tmp_path):
                                 for p in prompts]
 
 
-def test_serve_launcher_runs_ranks_on_cpu(tmp_path):
+@pytest.mark.parametrize("module,args,out", [
+    ("serve", ["--reduced", "--pp", "2", "--tp", "2", "--requests", "3",
+               "--max-new", "4"], ("3/3 requests", "ranks=4")),
+    ("serve", ["--reduced", "--arch", "jamba-1.5-large-398b", "--tp", "2",
+               "--requests", "3", "--max-new", "4"],
+     ("3/3 requests", "ranks=2")),
+    ("train", ["--arch", "rwkv6-3b", "--tp", "2", "--steps", "2", "--seq",
+               "16"], ("step    1 loss=", "ranks=2")),
+])
+def test_serve_launcher_runs_ranks_on_cpu(tmp_path, module, args, out):
+    """The serve launcher over pp=2 x tp=2 ranks (qwen) and tp=2 (jamba's
+    three block kinds), and the train launcher at tp=2 (rwkv6-3b)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                OMP_NUM_THREADS="1")
     res = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
-         "--device", "cpu", "--pp", "2", "--tp", "2", "--requests", "3",
-         "--max-new", "4", "--store", str(tmp_path / "store")],
+        [sys.executable, "-m", f"repro_torch.launch.{module}", "--device",
+         "cpu", *args, "--store", str(tmp_path / "store")],
         env=env, cwd=REPO, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert "3/3 requests" in res.stdout and "ranks=4" in res.stdout
+    assert all(o in res.stdout for o in out), res.stdout[-2000:]
 
 
 # ----------------------------------------------------------------------------
