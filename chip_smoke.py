@@ -178,10 +178,11 @@ line; any failure raises and the script exits non-zero.
               attention ran 4 x 6 times for each phase a tick's bucket
               holds, counted per replay; graph count, pool and carry
               addresses unchanged by serving
-  serve-pp-bf16  qwen2.5-14b (the paper's model) at full width and depth
-              (48 layers, d 5120, 40:8 heads of 128, 29.5 GB in bf16), the
+  serve-pp-bf16  qwen2.5-14b (the paper's model: d 5120, 40:8 heads of
+              128; 48 layers, 29.5 GB in bf16) at full width cut to 24
+              layers (to keep the script inside its time), the
               serve-bf16 batch on bucketed async graph engines at pp=1 and
-              at pp=4 (4 x 12 layers) from one set of weights (the pp=4
+              at pp=4 (4 x 6 layers) from one set of weights (the pp=4
               engine's are views of the pp=1 engine's): every request
               finishes with valid tokens, launches as `_launch_want` says;
               tokens/s, ms per tick, ticks, bubble stage-ticks (a stage
@@ -288,13 +289,14 @@ line; any failure raises and the script exits non-zero.
               the batch of every tick equal to the single-process ring's;
               paged attention launched on every rank once per layer of its
               stage for each phase a tick runs
-  serve-ranks-bf16  qwen2.5-14b at full width and depth (48 layers, 24 a
-              stage), bf16, pp=2 x tp=2 ranks, bucketed, eager and sync:
+  serve-ranks-bf16  qwen2.5-14b at full width cut to 16 of its 48 layers
+              (8 a stage; the script's time), bf16, pp=2 x tp=2 ranks,
+              bucketed, eager and sync:
               serve-bf16's batch of 32 (4 at temperature 0.8, drawn by
               Gumbel-max over the vocab slices); every request finishes
               with valid tokens, launches as in serve-ranks-f32; output
               tokens/s and ms a tick beside serve-pp-bf16's pp=1 and pp=4
-              rows of the same weights; per rank host, device and
+              rows (24 layers); per rank host, device and
               collective time, bytes a tick per hop and per TP all-reduce,
               bytes staged through host memory, peak memory.  It measures
               the protocol's cost on one shared card (the ranks' kernels
@@ -303,8 +305,9 @@ line; any failure raises and the script exits non-zero.
   train-ranks  qwen1.5-0.5b at full width over dp=2 x pp=2 x tp=2 = 8
               ranks on the one card (`launch.train.train_rank`): a 4-layer
               f32 cut's lr-0 loss equal to the dense cross-entropy within
-              2e-4; then full depth in bf16, `ring8` gradient compression,
-              a few steps on one batch: finite losses that fall
+              2e-4; then 12 of its 24 layers (the script's time) in bf16,
+              `ring8` gradient compression, a few steps on one batch:
+              finite losses that fall
   serve-tp-f32  tensor parallelism of every other block kind at full width
               and cut depth, f32, over ranks on the card: minicpm3-4b
               (MLA_MLP, 4 layers), rwkv6-3b (RWKV, 4 layers) and jamba's
@@ -325,6 +328,31 @@ line; any failure raises and the script exits non-zero.
               tp=4 in the tp=4 launch: the lr-0 loss against the dense
               cross-entropy within 2e-4, the fused MoE kernel launched
               under autograd at ff = 256 a rank
+  serve-ep-f32  expert parallelism over `data` and the serve tick's data
+              axis, in one launch of dp=2 x tp=2 = 4 ranks on the card: the
+              serve-jamba-f32 cut (MAMBA_MLP and ATTN_MOE, 47.7 GB in f32)
+              on that phase's weights (the rank draw is the slice of the
+              whole tree's: 8 of 16 experts and ff 12,288 a rank, ~14.2 GB)
+              and 8 prompts, dropless under expert parallelism (the least
+              such capacity factor, `ep_dropless_cf`): the ranks' greedy
+              tokens equal serve-jamba-f32's one-process engine's up to its
+              dense reference's near-ties, the batch of every tick and each
+              row's replica equal a host replay of the scheduler over two
+              replicas' pools, every rank exchanged expert rows, and every
+              rank launches each kernel as `_launch_want` says
+  serve-ep-bf16  the kimi-k2 cut (its first ATTN_MOE layer, 384 experts,
+              38.9 GB in bf16) at its published tp=2 and dp=2 (192 experts
+              and ff 1,024 a rank, ~11 GB), bucketed, one batch of 16 at the
+              config's capacity factor spread over both replicas: valid
+              tokens, launches, ms a tick, each rank's split of its tick
+              into host, collectives and own-device wait, the `ep` bytes,
+              peak memory a rank
+  train-ep    reduced kimi-k2 at the MoE kernel's widths (d 128, expert ff
+              128 a rank), f32, dropless, at dp=2 x tp=2, lr 0: the loss
+              against the dense cross-entropy within 2e-4, the fused MoE
+              kernel launched under autograd at 2 local experts.  Full-width
+              kimi-k2 training does not fit the card (its cut's weights
+              with Adam's two f32 moments, ~3 x 38.9 GB over four ranks)
 
 The kernel phase also holds paged attention at qwen2-vl-7b's 28:4 heads
 (G = 7), internlm2-1.8b's 16:8 heads of 128 (G = 2) and qwen2.5-14b's
@@ -336,6 +364,10 @@ The kernel phases also hold bf16 rows at one tensor rank's shapes
 of 128 (tp=4), the fused MoE at olmoe's ff = 256 (tp=4) and jamba's
 12,288 (tp=2), WKV6 at rwkv6-3b's 20 heads and the selective scan at
 jamba's 8,192 channels (tp=2).
+The moe-kernel phase also holds the fused MoE (bf16) at one expert-parallel
+rank's shapes at dp=2 x tp=2 (`EP_ROWS`): kimi-k2's 192 local experts at
+ff 1,024 (C=40, the serve-ep-bf16 prefill tick's expert capacity, and a
+decode tick) and jamba's 8 at ff 12,288 (C=216).
 The kernel and moe-kernel phases also hold their kernels at jamba's shapes:
 paged attention decode and prefill with 64 query heads over 8 KV heads of
 128, and the fused MoE (bf16) at E=16, C=88, d=8192, ff=24576, full and as
@@ -390,6 +422,7 @@ JAMBA_KINDS = ("mamba_mlp", "mamba_moe", "attn_moe")
 JAMBA_F32_KINDS = ("mamba_mlp", "attn_moe")
 PP = 4                      # pipeline stages of the serve-pp phases
 PP_ARCH = "qwen2.5-14b"     # the paper's evaluation model, 29.5 GB in bf16
+PP_LAYERS = 24              # serve-pp-bf16's cut of its 48 (the script's time)
 MAX_NEW = 16
 NEAR_TIE = 1e-3
 # the engines each serve phase runs, one after the other on one set of
@@ -666,6 +699,12 @@ TP_ROWS = ("whisper tp=4 decode", "whisper tp=4 prefill", "olmoe tp=4 decode",
            "olmoe tp=4 prefill", "olmoe tp=4 serve", "jamba tp=2 serve",
            "rwkv6-3b tp=2 decode", "rwkv6-3b tp=2 prefill",
            "jamba tp=2 decode", "jamba tp=2 prefill")
+# fused-MoE rows at one expert-parallel rank's shapes (dp=2 x tp=2), bf16
+# only: kimi-k2's 192 local experts at ff 1,024 (C: the serve-ep-bf16
+# prefill tick's cap_e, 544 rows at top-8 and capacity factor 1.25; and a
+# decode tick), jamba's 8 at ff 12,288 (C: the same tick's at top-2)
+EP_ROWS = ("kimi-k2 ep dp=2 tp=2 prefill", "kimi-k2 ep dp=2 tp=2 decode tick",
+           "jamba ep dp=2 tp=2 serve")
 
 
 def _attention_case(S, TQ, H, KH, D, page, B, dtype, ctx, seed):
@@ -1577,13 +1616,19 @@ def phase_moe_kernel(mg, planted_src: str, tf32_src: str) -> list:
         # fault drops 64 of olmoe's 256 down terms, 64 of jamba's 12,288
         ("olmoe tp=4 serve", 64, 88, 2048, 256, 0),
         ("jamba tp=2 serve", 16, 88, 8192, 12288, 0),
+        # one expert-parallel rank's experts at its ff columns (`EP_ROWS`):
+        # 8.5 GB (kimi-k2) and 4.8 GB (jamba) of weights
+        ("kimi-k2 ep dp=2 tp=2 prefill", 192, 40, 7168, 1024, 0),
+        ("kimi-k2 ep dp=2 tp=2 decode tick", 192, 8, 7168, 1024, 8),
+        ("jamba ep dp=2 tp=2 serve", 8, 216, 8192, 12288, 0),
     ]
     results = []
     for dtype in (torch.float32, torch.bfloat16):
         rtol, htol, acc = mg.TOLERANCE[dtype]
         f32 = dtype == torch.float32
         for name, E, C, d, ff, top_k in shapes:
-            if (E * d * ff > 1 << 30 or name in TP_ROWS) and f32:
+            if (E * d * ff > 1 << 30 or name in TP_ROWS
+                    or name in EP_ROWS) and f32:
                 continue
             args = _moe_case(E, C, d, ff, dtype, seed=100 + len(results),
                              top_k=top_k)
@@ -2189,6 +2234,10 @@ def phase_serve_jamba_f32(pa, mg, s6, greedy_trace) -> dict:
            "tokens_compared": compared, "near_ties": near_ties,
            "serve_s": serve_s, "check_s": time.perf_counter() - t0 - serve_s}
     emit(out)
+    # what serve-ep-f32 reuses: the same weights drawn from the seed, the
+    # prompts and this engine's tokens
+    out.update(cfg=eng.cfg, dims=eng.dims, prompts=prompts,
+               tokens=[r.output_token_ids for r in last["reqs"]])
     del eng
     _free()
     return out
@@ -3489,10 +3538,15 @@ RANK_PP, RANK_TP = 2, 2
 RANK_F32_LAYERS = 4
 RANK_TRAIN_SEQ = 1024       # tokens a sequence, one a data rank
 RANK_TRAIN_STEPS = 3
+# depth cuts that keep the script inside its time: serve-ranks-bf16's
+# qwen2.5-14b (of 48) and train-ranks' bf16 qwen1.5-0.5b (of 24)
+RANK_BF16_LAYERS = 16
+RANK_TRAIN_BF16_LAYERS = 12
 # each launch's wall budget (spawn, rendezvous, weights, serving)
 RANK_BUDGET_S = {"serve-ranks-f32": 240, "serve-ranks-bf16": 420,
                  "train-ranks": 240, "serve-tp-f32": 240,
-                 "serve-tp-bf16": 240, "train-tp": 120}
+                 "serve-tp-bf16": 240, "train-tp": 120,
+                 "serve-ep-f32": 300, "serve-ep-bf16": 300, "train-ep": 120}
 
 
 def _rank_cfg(arch: str, layers: int, dtype: str, pp: int, tp: int):
@@ -3539,6 +3593,7 @@ def _rank_rows(out: list, ticks: int) -> list:
             "tp_bytes_per_allreduce": (tr["bytes"].get("tp", 0) / calls
                                        if calls else 0),
             "tp_bytes_per_tick": tr["bytes"].get("tp", 0) / max(ticks, 1),
+            "ep_bytes_per_tick": tr["bytes"].get("ep", 0) / max(ticks, 1),
             "staged_bytes_per_tick": tr["staged_bytes"] / max(ticks, 1),
             "weight_bytes": o["weight_bytes"], "peak_bytes": o["peak_bytes"],
             "params_s": o["params_s"], "engine_s": o.get("engine_s"),
@@ -3647,15 +3702,17 @@ def phase_serve_ranks_f32(greedy_trace) -> dict:
 
 
 def phase_serve_ranks_bf16(pp_rows: dict) -> dict:
-    """serve-bf16's batch on qwen2.5-14b at full width and depth in bf16
-    over pp=2 x tp=2 ranks, bucketed, eager and sync."""
+    """serve-bf16's batch on qwen2.5-14b at full width, cut to
+    `RANK_BF16_LAYERS`, in bf16 over pp=2 x tp=2 ranks, bucketed, eager and
+    sync."""
     from repro_torch.core import ThrottleConfig
     from repro_torch.launch.mesh import rank_layout
     from repro_torch.launch.serve import FULL_DIMS, serve_rank
 
     phase = "serve-ranks-bf16"
     t0 = time.perf_counter()
-    cfg = _rank_cfg(RANK_ARCH, 0, "bfloat16", RANK_PP, RANK_TP)
+    cfg = _rank_cfg(RANK_ARCH, RANK_BF16_LAYERS, "bfloat16", RANK_PP,
+                    RANK_TP)
     prompts = _prompts(12, 32, cfg.vocab_size)
     temps = [0.8 if i % 8 == 7 else 0.0 for i in range(len(prompts))]
     job = dict(cfg=cfg, dims=FULL_DIMS,
@@ -3707,8 +3764,9 @@ def phase_serve_ranks_bf16(pp_rows: dict) -> dict:
 
 def phase_train_ranks() -> dict:
     """qwen1.5-0.5b at full width over dp=2 x pp=2 x tp=2 ranks: the lr-0
-    loss of a 4-layer f32 cut against the dense cross-entropy, then full
-    depth in bf16 with ring8 for a few steps on one batch."""
+    loss of a 4-layer f32 cut against the dense cross-entropy, then a cut
+    to `RANK_TRAIN_BF16_LAYERS` in bf16 with ring8 for a few steps on one
+    batch."""
     from repro_torch.data.tokens import batches
     from repro_torch.launch import ranks as rk
     from repro_torch.launch.mesh import rank_layout
@@ -3728,7 +3786,7 @@ def phase_train_ranks() -> dict:
     del params, toks, labs
     _free()
     staged = _rank_cfg(ARCH, TRAIN_F32_LAYERS, "float32", 2, 2)
-    full = _rank_cfg(ARCH, 0, "bfloat16", 2, 2)
+    full = _rank_cfg(ARCH, RANK_TRAIN_BF16_LAYERS, "bfloat16", 2, 2)
     b16 = next(batches(full.vocab_size, 2, 2, RANK_TRAIN_SEQ, seed=1))
     runs = _spawn_ranks(rk.run_each, layout, [
         (train_rank, dict(cfg=staged, steps=1, batches=[batch], lr=0.0,
@@ -4024,6 +4082,293 @@ def phase_tp(greedy_trace) -> dict:
     return rows
 
 
+EP_DP, EP_TP = 2, 2
+EP_BF16_REQUESTS = 16       # serve-ep-bf16: the kimi-k2 cut's one batch
+EP_TRAIN_SEQ = 512          # train-ep: tokens a sequence, one a data rank
+
+
+def ep_dropless_cf(cfg, dp: int) -> float:
+    """The least capacity factor at which expert parallelism over `dp`
+    ranks drops no row: every send buffer holds all of a rank's
+    assignments (``cap_send >= N``: cf >= dp) and every expert buffer all
+    the rows the dp ranks can send it, one a token each (``cap_e >=
+    dp * T``: cf >= E_loc / top_k).  The number of experts, the
+    one-process engine's dropless factor, is dropless too, but inflates
+    each rank's expert buffers dp * cf-fold (jamba's, f32: 2.3 GB a rank
+    a prefill tick, beside 14.2 GB of weights and three more ranks)."""
+    local = cfg.num_experts // dp
+    return float(max(dp, -(-local // cfg.num_experts_per_tok)))
+
+
+def _ep_caps(cfg, rows: int, dp: int) -> tuple:
+    """(cap_send, cap_e) of `moe_apply(ep=)` at `rows` token rows a rank."""
+    from repro_torch.models.moe import _round8
+
+    n, cf = rows * cfg.num_experts_per_tok, cfg.moe_capacity_factor
+    cap_send = _round8(int(n / dp * cf) + 1)
+    local = cfg.num_experts // dp
+    return cap_send, _round8(int(dp * cap_send / local * cf) + 1)
+
+
+def _replica_replay(prompts, dims, throttle, dp: int, max_new: int):
+    """The scheduler over `dp` replicas' pools on the host, every sampled
+    token 0 (greedy batches do not depend on the tokens): the batch of
+    every tick and each row's replica, as `serve_rank` records them."""
+    from repro_torch.core import (PipelineScheduler, ReplicaKVManager,
+                                  Request, SamplingParams)
+
+    kv = ReplicaKVManager(dp, dims.pages, dims.page)
+    sched = PipelineScheduler(
+        throttle, kv, max_model_len=dims.page * max(dims.Bp, dims.Bd),
+        max_prefill_seqs=dims.Sp, max_chunk_tokens=dims.C,
+        max_decode_seqs=dims.Sd)
+    for i, p in enumerate(prompts):
+        sched.add_request(Request(f"r{i}", list(p),
+                                  SamplingParams(max_new_tokens=max_new)))
+    ticks, homes = [], []
+    while sched.has_work:
+        b = sched.schedule()
+        if b.is_empty:
+            sched.complete(b.batch_id, [])
+            ticks.append(None)
+            homes.append(None)
+            continue
+        ticks.append([[[q.request.request_id, q.start_pos, q.num_tokens]
+                       for q in b.prefill],
+                      [q.request.request_id for q in b.decode]])
+        homes.append([[kv.replica_of(q.request.request_id) for q in rows]
+                      for rows in (b.prefill, b.decode)])
+        sched.complete(b.batch_id, [0] * sum(q.produces_token
+                                             for q in b.seqs))
+        sched.check_invariants()
+    return ticks, homes
+
+
+def _idle_replica_ticks(homes) -> int:
+    """Ticks on which one replica had rows and another none."""
+    return sum(1 for h in homes if h is not None
+               and len(set(h[0]) | set(h[1])) == 1)
+
+
+def _ep_f32_job(jamba: dict) -> dict:
+    """serve-ep-f32's job: serve-jamba-f32's cut (MAMBA_MLP and ATTN_MOE,
+    f32) on its weights (the rank draw is the slice of the whole tree's)
+    and its 8 prompts at dp=2 x tp=2, dropless under expert parallelism
+    (`ep_dropless_cf`)."""
+    import dataclasses
+
+    from repro_torch.core import ThrottleConfig
+
+    cfg = jamba["cfg"].with_plan(tp=EP_TP)
+    cfg = dataclasses.replace(cfg,
+                              moe_capacity_factor=ep_dropless_cf(cfg, EP_DP))
+    return dict(cfg=cfg, dims=jamba["dims"],
+                throttle=ThrottleConfig(pipeline_depth=1),
+                prompts=jamba["prompts"], max_new=jamba["max_new_tokens"],
+                device=DEV, dtype="float32", seed=0)
+
+
+def _ep_f32_row(job: dict, jamba: dict, out: list) -> dict:
+    """serve-ep-f32's line: the ranks' tokens against serve-jamba-f32's
+    one-process engine's up to the dense reference's first near-tie, the
+    ticks and rows' replicas against the host replay, each rank's
+    launches."""
+    head, cfg, max_new = out[0], job["cfg"], job["max_new"]
+    stops = {t["request"]: t["step"] for t in jamba["near_ties"]}
+    compared, bad = 0, []
+    for i, (mine, got) in enumerate(zip(jamba["tokens"], head["tokens"])):
+        stop = stops.get(i, max_new)
+        if not (head["finished"][i] and len(got) == max_new
+                and got[:stop] == mine[:stop]):
+            bad.append({"request": i, "ranks": got, "single": mine,
+                        "compared": stop})
+        compared += stop
+    ticks, homes = _replica_replay(job["prompts"], job["dims"],
+                                   job["throttle"], EP_DP, max_new)
+    dims = job["dims"]
+    row = {"phase": "serve-ep-f32", "arch": JAMBA_ARCH,
+           "kinds": list(JAMBA_F32_KINDS), "dp": EP_DP, "tp": EP_TP,
+           "ranks": len(out), "backend": "gloo",
+           "experts_per_rank": cfg.num_experts // EP_DP,
+           "moe_ff_per_rank": cfg.moe_d_ff // EP_TP,
+           "capacity_factor": cfg.moe_capacity_factor,
+           "caps_prefill_tick": _ep_caps(cfg, dims.Sp * dims.C + dims.Sd,
+                                         EP_DP),
+           "requests": len(job["prompts"]), "tokens_compared": compared,
+           "near_ties": jamba["near_ties"],
+           "ticks": head["stats"]["ticks"],
+           "ticks_equal_replay": head["ticks"] == ticks,
+           "replicas_equal_replay": head["replicas"] == homes,
+           "idle_replica_ticks": _idle_replica_ticks(homes),
+           "wall_s": head["wall_s"],
+           "weight_gb_per_rank": [_gb(o["weight_bytes"]) for o in out],
+           "peak_gb_per_rank": [_gb(o["peak_bytes"]) for o in out],
+           "per_rank": _rank_rows(out, head["stats"]["ticks"])}
+    try:
+        row["launches"] = _tp_launches(out, cfg)
+    finally:
+        emit(row)
+    ran_ep = all(o["rank_stats"]["traffic"]["bytes"].get("ep", 0) > 0
+                 for o in out)
+    if bad or not (row["ticks_equal_replay"]
+                   and row["replicas_equal_replay"] and ran_ep):
+        raise AssertionError(f"serve-ep-f32: tokens or ticks differ from "
+                             f"the one-process engine's and the replay's, "
+                             f"or a rank exchanged no expert rows: {bad}")
+    return row
+
+
+def _ep_bf16_job() -> dict:
+    """serve-ep-bf16's job: the kimi-k2 cut (its first ATTN_MOE layer, 384
+    experts, 38.9 GB in bf16) at its published tp=2 and dp=2, bucketed, at
+    the config's capacity factor."""
+    from repro_torch.configs import BlockKind
+    from repro_torch.core import ThrottleConfig
+    from repro_torch.launch.serve import FULL_DIMS, serve_config
+
+    cfg, _ = serve_config(KIMI_ARCH, dtype=torch.bfloat16,
+                          cut=[BlockKind.ATTN_MOE])
+    return dict(cfg=cfg.with_plan(tp=EP_TP), dims=FULL_DIMS,
+                throttle=ThrottleConfig(pipeline_depth=1),
+                prompts=_prompts(13, EP_BF16_REQUESTS, cfg.vocab_size),
+                max_new=MAX_NEW, device=DEV, dtype="bfloat16", seed=0,
+                bucketed=True)
+
+
+def _ep_bf16_row(job: dict, out: list) -> dict:
+    head = out[0]
+    st = head["stats"]
+    cfg = job["cfg"]
+    toks = sum(len(t) for t in head["tokens"])
+    valid = sum(len(t) == MAX_NEW and all(0 <= x < cfg.vocab_size
+                                          for x in t)
+                for t in head["tokens"])
+    first = {}
+    for tick, h in zip(head["ticks"], head["replicas"]):
+        if tick is not None:
+            for (rid, _, _), r in zip(tick[0], h[0]):
+                first.setdefault(rid, r)
+    row = {"phase": "serve-ep-bf16", "arch": KIMI_ARCH, "kinds": ["attn_moe"],
+           "dp": EP_DP, "tp": EP_TP, "ranks": len(out), "backend": "gloo",
+           "bucketed": True, "cuda_graphs": False,
+           "experts_per_rank": cfg.num_experts // EP_DP,
+           "moe_ff_per_rank": cfg.moe_d_ff // EP_TP,
+           "capacity_factor": cfg.moe_capacity_factor,
+           "requests": len(job["prompts"]),
+           "requests_per_replica": [list(first.values()).count(r)
+                                    for r in range(EP_DP)],
+           "valid_requests": valid, "finished": sum(head["finished"]),
+           "output_tokens": toks, "wall_s": head["wall_s"],
+           "ticks": st["ticks"], "prefill_ticks": st["prefill_ticks"],
+           "decode_ticks": st["decode_ticks"],
+           "idle_replica_ticks": _idle_replica_ticks(head["replicas"]),
+           "ms_per_tick": head["wall_s"] / st["ticks"] * 1e3,
+           "weight_gb_per_rank": [_gb(o["weight_bytes"]) for o in out],
+           "peak_gb_per_rank": [_gb(o["peak_bytes"]) for o in out],
+           "per_rank": _rank_rows(out, st["ticks"]),
+           "note": "four processes share one card: the protocol's cost, "
+                   "not expert parallelism's gain"}
+    try:
+        row["launches"] = _tp_launches(out, cfg)
+    finally:
+        emit(row)
+    if valid != len(job["prompts"]) or not all(head["finished"]) or any(
+            o["rank_stats"]["traffic"]["bytes"].get("ep", 0) == 0
+            for o in out):
+        raise AssertionError(f"serve-ep-bf16 (or its expert exchanges): "
+                             f"{valid} of "
+                             f"{len(job['prompts'])} requests finished with "
+                             f"{MAX_NEW} valid tokens")
+    return row
+
+
+def _ep_train_case():
+    """train-ep's config and batch: reduced kimi-k2 (`make_reduced` at the
+    MoE kernel's widths: d 128, expert ff 256, 128 a tensor rank; two
+    ATTN_MOE layers with the shared expert), f32, dropless for the dense
+    forward and under expert parallelism alike (capacity factor E / top_k
+    = 2 = `ep_dropless_cf` at dp=2), and one batch of 2 micro-batches of 2
+    sequences, one a data rank."""
+    import dataclasses
+
+    from repro_torch.configs import BlockKind, BlockSpec, get_config
+    from repro_torch.configs import make_reduced
+    from repro_torch.data.tokens import batches
+
+    cfg = make_reduced(get_config(KIMI_ARCH), d_model=128, d_ff=256)
+    cfg = dataclasses.replace(
+        cfg.with_plan(pp=1, tp=1), dtype="float32", moe_d_ff=256,
+        num_layers=2, pattern=(BlockSpec(BlockKind.ATTN_MOE, 2),),
+        moe_capacity_factor=cfg.num_experts / cfg.num_experts_per_tok)
+    assert cfg.moe_capacity_factor >= ep_dropless_cf(cfg, EP_DP)
+    return cfg, next(batches(cfg.vocab_size, 2, EP_DP, EP_TRAIN_SEQ, seed=0))
+
+
+def phase_ep(jamba: dict) -> dict:
+    """serve-ep-f32, serve-ep-bf16 and train-ep in one launch of dp=2 x
+    tp=2 = 4 ranks that share the card (`launch.ranks.run_each`): the
+    jamba cut in f32 on serve-jamba-f32's weights and prompts (its tokens
+    are the reference: that engine served them before), then the kimi-k2
+    cut in bf16, then reduced kimi-k2's lr-0 train step.  Full-width
+    kimi-k2 training does not fit the card: its cut's 38.9 GB of weights
+    with Adam's two f32 moments are ~3 x 38.9 GB over the four ranks."""
+    from repro_torch.launch import ranks as rk
+    from repro_torch.launch.mesh import rank_layout
+    from repro_torch.launch.serve import serve_rank
+    from repro_torch.launch.train import train_rank
+    from repro_torch.models.reference import dense_forward
+    from repro_torch.models.transformer import cross_entropy, init_params
+
+    t0 = time.perf_counter()
+    f32 = _ep_f32_job(jamba)
+    bf16 = _ep_bf16_job()
+    cut, batch = _ep_train_case()
+    params = init_params(cut, 0, dtype=torch.float32, device=DEV)
+    toks, labs = (torch.as_tensor(batch[k], device=DEV).reshape(
+        2 * EP_DP, EP_TRAIN_SEQ).long() for k in ("tokens", "labels"))
+    dense = float(cross_entropy(dense_forward(cut, params, toks), labs))
+    del params, toks, labs
+    _free()
+    train = dict(cfg=cut.with_plan(tp=EP_TP), steps=1, batches=[batch],
+                 lr=0.0, aux_coef=0.0, device=DEV, dtype="float32", seed=0)
+    t1 = time.perf_counter()
+    runs = _spawn_ranks(rk.run_each, rank_layout(EP_DP, 1, EP_TP),
+                        [(serve_rank, f32), (serve_rank, bf16),
+                         (train_rank, train)], "ep",
+                        sum(RANK_BUDGET_S[p] for p in
+                            ("serve-ep-f32", "serve-ep-bf16", "train-ep")))
+    launch_s = time.perf_counter() - t1
+    rows = {"serve-ep-f32": _ep_f32_row(f32, jamba, [r[0] for r in runs]),
+            "serve-ep-bf16": _ep_bf16_row(bf16, [r[1] for r in runs])}
+    last = [r[2] for r in runs]
+    loss = last[0]["loss"][0]
+    local = cut.num_experts // EP_DP
+    row = {"phase": "train-ep", "arch": KIMI_ARCH, "config": "reduced",
+           "d_model": cut.d_model, "layers": cut.num_layers, "dp": EP_DP,
+           "tp": EP_TP, "ranks": len(last), "backend": "gloo",
+           "seq": EP_TRAIN_SEQ, "micro_batches": 2, "dense_loss": dense,
+           "loss": loss, "loss_err": abs(loss - dense),
+           "loss_tol": TRAIN_LOSS_TOL,
+           "same_on_every_rank": len({o["loss"][0] for o in last}) == 1,
+           "experts_per_rank": local, "moe_ff_per_rank": cut.moe_d_ff // EP_TP,
+           "launches": {o["rank"]: o["launches"] for o in last},
+           "ep_bytes": {o["rank"]: o["traffic"]["bytes"].get("ep", 0)
+                        for o in last},
+           "step_s": last[0]["step_s"], "params_s": last[0]["params_s"],
+           "peak_gb_per_rank": [_gb(o["peak_bytes"]) for o in last],
+           "launch_s": launch_s, "s": time.perf_counter() - t0}
+    emit(row)
+    rows["train-ep"] = row
+    # at least once a layer and micro-batch, again in the backward's
+    # recompute of each layer
+    want = cut.num_layers * 2 * 2
+    if not (row["loss_err"] <= TRAIN_LOSS_TOL and row["same_on_every_rank"]
+            and all(o["launches"]["moe_gemm"] >= want for o in last)):
+        raise AssertionError(f"train-ep: the loss disagrees or the MoE "
+                             f"kernel did not run under autograd: {row}")
+    return rows
+
+
 def _launches(run: dict, name: str) -> list:
     """A router run's launches of kernel `name`, one count per replica."""
     return [r["launches"][name] for r in run["replicas_run"]]
@@ -4107,7 +4452,7 @@ def main() -> int:
     del bf16_weights
     phase_sim_h100(traced)
     phase_serve_pp_f32(pa, build_engine, greedy_trace)
-    pp_bf16 = phase_serve_pp_bf16(pa, build_engine)
+    pp_bf16 = phase_serve_pp_bf16(pa, build_engine, layers=PP_LAYERS)
     moe_shapes = phase_moe_kernel(mg, planted[MOE_PLANTED],
                                   planted[MOE_TF32_PLANTED])
     phase_serve_olmoe_f32(pa, mg, greedy_trace)
@@ -4116,7 +4461,7 @@ def main() -> int:
     phase_serve_rwkv_f32(wkv, greedy_trace)
     rwkv = phase_serve_rwkv_bf16(wkv, build_engine)
     mamba_shapes = phase_mamba_kernel(s6, planted)
-    phase_serve_jamba_f32(pa, mg, s6, greedy_trace)
+    jamba_f32 = phase_serve_jamba_f32(pa, mg, s6, greedy_trace)
     jamba = phase_serve_jamba_bf16(pa, mg, s6, build_engine)
     router_f32 = phase_serve_router_f32(pa, greedy_trace)
     router_rwkv = phase_serve_router_rwkv_f32(wkv, greedy_trace)
@@ -4140,14 +4485,18 @@ def main() -> int:
     ranks_bf16 = phase_serve_ranks_bf16(pp_bf16)
     phase_train_ranks()
     tp = phase_tp(greedy_trace)
+    ep = phase_ep(jamba_f32)
+    del jamba_f32
 
     def tp_launches(kernel: str) -> dict:
-        """`kernel`'s launches on every rank of the tensor-parallel serve
-        phases (those of the paths it is on)."""
+        """`kernel`'s launches on every rank of the tensor- and
+        expert-parallel serve phases (those of the paths it is on)."""
         out = {}
         runs = [(f"serve-tp-f32 {arch}", row)
                 for arch, row in tp["serve-tp-f32"].items()]
         runs.append(("serve-tp-bf16 jamba cut", tp["serve-tp-bf16"]))
+        runs.append(("serve-ep-f32 jamba cut", ep["serve-ep-f32"]))
+        runs.append(("serve-ep-bf16 kimi-k2 cut", ep["serve-ep-bf16"]))
         for name, row in runs:
             if row["launches"]["want_per_rank"][kernel]:
                 for rank, n in row["launches"]["per_rank"].items():
@@ -4197,7 +4546,9 @@ def main() -> int:
            r["step_launches"]["moe_gemm"] for r in ssm_f32["steps"]},
         **tp_launches("fused_moe_ffn"),
         **{f"train-tp {MOE_ARCH} (lr-0 step) rank {rank}": n["moe_gemm"]
-           for rank, n in tp["train-tp"]["launches"].items()}}
+           for rank, n in tp["train-tp"]["launches"].items()},
+        **{f"train-ep reduced {KIMI_ARCH} (lr-0 step) rank {rank}":
+           n["moe_gemm"] for rank, n in ep["train-ep"]["launches"].items()}}
     # under autograd (train-f32): the kernel forward, the f32 bmm backward
     moe_entry["backward"] = [
         {k: r[k] for k in ("shape", "dtype", "live_rows", "max_abs_err",

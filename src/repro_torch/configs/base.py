@@ -199,9 +199,18 @@ class RankConfig(ArchConfig):
     already divided over the ranks, and `tensor_parts`, the ranks the widths
     derived from the whole ``d_model`` are divided over (Mamba's d_inner,
     RWKV's heads), since ``d_model`` itself, the residual stream's width,
-    stays whole on every rank."""
+    stays whole on every rank; and `expert_parts`, the data ranks the
+    experts are split over (`num_experts` stays whole: the router's
+    width)."""
 
     tensor_parts: int = 1
+    expert_parts: int = 1
+
+    @property
+    def local_experts(self) -> int:
+        """The experts a rank holds: `num_experts` over the data ranks they
+        are split over (expert parallelism)."""
+        return self.num_experts // self.expert_parts
 
     @property
     def mamba_d_inner(self) -> int:
@@ -268,9 +277,13 @@ def single_stage(cfg: ArchConfig) -> ArchConfig:
     qwen1.5-0.5b publishes pp=8 x 3 layers; on one card the whole depth is
     one stage: ``BlockSpec(ATTN_MLP, 24)``.  An interleaved pattern becomes
     the stage-local pattern repeated pp times (jamba: 72 single-layer
-    entries); runs of one kind merge into one entry."""
+    entries); runs of one kind merge into one entry.  The plan keeps
+    ``ep_over_data``: the experts split over a data axis of more than one
+    rank (`models.transformer.expert_parts`), whatever the stages."""
     return dataclasses.replace(cfg, pattern=_merged(_layer_kinds(cfg)),
-                               plan=ParallelPlan(pp=1, tp=1))
+                               plan=ParallelPlan(
+                                   pp=1, tp=1,
+                                   ep_over_data=cfg.plan.ep_over_data))
 
 
 def stage_config(cfg: ArchConfig, pp: int) -> ArchConfig:
@@ -301,4 +314,6 @@ def cut_to_kinds(cfg: ArchConfig, kinds) -> ArchConfig:
                  if k in want and k not in order[:i])
     return dataclasses.replace(cfg, pattern=_merged(kept),
                                num_layers=len(kept),
-                               plan=ParallelPlan(pp=1, tp=1))
+                               plan=ParallelPlan(
+                                   pp=1, tp=1,
+                                   ep_over_data=cfg.plan.ep_over_data))

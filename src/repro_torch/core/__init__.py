@@ -1,6 +1,10 @@
 """gLLM core: Token Throttling scheduling + paged KV management."""
 
-from repro_torch.core.kv_manager import KVExport, PagedKVManager
+from repro_torch.core.kv_manager import (
+    KVExport,
+    PagedKVManager,
+    ReplicaKVManager,
+)
 from repro_torch.core.request import (
     SLO_BATCH,
     SLO_CLASSES,
@@ -28,6 +32,7 @@ from repro_torch.core.throttle import (
 __all__ = [
     "KVExport",
     "PagedKVManager",
+    "ReplicaKVManager",
     "Request",
     "RequestMetrics",
     "RequestState",

@@ -84,6 +84,29 @@ class PagedKVManager:
     def num_free_pages(self) -> int:
         return len(self._free) + len(self._evictable)
 
+    # One pool is one data replica: the scheduler's per-replica view
+    # (`ReplicaKVManager`) reduces to the pool itself.
+    replicas = 1
+
+    @property
+    def pool_pages(self) -> int:
+        """Pages of the pool a request lives in."""
+        return self.num_pages
+
+    def replica_of(self, request_id: str) -> Optional[int]:
+        return 0
+
+    def place(self, request_id: str, allowed: Sequence[int]) -> Optional[int]:
+        """The replica a request is admitted to: this pool, if `allowed`."""
+        return 0 if 0 in allowed else None
+
+    def unplace(self, request_id: str) -> None:
+        pass
+
+    def free_pages_of(self, request_id: str) -> int:
+        """Free pages of the pool `request_id` lives in."""
+        return self.num_free_pages
+
     @property
     def kv_free_rate(self) -> float:
         """KV idle rate in [0,1] — the UT input of Token Throttling."""
@@ -269,3 +292,109 @@ class PagedKVManager:
             assert self._pages[pid].ref_count > 0, f"page {pid} in table but free"
         free_set = set(self._free) | set(self._evictable)
         assert not (free_set & in_tables), "page simultaneously free and mapped"
+
+
+class ReplicaKVManager:
+    """The KV pools of `replicas` data replicas under one allocator: the
+    global view of the scheduler on rank 0 (gLLM's global information).
+
+    Each replica has its own `PagedKVManager` of `num_pages` pages (JAX's
+    ``ServeDims.pages`` are per replica), and a request lives in one of them
+    from the chunk that admits it (`place`: the replica with the most free
+    pages among those with room in the batch being formed, the lower index
+    on a tie) until it finishes, aborts or is preempted, which free only
+    that replica's pages; its block table holds that pool's page ids.
+    `num_pages`, `num_free_pages` and `kv_free_rate` are totals over the
+    replicas (Token Throttling's UT input); `free_pages_of` and
+    `pool_pages` are one pool's.  No prefix caching."""
+
+    enable_prefix_caching = False
+
+    def __init__(self, replicas: int, num_pages: int, page_size: int) -> None:
+        if replicas < 1:
+            raise ValueError("at least one replica")
+        self.pools = [PagedKVManager(num_pages, page_size)
+                      for _ in range(replicas)]
+        self.page_size = page_size
+        self.pool_pages = num_pages
+        self.num_pages = num_pages * replicas
+        self._home: Dict[str, int] = {}
+
+    @property
+    def replicas(self) -> int:
+        return len(self.pools)
+
+    @property
+    def num_free_pages(self) -> int:
+        return sum(p.num_free_pages for p in self.pools)
+
+    @property
+    def kv_free_rate(self) -> float:
+        return self.num_free_pages / self.num_pages
+
+    # ------------------------------------------------------------ placement
+    def replica_of(self, request_id: str) -> Optional[int]:
+        """The replica a request lives in; None before `place`."""
+        return self._home.get(request_id)
+
+    def place(self, request_id: str, allowed: Sequence[int]) -> Optional[int]:
+        """The replica `request_id` lives in, placing it among `allowed`
+        (the most free pages, the lower index on a tie) if it lives in
+        none; None when its replica, or every replica, is not allowed."""
+        home = self._home.get(request_id)
+        if home is not None:
+            return home if home in allowed else None
+        if not allowed:
+            return None
+        home = max(allowed, key=lambda r: (self.pools[r].num_free_pages, -r))
+        self._home[request_id] = home
+        return home
+
+    def unplace(self, request_id: str) -> None:
+        """Forget a placement that holds no pages (an admission that
+        stalled)."""
+        home = self._home.get(request_id)
+        if home is not None and not self.pools[home].has_request(request_id):
+            del self._home[request_id]
+
+    def _pool(self, request_id: str) -> PagedKVManager:
+        return self.pools[self._home[request_id]]
+
+    # ----------------------------------------- `PagedKVManager`'s interface
+    def free_pages_of(self, request_id: str) -> int:
+        return self._pool(request_id).num_free_pages
+
+    def block_table(self, request_id: str) -> List[int]:
+        return self._pool(request_id).block_table(request_id)
+
+    def num_tokens(self, request_id: str) -> int:
+        home = self._home.get(request_id)
+        return 0 if home is None else self.pools[home].num_tokens(request_id)
+
+    def has_request(self, request_id: str) -> bool:
+        home = self._home.get(request_id)
+        return home is not None and self.pools[home].has_request(request_id)
+
+    def pages_needed(self, request_id: str, new_tokens: int) -> int:
+        return self._pool(request_id).pages_needed(request_id, new_tokens)
+
+    def can_allocate(self, request_id: str, new_tokens: int) -> bool:
+        return self._pool(request_id).can_allocate(request_id, new_tokens)
+
+    def allocate(self, request_id: str,
+                 new_tokens: int) -> List[Tuple[int, int]]:
+        return self._pool(request_id).allocate(request_id, new_tokens)
+
+    def free(self, request_id: str) -> None:
+        """Release a request's pages in its replica, and its placement."""
+        home = self._home.pop(request_id, None)
+        if home is not None:
+            self.pools[home].free(request_id)
+
+    def check_invariants(self) -> None:
+        """Each replica's page accounting balances, and every request with
+        pages lives in the replica that holds them."""
+        for r, pool in enumerate(self.pools):
+            pool.check_invariants()
+            for rid in pool._block_tables:
+                assert self._home.get(rid) == r, (rid, r, self._home.get(rid))

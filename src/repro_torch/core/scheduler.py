@@ -14,6 +14,14 @@ work for the first stage).  The scheduler is policy-parameterized:
 Pipeline-parallel correctness constraint: a request may be resident in at most
 one in-flight micro-batch (its KV pages are appended in sequence order), so
 requests scheduled into batch *t* are unavailable until `complete(t)`.
+
+Over data replicas (`kv_manager.ReplicaKVManager`) one scheduler forms the
+batch of every replica at once: the budgets read the totals over the
+replicas (pending prefill tokens, the KV idle rate), a request is placed in
+a replica when it is admitted and stays there, the row limits
+(`max_prefill_seqs`, `max_decode_seqs`) hold for each replica's rows, and a
+request preempts only requests of its own replica.  With one pool it is
+the one-replica case of the same code.
 """
 
 from __future__ import annotations
@@ -180,7 +188,7 @@ class PipelineScheduler:
             raise ValueError(
                 f"request {req.request_id}: {total} tokens > max_model_len {self.max_model_len}"
             )
-        pool = self.kv.num_pages * self.kv.page_size
+        pool = self.kv.pool_pages * self.kv.page_size
         if total > pool:
             # would livelock on preempt/recompute: reject at admission
             raise ValueError(
@@ -249,10 +257,11 @@ class PipelineScheduler:
             quota = decode_budget(self.num_running_decode, self.cfg)
         self._last_decode_budget = quota               # raw eq. 4 decision
         quota = min(quota, len(available), self.max_batch_seqs,
-                    self.max_decode_seqs)
+                    self.max_decode_seqs * self.kv.replicas)
 
         out: List[ScheduledSeq] = []
         scheduled: set = set()
+        rows = [0] * self.kv.replicas          # decode rows per replica
         for req in available:
             if len(out) >= quota:
                 break
@@ -261,11 +270,15 @@ class PipelineScheduler:
                 # tick: its KV is gone and it is back in the waiting queue —
                 # scheduling it now would resurrect a zero-context decode
                 continue
+            home = self.kv.replica_of(req.request_id)
+            if rows[home] >= self.max_decode_seqs:
+                continue  # its replica's decode rows are full
             if not self._ensure_decode_page(req, protected=scheduled):
                 continue  # could not allocate even after preemption: defer
             slots = self.kv.allocate(req.request_id, 1)
             out.append(ScheduledSeq(req, req.seq_len, 1, False, slots))
             scheduled.add(req.request_id)
+            rows[home] += 1
         return out
 
     def _ensure_decode_page(self, req: Request,
@@ -273,10 +286,12 @@ class PipelineScheduler:
         """Make room for one decode token, preempting if necessary (§3.1.3).
         `protected` requests (already in the batch being formed, with slots
         allocated) must not be victimized — freeing their pages would tear
-        the very slots this tick is about to write."""
+        the very slots this tick is about to write.  Only a request of its
+        own replica frees pages it can use."""
         while not self.kv.can_allocate(req.request_id, 1):
             victim = self._pick_preemption_victim(
-                exclude={req.request_id} | set(protected))
+                exclude={req.request_id} | set(protected),
+                replica=self.kv.replica_of(req.request_id))
             if victim is None:
                 return False
             self._preempt(victim)
@@ -291,20 +306,25 @@ class PipelineScheduler:
         return sorted(reversed(group),
                       key=lambda r: (-r.slo_rank, r.priority))
 
-    def _pick_preemption_victim(self, exclude) -> Optional[Request]:
+    def _pick_preemption_victim(self, exclude, replica: Optional[int] = None
+                                ) -> Optional[Request]:
         """Resident request to evict, SLO-class-aware (batch-first).
 
         Partially-prefilled requests are victims *first*: a stalled chunked
         prefill holding pages while decode is starved is otherwise a
         deadlock (decode can only preempt decode, prefill can only shrink).
         Then decode requests — in both groups batch-class before
-        interactive, then latest arrival (`_victim_order`)."""
+        interactive, then latest arrival (`_victim_order`).  With `replica`,
+        only a request living in that replica."""
         if isinstance(exclude, str):
             exclude = {exclude}
         for group in (self.running_prefill, self.running_decode):
             for req in self._victim_order(group):
                 if req.request_id in exclude \
                         or req.request_id in self._in_flight:
+                    continue
+                if replica is not None and \
+                        self.kv.replica_of(req.request_id) != replica:
                     continue
                 return req
         return None
@@ -346,29 +366,39 @@ class PipelineScheduler:
             return []
 
         out: List[ScheduledSeq] = []
+        n = self.kv.replicas
+        rows = [0] * n                          # prefill rows per replica
 
         # 1) continue chunked prefills already in progress (not in flight)
         for req in self.running_prefill:
-            if budget <= 0 or len(out) >= self.max_prefill_seqs:
+            if budget <= 0 or len(out) >= self.max_prefill_seqs * n:
                 break
             if req.request_id in self._in_flight:
                 continue
+            home = self.kv.replica_of(req.request_id)
+            if rows[home] >= self.max_prefill_seqs:
+                continue  # its replica's prefill rows are full
             took = self._take_prefill_chunk(req, budget, now)
             if took is None:
                 break  # KV exhausted: stop prefill scheduling entirely
             out.append(took)
+            rows[home] += 1
             budget -= took.num_tokens
 
         # 2) admit new requests from the waiting queue, SLO-class order
         admitted: set = set()
         for req in self.admission_order():
             if budget <= 0 or len(out) >= min(
-                    self.max_batch_seqs, self.max_prefill_seqs):
+                    self.max_batch_seqs, self.max_prefill_seqs * n):
                 break
             if self.cfg.policy is not PrefillPolicy.SARATHI:
                 # UT guard: don't admit when below the KV idle threshold.
                 if self.kv.kv_free_rate <= self.cfg.kv_threshold:
                     break
+            home = self.kv.place(req.request_id, [
+                r for r in range(n) if rows[r] < self.max_prefill_seqs])
+            if home is None:
+                break  # no replica has a prefill row left
             # prefix-cache reuse on first chunk
             adopted = 0
             if req.num_prefilled == 0 and self.kv.enable_prefix_caching \
@@ -391,6 +421,7 @@ class PipelineScheduler:
                     # WAITING request never holds KV.
                     self.kv.free(req.request_id)
                     req.num_prefilled = 0
+                self.kv.unplace(req.request_id)
                 break
             if adopted:
                 self.stats.prefix_hits += 1
@@ -403,6 +434,7 @@ class PipelineScheduler:
             if not took.produces_token:
                 self.running_prefill.append(req)
             out.append(took)
+            rows[home] += 1
             budget -= took.num_tokens
         if admitted:
             # one O(n) rebuild instead of an O(n) deque.remove per admission
@@ -422,7 +454,8 @@ class PipelineScheduler:
             # Shrink to what fits rather than stalling completely.
             cur = self.kv.num_tokens(req.request_id)
             slack = (self.kv.page_size - cur % self.kv.page_size) % self.kv.page_size
-            headroom = slack + self.kv.num_free_pages * self.kv.page_size
+            headroom = slack + (self.kv.free_pages_of(req.request_id)
+                                * self.kv.page_size)
             chunk = min(chunk, headroom)
             if chunk <= 0:
                 return None

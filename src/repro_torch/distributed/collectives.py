@@ -1,6 +1,7 @@
 """Collectives across ranks (``repro.distributed.collectives``): gradient
 sync, optionally compressed; the two Megatron operators of tensor
-parallelism; and the stage hop.
+parallelism; the stage hop; and expert parallelism's all-to-all
+(`all_to_all`, `exchange_rows`).
 
 An axis here is a `launch.mesh.AxisGroup`, one rank's line of a mesh axis
 (its process group, its index on it).  JAX's ``psum`` over a tuple of axes
@@ -248,6 +249,49 @@ def exchange(send: Optional[Tuple[torch.Tensor, int]] = None,
             req.wait()
         if back is not None:
             _back(*back)
+
+
+def all_to_all(t: torch.Tensor, axis, kind: str = "ep") -> torch.Tensor:
+    """JAX's ``all_to_all(split_axis=0, concat_axis=0, tiled=True)`` over
+    `axis`: axis 0 of `t` cut into ``axis.size`` equal chunks, chunk i sent
+    to the rank at index i, the chunks received concatenated on axis 0 in
+    axis order (a new tensor).  Under gloo a CUDA tensor travels through a
+    host copy; under nccl ``all_to_all_single`` moves device tensors (that
+    branch is written and has not run: the card machine has one card).
+    `t` itself for no axis."""
+    if axis is None or axis.size == 1:
+        return t
+    if t.shape[0] % axis.size:
+        raise ValueError(f"all_to_all: {t.shape[0]} rows do not split over "
+                         f"{axis.size} ranks")
+    with _Timed(kind, _nbytes(t), t):
+        src = _host(t) if _staged(t) else t.contiguous()
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=axis.group)
+        if src.device != t.device:
+            TRAFFIC.staged += _nbytes(out)
+            out = out.to(t.device)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, kind):
+        ctx.axis, ctx.kind = axis, kind
+        return all_to_all(x, axis, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the exchange is its own transpose: the gradient of the chunk
+        # received from rank j goes back to rank j as the gradient of the
+        # chunk it sent
+        return all_to_all(g.contiguous(), ctx.axis, ctx.kind), None, None
+
+
+def exchange_rows(x: torch.Tensor, axis, kind: str = "ep") -> torch.Tensor:
+    """`all_to_all`, differentiable: its backward is the same exchange of
+    the gradient (expert parallelism's dispatch and return)."""
+    return _AllToAll.apply(x, axis, kind) if _split(axis) else x
 
 
 # ----------------------------------------------------------------------------

@@ -218,6 +218,14 @@ def build_train_step(cfg: ArchConfig, *, adam: AdamConfig = AdamConfig(),
 MANUAL_AXES = ("data", "stage")     # JAX's manual axes; `tensor` is GSPMD's
 
 
+def expert_group(cfg: ArchConfig, ranks):
+    """The rank's data group when `cfg`'s experts are split over it
+    (`transformer.expert_parts`), else None: the group `moe_apply(ep=)`
+    exchanges rows over."""
+    dp = ranks.size("data")
+    return ranks["data"] if tfm.expert_parts(cfg, dp) > 1 else None
+
+
 def grad_sync_axes(spec) -> Tuple[str, ...]:
     """JAX's ``_grad_sync_axes``: the manual axes a leaf is replicated on,
     over which its gradient is summed.  Over `tensor` the Megatron
@@ -276,7 +284,9 @@ def _rank_train_step(cfg: ArchConfig, ranks, *, adam: AdamConfig,
     s, d = ranks.index("stage"), ranks.index("data")
     stage = ranks["stage"]
     tp = ranks["tensor"] if ranks.size("tensor") > 1 else None
-    local = tfm.shard_config(cfg, layout.size("tensor"))
+    ep = expert_group(cfg, ranks)
+    local = tfm.shard_config(cfg, layout.size("tensor"),
+                             tfm.expert_parts(cfg, dp))
     specs = dict(tfm.tree_items(tfm.param_pspecs(cfg)))
     sync_axes = {p: [ranks[a] for a in grad_sync_axes(sp)]
                  for p, sp in specs.items()}
@@ -323,7 +333,7 @@ def _rank_train_step(cfg: ArchConfig, ranks, *, adam: AdamConfig,
                 x.requires_grad_(True)
             y, a = tfm.stage_forward_train(local, weights, x,
                                            enc_width=enc_width, stage=s,
-                                           tp=tp)
+                                           tp=tp, ep=ep)
             if s < S - 1:
                 coll.exchange(send=(y.detach(), stage.peer(1)))
             xs.append(x)
@@ -565,13 +575,18 @@ def build_rank_serve_tick(cfg: ArchConfig, dims: ServeDims, ranks, *,
                           dtype: Optional[torch.dtype] = None):
     """One rank's part of the serve tick of `build_serve_tick`: returns
     tick_fn(params, caches, meta, carry, temps=None, gen=None) -> (caches,
-    tokens), on every rank the same int32 [Sp+Sd] tokens of the micro-batch
-    exiting the ring.
+    tokens), on every rank the same int32 [dp * (Sp+Sd)] tokens of the
+    micro-batches exiting the ring, replica by replica (JAX's
+    ``P("data")`` layout of its tick's tokens).
 
     `params` is the rank's shard, `caches` its stage's pools at its KV
     heads (`serve.init_caches` of `shard_config`), `carry` its
     `init_rank_carry`; `meta` as `build_serve_tick`'s, every stage's entry
-    (each rank reads its own).  Stage 0 embeds the entering rows (the
+    (each rank reads its own), for the rank's data replica, which runs
+    its own rows at its own `dims` (its slots, pages and rows; JAX's
+    ``ServeDims`` are per replica) and, where the experts are split over
+    the replicas (`expert_group`), exchanges MoE rows with them in every
+    MoE layer, so that every replica runs every tick.  Stage 0 embeds the entering rows (the
     width gathered over `tensor`); every stage applies its layers to its
     micro-batch (its tensor group reducing the row-parallel products); the
     outputs hop one stage on (stage s-1's arrive in `carry` for the next
@@ -590,9 +605,11 @@ def build_rank_serve_tick(cfg: ArchConfig, dims: ServeDims, ranks, *,
     dtype = dtype or getattr(torch, cfg.dtype)
     Sp, Sd, C, W = dims.Sp, dims.Sd, dims.C, dims.prefill_width
     S, s = ranks.size("stage"), ranks.index("stage")
-    stage, tensor = ranks["stage"], ranks["tensor"]
+    stage, tensor, data = ranks["stage"], ranks["tensor"], ranks["data"]
     tp = tensor if tensor.size > 1 else None
-    local = tfm.shard_config(cfg, tensor.size)
+    ep = expert_group(cfg, ranks)
+    local = tfm.shard_config(cfg, tensor.size,
+                             tfm.expert_parts(cfg, data.size))
     d = cfg.d_model
     rows = Sp + Sd
 
@@ -615,7 +632,7 @@ def build_rank_serve_tick(cfg: ArchConfig, dims: ServeDims, ranks, *,
             xd = carry["xd"][:Sd]
         xp2, xd2, caches = serve_lib.stage_forward_serve(
             local, params["stages"], caches, xp, xd, m, dims, stage=s,
-            index=0, tp=tp)
+            index=0, tp=tp, ep=ep)
         if S > 1:                       # the hop: JAX's ppermute
             n = Sp * W * d
             send = recv = None
@@ -653,6 +670,8 @@ def build_rank_serve_tick(cfg: ArchConfig, dims: ServeDims, ranks, *,
             scores = torch.where(hot[:, None], scaled, scores)
         tokens = vocab_argmax(
             scores, (s * tensor.size + tensor.index) * vs, (tensor, stage))
+        if data.size > 1:               # every replica's, replica-major
+            tokens = torch.cat(coll.all_gather(tokens, data, kind="head"))
         return caches, tokens
 
     return tick

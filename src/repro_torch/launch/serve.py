@@ -283,7 +283,8 @@ def serve_rank(ranks, job: dict) -> dict:
     ``device`` ("cuda" or "cpu"), ``dtype``, ``seed`` or ``npz``,
     ``bucketed``.  Rank 0 drives a `PipelineEngine(ranks=)` over the batch
     and returns the tokens, the entering batch of every tick (each prefill
-    row's request, start and length; each decode row's request), the
+    row's request, start and length; each decode row's request) and the
+    data replica of each of its rows (``replicas``), the
     engine's stats, its rank stats, the kernels' launches (counted from 0
     after warm-up), its peak memory and the wall time; every other rank
     serves in `RankBackend.serve_loop` and returns its rank stats,
@@ -328,7 +329,7 @@ def serve_rank(ranks, job: dict) -> dict:
                              cuda_graphs=False, ranks=ranks)
         out["engine_s"] = time.perf_counter() - t0
         backend = eng.backend
-        ticks = []
+        ticks, homes = [], []
         inner = backend.execute
 
         def execute(ring, exiting_id, now):
@@ -338,6 +339,9 @@ def serve_rank(ranks, job: dict) -> dict:
                 [[q.request.request_id, q.start_pos, q.num_tokens]
                  for q in b.prefill],
                 [q.request.request_id for q in b.decode]])
+            homes.append(None if b is None else [
+                [eng.kv.replica_of(q.request.request_id) for q in rows]
+                for rows in (b.prefill, b.decode)])
             return inner(ring, exiting_id, now)
 
         backend.execute = execute
@@ -360,6 +364,7 @@ def serve_rank(ranks, job: dict) -> dict:
         st = backend.rank_stats
         out.update(tokens=[r.output_token_ids for r in reqs],
                    finished=[r.is_finished for r in reqs], ticks=ticks,
+                   replicas=homes,
                    wall_s=time.perf_counter() - t0,
                    stats=dataclasses.asdict(eng.stats))
     out.update(rank_stats=st.as_dict(), launches=counts(),
@@ -443,7 +448,9 @@ def rank_launch(fn, layout, job: dict, args) -> list:
 
 
 def _serve_ranks(args) -> None:
-    """The launcher's workload over pp x tp ranks (`serve_rank`)."""
+    """The launcher's workload over dp x pp x tp ranks (`serve_rank`): one
+    engine whose scheduler places each request in one of dp data
+    replicas."""
     from repro_torch.launch.mesh import rank_layout
 
     if args.spec or args.http is not None or args.replicas > 1 or \
@@ -463,7 +470,7 @@ def _serve_ranks(args) -> None:
         0, cfg.vocab_size, int(np.clip(rng.lognormal(3.0, 0.8), 4, 300)))]
         for _ in range(args.requests)]
     encs = [enc_inputs(cfg, dims, rng).get("enc_embeds") for _ in prompts]
-    layout = rank_layout(1, args.pp, args.tp)
+    layout = rank_layout(args.dp, args.pp, args.tp)
     job = dict(cfg=cfg, dims=dims, throttle=throttle, prompts=prompts,
                encs=encs, max_new=args.max_new, device=dev.type,
                dtype=str(dtype).split(".")[-1], seed=args.seed,
@@ -477,7 +484,7 @@ def _serve_ranks(args) -> None:
     print(f"[{cfg.name} | {dev.type} {cfg.dtype}] {done}/{len(prompts)} "
           f"requests, {toks} tokens in {head['wall_s']:.2f}s; "
           f"ticks={head['stats']['ticks']} ranks={layout.world} "
-          f"(pp={args.pp} tp={args.tp})")
+          f"(dp={args.dp} pp={args.pp} tp={args.tp})")
     if done != len(prompts):
         raise SystemExit("not every request finished")
 
@@ -526,6 +533,10 @@ def main() -> None:
     add_cut_argument(ap)
     add_engine_arguments(ap)
     add_rank_arguments(ap)
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data replicas of one engine, one process each "
+                    "(the serve tick's data axis; an MoE model whose plan "
+                    "sets ep_over_data splits its experts over them)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--replicas", type=int, default=1,
                     help="data-parallel engine replicas behind the router "
@@ -558,7 +569,7 @@ def main() -> None:
                     help="serve the spec over HTTP on PORT (0 = ephemeral) "
                     "instead of running the synthetic workload")
     args = ap.parse_args()
-    if ranks_asked(args):
+    if ranks_asked(args, args.dp):
         _serve_ranks(args)
         return
 

@@ -5,8 +5,9 @@ step with Adam on one device, async checkpointing and restart.
         --full --seq 4096 --steps 30 [--ckpt DIR --resume] [--pp 4]
 
 ``--dp D --tp T`` trains over D x pp x T processes (`train_rank`,
-`launch.ranks`; gloo on the CPU and on a shared card), and so does
-``--pp`` alone when every stage has a card of its own (`mesh.use_ranks`):
+`launch.ranks`; gloo on the CPU and on a shared card; kimi-k2's and
+jamba's experts split over the D data ranks), and so does ``--pp`` alone
+when every stage has a card of its own (`mesh.use_ranks`):
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --steps 4 --dp 2 --pp 2 --tp 2
@@ -181,7 +182,9 @@ def train_rank(ranks, job: dict) -> dict:
 
 def _train_ranks(cfg, args) -> Optional[dict]:
     """The launcher's run over dp x pp x tp ranks (`train_rank`): M = 2
-    micro-batches of dp sequences a step, one a data rank."""
+    micro-batches of dp sequences a step, one a data rank; an MoE model
+    whose plan sets ``ep_over_data`` (kimi-k2, jamba) splits its experts
+    over the dp ranks (expert parallelism)."""
     from repro_torch.launch.mesh import rank_layout
 
     if args.ckpt or args.resume:

@@ -1,5 +1,6 @@
-"""Mixture-of-Experts at NS=1 (``repro.models.moe``): every expert on this
-device, no expert parallelism.
+"""Mixture-of-Experts (``repro.models.moe``): every expert on this rank
+(NS=1), or expert parallelism over a data group of NS ranks, each holding
+``E_loc = E / NS`` experts.
 
 Dispatch is sort-based with static capacity buffers, as in the JAX package:
 the T*top_k (row, expert) assignments are stably sorted by expert, each
@@ -7,13 +8,26 @@ takes the next position of its expert's ``[capacity, d]`` buffer, and the
 ones past capacity drop.  The same rows drop as in JAX because the sort is
 stable and the group starts come from a left `searchsorted`.
 
+**Expert parallelism** (`moe_apply(ep=)`, JAX's ``ep_axis`` branch): the
+assignments are bucketed by destination rank (``expert // E_loc``) into
+``[NS, cap_send]`` send buffers, exchanged (`collectives.exchange_rows`,
+JAX's tiled ``all_to_all``), grouped by local expert into ``[E_loc,
+cap_e]`` buffers for the expert kernel, and the results exchanged back;
+``cap_send`` and ``cap_e`` are JAX's formulas, and the received rows are
+grouped in rank order by the same stable sort, so the same rows drop.
+JAX packs each row's local expert id and a valid flag into two extra
+columns of x's dtype (exact in bf16 only up to 256 local experts); here
+the ids travel in an int32 buffer of their own, the empty slots holding
+the sentinel ``E_loc``.  Every rank of the group joins both exchanges
+whatever its rows: padding rows and an idle replica's send no valid row.
+
 JAX's ``.at[...].set(mode="drop")`` silently drops out-of-range writes (the
 sentinel expert ``E`` of padding rows, positions past capacity); torch
 indexing would raise or wrap, so dropped assignments are sent to one extra
 dump row of the buffer, which is cut off.  The rows each buffer holds go to
 the expert kernel as a device tensor, so that it skips the empty ones.
 Nothing here reads a device value on the host (no ``.item()``, ``nonzero``
-or boolean-mask indexing): the capacity is a host function of the padded
+or boolean-mask indexing): the capacities are host functions of the padded
 row count.  The combine is a sum
 over each row's top_k slots, which is deterministic where a CUDA
 ``index_add_`` is not.
@@ -22,7 +36,9 @@ At a tensor rank (``tp``) every expert's and the shared expert's ff columns
 are the rank's: the routing is computed whole on every rank (the same rows
 in the same slots, bit for bit), the rank's expert outputs are partial sums
 over its columns, and the routed and shared partials are summed over the
-group in f32 in one all-reduce before the cast.
+group in f32 in one all-reduce before the cast.  With both, a rank's data
+group is the ranks of its stage and tensor index: each exchanges its
+columns' partial sums with the peers that hold the same columns.
 """
 
 from __future__ import annotations
@@ -65,15 +81,11 @@ def route(x: torch.Tensor, router_w: torch.Tensor, top_k: int
     return w, idx.to(torch.int32), aux
 
 
-def _group_rows(values: torch.Tensor, group_ids: torch.Tensor,
-                num_groups: int, capacity: int):
-    """Sort rows by group and scatter into [num_groups, capacity, ...]
-    buffers.
-
-    Returns (buffers, order, slot_group, slot_pos, counts); rows beyond
-    capacity drop, and counts [num_groups] int32 is the rows each buffer
-    holds, min(rows routed to the group, capacity).  `group_ids` >=
-    num_groups mark invalid rows (never stored)."""
+def _dispatch(group_ids: torch.Tensor, num_groups: int, capacity: int):
+    """Where `_group_rows` puts each row: (order, slot_group, slot_pos,
+    slot, counts).  `slot` is each sorted row's index in the flattened
+    ``[num_groups * capacity]`` buffers, ``num_groups * capacity`` (the
+    dump row) for a dropped or invalid one; counts [num_groups] int32."""
     n = group_ids.shape[0]
     dev = group_ids.device
     order = torch.argsort(group_ids, stable=True)
@@ -85,12 +97,34 @@ def _group_rows(values: torch.Tensor, group_ids: torch.Tensor,
     pos = (torch.arange(n, device=dev)
            - starts[torch.clamp(sg, max=num_groups - 1)])
     pos = torch.where(sg < num_groups, pos, capacity)    # invalid -> dropped
+    slot = torch.where(pos < capacity, sg * capacity + pos,
+                       num_groups * capacity)
+    return order, sg, pos, slot, counts.to(torch.int32)
+
+
+def _scatter_rows(values: torch.Tensor, slot: torch.Tensor,
+                  num_groups: int, capacity: int, fill=0) -> torch.Tensor:
+    """`values` (already in `_dispatch` order) into ``[num_groups,
+    capacity, ...]`` buffers at `slot`, `fill` elsewhere."""
     dump = num_groups * capacity
-    slot = torch.where(pos < capacity, sg * capacity + pos, dump)
-    buf = values.new_zeros((dump + 1,) + values.shape[1:])
-    buf[slot] = values[order]          # dropped rows all land on the dump row
-    buf = buf[:dump].view((num_groups, capacity) + values.shape[1:])
-    return buf, order, sg, pos, counts.to(torch.int32)
+    buf = values.new_full((dump + 1,) + values.shape[1:], fill)
+    buf[slot] = values                 # dropped rows all land on the dump row
+    return buf[:dump].view((num_groups, capacity) + values.shape[1:])
+
+
+def _group_rows(values: torch.Tensor, group_ids: torch.Tensor,
+                num_groups: int, capacity: int):
+    """Sort rows by group and scatter into [num_groups, capacity, ...]
+    buffers.
+
+    Returns (buffers, order, slot_group, slot_pos, counts); rows beyond
+    capacity drop, and counts [num_groups] int32 is the rows each buffer
+    holds, min(rows routed to the group, capacity).  `group_ids` >=
+    num_groups mark invalid rows (never stored)."""
+    order, sg, pos, slot, counts = _dispatch(group_ids, num_groups,
+                                             capacity)
+    buf = _scatter_rows(values[order], slot, num_groups, capacity)
+    return buf, order, sg, pos, counts
 
 
 def _ungroup_rows(buffers: torch.Tensor, order: torch.Tensor,
@@ -125,26 +159,28 @@ def moe_apply(
     params: Dict[str, torch.Tensor],
     *,
     top_k: int,
-    ep_axis: Optional[str] = None,
+    ep=None,
     capacity_factor: float = 1.25,
     row_valid: Optional[torch.Tensor] = None,   # [T] bool: padding rows opt out
     tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output [T, d], aux_loss).  `params` holds:
-    router [d, E]; w_gate/w_up [E, d, ff]; w_down [E, ff, d]; optional
-    shared-expert s_gate/s_up [d, ffs], s_down [ffs, d].  Rows with
-    row_valid=False (static-tick bucket padding) are routed nowhere and
-    consume no expert capacity.  At tensor rank `tp` (a
-    `launch.mesh.AxisGroup`; ff and ffs the rank's columns) the router is
-    replicated, x enters the expert path and the routing weights enter the
-    combine through `copy_to_tensor` (both scale the rank's partial sums),
-    and the output is reduced over the group."""
-    if ep_axis is not None:
-        raise NotImplementedError(
-            f"moe_apply: expert parallelism (ep_axis={ep_axis!r}) is not yet "
-            f"ported to repro_torch (ROADMAP Queue 1 item 6.2)")
+    router [d, E]; w_gate/w_up [E_loc, d, ff]; w_down [E_loc, ff, d];
+    optional shared-expert s_gate/s_up [d, ffs], s_down [ffs, d].
+    ``E_loc == E / ep.size``: with `ep` (a `launch.mesh.AxisGroup`, the
+    rank's data group; this rank holds experts ``[ep.index * E_loc,
+    (ep.index + 1) * E_loc)``) the rows travel to their experts' ranks and
+    back (the module docstring); every rank of the group must call this
+    with the same T.  Rows with row_valid=False (static-tick bucket
+    padding) are routed nowhere and consume no expert capacity.  At tensor
+    rank `tp` (a `launch.mesh.AxisGroup`; ff and ffs the rank's columns)
+    the router is replicated, x enters the expert path and the routing
+    weights enter the combine through `copy_to_tensor` (both scale the
+    rank's partial sums), and the output is reduced over the group."""
     T, d = x.shape
-    E = params["w_gate"].shape[0]
+    E_loc = params["w_gate"].shape[0]
+    NS = 1 if ep is None else ep.size
+    E = E_loc * NS
 
     w, idx, aux = route(x, params["router"], top_k)
     N = T * top_k
@@ -155,11 +191,27 @@ def moe_apply(
     xe = coll.copy_to_tensor(x, tp)          # the router reads x as it is
     xs = xe[src]                                          # [N, d]
 
-    cap = capacity(T, top_k, E, capacity_factor)
-    ebuf, order, sg, pos, counts = _group_rows(xs, flat_e, E, cap)
-    y = expert_ffn(ebuf, params["w_gate"], params["w_up"], params["w_down"],
-                   counts)
-    ys = _ungroup_rows(y, order, sg, pos)                 # [N, d]
+    if NS > 1:
+        # bucket by destination rank, exchange, compute, exchange back
+        cap_send = _round8(int(N / NS * capacity_factor) + 1)
+        order, sg, pos, slot, _ = _dispatch(flat_e // E_loc, NS, cap_send)
+        xbuf = _scatter_rows(xs[order], slot, NS, cap_send)
+        lbuf = _scatter_rows((flat_e % E_loc).to(torch.int32)[order], slot,
+                             NS, cap_send, fill=E_loc)
+        rx = coll.exchange_rows(xbuf, ep).reshape(NS * cap_send, d)
+        re = coll.all_to_all(lbuf, ep).reshape(NS * cap_send).long()
+        cap_e = _round8(int(NS * cap_send / E_loc * capacity_factor) + 1)
+        ebuf, order2, sg2, pos2, counts = _group_rows(rx, re, E_loc, cap_e)
+        y = expert_ffn(ebuf, params["w_gate"], params["w_up"],
+                       params["w_down"], counts)
+        ry = _ungroup_rows(y, order2, sg2, pos2).view(NS, cap_send, d)
+        ys = _ungroup_rows(coll.exchange_rows(ry, ep), order, sg, pos)
+    else:
+        cap = capacity(T, top_k, E, capacity_factor)
+        ebuf, order, sg, pos, counts = _group_rows(xs, flat_e, E, cap)
+        y = expert_ffn(ebuf, params["w_gate"], params["w_up"],
+                       params["w_down"], counts)
+        ys = _ungroup_rows(y, order, sg, pos)             # [N, d]
 
     w = coll.copy_to_tensor(w, tp)
     out = (ys.float().view(T, top_k, d) * w[..., None]).sum(dim=1)

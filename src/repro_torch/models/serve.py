@@ -584,7 +584,8 @@ def block_apply_serve(cfg: ArchConfig, kind: BlockKind, p,
                       xp: torch.Tensor, xd: torch.Tensor,
                       cache: Optional[Dict[str, torch.Tensor]],
                       meta: Mapping[str, torch.Tensor], dims: ServeDims,
-                      enc_h: Optional[torch.Tensor] = None, tp=None):
+                      enc_h: Optional[torch.Tensor] = None, tp=None,
+                      ep=None):
     """One block over the stage's micro-batch: xp [Sp, W, d] prefill
     payload (W = Te + C for whisper, C otherwise), xd [Sd, 1, d] decode
     rows.  Both phases run whenever their bucket is non-empty
@@ -593,7 +594,9 @@ def block_apply_serve(cfg: ArchConfig, kind: BlockKind, p,
     decode rows cross-attend to `enc_h` [Sd, Te, d], their encoder
     snapshots.
     The MoE FFN routes only the live rows (``meta["row_valid"]``, see
-    `stage_forward_serve`): padding rows consume no expert capacity.
+    `stage_forward_serve`): padding rows consume no expert capacity; with
+    `ep` (the rank's data group) its experts are split over the data
+    replicas, and every replica's rows, live or not, join the exchanges.
     `tp`: the block at a tensor rank (the widths of `cfg`,
     `transformer.shard_config`): every mixer and FFN returns the rank's
     partial sums, and each sublayer's of both phases are reduced in one
@@ -655,7 +658,7 @@ def block_apply_serve(cfg: ArchConfig, kind: BlockKind, p,
     if kind in MOE_KINDS:
         y, _ = moe_lib.moe_apply(flat, p, top_k=cfg.num_experts_per_tok,
                                  capacity_factor=cfg.moe_capacity_factor,
-                                 row_valid=meta["row_valid"], tp=tp)
+                                 row_valid=meta["row_valid"], tp=tp, ep=ep)
     else:
         y = mlp_apply(flat, p, cfg.act, tp)
     n = Sp * xp.shape[1] if Sp else 0
@@ -677,12 +680,13 @@ def _rope_for(cfg: ArchConfig, positions: torch.Tensor, dim: int):
 
 def stage_forward_serve(cfg: ArchConfig, stage_params, caches, xp, xd, meta,
                         dims: ServeDims, *, stage: int = 0,
-                        index: Optional[int] = None, tp=None):
+                        index: Optional[int] = None, tp=None, ep=None):
     """Apply one stage's blocks to its micro-batch, a Python loop over the
     repeats.  `stage_params` leaves are ``[S, R, ...]``; layer ``(stage, r)``
     uses the views ``p[i, r]`` and ``cache[i, r]``, the latter updated in
     place, at ``i = index`` (a rank that holds only its stage's leaves and
-    caches passes 0), else ``i = stage``.  `tp`: the rank's tensor group
+    caches passes 0), else ``i = stage``.  `tp`: the rank's tensor group,
+    `ep`: its data group when the experts are split over it
     (`block_apply_serve`).  Padded layers (global index >= num_layers) are the
     identity, as the JAX mask makes them.  Returns (xp, xd, caches).
 
@@ -748,7 +752,7 @@ def stage_forward_serve(cfg: ArchConfig, stage_params, caches, xp, xd, meta,
             pr = {name: views[r] for name, views in layers.items()}
             cr = {name: views[r] for name, views in states.items()}
             xp, xd, _ = block_apply_serve(cfg, bs.kind, pr, xp, xd, cr,
-                                          meta, dims, enc_h, tp)
+                                          meta, dims, enc_h, tp, ep)
         off += bs.repeat
         if bs.kind == BlockKind.ENC_LAYER:
             enc_snapshot = caches[key]["h"][at]

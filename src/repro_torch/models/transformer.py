@@ -344,30 +344,34 @@ def shard_block(t: torch.Tensor, spec: Spec, layout, rank: int,
 
 def check_shardable(cfg: ArchConfig, layout) -> None:
     """Raise unless `cfg` splits over `layout` (`launch.mesh.Layout`): its
-    stage count, `shard_config`'s widths, and neither expert parallelism
-    over `data` nor a tied head across ranks (not yet ported)."""
+    stage count, `shard_config`'s widths and expert counts (`ValueError`),
+    and no tied head across ranks (not yet ported)."""
     tp = layout.size("tensor")
     if layout.size("stage") != cfg.plan.pp:
         raise ValueError(f"{cfg.name}: layout of {layout.size('stage')} "
                          f"stages, config of pp={cfg.plan.pp}")
-    if tp > 1:
-        shard_config(cfg, tp)
-    if cfg.plan.ep_over_data and layout.size("data") > 1 and cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: expert parallelism over `data` is not yet ported "
-            f"(ROADMAP Queue 1 item 6.2)")
+    shard_config(cfg, tp, expert_parts(cfg, layout.size("data")))
     if cfg.tie_embeddings and layout.world > 1:
         raise NotImplementedError(
             f"{cfg.name}: a tied head across ranks is not yet ported "
             f"(ROADMAP Queue 1 item 6)")
 
 
-def shard_config(cfg: ArchConfig, tp: int) -> RankConfig:
+def expert_parts(cfg: ArchConfig, dp: int) -> int:
+    """The ranks `cfg`'s experts are split over at `dp` data replicas: dp
+    for an MoE model whose plan sets ``ep_over_data`` (expert parallelism,
+    the expert leaves' ``data`` split in `param_pspecs`), else 1."""
+    return dp if cfg.plan.ep_over_data and cfg.is_moe else 1
+
+
+def shard_config(cfg: ArchConfig, tp: int, ep: int = 1) -> RankConfig:
     """The widths one tensor rank of one stage computes at (a
     `RankConfig`): heads, KV heads, d_ff, the experts' and the shared
     experts' ff, Mamba's d_inner and RWKV's heads over `tp`; d_model
-    whole; one stage (its caches and carry have one stage slot).  Raises
-    `ValueError` where a width the pattern uses does not divide."""
+    whole; the experts over `ep` ranks (`expert_parts`: `local_experts`
+    a rank, the router's `num_experts` whole); one stage (its caches and
+    carry have one stage slot).  Raises `ValueError` where a width or the
+    expert count does not divide."""
     kinds = {bs.kind for bs in cfg.pattern}
     widths = [("num_heads", cfg.num_heads),
               ("num_kv_heads", cfg.num_kv_heads), ("d_ff", cfg.d_ff)]
@@ -381,11 +385,14 @@ def shard_config(cfg: ArchConfig, tp: int) -> RankConfig:
         if n % tp:
             raise ValueError(f"{cfg.name}: {what}={n} does not split over "
                              f"tp={tp}")
+    if ep > 1 and cfg.num_experts % ep:
+        raise ValueError(f"{cfg.name}: num_experts={cfg.num_experts} does "
+                         f"not split over dp={ep}")
     fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     fields.update(num_heads=cfg.num_heads // tp,
                   num_kv_heads=cfg.num_kv_heads // tp, d_ff=cfg.d_ff // tp,
                   moe_d_ff=cfg.moe_d_ff // tp, plan=ParallelPlan(pp=1, tp=1),
-                  tensor_parts=tp)
+                  tensor_parts=tp, expert_parts=ep)
     return RankConfig(**fields)
 
 
@@ -700,7 +707,7 @@ def cross_attend(cfg: ArchConfig, p, h: torch.Tensor, k: torch.Tensor,
 def block_apply_train(cfg: ArchConfig, kind: BlockKind, p,
                       x: torch.Tensor, aux: torch.Tensor,
                       enc_width: int = 0, *, train_forms: bool = False,
-                      tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                      tp=None, ep=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block over full sequences: x [B, T, d] -> (x, aux), the MoE
     load-balancing loss of an MoE block added to `aux` (f32 scalar), as in
     the JAX package.  Whisper's blocks work on the encoder half
@@ -717,7 +724,9 @@ def block_apply_train(cfg: ArchConfig, kind: BlockKind, p,
     replicated), each row-parallel product's partial sums are reduced over
     the group, and a replicated leaf that acts on the rank's channels is
     sliced through `collectives.slice_for_tensor`, so that every replica
-    of every leaf ends the backward with its whole gradient."""
+    of every leaf ends the backward with its whole gradient.  `ep` (the
+    rank's data group, `moe.moe_apply`'s) runs an MoE block's experts
+    split over it: `p` holds the rank's block of them."""
     if kind == BlockKind.RWKV:
         x, _ = ssm_lib.rwkv_block(x, p, head_dim=cfg.rwkv_head_dim,
                                   norm_eps=cfg.norm_eps, train=train_forms,
@@ -765,27 +774,29 @@ def block_apply_train(cfg: ArchConfig, kind: BlockKind, p,
         y, a = moe_lib.moe_apply(h.reshape(-1, cfg.d_model), p,
                                  top_k=cfg.num_experts_per_tok,
                                  capacity_factor=cfg.moe_capacity_factor,
-                                 tp=tp)
+                                 tp=tp, ep=ep)
         return x + y.reshape(x.shape), aux + a
     return x + mlp_apply(h, p, cfg.act, tp), aux
 
 
 def stage_forward_train(cfg: ArchConfig, stage_params, x: torch.Tensor, *,
                         enc_width: int = 0, stage: int = 0,
-                        tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                        tp=None, ep=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pipeline stage `stage`'s layers over x [B, T, d] -> (x, aux).
     `stage_params` holds that stage's leaves, ``[R, ...]`` per block group
     (the JAX package's stage-local view).  A padded layer (global index >=
     ``num_layers``) is the identity and adds no aux.  RWKV and Mamba
     blocks run the train forms.  Each layer is recomputed in backward
     (`torch.utils.checkpoint`, the JAX package's full ``jax.checkpoint``):
-    only the layer inputs stay live.  `tp`: as `block_apply_train`."""
+    only the layer inputs stay live.  `tp`, `ep`: as
+    `block_apply_train`."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     off = stage * cfg.layers_per_stage
     for i, bs in enumerate(cfg.pattern):
         p = stage_params[_block_key(i, bs)]
         fn = functools.partial(block_apply_train, cfg, bs.kind,
-                               enc_width=enc_width, train_forms=True, tp=tp)
+                               enc_width=enc_width, train_forms=True, tp=tp,
+                               ep=ep)
         for r in range(bs.repeat):
             if off + r < cfg.num_layers:
                 pl = {k: v[r] for k, v in p.items()}

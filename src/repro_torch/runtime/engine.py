@@ -33,9 +33,10 @@ operation of the backend runs on the device and stream it was built on
 addresses, so imports write into the pools in place, and an export's gather
 is queued behind every tick already replayed.
 
-Across ranks, `RankBackend` runs one stage at one tensor shard a process:
-rank 0's backend drives the tick loop and sends every tick's input buffer
-to the other ranks, which run it in `RankBackend.serve_loop`.
+Across ranks, `RankBackend` runs one stage at one tensor shard of one data
+replica a process: rank 0's backend drives the tick loop and sends every
+tick's input buffer (every replica's rows) to the other ranks, which run
+it in `RankBackend.serve_loop`.
 
 With ``trace_path`` the engine logs every tick to a replayable JSONL trace
 (`runtime/trace.py`, the JAX package's schema): a `TraceRecorder` wraps the
@@ -60,6 +61,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import (
     PagedKVManager,
     PipelineScheduler,
+    ReplicaKVManager,
     Request,
     SamplingParams,
     ScheduledBatch,
@@ -76,7 +78,7 @@ from repro_torch.distributed.pipeline import (
 from repro_torch.kernels import ops
 from repro_torch.models import serve as serve_lib
 from repro_torch.models.serve import ServeDims
-from repro_torch.models.transformer import shard_config
+from repro_torch.models.transformer import expert_parts, shard_config
 from repro_torch.runtime.core import ExecResult, ExecutionBackend, TickLoop
 
 
@@ -120,6 +122,27 @@ class SlotAllocator:
         s = self.owner.pop(request_id, None)
         if s is not None:
             self.free.append(s)
+
+
+class ReplicaSlots:
+    """One `SlotAllocator` per data replica: a request's slot is taken in
+    the replica its KV lives in (`ReplicaKVManager.replica_of`), and
+    released from whichever holds it."""
+
+    def __init__(self, n: int, kv: ReplicaKVManager) -> None:
+        self.pools = [SlotAllocator(n) for _ in range(kv.replicas)]
+        self.kv = kv
+
+    @property
+    def owner(self) -> Dict[str, int]:
+        return {rid: s for p in self.pools for rid, s in p.owner.items()}
+
+    def get(self, request_id: str) -> int:
+        return self.pools[self.kv.replica_of(request_id)].get(request_id)
+
+    def release(self, request_id: str) -> None:
+        for p in self.pools:
+            p.release(request_id)
 
 
 @dataclass
@@ -188,6 +211,8 @@ class TorchBackend(ExecutionBackend):
     the activation carry (`pipeline.init_carry`), which every bucket
     program shares."""
 
+    replicas = 1                # data replicas whose rows a tick holds
+
     def __init__(self, cfg: ArchConfig, dims: ServeDims, params,
                  kv: PagedKVManager, *, device: torch.device,
                  dtype: Optional[torch.dtype] = None, seed: int = 0,
@@ -219,7 +244,7 @@ class TorchBackend(ExecutionBackend):
         cuda = device.type == "cuda"
         # the largest static buffer of the ladder: the full shape's
         size = sum(a.size for a in self._fields(
-            ((None, self._zm),) * self.depth, dims, None).values())
+            self._zero_ring(), dims, None).values())
         self._staging = [torch.empty(size, dtype=torch.int32,
                                      pin_memory=cuda) for _ in range(2)]
         self._host_tokens = [torch.empty(dims.Sp + dims.Sd,
@@ -263,8 +288,8 @@ class TorchBackend(ExecutionBackend):
         if prog is None:
             tick = build_serve_tick(self.cfg, bucket, carry_dims=self.dims,
                                     dtype=self.dtype)
-            zero = ((None, self._zm),) * self.depth
-            prog = _BucketProgram(tick, self._fields(zero, bucket, None),
+            prog = _BucketProgram(tick, self._fields(self._zero_ring(),
+                                                     bucket, None),
                                   self.device)
             if self._enc is not None:
                 prog.meta["p_enc"] = self._enc
@@ -290,10 +315,9 @@ class TorchBackend(ExecutionBackend):
             torch.cuda.synchronize(self.device)
             reserved = torch.cuda.memory_reserved(self.device)
         t0 = time.perf_counter()
-        zero = ((None, self._zm),) * self.depth
         for bucket in self.ladder:
             prog = self._program(bucket)
-            self._load(prog, self._fields(zero, bucket, None))
+            self._load(prog, self._fields(self._zero_ring(), bucket, None))
             if not self.graphs:
                 self._run(prog)
                 continue
@@ -447,6 +471,19 @@ class TorchBackend(ExecutionBackend):
             out[k] = stacked
         return out
 
+    def _zero_ring(self) -> Tuple[Tuple[Optional[int], Any], ...]:
+        """A ring of bubbles: every stage's entry zero metadata."""
+        return ((None, self._zm),) * self.depth
+
+    def _exit_rows(self, exiting: ScheduledBatch,
+                   bucket: ServeDims) -> List[int]:
+        """The rows of the tick's tokens that hold the exiting batch's
+        sampled tokens, in `PipelineScheduler.complete`'s order: its
+        token-producing prefill rows, then its decode rows."""
+        return ([i for i, seq in enumerate(exiting.prefill)
+                 if seq.produces_token]
+                + [bucket.Sp + j for j in range(len(exiting.decode))])
+
     # --------------------------------------------------------------- protocol
     @property
     def depth(self) -> int:
@@ -479,16 +516,17 @@ class TorchBackend(ExecutionBackend):
 
         n_p = entering.num_prefill_tokens if entering is not None else 0
         n_d = entering.num_decode_tokens if entering is not None else 0
+        reps = self.replicas
         self.stats.ticks += 1
         self.stats.scheduled_prefill += n_p
         self.stats.scheduled_decode += n_d
-        self.stats.padded_prefill += bucket.Sp * bucket.C - n_p
-        self.stats.padded_decode += bucket.Sd - n_d
+        self.stats.padded_prefill += reps * bucket.Sp * bucket.C - n_p
+        self.stats.padded_decode += reps * bucket.Sd - n_d
         self.stats.prefill_ticks += bucket.Sp > 0
         self.stats.decode_ticks += bucket.Sd > 0
         self.stats.bubble_stage_ticks += sum(bid is None for bid, _ in ring)
-        self.stats.scanned_pages += (bucket.Sp * bucket.Bp
-                                     + bucket.Sd * bucket.Bd)
+        self.stats.scanned_pages += reps * (bucket.Sp * bucket.Bp
+                                            + bucket.Sd * bucket.Bd)
         if entering is not None:
             page = self.dims.page
             live = sum(-(-(seq.start_pos + seq.num_tokens) // page)
@@ -512,10 +550,7 @@ class TorchBackend(ExecutionBackend):
         if self.device.type == "cuda":
             done = torch.cuda.Event()
             done.record()
-        prefill_rows = [i for i, seq in enumerate(exiting.prefill)
-                        if seq.produces_token]
-        n_decode = len(exiting.decode)
-        d_off = bucket.Sp
+        rows = self._exit_rows(exiting, bucket)
 
         def readback() -> List[int]:
             t1 = time.perf_counter()
@@ -523,8 +558,7 @@ class TorchBackend(ExecutionBackend):
                 done.synchronize()      # blocks until the tick finishes
             vals = host.numpy()
             self.stats.device_s += time.perf_counter() - t1
-            toks = [int(vals[i]) for i in prefill_rows]
-            toks += [int(vals[d_off + j]) for j in range(n_decode)]
+            toks = [int(vals[i]) for i in rows]
             self.stats.tokens_out += len(toks)
             return toks
 
@@ -792,13 +826,15 @@ class RankStats:
 
 class RankBackend(TorchBackend):
     """`TorchBackend` across ranks: every rank holds one stage of the model
-    at its tensor shard (`params`: its `shard_params`), its stage's pools
-    at its shard's widths (`serve.block_cache_defs` of `shard_config`: its
-    KV heads, WKV heads and Mamba channels; the MLA latent, shift states
-    and encoder snapshots whole) and its carry
+    at its tensor shard (`params`: its `shard_params`; with expert
+    parallelism, its data replica's block of the experts), its stage's
+    pools at its shard's widths (`serve.block_cache_defs` of
+    `shard_config`: its KV heads, WKV heads and Mamba channels; the MLA
+    latent, shift states and encoder snapshots whole) and its carry
     (`pipeline.init_rank_carry`), and runs `pipeline.build_rank_serve_tick`.
     The KV manager on rank 0 hands out pages of every rank's pool at once:
-    each pool holds the same pages, each at its rank's heads.
+    each pool of a data replica holds the same pages, each at its rank's
+    heads.
 
     gLLM's runtime of one leading rank and workers: rank 0's backend sits
     under the scheduler and the `TickLoop` (`PipelineEngine(ranks=)`); per
@@ -813,19 +849,42 @@ class RankBackend(TorchBackend):
     (`stop`).  Eager and sync: the tokens every rank gets from the head
     (`vocab_argmax`) are read back on rank 0 as at one rank.  The buffers
     travel as host tensors under gloo (the backend stages CUDA tensors
-    through host memory anyway) and as device tensors under nccl."""
+    through host memory anyway) and as device tensors under nccl.
+
+    **Data replicas.**  At dp > 1 the scheduler's KV manager is a
+    `ReplicaKVManager` (a request lives in one replica's pool, with a
+    state slot of that replica's, `ReplicaSlots`), every ring entry's
+    metadata is a tuple of one per replica (`_split`: the batch's rows of
+    each replica, in batch order), and the buffer holds every replica's
+    fields, replica by replica, at the one bucket rank 0 picks for all;
+    each rank's program reads its replica's block, its temperatures and
+    its encoder input.  A replica with no rows still runs the tick (its
+    rows are padding), so that every MoE exchange pairs up; the tick
+    gathers every replica's tokens, and rank 0 reads each exiting row
+    where its replica's block put it."""
 
     def __init__(self, cfg: ArchConfig, dims: ServeDims, params, kv, *,
                  device: torch.device, ranks, dtype=None, seed: int = 0,
                  bucketed: bool = False) -> None:
-        if ranks.size("data") > 1:
-            raise NotImplementedError(
-                "the serve tick's data axis is not yet ported (ROADMAP "
-                "Queue 1 item 6.4): serve at dp=1")
         self.ranks = ranks
-        self.local = shard_config(cfg, ranks.size("tensor"))
+        self.replicas = ranks.size("data")
+        self.replica = ranks.index("data")
+        self.local = shard_config(cfg, ranks.size("tensor"),
+                                  expert_parts(cfg, self.replicas))
+        self._splits: Dict[int, List[ScheduledBatch]] = {}
         super().__init__(cfg, dims, params, kv, device=device, dtype=dtype,
                          seed=seed, bucketed=bucketed, cuda_graphs=False)
+        if isinstance(kv, ReplicaKVManager):
+            self.slots = ReplicaSlots(dims.slots, kv)
+        rows = self.replicas * (dims.Sp + dims.Sd)
+        self._host_tokens = [torch.empty(rows, dtype=torch.int32,
+                                         pin_memory=device.type == "cuda")
+                             for _ in range(2)]
+        self._enc_all = None
+        if self._enc is not None:       # every replica's, this one's a view
+            self._enc_all = torch.zeros((self.replicas,) + self._enc.shape,
+                                        dtype=self.dtype, device=device)
+            self._enc = self._enc_all[self.replica]
         self.world = ranks.world_axis()
         self.rank_stats = RankStats()
         self._exiting: Optional[int] = None
@@ -846,14 +905,76 @@ class RankBackend(TorchBackend):
             tick = build_rank_serve_tick(self.cfg, bucket, self.ranks,
                                          carry_dims=self.dims,
                                          dtype=self.dtype)
-            zero = ((None, self._zm),) * self.depth
-            prog = _BucketProgram(tick, self._fields(zero, bucket, None),
+            prog = _BucketProgram(tick, self._fields(self._zero_ring(),
+                                                     bucket, None),
                                   self.device)
+            mine = f"{self.replica}/"
+            prog.meta = {k[len(mine):]: v for k, v in prog.meta.items()
+                         if k.startswith(mine)}
             prog.bucket = bucket
             if self._enc is not None:
                 prog.meta["p_enc"] = self._enc
             self._programs[key] = prog
         return prog
+
+    # ------------------------------------------------------------ replicas
+    def _zero_ring(self):
+        return ((None, (self._zm,) * self.replicas),) * self.depth
+
+    def _split(self, batch: ScheduledBatch) -> List[ScheduledBatch]:
+        """`batch`'s rows of each replica (the replica its KV lives in), in
+        batch order: one sub-batch each, under the batch's id."""
+        subs = [ScheduledBatch(batch.batch_id, [], [])
+                for _ in range(self.replicas)]
+        for seq in batch.prefill:
+            subs[self.kv.replica_of(seq.request.request_id)].prefill \
+                .append(seq)
+        for seq in batch.decode:
+            subs[self.kv.replica_of(seq.request.request_id)].decode \
+                .append(seq)
+        return subs
+
+    def prepare(self, batch: Optional[ScheduledBatch]):
+        """Each replica's metadata of `batch` (the bubble's for none)."""
+        if batch is None:
+            return (self._zm,) * self.replicas
+        t0 = time.perf_counter()
+        subs = self._splits[batch.batch_id] = self._split(batch)
+        out = tuple(self._build_meta(sub) for sub in subs)
+        self._prep_s += time.perf_counter() - t0
+        return out
+
+    def _fields(self, ring, bucket: ServeDims,
+                entering: Optional[ScheduledBatch]) -> Dict[str, np.ndarray]:
+        """Every replica's `TorchBackend._fields`, replica by replica,
+        each key prefixed with its replica (``"r/"``)."""
+        subs = ([None] * self.replicas if entering is None
+                else self._splits[entering.batch_id])
+        out = {}
+        for r, sub in enumerate(subs):
+            fields = super()._fields([(bid, m[r]) for bid, m in ring],
+                                     bucket, sub)
+            out.update({f"{r}/{k}": a for k, a in fields.items()})
+        return out
+
+    def _select_bucket(self, ring) -> ServeDims:
+        """One bucket that covers every replica's rows."""
+        return super()._select_bucket([(bid, mr) for bid, m in ring
+                                       for mr in m])
+
+    def _exit_rows(self, exiting: ScheduledBatch,
+                   bucket: ServeDims) -> List[int]:
+        rows = bucket.Sp + bucket.Sd
+        subs = self._splits.pop(exiting.batch_id)
+        at = {}
+        for r, sub in enumerate(subs):
+            for i, seq in enumerate(sub.prefill):
+                at[id(seq)] = r * rows + i
+            for j, seq in enumerate(sub.decode):
+                at[id(seq)] = r * rows + bucket.Sp + j
+        return ([at[id(seq)] for seq in exiting.prefill
+                 if seq.produces_token]
+                + [at[id(seq)] for seq in exiting.decode])
 
     # ------------------------------------------------------------ messages
     def _bcast(self, t: torch.Tensor) -> torch.Tensor:
@@ -872,7 +993,7 @@ class RankBackend(TorchBackend):
         bucket index, buffer size, message size, 1 if an encoder input
         follows), then a tick's message: the buffer, and the temperatures'
         f32 bits; then, for an encoder-decoder whose entering batch holds
-        prefill rows, their encoder input (the device buffer, `_enc`)."""
+        prefill rows, every replica's encoder input (`_enc_all`)."""
         msg = None
         if cmd == 1:
             msg = body.clone() if temps is None else torch.cat(
@@ -884,30 +1005,45 @@ class RankBackend(TorchBackend):
         if msg is not None:
             self._bcast(msg)
         if enc:
-            coll.broadcast(self._enc, self.world, 0, kind="meta")
+            coll.broadcast(self._enc_all, self.world, 0, kind="meta")
 
     def _load(self, prog: _BucketProgram, fields: Dict[str, np.ndarray],
               entering: Optional[ScheduledBatch] = None) -> None:
-        """`TorchBackend._load`, then the tick's message to every rank."""
-        super()._load(prog, fields, entering)
+        """`TorchBackend._load` of the buffer, every replica's encoder
+        input of the entering prefill rows (zeros past a short input and
+        on rows without a request), then the tick's message to every
+        rank."""
+        super()._load(prog, fields)
+        enc = self._enc_all is not None and entering is not None \
+            and bool(entering.prefill)
+        if enc:
+            self._enc_all.zero_()
+            for r, sub in enumerate(self._splits[entering.batch_id]):
+                for i, seq in enumerate(sub.prefill):
+                    src = self.enc_embeds.get(seq.request.request_id)
+                    if src is not None:
+                        self._enc_all[r, i, :src.shape[0]].copy_(src)
         temps = self._exit_temps(prog.bucket)
         self._temps = None if temps is None else serve_lib.host_to_device(
             torch.from_numpy(temps), self.device)
-        enc = self._enc is not None and entering is not None \
-            and bool(entering.prefill)
         self._send(1, self.ladder.index(prog.bucket),
                    self._staging[self._ring_slot][:prog.size], temps, enc)
 
     def _exit_temps(self, bucket: ServeDims) -> Optional[np.ndarray]:
+        """The exiting rows' temperatures, replica by replica; None when
+        every row is greedy."""
         batch = (self.scheduler.get_batch(self._exiting)
                  if self._exiting is not None else None)
         if batch is None:
             return None
-        temps = np.zeros(bucket.Sp + bucket.Sd, np.float32)
-        for i, seq in enumerate(batch.prefill):
-            temps[i] = seq.request.sampling.temperature
-        for j, seq in enumerate(batch.decode):
-            temps[bucket.Sp + j] = seq.request.sampling.temperature
+        rows = bucket.Sp + bucket.Sd
+        temps = np.zeros(self.replicas * rows, np.float32)
+        for r, sub in enumerate(self._splits[batch.batch_id]):
+            for i, seq in enumerate(sub.prefill):
+                temps[r * rows + i] = seq.request.sampling.temperature
+            for j, seq in enumerate(sub.decode):
+                temps[r * rows + bucket.Sp + j] = \
+                    seq.request.sampling.temperature
         return temps if temps.any() else None
 
     def _build_sampling(self, exiting_id, bucket: ServeDims):
@@ -922,10 +1058,14 @@ class RankBackend(TorchBackend):
         t0 = time.perf_counter()
         c0, w0 = sum(coll.TRAFFIC.seconds.values()), coll.TRAFFIC.wait
         cuda = self.device.type == "cuda"
+        temps = self._temps
+        if temps is not None:           # this replica's rows
+            rows = prog.bucket.Sp + prog.bucket.Sd
+            temps = temps[self.replica * rows:(self.replica + 1) * rows]
         if cuda:
             coll.CLOCK.start(self.device)
         _, tokens = prog.tick(self.params, self.caches, prog.meta,
-                              self.carry, self._temps, self._rank_gen)
+                              self.carry, temps, self._rank_gen)
         if cuda:
             st.device_s += coll.CLOCK.stop()
         st.ticks += 1
@@ -957,7 +1097,7 @@ class RankBackend(TorchBackend):
             self._temps = (msg[n:].view(torch.float32).to(self.device)
                            if size > n else None)
             if enc:
-                coll.broadcast(self._enc, self.world, 0, kind="meta")
+                coll.broadcast(self._enc_all, self.world, 0, kind="meta")
             self._run(prog)
 
     def stop(self) -> None:
@@ -1016,7 +1156,9 @@ class PipelineEngine:
     With `ranks` (`launch.mesh.RankGroups` over more than one process),
     this is rank 0's engine over a layout of ranks (`RankBackend`): `params`
     is its shard, the other ranks run `RankBackend.serve_loop`, and
-    `backend.stop()` ends them.  Eager and sync only: graphs, async
+    `backend.stop()` ends them.  Over dp > 1 data replicas the KV manager
+    is a `ReplicaKVManager` of dp pools of `dims.pages` (`dims` are per
+    replica), and the scheduler's row limits hold for each replica.  Eager and sync only: graphs, async
     dispatch, prefix caching and traces raise (`_refuse_at_ranks`)."""
 
     def __init__(
@@ -1068,8 +1210,11 @@ class PipelineEngine:
         self.cfg = cfg
         self.dims = dims
         self.params = params
-        self.kv = PagedKVManager(dims.pages, dims.page,
-                                 enable_prefix_caching=enable_prefix_caching)
+        dp = ranks.size("data") if multi else 1
+        self.kv = (ReplicaKVManager(dp, dims.pages, dims.page) if dp > 1
+                   else PagedKVManager(
+                       dims.pages, dims.page,
+                       enable_prefix_caching=enable_prefix_caching))
         self.scheduler = PipelineScheduler(
             throttle, self.kv,
             max_model_len=dims.page * max(dims.Bp, dims.Bd),

@@ -254,9 +254,9 @@ def _fake_ranks(dp=1, pp=2, tp=2):
 
 def test_engine_at_ranks_refuses_what_it_does_not_do():
     """At world > 1: CUDA graphs and async dispatch raise `ValueError`,
-    prefix caching, traces, KV and state migration and the serve tick's
-    data axis `NotImplementedError`, each naming its ROADMAP item; nothing
-    falls back to one rank."""
+    prefix caching, traces, KV and state migration `NotImplementedError`,
+    each naming its ROADMAP item; nothing falls back to one rank.  The
+    serve tick's data axis builds (dp=2)."""
     from repro_torch.configs import get_config, make_reduced
     from repro_torch.core import ThrottleConfig
     from repro_torch.launch.serve import REDUCED_DIMS
@@ -276,9 +276,16 @@ def test_engine_at_ranks_refuses_what_it_does_not_do():
     with pytest.raises(NotImplementedError, match="item 6.6"):
         PipelineEngine(cfg, REDUCED_DIMS, None, th, ranks=ranks,
                        device="cpu", trace_path="/dev/null")
-    with pytest.raises(NotImplementedError, match="item 6.4"):
-        RankBackend(cfg, REDUCED_DIMS, None, None, device=torch.device("cpu"),
-                    ranks=_fake_ranks(dp=2))
+    # the serve tick's data axis: a worker's backend at dp=2 builds, with
+    # room for both replicas' tokens and both replicas' buffer blocks
+    two = RankBackend(cfg, REDUCED_DIMS, None, None,
+                      device=torch.device("cpu"), ranks=_fake_ranks(dp=2))
+    rows = REDUCED_DIMS.Sp + REDUCED_DIMS.Sd
+    assert two.replicas == 2 and two._host_tokens[0].numel() == 2 * rows
+    one = RankBackend(cfg, REDUCED_DIMS, None, None,
+                      device=torch.device("cpu"), ranks=_fake_ranks())
+    assert two._program(REDUCED_DIMS).size == \
+        2 * one._program(REDUCED_DIMS).size
     backend = object.__new__(RankBackend)
     with pytest.raises(NotImplementedError, match="item 6.6"):
         backend.export_kv_pages("r", [(0, 0)])

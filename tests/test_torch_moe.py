@@ -197,11 +197,19 @@ def test_moe_apply_counts_are_routed_rows_capped(cf, monkeypatch):
 
 
 def test_moe_apply_refuses_expert_parallelism():
-    cfg = _reduced("olmoe-1b-7b")
+    """Expert parallelism over a data group of one rank (`ep=`) is the
+    NS=1 path: the same output and aux bit for bit (the EP exchanges are
+    tested across ranks in tests/test_torch_ep.py)."""
+    from repro_torch.launch.mesh import AxisGroup
+
+    cfg = _reduced("kimi-k2-1t-a32b")
     _, tp = _both(_moe_params(cfg, 8))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        moe.moe_apply(torch.zeros(4, cfg.d_model), tp, top_k=2,
-                      ep_axis="data")
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(12, cfg.d_model))).float()
+    want, aux = moe.moe_apply(x, tp, top_k=2)
+    got, aux1 = moe.moe_apply(x, tp, top_k=2,
+                              ep=AxisGroup("data", (0,), 0))
+    assert torch.equal(got, want) and torch.equal(aux1, aux)
 
 
 # tests/test_kernels.py::test_fused_moe_vs_oracle's shapes and Pallas tiles,

@@ -244,12 +244,12 @@ def test_rank_draws_equal_the_slice_of_the_whole_tree(monkeypatch, arch):
     parts alike (the part size patched down so that the reduced model's
     leaves take that path too).  jamba's fused Mamba ``in_proj`` [d, 2 di]
     gives each rank its block of both halves (x, then z), a copy where
-    every other leaf's block is a view; jamba (expert parallelism over
-    `data`) at dp=1."""
+    every other leaf's block is a view; jamba's experts (expert
+    parallelism over `data`) each data rank's block of them."""
     from repro_torch.models import transformer as tfm
 
     cfg = _port_cfg(arch, 2, 2)
-    lay = rank_layout(1 if cfg.plan.ep_over_data else 2, 2, 2)
+    lay = rank_layout(2, 2, 2)
     for limit in (tfm._F32_DRAW_BYTES, 4096):
         monkeypatch.setattr(tfm, "_F32_DRAW_BYTES", limit)
         full = init_params(cfg, 3, dtype=torch.float32)
@@ -299,8 +299,10 @@ def test_rank_draws_equal_the_slice_of_the_whole_tree(monkeypatch, arch):
 
 def test_tensor_parallelism_refuses_what_it_does_not_split():
     """Every block kind shards at tp > 1 (olmoe's ATTN_MOE at tp=2);
-    expert parallelism over `data` at dp > 1 still raises (ROADMAP item
-    6.2); a width that does not divide raises `ValueError`."""
+    jamba (``ep_over_data``) at (2, 2, 2) draws its block of the experts
+    over `data` at its tensor columns, the slice of the whole tree's; an
+    expert count that does not divide dp, and a width that does not
+    divide tp, raise `ValueError`."""
     cfg = _port_cfg("olmoe-1b-7b", 2, 2)
     shard = dict(tree_items(init_params(cfg, 0, dtype=torch.float32,
                                         layout=rank_layout(1, 2, 2),
@@ -308,8 +310,22 @@ def test_tensor_parallelism_refuses_what_it_does_not_split():
     assert shard["stages/b0_attn_moe/w_gate"].shape == (
         1, 1, cfg.num_experts, cfg.d_model, cfg.moe_d_ff // 2)
     jamba = _port_cfg("jamba-1.5-large-398b", 2, 2)
-    with pytest.raises(NotImplementedError, match="item 6.2"):
-        init_params(jamba, 0, layout=rank_layout(2, 2, 2), rank=0)
+    lay = rank_layout(2, 2, 2)
+    whole = dict(tree_items(init_params(jamba, 0, dtype=torch.float32)))
+    E, ff = jamba.num_experts, jamba.moe_d_ff
+    for rank in range(lay.world):
+        c = lay.coords(rank)
+        mine = dict(tree_items(init_params(jamba, 0, dtype=torch.float32,
+                                           layout=lay, rank=rank)))
+        for key in ("stages/b8_attn_moe/w_up", "stages/b1_mamba_moe/w_down"):
+            e = slice(c["data"] * E // 2, (c["data"] + 1) * E // 2)
+            f = slice(c["tensor"] * ff // 2, (c["tensor"] + 1) * ff // 2)
+            s = c["stage"]
+            want = (whole[key][s:s + 1, :, e, :, f] if key.endswith("w_up")
+                    else whole[key][s:s + 1, :, e, f, :])
+            assert torch.equal(mine[key], want), (key, rank)
+    with pytest.raises(ValueError, match="does not split"):
+        init_params(jamba, 0, layout=rank_layout(3, 2, 2), rank=0)
     qwen = _port_cfg("qwen1.5-0.5b", 2, 3)
     with pytest.raises(ValueError, match="does not split"):
         init_params(qwen, 0, layout=rank_layout(1, 2, 3), rank=0)

@@ -9,8 +9,8 @@ one-process engine's and JAX's dense reference's, tick for tick.
 The layouts: each of the six archs with a kind other than ATTN_MLP shards
 over its published pipeline layout, JAX's production mesh with its
 ``model`` axis factored into (stage, tensor) (`derive_pipeline_mesh`),
-but for expert parallelism over `data` (jamba, kimi-k2), which is refused
-at 16 data replicas, naming ROADMAP item 6.2, and shards at one.
+jamba and kimi-k2 with their experts split over the 16 data replicas
+(expert parallelism over `data`), and at one.
 
 The shapes: at the published widths and tp of those archs, each rank's
 cache arrays are the rank's block of JAX's
@@ -35,7 +35,11 @@ from repro_torch.launch.mesh import (
 )
 from repro_torch.models import serve as serve_lib
 from repro_torch.models.serve import ServeDims
-from repro_torch.models.transformer import check_shardable, shard_config
+from repro_torch.models.transformer import (
+    check_shardable,
+    expert_parts,
+    shard_config,
+)
 
 from test_torch_tp_serve import check_twin, serve_twin
 
@@ -111,11 +115,11 @@ def test_published_layouts_shard(arch):
     prod = derive_pipeline_mesh(make_production_mesh(), pp, tp)
     assert (prod.size("data"), prod.size("stage"), prod.size("tensor")) == \
         (16, pp, tp)
+    check_shardable(cfg, prod)
     if cfg.plan.ep_over_data:
-        with pytest.raises(NotImplementedError, match="item 6.2"):
-            check_shardable(cfg, prod)
+        # expert parallelism: the experts split over the 16 data replicas
+        local = shard_config(cfg, tp, expert_parts(cfg, 16))
+        assert local.local_experts * 16 == cfg.num_experts
         one = derive_pipeline_mesh(Layout((1, pp * tp), ("data", "model")),
                                    pp, tp)
         check_shardable(cfg, one)
-    else:
-        check_shardable(cfg, prod)

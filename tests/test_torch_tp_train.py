@@ -97,7 +97,8 @@ def replicas_agree(out, cfg, lay):
                 np.testing.assert_array_equal(v, vals[0], err_msg=k)
 
 
-def train_twin(arch: str, tp: int, tmp_path, pp: int = 1, dp: int = 1):
+def train_twin(arch: str, tp: int, tmp_path, pp: int = 1, dp: int = 1,
+               aux_coef: float = 0.01):
     jcfg, cfg = cfgs(arch, pp, tp)
     ew = T // 2 if cfg.is_encoder_decoder else 0
     jparams, tree = jax_params(jcfg, tmp_path / "w.npz")
@@ -109,8 +110,8 @@ def train_twin(arch: str, tp: int, tmp_path, pp: int = 1, dp: int = 1):
                               aux_coef=0.0, enc_width=ew, device="cpu",
                               dtype="float32", npz=npz, keep=1)),
             (train_rank, dict(cfg=cfg, steps=2, batches=[b] * 2, lr=1e-3,
-                              enc_width=ew, device="cpu", dtype="float32",
-                              npz=npz, keep=2))]
+                              aux_coef=aux_coef, enc_width=ew, device="cpu",
+                              dtype="float32", npz=npz, keep=2))]
     runs = rk.spawn(rk.run_each, lay, (jobs,),
                     store_dir=str(tmp_path / "store"), threads=1,
                     timeout_s=240, group_timeout_s=60)
@@ -127,7 +128,7 @@ def train_twin(arch: str, tp: int, tmp_path, pp: int = 1, dp: int = 1):
     p = full.trainable()
     opt = adam_init(p)
     step = build_train_step(one, adam=AdamConfig(lr=1e-3), enc_width=ew,
-                            device="cpu")
+                            aux_coef=aux_coef, device="cpu")
     adam = AdamConfig(lr=1e-3)
     rms = []                    # each step's sqrt(bias-corrected v)
     for i in range(2):
