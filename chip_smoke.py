@@ -288,7 +288,13 @@ line; any failure raises and the script exits non-zero.
               the same weights and to the dense reference, up to a near-tie;
               the batch of every tick equal to the single-process ring's;
               paged attention launched on every rank once per layer of its
-              stage for each phase a tick runs
+              stage for each phase a tick runs; in the same spawn the rank
+              engine's state in and out: prefix caching on 4 prompts that
+              share a 2-page prefix (traced: the trace replays strictly
+              and equals the one-process engine's outside its timing
+              fields), async dispatch, two requests moved out mid-decode
+              and finished in the one-process engine and one moved in, all
+              with the one-process engine's tokens
   serve-ranks-bf16  qwen2.5-14b at full width cut to 16 of its 48 layers
               (8 a stage; the script's time), bf16, pp=2 x tp=2 ranks,
               bucketed, eager and sync:
@@ -307,7 +313,12 @@ line; any failure raises and the script exits non-zero.
               f32 cut's lr-0 loss equal to the dense cross-entropy within
               2e-4; then 12 of its 24 layers (the script's time) in bf16,
               `ring8` gradient compression, a few steps on one batch:
-              finite losses that fall
+              finite losses that fall; the bf16 run saves a checkpoint
+              across the ranks at its last step, which the parent restores
+              in one process (each rank's block of every leaf equal to that
+              rank's leaf), and the f32 run's weights come from a
+              checkpoint the parent saved in one process, restored at the
+              layout
   serve-tp-f32  tensor parallelism of every other block kind at full width
               and cut depth, f32, over ranks on the card: minicpm3-4b
               (MLA_MLP, 4 layers), rwkv6-3b (RWKV, 4 layers) and jamba's
@@ -318,7 +329,10 @@ line; any failure raises and the script exits non-zero.
               is freed), on the weights the ranks draw; the ranks' greedy
               tokens equal its tokens and the dense reference's up to a
               near-tie, the batch of every tick equal; every rank launches
-              each kernel as `_launch_want` says for the batch
+              each kernel as `_launch_want` says for the batch; a second
+              rwkv6-3b run moves r0's state out once it holds 3 tokens: its
+              rows within `MOVE_TOL` of the one-process engine's export of
+              the same request, then finished there with its tokens
   serve-tp-bf16  the jamba cut (MAMBA_MLP, MAMBA_MOE and ATTN_MOE, 44.0 GB
               in bf16) at tp=2 in the tp=2 launch, bucketed, one batch of
               16: valid tokens, launches, ms a tick, each rank's split of
@@ -339,7 +353,9 @@ line; any failure raises and the script exits non-zero.
               dense reference's near-ties, the batch of every tick and each
               row's replica equal a host replay of the scheduler over two
               replicas' pools, every rank exchanged expert rows, and every
-              rank launches each kernel as `_launch_want` says
+              rank launches each kernel as `_launch_want` says; a second
+              run moves r0's KV and Mamba state out of its replica, checked
+              as serve-tp-f32's rwkv6-3b move
   serve-ep-bf16  the kimi-k2 cut (its first ATTN_MOE layer, 384 experts,
               38.9 GB in bf16) at its published tp=2 and dp=2 (192 experts
               and ff 1,024 a rank, ~11 GB), bucketed, one batch of 16 at the
@@ -3542,8 +3558,19 @@ RANK_TRAIN_STEPS = 3
 # qwen2.5-14b (of 48) and train-ranks' bf16 qwen1.5-0.5b (of 24)
 RANK_BF16_LAYERS = 16
 RANK_TRAIN_BF16_LAYERS = 12
+# the rank engine's state in and out (serve-ranks-f32's further runs): the
+# prefix run's sharing requests arrive at this step, after the first's
+# prefill froze its pages; the migration run takes the first 4 prompts and
+# moves r1 and r2 out at this step; a moved payload's largest error over
+# its largest magnitude, against the one-process engine's export
+RANK_PREFIX_ARRIVE = 8
+RANK_PREFIX_TAIL = 300      # the first prefix prompt's own tokens
+RANK_STATE_PROMPT = 200     # the async and migration runs' prompts, cut
+RANK_STATE_MAX_NEW = 8      # tokens a request in the state runs
+RANK_MOVE_STEP = 12
+MOVE_TOL = 1e-3
 # each launch's wall budget (spawn, rendezvous, weights, serving)
-RANK_BUDGET_S = {"serve-ranks-f32": 240, "serve-ranks-bf16": 420,
+RANK_BUDGET_S = {"serve-ranks-f32": 360, "serve-ranks-bf16": 420,
                  "train-ranks": 240, "serve-tp-f32": 240,
                  "serve-tp-bf16": 240, "train-tp": 120,
                  "serve-ep-f32": 300, "serve-ep-bf16": 300, "train-ep": 120}
@@ -3614,6 +3641,89 @@ def _rank_launches_ok(out: list, cfg) -> dict:
     return {"want_per_rank": want, "per_rank": got}
 
 
+def _flat_runs(out: list) -> list:
+    """`serve_rank`'s results with ``runs``: per run, every rank's result
+    with the rank's own keys."""
+    base = ("rank", "coords", "weight_bytes", "params_s")
+    return [[{**{k: o[k] for k in base}, **o["runs"][i]} for o in out]
+            for i in range(len(out[0]["runs"]))]
+
+
+def _serve_at(eng, prompts, max_new: int, arrive=None) -> list:
+    """`prompts` on `eng` as `serve_rank` adds them (request ``r{i}`` at
+    step ``arrive[i]``), to the end: the requests."""
+    from repro_torch.core import SamplingParams
+
+    arrive = list(arrive or [0] * len(prompts))
+    reqs, steps = [None] * len(prompts), 0
+    while any(a is not None for a in arrive) or eng.loop.has_work:
+        for i, a in enumerate(arrive):
+            if a is not None and steps >= a:
+                reqs[i] = eng.add_request(prompts[i], SamplingParams(
+                    max_new_tokens=max_new), request_id=f"r{i}")
+                arrive[i] = None
+        eng.step()
+        steps += 1
+    return reqs
+
+
+def _move_at(eng, prompts, rid: str, n_out: int, max_new: int):
+    """`prompts` on `eng`, request `rid` moved out (`launch.serve.move_out`)
+    once it holds `n_out` tokens, the rest served to the end: the move."""
+    from repro_torch.core import SamplingParams
+    from repro_torch.launch.serve import move_out
+
+    reqs = [eng.add_request(p, SamplingParams(max_new_tokens=max_new),
+                            request_id=f"r{i}")
+            for i, p in enumerate(prompts)]
+    req = reqs[int(rid[1:])]
+    for _ in range(100000):
+        if req.num_output_tokens >= n_out:
+            moved = move_out(eng, rid)
+            if moved is not None:
+                eng.drain()
+                return moved
+        eng.step()
+    raise AssertionError(f"{rid} never held {n_out} tokens out of flight")
+
+
+def _payload_bytes(moved: dict) -> int:
+    leaves = list(moved["kv"].values()) + list(
+        moved["state"]["slot_leaves"].values())
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def _move_against(eng, prompts, moved: dict, max_new: int) -> dict:
+    """A rank engine's move of one of `prompts`' requests against `eng`, a
+    fresh one-process engine on the same weights: that engine's move of
+    the same request at the same progress (keys, shapes, dtype, and each
+    leaf's largest error over its largest magnitude), then the rank
+    engine's move resumed on `eng` to the end (its tokens)."""
+    from repro_torch.launch.serve import move_in
+
+    rid = moved["request"].request_id
+    n = moved["request"].num_output_tokens
+    mine = _move_at(eng, prompts, rid, n, max_new)
+    same, errs = True, {}
+    for got, want in ((moved["kv"], mine["kv"]),
+                      (moved["state"]["slot_leaves"],
+                       mine["state"]["slot_leaves"])):
+        same &= set(got) == set(want)
+        for k, w in want.items():
+            g = got.get(k)
+            if g is None or g.shape != w.shape or g.dtype != w.dtype:
+                same = False
+                continue
+            errs[k] = float((g.float() - w.float()).abs().max()
+                            / w.float().abs().max().clamp_min(1e-30))
+    req = move_in(eng, moved)
+    eng.drain()
+    return {"request": rid, "tokens_at_move": n, "same_layout": same,
+            "rel_err": errs, "bytes": _payload_bytes(moved),
+            "tokens": req.output_token_ids,
+            "ok": same and all(e <= MOVE_TOL for e in errs.values())}
+
+
 def _record_ticks(eng) -> list:
     """The entering batch of every tick of `eng`, as `serve_rank` records
     it on rank 0."""
@@ -3636,12 +3746,22 @@ def _record_ticks(eng) -> list:
 def phase_serve_ranks_f32(greedy_trace) -> dict:
     """serve-f32's batch on qwen2.5-14b cut to 4 layers in f32, over pp=2 x
     tp=2 ranks, against the single-process pp=2 engine on the same weights
-    (tokens and the batch of every tick) and the dense reference."""
+    (tokens and the batch of every tick) and the dense reference.  In the
+    same spawn, the rank engine's state in and out (`serve_rank`'s runs):
+    prefix caching on prompts that share a 2-page prefix, traced; async
+    dispatch on the batch; r1 and r2 moved out mid-decode, then finished
+    in the parent's one-process engine; a one-process move of r3 finished
+    in the rank engine (async dispatch and the moves on the batch's first
+    4 prompts).  Every token equals the one-process engine's (up
+    to the dense reference's first near-tie), the prefix hits equal the
+    one-process prefix run's, and the rank trace replays strictly and
+    equals that run's trace outside its timing fields."""
     from repro_torch.core import ThrottleConfig
     from repro_torch.launch.mesh import rank_layout
-    from repro_torch.launch.serve import FULL_DIMS, serve_rank
+    from repro_torch.launch.serve import FULL_DIMS, move_in, serve_rank
     from repro_torch.models.transformer import init_params
     from repro_torch.runtime.engine import PipelineEngine
+    from repro_torch.runtime.trace import Trace, replay_trace
 
     phase = "serve-ranks-f32"
     t0 = time.perf_counter()
@@ -3651,8 +3771,12 @@ def phase_serve_ranks_f32(greedy_trace) -> dict:
     throttle = ThrottleConfig(pipeline_depth=RANK_PP)
     _free()
     params = init_params(one, 0, dtype=torch.float32, device=DEV)
-    eng = PipelineEngine(one, FULL_DIMS, params, throttle, device=DEV,
-                         dtype=torch.float32, cuda_graphs=False)
+
+    def engine(**kw):
+        return PipelineEngine(one, FULL_DIMS, params, throttle, device=DEV,
+                              dtype=torch.float32, cuda_graphs=False, **kw)
+
+    eng = engine()
     ticks = _record_ticks(eng)
     reqs = [eng.add_request(p, _sampling(0.0), request_id=f"r{i}")
             for i, p in enumerate(prompts)]
@@ -3661,19 +3785,60 @@ def phase_serve_ranks_f32(greedy_trace) -> dict:
     single_s = time.perf_counter() - t0
     single = [r.output_token_ids for r in reqs]
     traces = [greedy_trace(one, params, p, MAX_NEW) for p in prompts]
-    del eng, params
+    # the state runs' one-process side (`RANK_STATE_MAX_NEW` tokens a
+    # request): the batch's first 4 prompts cut short, the prefix run
+    # (traced), a move in; the weights stay for the moves' return
+    n_new = RANK_STATE_MAX_NEW
+    four = [p[:RANK_STATE_PROMPT] for p in prompts[:4]]
+    four_single = [r.output_token_ids
+                   for r in _serve_at(engine(), four, n_new)]
+    four_traces = [greedy_trace(one, params, p, n_new) for p in four]
+    rng = np.random.default_rng(13)
+    shared = [int(t) for t in rng.integers(0, cfg.vocab_size,
+                                           2 * FULL_DIMS.page)]
+    pre = [shared + [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+           for n in (RANK_PREFIX_TAIL, 9, 40, 3)]
+    arrive = [0] + [RANK_PREFIX_ARRIVE] * 3
+    store = ROOT / "build" / "ranks"
+    store.mkdir(parents=True, exist_ok=True)
+    one_trace, rank_trace = (str(store / f"{n}.trace.jsonl")
+                             for n in ("one", "rank"))
+    eng = engine(enable_prefix_caching=True, trace_path=one_trace)
+    pre_single = [r.output_token_ids for r in _serve_at(eng, pre, n_new,
+                                                        arrive)]
+    eng.recorder.close()
+    pre_hits = (eng.scheduler.stats.prefix_hits,
+                eng.scheduler.stats.prefix_tokens_avoided)
+    pre_traces = [greedy_trace(one, params, p, n_new) for p in pre]
+    into = _move_at(engine(), four, "r3", 3, n_new)
+    del eng
     _free()
     t1 = time.perf_counter()
     job = dict(cfg=cfg, dims=FULL_DIMS, throttle=throttle, prompts=prompts,
-               max_new=MAX_NEW, device=DEV, dtype="float32", seed=0)
-    out = _spawn_ranks(serve_rank, rank_layout(1, RANK_PP, RANK_TP), job,
-                       phase)
+               max_new=MAX_NEW, device=DEV, dtype="float32", seed=0,
+               runs=[{},
+                     dict(prompts=pre, arrive=arrive, max_new=n_new,
+                          enable_prefix_caching=True, trace_out=rank_trace),
+                     dict(prompts=four, max_new=n_new, async_dispatch=True),
+                     dict(prompts=four, max_new=n_new,
+                          export={"r1": RANK_MOVE_STEP,
+                                  "r2": RANK_MOVE_STEP}),
+                     dict(prompts=[], max_new=n_new, imports=[into])])
+    runs = _flat_runs(_spawn_ranks(serve_rank,
+                                   rank_layout(1, RANK_PP, RANK_TP), job,
+                                   phase))
     ranks_s = time.perf_counter() - t1
+    out = runs[0]
     head = out[0]
+
+    def stop_of(gaps):
+        return next((k for k, g in enumerate(gaps) if g < NEAR_TIE),
+                    MAX_NEW)
+
     compared, near_ties, bad = 0, [], []
     for i, ((want, gaps), mine, got) in enumerate(zip(traces, single,
                                                       head["tokens"])):
-        stop = next((k for k, g in enumerate(gaps) if g < NEAR_TIE), MAX_NEW)
+        stop = stop_of(gaps)
         if stop < MAX_NEW:
             near_ties.append({"request": i, "step": stop, "gap": gaps[stop]})
         if not (head["finished"][i] and len(got) == MAX_NEW
@@ -3681,6 +3846,77 @@ def phase_serve_ranks_f32(greedy_trace) -> dict:
             bad.append({"request": i, "ranks": got, "single": mine,
                         "reference": want, "compared": stop})
         compared += stop
+    # the state runs
+    stops = [stop_of(g) for _, g in four_traces]
+    pre_stops = [stop_of(g) for _, g in pre_traces]
+    prefix, asyn, moves, moved_in = (r[0] for r in runs[1:])
+    trace = Trace.load(rank_trace)
+    replayed = replay_trace(trace).outputs() == {
+        f"r{i}": t for i, t in enumerate(prefix["tokens"])}
+
+    def strip(recs):
+        return [{k: strip([v])[0] if isinstance(v, dict) else v
+                 for k, v in r.items() if k not in ("now", "at", "host_s")}
+                for r in recs]
+
+    one_rec = Trace.load(one_trace)
+    trace_equal = (strip(trace.records) == strip(one_rec.records)
+                   and strip([trace.header]) == strip([one_rec.header]))
+    moved_at = {m["request"].request_id: {
+        "tokens_at_move": m["request"].num_output_tokens,
+        "bytes": _payload_bytes(m)} for m in moves["moved"]}
+    eng = engine()
+    finished = {}
+    for m in moves["moved"]:
+        req = move_in(eng, m)
+        eng.drain()
+        finished[req.request_id] = req.output_token_ids
+    del eng, params
+    _free()
+    moved_out = [m["request"].request_id for m in moves["moved"]]
+    move_ok = sorted(moved_out) == ["r1", "r2"] and all(
+        t[:stops[int(r[1:])]] == four_single[int(r[1:])][:stops[int(r[1:])]]
+        for r, t in [*finished.items(), *moved_in["moved_in"].items()])
+    state = {
+        "prefix": {"requests": len(pre), "shared_tokens": len(shared),
+                   "hits": prefix["prefix"]["hits"],
+                   "tokens_adopted": prefix["prefix"]["tokens"],
+                   "one_process": {"hits": pre_hits[0],
+                                   "tokens_adopted": pre_hits[1]},
+                   "tokens_equal": all(
+                       g[:k] == w[:k] == t[:k] for g, w, (t, _), k in zip(
+                           prefix["tokens"], pre_single, pre_traces,
+                           pre_stops)),
+                   "trace_replays": replayed, "trace_equal": trace_equal,
+                   "trace_ticks": len(trace.ticks),
+                   "ticks": prefix["stats"]["ticks"],
+                   "ms_per_tick": prefix["wall_s"] / prefix["stats"]["ticks"]
+                   * 1e3},
+        "async": {"tokens_equal": all(
+                      g[:k] == w[:k] for g, w, k in zip(
+                          asyn["tokens"], four_single, stops)),
+                  "ticks": asyn["stats"]["ticks"],
+                  "requests": len(four),
+                  "ms_per_tick": asyn["wall_s"] / asyn["stats"]["ticks"]
+                  * 1e3,
+                  "sync_ms_per_tick": moves["wall_s"]
+                  / moves["stats"]["ticks"] * 1e3,
+                  "sync_run": "the migration run: the same 4 prompts, "
+                              "sync, r1 and r2 moved out at step "
+                              f"{RANK_MOVE_STEP}"},
+        "migration": {
+            "out": moved_at,
+            "out_s": [s_ for d, s_ in moves["move_s"] if d == "out"],
+            "in": {"request": "r3", "bytes": _payload_bytes(into),
+                   "tokens_at_move": into["request"].num_output_tokens},
+            "in_s": [s_ for d, s_ in moved_in["move_s"] if d == "in"],
+            "state_bytes_per_rank": [
+                o["rank_stats"]["traffic"]["bytes"].get("state", 0)
+                for o in runs[3]],
+            "state_s_per_rank": [
+                o["rank_stats"]["traffic"]["seconds"].get("state", 0.0)
+                for o in runs[3]],
+            "tokens_equal": move_ok}}
     row = {"phase": phase, "arch": RANK_ARCH, "layers": RANK_F32_LAYERS,
            "pp": RANK_PP, "tp": RANK_TP, "ranks": len(out),
            "backend": "gloo", "requests": len(prompts),
@@ -3689,7 +3925,8 @@ def phase_serve_ranks_f32(greedy_trace) -> dict:
            "ticks_equal_single": head["ticks"] == ticks,
            "single_ticks": len(ticks), "single_s": single_s,
            "ranks_s": ranks_s, "wall_s": head["wall_s"],
-           "per_rank": _rank_rows(out, head["stats"]["ticks"])}
+           "per_rank": _rank_rows(out, head["stats"]["ticks"]),
+           "state": state}
     try:
         row["launches"] = _rank_launches_ok(out, cfg)
     finally:
@@ -3698,6 +3935,13 @@ def phase_serve_ranks_f32(greedy_trace) -> dict:
     if bad or not row["ticks_equal_single"]:
         raise AssertionError(f"{phase}: tokens or ticks differ from the "
                              f"single-process engine's: {bad}")
+    pr = state["prefix"]
+    if not (pr["tokens_equal"] and pr["trace_replays"] and pr["trace_equal"]
+            and (pr["hits"], pr["tokens_adopted"]) == pre_hits
+            and pr["hits"] > 0 and state["async"]["tokens_equal"]
+            and move_ok):
+        raise AssertionError(f"{phase}: a state run disagrees with the "
+                             f"one-process engine: {state}")
     return row
 
 
@@ -3764,15 +4008,30 @@ def phase_serve_ranks_bf16(pp_rows: dict) -> dict:
 
 def phase_train_ranks() -> dict:
     """qwen1.5-0.5b at full width over dp=2 x pp=2 x tp=2 ranks: the lr-0
-    loss of a 4-layer f32 cut against the dense cross-entropy, then a cut
-    to `RANK_TRAIN_BF16_LAYERS` in bf16 with ring8 for a few steps on one
-    batch."""
+    loss of a 4-layer f32 cut against the dense cross-entropy, its weights
+    restored at the layout from a checkpoint the parent saved in one
+    process; then a cut to `RANK_TRAIN_BF16_LAYERS` in bf16 with ring8 for
+    a few steps on one batch, saved across the ranks at its last step and
+    restored in the parent, every leaf against each rank's own."""
     from repro_torch.data.tokens import batches
     from repro_torch.launch import ranks as rk
     from repro_torch.launch.mesh import rank_layout
     from repro_torch.launch.train import train_rank
     from repro_torch.models.reference import dense_forward
-    from repro_torch.models.transformer import cross_entropy, init_params
+    from repro_torch.models.transformer import (
+        abstract_params,
+        cross_entropy,
+        init_params,
+        leaf_parts,
+        param_pspecs,
+        shard_block,
+        tree_items,
+    )
+    from repro_torch.runtime.checkpoint import (
+        leaf_digest,
+        restore_checkpoint,
+        save_checkpoint,
+    )
 
     phase = "train-ranks"
     t0 = time.perf_counter()
@@ -3783,6 +4042,13 @@ def phase_train_ranks() -> dict:
     toks, labs = (torch.as_tensor(batch[k], device=DEV).reshape(
         4, RANK_TRAIN_SEQ).long() for k in ("tokens", "labels"))
     want = float(cross_entropy(dense_forward(cut, params, toks), labs))
+    ck32, ck16 = (ROOT / "build" / "ranks" / n for n in ("ckpt-f32",
+                                                        "ckpt-bf16"))
+    for d in (ck32, ck16):
+        shutil.rmtree(d, ignore_errors=True)
+    t1 = time.perf_counter()
+    save_checkpoint(str(ck32), params, extra={"step": 0})
+    save32_s = time.perf_counter() - t1
     del params, toks, labs
     _free()
     staged = _rank_cfg(ARCH, TRAIN_F32_LAYERS, "float32", 2, 2)
@@ -3791,12 +4057,26 @@ def phase_train_ranks() -> dict:
     runs = _spawn_ranks(rk.run_each, layout, [
         (train_rank, dict(cfg=staged, steps=1, batches=[batch], lr=0.0,
                           aux_coef=0.0, device=DEV, dtype="float32",
-                          seed=0)),
+                          seed=7, ckpt=str(ck32), resume=True)),
         (train_rank, dict(cfg=full, steps=RANK_TRAIN_STEPS,
                           batches=[b16] * RANK_TRAIN_STEPS, lr=TRAIN_LR,
                           grad_compression="ring8", device=DEV,
-                          dtype="bfloat16", seed=0))], phase)
+                          dtype="bfloat16", seed=0, ckpt=str(ck16),
+                          ckpt_every=RANK_TRAIN_STEPS,
+                          digest=RANK_TRAIN_STEPS))], phase)
     f32, bf16 = [r[0] for r in runs], [r[1] for r in runs]
+    # the ranks' checkpoint, restored whole in one process: each rank's
+    # block of every leaf is the leaf that rank held
+    t1 = time.perf_counter()
+    whole = dict(tree_items(restore_checkpoint(
+        str(ck16), abstract_params(full, torch.bfloat16))))
+    restore16_s = time.perf_counter() - t1
+    specs = dict(tree_items(param_pspecs(full)))
+    leaves_equal = all(
+        leaf_digest(shard_block(whole[k], specs[k], layout, o["rank"],
+                                leaf_parts(k)).contiguous()) == v
+        for o in bf16 for k, v in o["digests"].items())
+    ckpt_bytes = sum(f.stat().st_size for f in ck16.iterdir())
     loss = f32[0]["loss"][0]
     losses = bf16[0]["loss"]
     row = {"phase": phase, "arch": ARCH, "dp": 2, "pp": 2, "tp": 2,
@@ -3816,9 +4096,25 @@ def phase_train_ranks() -> dict:
                                   "peak_bytes": o["peak_bytes"],
                                   "weight_bytes": o["weight_bytes"],
                                   "traffic": o["traffic"]} for o in bf16]},
+           "checkpoint": {
+               "bf16_saved_at_ranks": {
+                   "bytes": ckpt_bytes,
+                   "write_s_per_rank": [o["ckpt_s"] for o in bf16],
+                   "write_bytes_per_rank": [o["ckpt_bytes"] for o in bf16],
+                   "restore_whole_s": restore16_s,
+                   "leaves_equal_rank_leaves": leaves_equal},
+               "f32_restored_at_ranks": {
+                   "saved_in_one_process_s": save32_s,
+                   "resumed": all(o["resumed"] for o in f32),
+                   "read_s_per_rank": [o["params_s"] for o in f32],
+                   "read_bytes_per_rank": [o["weight_bytes"] for o in f32]},
+               "warm": "the reads follow the writes: page cache warm"},
            "s": time.perf_counter() - t0}
     emit(row)
+    shutil.rmtree(ck32, ignore_errors=True)
+    shutil.rmtree(ck16, ignore_errors=True)
     if not (row["f32"]["loss_err"] <= TRAIN_LOSS_TOL
+            and leaves_equal and all(o["resumed"] for o in f32)
             and row["f32"]["same_on_every_rank"]
             and all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"{phase}: the loss disagrees or did not fall")
@@ -3835,6 +4131,9 @@ TP_F32 = (("minicpm3-4b", 2, 4, ()), ("rwkv6-3b", 2, 4, ()),
           (JAMBA_ARCH, 2, 0, ("mamba_mlp",)),
           (MOE_ARCH, 4, 4, ()), ("whisper-small", 4, 0, ()))
 TP_MAX_NEW = 8
+# the request-state move of serve-tp-f32 (r0 taken off its rank engine
+# once it holds 3 tokens, in a second run of the same spawn)
+TP_MOVE_ARCH, TP_MOVE_LAYERS = "rwkv6-3b", 4
 TP_BF16_REQUESTS = 16       # serve-tp-bf16: the jamba cut's one batch
 TP_TRAIN_LAYERS = 2         # train-tp: olmoe-1b-7b cut to 2 of 16 layers
 # a rank's launches by kernel: its wrapper's name, its module's
@@ -3883,6 +4182,35 @@ def _tp_reference(arch: str, layers: int, kinds, greedy_trace,
     del eng, reqs
     _free()
     return job, single, ticks, traces, time.perf_counter() - t0
+
+
+def _state_row(phase: str, arch: str, moved: list, job: dict, single,
+               stops: dict, build) -> dict:
+    """The move out of a serve phase's second run (`serve_rank`'s runs)
+    against a fresh one-process engine on the same weights (`build`;
+    `_move_against`): its payloads within `MOVE_TOL` of that engine's
+    export of the same request at the same progress, and its tokens,
+    resumed there, the one-process run's up to the dense reference's
+    first near-tie (`stops`: request index -> step)."""
+    (m,) = moved[0]["moved"]
+    i = int(m["request"].request_id[1:])
+    stop = stops.get(i, job["max_new"])
+    eng = build()
+    row = _move_against(eng, job["prompts"], m, job["max_new"])
+    del eng
+    _free()
+    row.update(move_s=moved[0]["move_s"], compared=stop,
+               state_bytes_per_rank=[
+                   o["rank_stats"]["traffic"]["bytes"].get("state", 0)
+                   for o in moved])
+    row["ok"] &= row["tokens"][:stop] == single[i][:stop]
+    emit({"phase": f"{phase} state", "arch": arch, **{
+        k: v for k, v in row.items() if k != "tokens"}})
+    if not row["ok"]:
+        raise AssertionError(f"{phase} {arch}: the moved request's payload "
+                             f"or tokens differ from the one-process "
+                             f"engine's: {row}")
+    return row
 
 
 def _tp_launches(out: list, cfg) -> dict:
@@ -4016,6 +4344,8 @@ def phase_tp(greedy_trace) -> dict:
             job, single, ticks, traces, ref_s = _tp_reference(
                 arch, layers, kinds, greedy_trace, seed=60 + i)
             job["cfg"] = job["cfg"].with_plan(tp=tp)
+            if arch == TP_MOVE_ARCH:
+                job["runs"] = [{}, dict(export={"r0": {"tokens": 3}})]
             refs.append((arch, job, single, ticks, traces, ref_s))
             jobs.append((serve_rank, job))
         phases = ["serve-tp-f32"]
@@ -4049,9 +4379,18 @@ def phase_tp(greedy_trace) -> dict:
                                             for p in phases))
         launch_s = time.perf_counter() - t1
         for k, (arch, job, single, ticks, traces, ref_s) in enumerate(refs):
+            res = [r[k] for r in runs]
+            if "runs" in res[0]:
+                res, moved = _flat_runs(res)
             rows["serve-tp-f32"][arch] = _tp_f32_row(
-                arch, tp, job, single, ticks, traces, [r[k] for r in runs],
-                ref_s)
+                arch, tp, job, single, ticks, traces, res, ref_s)
+            if arch == TP_MOVE_ARCH:
+                rows["serve-tp-f32"][arch]["state"] = _state_row(
+                    "serve-tp-f32", arch, moved, job, single, {
+                        i: next((k for k, g in enumerate(gaps)
+                                 if g < NEAR_TIE), TP_MAX_NEW)
+                        for i, (_, gaps) in enumerate(traces)},
+                    lambda: _f32_engine(TP_MOVE_ARCH, TP_MOVE_LAYERS))
         last = [r[-1] for r in runs]
         if tp == 2:
             rows["serve-tp-bf16"] = _tp_bf16_row(bf16, last, launch_s)
@@ -4165,7 +4504,8 @@ def _ep_f32_job(jamba: dict) -> dict:
     return dict(cfg=cfg, dims=jamba["dims"],
                 throttle=ThrottleConfig(pipeline_depth=1),
                 prompts=jamba["prompts"], max_new=jamba["max_new_tokens"],
-                device=DEV, dtype="float32", seed=0)
+                device=DEV, dtype="float32", seed=0,
+                runs=[{}, dict(export={"r0": {"tokens": 3}})])
 
 
 def _ep_f32_row(job: dict, jamba: dict, out: list) -> dict:
@@ -4338,7 +4678,8 @@ def phase_ep(jamba: dict) -> dict:
                         sum(RANK_BUDGET_S[p] for p in
                             ("serve-ep-f32", "serve-ep-bf16", "train-ep")))
     launch_s = time.perf_counter() - t1
-    rows = {"serve-ep-f32": _ep_f32_row(f32, jamba, [r[0] for r in runs]),
+    ep32, moved = _flat_runs([r[0] for r in runs])
+    rows = {"serve-ep-f32": _ep_f32_row(f32, jamba, ep32),
             "serve-ep-bf16": _ep_bf16_row(bf16, [r[1] for r in runs])}
     last = [r[2] for r in runs]
     loss = last[0]["loss"][0]
@@ -4359,6 +4700,10 @@ def phase_ep(jamba: dict) -> dict:
            "launch_s": launch_s, "s": time.perf_counter() - t0}
     emit(row)
     rows["train-ep"] = row
+    rows["serve-ep-f32"]["state"] = _state_row(
+        "serve-ep-f32", JAMBA_ARCH, moved, f32, jamba["tokens"],
+        {t["request"]: t["step"] for t in jamba["near_ties"]},
+        lambda: _f32_engine(JAMBA_ARCH, kinds=JAMBA_F32_KINDS))
     # at least once a layer and micro-batch, again in the backward's
     # recompute of each layer
     want = cut.num_layers * 2 * 2

@@ -96,7 +96,8 @@ class PagedKVManager:
     def replica_of(self, request_id: str) -> Optional[int]:
         return 0
 
-    def place(self, request_id: str, allowed: Sequence[int]) -> Optional[int]:
+    def place(self, request_id: str, allowed: Sequence[int],
+              token_ids: Optional[Sequence[int]] = None) -> Optional[int]:
         """The replica a request is admitted to: this pool, if `allowed`."""
         return 0 if 0 in allowed else None
 
@@ -187,11 +188,15 @@ class PagedKVManager:
         return self.allocate(rid, export.num_tokens)
 
     # ---------------------------------------------------------- prefix caching
-    def match_prefix(self, token_ids: Sequence[int]) -> Tuple[int, List[int]]:
+    def match_prefix(self, token_ids: Sequence[int],
+                     request_id: Optional[str] = None
+                     ) -> Tuple[int, List[int]]:
         """Longest cached prefix in *full pages*: (num_cached_tokens, page_ids).
 
         Matched pages get their refcount bumped; caller must attach them via
-        `adopt_prefix` or release with `release_pages`.
+        `adopt_prefix` or release with `release_pages`.  `request_id` names
+        the request it is for (one pool: ignored; `ReplicaKVManager`: its
+        replica's pool).
         """
         if not self.enable_prefix_caching:
             return 0, []
@@ -300,24 +305,33 @@ class ReplicaKVManager:
 
     Each replica has its own `PagedKVManager` of `num_pages` pages (JAX's
     ``ServeDims.pages`` are per replica), and a request lives in one of them
-    from the chunk that admits it (`place`: the replica with the most free
-    pages among those with room in the batch being formed, the lower index
-    on a tie) until it finishes, aborts or is preempted, which free only
-    that replica's pages; its block table holds that pool's page ids.
-    `num_pages`, `num_free_pages` and `kv_free_rate` are totals over the
-    replicas (Token Throttling's UT input); `free_pages_of` and
-    `pool_pages` are one pool's.  No prefix caching."""
+    from the chunk that admits it (`place`) until it finishes, aborts or is
+    preempted, which free only that replica's pages; its block table holds
+    that pool's page ids.  `num_pages`, `num_free_pages` and `kv_free_rate`
+    are totals over the replicas (Token Throttling's UT input);
+    `free_pages_of` and `pool_pages` are one pool's.
 
-    enable_prefix_caching = False
+    `place` takes, among the replicas allowed, the one with the longest
+    cached prefix of the request's prompt, then the most free pages, then
+    the lower index, so that placement never loses a prefix hit.  With
+    `enable_prefix_caching` every pool keeps its own prefix index (a page
+    is shared only inside its pool): `match_prefix`, `adopt_prefix`,
+    `freeze_full_pages` and `release_pages` act on the pool the request
+    lives in, and `match_prefix` / `peek_prefix` without a request on the
+    pool `place` would pick.  `export_kv` is the pool's; `import_kv` places
+    the request by the same rule (a `KVExport` names no replica)."""
 
-    def __init__(self, replicas: int, num_pages: int, page_size: int) -> None:
+    def __init__(self, replicas: int, num_pages: int, page_size: int,
+                 enable_prefix_caching: bool = False) -> None:
         if replicas < 1:
             raise ValueError("at least one replica")
-        self.pools = [PagedKVManager(num_pages, page_size)
+        self.pools = [PagedKVManager(num_pages, page_size,
+                                     enable_prefix_caching)
                       for _ in range(replicas)]
         self.page_size = page_size
         self.pool_pages = num_pages
         self.num_pages = num_pages * replicas
+        self.enable_prefix_caching = enable_prefix_caching
         self._home: Dict[str, int] = {}
 
     @property
@@ -337,16 +351,27 @@ class ReplicaKVManager:
         """The replica a request lives in; None before `place`."""
         return self._home.get(request_id)
 
-    def place(self, request_id: str, allowed: Sequence[int]) -> Optional[int]:
+    def _best(self, allowed: Sequence[int],
+              token_ids: Optional[Sequence[int]]) -> int:
+        """The longest cached prefix of `token_ids`, then the most free
+        pages, then the lower index."""
+        def key(r: int):
+            pool = self.pools[r]
+            hit = pool.peek_prefix(token_ids) if token_ids else 0
+            return (hit, pool.num_free_pages, -r)
+        return max(allowed, key=key)
+
+    def place(self, request_id: str, allowed: Sequence[int],
+              token_ids: Optional[Sequence[int]] = None) -> Optional[int]:
         """The replica `request_id` lives in, placing it among `allowed`
-        (the most free pages, the lower index on a tie) if it lives in
-        none; None when its replica, or every replica, is not allowed."""
+        (`_best` for its prompt `token_ids`) if it lives in none; None when
+        its replica, or every replica, is not allowed."""
         home = self._home.get(request_id)
         if home is not None:
             return home if home in allowed else None
         if not allowed:
             return None
-        home = max(allowed, key=lambda r: (self.pools[r].num_free_pages, -r))
+        home = self._best(allowed, token_ids)
         self._home[request_id] = home
         return home
 
@@ -379,7 +404,10 @@ class ReplicaKVManager:
         return self._pool(request_id).pages_needed(request_id, new_tokens)
 
     def can_allocate(self, request_id: str, new_tokens: int) -> bool:
-        return self._pool(request_id).can_allocate(request_id, new_tokens)
+        home = self._home.get(request_id)
+        if home is None:            # a migration's probe: where it would go
+            home = self._best(range(self.replicas), None)
+        return self.pools[home].can_allocate(request_id, new_tokens)
 
     def allocate(self, request_id: str,
                  new_tokens: int) -> List[Tuple[int, int]]:
@@ -391,10 +419,78 @@ class ReplicaKVManager:
         if home is not None:
             self.pools[home].free(request_id)
 
+    # ------------------------------------------------------------ migration
+    def export_kv(self, request_id: str) -> KVExport:
+        """`PagedKVManager.export_kv` of the request's pool."""
+        if request_id not in self._home:
+            raise KeyError(f"request {request_id} has no resident KV")
+        return self._pool(request_id).export_kv(request_id)
+
+    def import_kv(self, export: KVExport) -> List[Tuple[int, int]]:
+        """Place a migrated-in request (the most free pages, as `place`
+        rules) and allocate its tokens there: `PagedKVManager.import_kv`."""
+        rid = export.request_id
+        if self.has_request(rid):
+            raise ValueError(f"request {rid} already resident here")
+        self.place(rid, range(self.replicas))
+        try:
+            return self._pool(rid).import_kv(export)
+        except MemoryError:
+            self.unplace(rid)
+            raise
+
+    # ------------------------------------------------------- prefix caching
+    def _probe_pool(self, token_ids: Sequence[int],
+                    request_id: Optional[str]) -> PagedKVManager:
+        home = None if request_id is None else self._home.get(request_id)
+        if home is None:
+            home = self._best(range(self.replicas), token_ids)
+        return self.pools[home]
+
+    def match_prefix(self, token_ids: Sequence[int],
+                     request_id: Optional[str] = None
+                     ) -> Tuple[int, List[int]]:
+        """`PagedKVManager.match_prefix` in the pool `request_id` lives in
+        (or the pool `place` would pick): its page ids."""
+        return self._probe_pool(token_ids, request_id).match_prefix(
+            token_ids)
+
+    def peek_prefix(self, token_ids: Sequence[int],
+                    request_id: Optional[str] = None) -> int:
+        """`PagedKVManager.peek_prefix`, as `match_prefix` picks the pool."""
+        return self._probe_pool(token_ids, request_id).peek_prefix(token_ids)
+
+    def adopt_prefix(self, request_id: str, num_tokens: int,
+                     page_ids: List[int]) -> None:
+        self._pool(request_id).adopt_prefix(request_id, num_tokens, page_ids)
+
+    def freeze_full_pages(self, request_id: str,
+                          token_ids: Sequence[int]) -> None:
+        self._pool(request_id).freeze_full_pages(request_id, token_ids)
+
+    def release_pages(self, page_ids: Sequence[int],
+                      request_id: str) -> None:
+        """Release matched pages in the pool of `request_id` (placed)."""
+        self._pool(request_id).release_pages(page_ids)
+
     def check_invariants(self) -> None:
-        """Each replica's page accounting balances, and every request with
-        pages lives in the replica that holds them."""
+        """Each replica's page accounting (refcounts, free lists and its
+        prefix index) balances, and every request with pages lives in the
+        replica that holds them."""
         for r, pool in enumerate(self.pools):
             pool.check_invariants()
             for rid in pool._block_tables:
                 assert self._home.get(rid) == r, (rid, r, self._home.get(rid))
+            held: Dict[int, int] = {}
+            for table in pool._block_tables.values():
+                for pid in table:
+                    held[pid] = held.get(pid, 0) + 1
+            for info in pool._pages:
+                assert info.ref_count == held.get(info.page_id, 0), (
+                    r, info.page_id, info.ref_count)
+            for h, pid in pool._prefix_index.items():
+                assert pool._pages[pid].prefix_hash == h, (r, pid)
+            for pid in pool._evictable:
+                info = pool._pages[pid]
+                assert info.ref_count == 0 and info.prefix_hash is not None, (
+                    r, pid)

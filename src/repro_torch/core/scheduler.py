@@ -18,7 +18,9 @@ requests scheduled into batch *t* are unavailable until `complete(t)`.
 Over data replicas (`kv_manager.ReplicaKVManager`) one scheduler forms the
 batch of every replica at once: the budgets read the totals over the
 replicas (pending prefill tokens, the KV idle rate), a request is placed in
-a replica when it is admitted and stays there, the row limits
+a replica when it is admitted and stays there (the replica that caches the
+longest prefix of its prompt first; admission's prefix path then adopts
+from that replica's pool), the row limits
 (`max_prefill_seqs`, `max_decode_seqs`) hold for each replica's rows, and a
 request preempts only requests of its own replica.  With one pool it is
 the one-replica case of the same code.
@@ -396,7 +398,9 @@ class PipelineScheduler:
                 if self.kv.kv_free_rate <= self.cfg.kv_threshold:
                     break
             home = self.kv.place(req.request_id, [
-                r for r in range(n) if rows[r] < self.max_prefill_seqs])
+                r for r in range(n) if rows[r] < self.max_prefill_seqs],
+                req.effective_prompt[:-1]
+                if req.num_prefilled == 0 else None)
             if home is None:
                 break  # no replica has a prefill row left
             # prefix-cache reuse on first chunk
@@ -404,7 +408,8 @@ class PipelineScheduler:
             if req.num_prefilled == 0 and self.kv.enable_prefix_caching \
                     and not self.kv.has_request(req.request_id):
                 self.stats.prefix_lookups += 1
-                cached, pages = self.kv.match_prefix(req.effective_prompt[:-1])
+                cached, pages = self.kv.match_prefix(
+                    req.effective_prompt[:-1], req.request_id)
                 if cached:
                     self.kv.adopt_prefix(req.request_id, cached, pages)
                     req.num_prefilled = cached

@@ -1,7 +1,10 @@
 """Collectives across ranks (``repro.distributed.collectives``): gradient
 sync, optionally compressed; the two Megatron operators of tensor
-parallelism; the stage hop; and expert parallelism's all-to-all
-(`all_to_all`, `exchange_rows`).
+parallelism; the stage hop; expert parallelism's all-to-all
+(`all_to_all`, `exchange_rows`); and the gather of row blocks to one rank
+and the scatter from it (`gather_rows`, `scatter_rows`) that move a
+request's KV and state between the ranks and rank 0, counted under the
+kind ``state``.
 
 An axis here is a `launch.mesh.AxisGroup`, one rank's line of a mesh axis
 (its process group, its index on it).  JAX's ``psum`` over a tuple of axes
@@ -272,6 +275,96 @@ def all_to_all(t: torch.Tensor, axis, kind: str = "ep") -> torch.Tensor:
             TRAFFIC.staged += _nbytes(out)
             out = out.to(t.device)
     return out
+
+
+def _posted(ops: list) -> None:
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+
+def gather_rows(t: torch.Tensor, axis, dst: int = 0,
+                among: Optional[Sequence[int]] = None,
+                kind: str = "state") -> Optional[List[torch.Tensor]]:
+    """Row blocks to one rank: the `t` of each rank at the indices `among`
+    of `axis` (every index when None), on the rank at index `dst`, in the
+    order of `among` (its own block is `t` itself); None on the others.
+    Every block has `t`'s shape and dtype: a `dst` outside `among` passes
+    a `t` that gives them.  Point to point (`batch_isend_irecv`), so only
+    the ranks of `among` and `dst` call it, and an axis may be the world
+    (`RankGroups.world_axis`).  Under gloo a CUDA tensor travels through a
+    host copy; the nccl branch moves device tensors (written, and not
+    run: the card machine has one card)."""
+    among = list(range(axis.size)) if among is None else list(among)
+    me = axis.index
+    with _Timed(kind, _nbytes(t) * (len(among) - (me in among)
+                                    if me == dst else 1), t):
+        if me != dst:
+            if me in among:
+                src = _host(t) if _staged(t) else t.contiguous()
+                _posted([dist.P2POp(dist.isend, src, axis.ranks[dst])])
+            return None
+        staged = _staged(t)
+        bufs, ops = [], []
+        for i in among:
+            if i == me:
+                bufs.append(None)
+                continue
+            buf = torch.empty(t.shape, dtype=t.dtype,
+                              device="cpu" if staged else t.device)
+            bufs.append(buf)
+            ops.append(dist.P2POp(dist.irecv, buf, axis.ranks[i]))
+        _posted(ops)
+        out = []
+        for i, buf in zip(among, bufs):
+            if buf is None:
+                out.append(t)
+            elif staged:
+                TRAFFIC.staged += _nbytes(buf)
+                out.append(buf.to(t.device))
+            else:
+                out.append(buf)
+        return out
+
+
+def scatter_rows(blocks: Optional[Sequence[torch.Tensor]], t: torch.Tensor,
+                 axis, src: int = 0, among: Optional[Sequence[int]] = None,
+                 kind: str = "state") -> torch.Tensor:
+    """Row blocks from one rank: the rank at index `src` of `axis` sends
+    ``blocks[j]`` to the rank at index ``among[j]`` (every index when
+    None), which writes it into its `t` in place (`src`'s own block
+    included); `gather_rows`'s inverse, point to point as it is, so only
+    the ranks of `among` and `src` call it.  Returns `t`."""
+    among = list(range(axis.size)) if among is None else list(among)
+    me = axis.index
+    with _Timed(kind, _nbytes(t) * (len(among) - (me in among)
+                                    if me == src else 1), t):
+        if me != src:
+            if me in among:
+                staged = _staged(t)
+                buf = torch.empty(t.shape, dtype=t.dtype) if staged else t
+                _posted([dist.P2POp(dist.irecv, buf, axis.ranks[src])])
+                if staged:
+                    _back(t, buf)
+            return t
+        if len(blocks) != len(among):
+            raise ValueError(f"scatter_rows: {len(blocks)} blocks for "
+                             f"{len(among)} ranks")
+        ops = []
+        for i, b in zip(among, blocks):
+            if tuple(b.shape) != tuple(t.shape):
+                raise ValueError(f"scatter_rows: block of shape "
+                                 f"{tuple(b.shape)}, the ranks take "
+                                 f"{tuple(t.shape)}")
+            if i == me:
+                t.copy_(b)
+                continue
+            b = b.to(t.dtype)
+            b = (_host(b) if b.is_cuda else b.contiguous()) if _staged(t) \
+                else b.to(t.device).contiguous()
+            ops.append(dist.P2POp(dist.isend, b, axis.ranks[i]))
+        _posted(ops)
+    return t
 
 
 class _AllToAll(torch.autograd.Function):

@@ -10,7 +10,9 @@ is a view: engines at pp=1 and at pp=4 serve from one set of weights.
 
 `elastic_restore` loads a checkpoint saved under one factoring into
 another: restored against the old config's tree, re-tiled, and placed on
-the device.
+the device.  `rank_restore` does so for one rank of a layout: only its
+block of each leaf is read (`checkpoint.restore_checkpoint(layout=)`), a
+stage leaf saved at another stage count seen re-tiled first.
 
 Across ranks, `replan_to` re-plans a config onto a rank layout's stage and
 tensor sizes, and `shard_views` (defined beside `transformer.shard_params`,
@@ -30,6 +32,8 @@ from repro_torch.configs.base import ArchConfig, BlockSpec
 from repro_torch.models.transformer import (
     TransformerParams,
     abstract_params,
+    check_shardable,
+    param_pspecs,
     shard_views,  # noqa: F401  (re-exported)
     tree_map,
 )
@@ -90,5 +94,22 @@ def elastic_restore(ckpt_dir: str, cfg_old: ArchConfig, cfg_new: ArchConfig,
 
     host = restore_checkpoint(ckpt_dir, abstract_params(cfg_old))
     host = repartition_params(host, cfg_old, cfg_new)
+    return TransformerParams(tree_map(
+        lambda t: t.to(device=device, dtype=dtype or t.dtype), host))
+
+
+def rank_restore(ckpt_dir: str, cfg: ArchConfig, layout, rank: int, *,
+                 device: torch.device | str = "cpu",
+                 dtype: Optional[torch.dtype] = None) -> TransformerParams:
+    """Rank `rank`'s shard of `cfg` over `layout` from the checkpoint at
+    `ckpt_dir`, saved at any data and tensor factoring, and at any stage
+    count that `replan` can re-tile to `cfg`'s (a uniform pattern), on
+    `device` in `dtype` (or as saved)."""
+    from repro_torch.runtime.checkpoint import restore_checkpoint
+
+    check_shardable(cfg, layout)
+    host = restore_checkpoint(ckpt_dir, abstract_params(cfg), layout=layout,
+                              rank=rank, specs=param_pspecs(cfg),
+                              retile=len(cfg.pattern) == 1)
     return TransformerParams(tree_map(
         lambda t: t.to(device=device, dtype=dtype or t.dtype), host))

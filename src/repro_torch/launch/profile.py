@@ -10,7 +10,8 @@ cut: ``--arch jamba-1.5-large-398b --cut mamba_mlp,mamba_moe,attn_moe``);
 ``--reduced --device cpu`` runs the same code on the CPU (host activity
 only, no device rows).  ``--bucketed``, ``--async``, ``--eager`` and
 ``--pp`` are `launch/serve.py`'s.  A first, unprofiled batch warms the kernels and the
-allocator.
+allocator.  At ``--reduced`` the prompts are at most two prefill chunks
+long: the profiler records every op of every tick.
 """
 
 from __future__ import annotations
@@ -33,11 +34,13 @@ from repro_torch.launch.serve import (
 )
 
 
-def _serve(eng, rng, n: int, max_new: int) -> None:
-    """Prompt lengths uniform in [16, 1500], capped by the model length."""
+def _serve(eng, rng, n: int, max_new: int, reduced: bool) -> None:
+    """Prompt lengths uniform in [16, 1500] (at the reduced dims, in [16,
+    two prefill chunks]), capped by the model length."""
     max_len = eng.dims.page * max(eng.dims.Bp, eng.dims.Bd) - max_new
+    top = 2 * eng.dims.C if reduced else 1500
     for _ in range(n):
-        L = int(rng.integers(16, min(1500, max_len) + 1))
+        L = int(rng.integers(16, max(16, min(top, max_len)) + 1))
         eng.add_request([int(t) for t in rng.integers(0, eng.cfg.vocab_size,
                                                       L)],
                         SamplingParams(max_new_tokens=max_new))
@@ -86,13 +89,14 @@ def main() -> None:
                        async_dispatch=args.async_dispatch,
                        cuda_graphs=args.cuda_graphs, pp=args.pp)
     rng = np.random.default_rng(args.seed)
-    _serve(eng, rng, max(2, args.requests // 4), args.max_new)   # warm-up
+    _serve(eng, rng, max(2, args.requests // 4), args.max_new,
+           args.reduced)                                         # warm-up
     ticks0 = eng.stats.ticks
     cuda = eng.device.type == "cuda"
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     t0 = time.perf_counter()
     with profile(activities=acts) as prof:
-        _serve(eng, rng, args.requests, args.max_new)
+        _serve(eng, rng, args.requests, args.max_new, args.reduced)
     wall_us = (time.perf_counter() - t0) * 1e6
 
     busy_us, by_kernel = device_time(prof)

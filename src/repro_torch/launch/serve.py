@@ -70,6 +70,7 @@ card refuses whole:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import math
 import time
@@ -263,39 +264,66 @@ def rank_params(cfg, ranks, *, dtype: torch.dtype, device,
         return init_params(cfg, seed, dtype=dtype, device=device,
                            layout=ranks.layout, rank=ranks.rank)
     from repro_torch.models.convert import shard_from_numpy
-    with np.load(npz) as f:
-        tree: dict = {}
-        for path in f.files:
-            node = tree
-            *heads, leaf = path.split("/")
-            for h in heads:
-                node = node.setdefault(h, {})
-            node[leaf] = f[path]
-    return shard_from_numpy(cfg, tree, ranks.layout, ranks.rank,
+    return shard_from_numpy(cfg, npz_tree(npz), ranks.layout, ranks.rank,
                             device=device, dtype=dtype)
 
 
-def serve_rank(ranks, job: dict) -> dict:
-    """One rank of a served batch (`launch.ranks.spawn`'s `fn`).  `job`:
-    ``cfg`` (staged at pp = the layout's stages), ``dims``, ``throttle``,
-    ``prompts``, ``max_new``, optional ``temps`` (one per prompt) and
-    ``encs`` (an encoder-decoder's encoder input [Te, d] per prompt),
-    ``device`` ("cuda" or "cpu"), ``dtype``, ``seed`` or ``npz``,
-    ``bucketed``.  Rank 0 drives a `PipelineEngine(ranks=)` over the batch
-    and returns the tokens, the entering batch of every tick (each prefill
-    row's request, start and length; each decode row's request) and the
-    data replica of each of its rows (``replicas``), the
-    engine's stats, its rank stats, the kernels' launches (counted from 0
-    after warm-up), its peak memory and the wall time; every other rank
-    serves in `RankBackend.serve_loop` and returns its rank stats,
-    launches and peak memory.  Every rank also returns the seconds its
-    shard took to draw (rank 0: and its engine to build, warm-up
-    included)."""
-    from repro_torch.kernels import ops
-    from repro_torch.launch.mesh import rank_device
-    from repro_torch.runtime.engine import RankBackend
+def npz_tree(path: str) -> dict:
+    """The numpy tree saved at `path` (``/``-joined paths)."""
+    with np.load(path) as f:
+        tree: dict = {}
+        for key in f.files:
+            node = tree
+            *heads, leaf = key.split("/")
+            for h in heads:
+                node = node.setdefault(h, {})
+            node[leaf] = f[key]
+    return tree
 
-    cfg, dims = job["cfg"], job["dims"]
+
+def move_out(eng: PipelineEngine, rid: str) -> Optional[dict]:
+    """Take request `rid` off `eng` mid-flight by the router's own export
+    half (`router.take_out`: settle an async engine, drain the request,
+    gather its KV pages and state, free them).  None while it holds no KV
+    yet or its micro-batch is in flight.  Returns a picklable move: the
+    `Request`, its `KVExport`, and the payloads as host tensors."""
+    from repro_torch.runtime.router import take_out
+
+    if not eng.scheduler.kv.has_request(rid):
+        return None
+    taken = take_out(eng, rid)
+    if taken is None:
+        return None
+    req, export, payload, state = taken
+    if export is None:          # its KV went while the engine settled
+        eng.scheduler.adopt_request(req)
+        return None
+    return {"request": req, "export": export,
+            "kv": {k: v.cpu() for k, v in payload.items()},
+            "state": {"enc": state["enc"], "slot_leaves": {
+                k: v.cpu() for k, v in state["slot_leaves"].items()}}}
+
+
+def move_in(eng: PipelineEngine, moved: dict):
+    """Resume a `move_out` move on `eng` at its position by the router's
+    delivery half (`router.put_in`), and adopt the request.  Returns the
+    `Request`; raises `MemoryError` when `eng` has no room for it."""
+    from repro_torch.runtime.router import put_in
+
+    req = moved["request"]
+    if not put_in(eng, req, moved["export"], moved["kv"], moved["state"]):
+        raise MemoryError(f"{req.request_id}: no room to resume its move")
+    eng.scheduler.adopt_request(req)
+    return req
+
+
+def rank_shard(ranks, job: dict) -> tuple:
+    """This rank's device and dtype, its shard of the job's weights
+    (`rank_params`), and the keys every result of the rank carries:
+    ``(device, dtype, params, keys)``."""
+    from repro_torch.launch.mesh import rank_device
+
+    cfg = job["cfg"]
     dtype = getattr(torch, job.get("dtype", cfg.dtype))
     cuda = job.get("device", "cuda") == "cuda"
     dev = torch.device(rank_device(
@@ -306,71 +334,183 @@ def serve_rank(ranks, job: dict) -> dict:
     t0 = time.perf_counter()
     params = rank_params(cfg, ranks, dtype=dtype, device=dev,
                          seed=job.get("seed", 0), npz=job.get("npz"))
-    params_s = time.perf_counter() - t0
-    weight_bytes = sum(t.numel() * t.element_size()
-                       for t in params.parameters())
+    keys = {"rank": ranks.rank, "coords": ranks.coords,
+            "weight_bytes": sum(t.numel() * t.element_size()
+                                for t in params.parameters()),
+            "params_s": time.perf_counter() - t0}
+    return dev, dtype, params, keys
 
-    def counts() -> dict:
-        return {m.__name__.split(".")[-1]: m.launches for m in ops.COUNTED}
 
-    out = {"rank": ranks.rank, "coords": ranks.coords,
-           "weight_bytes": weight_bytes, "params_s": params_s}
-    if ranks.rank != 0:
-        backend = RankBackend(cfg, dims, params, None, device=dev,
-                              dtype=dtype, seed=job.get("seed", 0),
-                              bucketed=job.get("bucketed", False),
-                              ranks=ranks)
-        st = backend.serve_loop()
-    else:
-        t0 = time.perf_counter()
-        eng = PipelineEngine(cfg, dims, params, job["throttle"], device=dev,
-                             dtype=dtype, seed=job.get("seed", 0),
-                             bucketed=job.get("bucketed", False),
-                             cuda_graphs=False, ranks=ranks)
-        out["engine_s"] = time.perf_counter() - t0
-        backend = eng.backend
-        ticks, homes = [], []
-        inner = backend.execute
+def _device_counts(out: dict, dev: torch.device) -> dict:
+    """`out` with the kernels' launches and the run's peak memory."""
+    from repro_torch.kernels import ops
 
-        def execute(ring, exiting_id, now):
-            b = (eng.scheduler.get_batch(ring[0][0])
-                 if ring[0][0] is not None else None)
-            ticks.append(None if b is None else [
-                [[q.request.request_id, q.start_pos, q.num_tokens]
-                 for q in b.prefill],
-                [q.request.request_id for q in b.decode]])
-            homes.append(None if b is None else [
-                [eng.kv.replica_of(q.request.request_id) for q in rows]
-                for rows in (b.prefill, b.decode)])
-            return inner(ring, exiting_id, now)
-
-        backend.execute = execute
-        backend.reset_counters()
-        temps = job.get("temps") or [0.0] * len(job["prompts"])
-        encs = job.get("encs") or [None] * len(job["prompts"])
-        t0 = time.perf_counter()
-        reqs = [eng.add_request(p, SamplingParams(
-                    max_new_tokens=job["max_new"], temperature=t),
-                    request_id=f"r{i}",
-                    **({} if e is None else {"enc_embeds": e}))
-                for i, (p, t, e) in enumerate(zip(job["prompts"], temps,
-                                                  encs))]
-        try:
-            eng.drain(max_ticks=job.get("max_ticks", 100000))
-        finally:
-            backend.stop()
-        if cuda:
-            torch.cuda.synchronize(dev)
-        st = backend.rank_stats
-        out.update(tokens=[r.output_token_ids for r in reqs],
-                   finished=[r.is_finished for r in reqs], ticks=ticks,
-                   replicas=homes,
-                   wall_s=time.perf_counter() - t0,
-                   stats=dataclasses.asdict(eng.stats))
-    out.update(rank_stats=st.as_dict(), launches=counts(),
-               peak_bytes=(torch.cuda.max_memory_allocated(dev) if cuda
-                           else None))
+    out["launches"] = {m.__name__.split(".")[-1]: m.launches
+                       for m in ops.COUNTED}
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                         if dev.type == "cuda" else None)
     return out
+
+
+def follow_run(ranks, run: dict, params, dev: torch.device,
+               dtype: torch.dtype) -> dict:
+    """A rank other than 0's part of one run: it serves rank 0's commands
+    (`RankBackend.serve_loop`) until rank 0 stops it.  Its rank stats,
+    launches and peak memory."""
+    from repro_torch.runtime.engine import RankBackend
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    backend = RankBackend(run["cfg"], run["dims"], params, None, device=dev,
+                          dtype=dtype, seed=run.get("seed", 0),
+                          bucketed=run.get("bucketed", False), ranks=ranks)
+    return _device_counts({"rank_stats": backend.serve_loop().as_dict()},
+                          dev)
+
+
+@contextlib.contextmanager
+def leading(ranks, run: dict, params, dev: torch.device,
+            dtype: torch.dtype):
+    """Rank 0's `PipelineEngine(ranks=)` for one run, its counters at 0,
+    recording the entering batch of every tick (each prefill row's request,
+    start and length; each decode row's request) and each row's data
+    replica.  Yields ``(engine, requests, result)``: the caller drives the
+    engine and puts each of its requests in ``requests``.  On leaving, the
+    engine stops its ranks and closes its trace; on a clean exit
+    ``result`` then holds the tokens, whether each request finished, the
+    ticks and replicas, the engine's stats, its prefix hits and tokens,
+    the rank stats, the launches, the peak memory, the seconds to build the
+    engine and the wall time."""
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng = PipelineEngine(
+        run["cfg"], run["dims"], params, run["throttle"], device=dev,
+        dtype=dtype, seed=run.get("seed", 0),
+        bucketed=run.get("bucketed", False),
+        async_dispatch=run.get("async_dispatch", False),
+        enable_prefix_caching=run.get("enable_prefix_caching", False),
+        trace_path=run.get("trace_out"), cuda_graphs=False, ranks=ranks)
+    out = {"engine_s": time.perf_counter() - t0}
+    backend = eng.backend
+    ticks, homes = [], []
+    inner = backend.execute
+
+    def execute(ring, exiting_id, now):
+        b = (eng.scheduler.get_batch(ring[0][0])
+             if ring[0][0] is not None else None)
+        ticks.append(None if b is None else [
+            [[q.request.request_id, q.start_pos, q.num_tokens]
+             for q in b.prefill],
+            [q.request.request_id for q in b.decode]])
+        homes.append(None if b is None else [
+            [eng.kv.replica_of(q.request.request_id) for q in rows]
+            for rows in (b.prefill, b.decode)])
+        return inner(ring, exiting_id, now)
+
+    backend.execute = execute
+    backend.reset_counters()
+    reqs: list = [None] * len(run["prompts"])
+    t0 = time.perf_counter()
+    try:
+        yield eng, reqs, out
+    finally:
+        backend.stop()
+        if eng.recorder is not None:
+            eng.recorder.close()
+    if cuda:
+        torch.cuda.synchronize(dev)
+    out.update(
+        tokens=[r.output_token_ids for r in reqs],
+        finished=[r.is_finished for r in reqs], ticks=ticks,
+        replicas=homes, wall_s=time.perf_counter() - t0,
+        stats=dataclasses.asdict(eng.stats),
+        prefix=dict(hits=eng.scheduler.stats.prefix_hits,
+                    tokens=eng.scheduler.stats.prefix_tokens_avoided),
+        rank_stats=backend.rank_stats.as_dict())
+    _device_counts(out, dev)
+
+
+def _lead_run(ranks, run: dict, params, dev: torch.device,
+              dtype: torch.dtype) -> dict:
+    """Rank 0's part of one run of `serve_rank`."""
+    n = len(run["prompts"])
+    temps = run.get("temps") or [0.0] * n
+    encs = run.get("encs") or [None] * n
+    arrive = list(run.get("arrive") or [0] * n)
+    export = dict(run.get("export") or {})
+    moved, move_s, moved_in = [], [], []
+    with leading(ranks, run, params, dev, dtype) as (eng, reqs, out):
+        for m in run.get("imports") or ():
+            t1 = time.perf_counter()
+            moved_in.append(move_in(eng, m))
+            move_s.append(("in", time.perf_counter() - t1))
+        steps, limit = 0, run.get("max_ticks", 100000)
+        while steps < limit and (any(a is not None for a in arrive)
+                                 or eng.loop.has_work):
+            for i, a in enumerate(arrive):
+                if a is not None and steps >= a:
+                    reqs[i] = eng.add_request(
+                        run["prompts"][i], SamplingParams(
+                            max_new_tokens=run["max_new"],
+                            temperature=temps[i]),
+                        request_id=f"r{i}", **({} if encs[i] is None
+                                               else {"enc_embeds": encs[i]}))
+                    arrive[i] = None
+            for rid, at in list(export.items()):
+                req = reqs[int(rid[1:])]
+                if steps >= at if isinstance(at, int) else (
+                        req is not None
+                        and req.num_output_tokens >= at["tokens"]):
+                    t1 = time.perf_counter()
+                    m = move_out(eng, rid)
+                    if m is not None:
+                        if dev.type == "cuda":
+                            torch.cuda.synchronize(dev)
+                        move_s.append(("out", time.perf_counter() - t1))
+                        moved.append(m)
+                        del export[rid]
+            eng.step()
+            steps += 1
+    out.update(moved=moved, move_s=move_s,
+               moved_in={r.request_id: r.output_token_ids for r in moved_in})
+    return out
+
+
+def serve_rank(ranks, job: dict) -> dict:
+    """One rank of a served batch (`launch.ranks.spawn`'s `fn`).  `job`:
+    ``cfg`` (staged at pp = the layout's stages), ``dims``, ``throttle``,
+    ``prompts`` (request ``r{i}`` each), ``max_new``, optional ``temps``
+    (one per prompt), ``encs`` (an encoder-decoder's encoder input [Te, d]
+    per prompt) and ``arrive`` (the step each prompt is added at, default
+    0), ``device`` ("cuda" or "cpu"), ``dtype``, ``seed`` or ``npz``,
+    ``bucketed``, ``async_dispatch``, ``enable_prefix_caching``,
+    ``trace_out`` (rank 0's trace file), and moves: ``export`` ({request
+    id: step, or {"tokens": n}}: taken off the engine by `move_out` at the
+    first step from that step, or from when it holds n tokens, at which it
+    is not in flight) and ``imports`` (`move_out` moves, resumed by
+    `move_in` before the first step).  With ``runs``, a list of dicts of
+    those keys, each run overrides the job's keys and runs on the same
+    shard, one engine after the other.
+
+    Rank 0 drives a `PipelineEngine(ranks=)` over each run (`leading`) and
+    returns what `leading` records, the moves out (``moved``), the outputs
+    of the requests moved in (``moved_in``) and each move's seconds
+    (``move_s``); every other rank serves in `RankBackend.serve_loop`
+    (`follow_run`) and returns its rank stats, launches and peak memory.
+    Every rank also returns the seconds its shard took to draw
+    (`rank_shard`).  With ``runs``, each run's result is in ``runs``."""
+    dev, dtype, params, keys = rank_shard(ranks, job)
+    results = []
+    for over in job.get("runs") or [{}]:
+        run = {**job, **over}
+        results.append(follow_run(ranks, run, params, dev, dtype)
+                       if ranks.rank else
+                       _lead_run(ranks, run, params, dev, dtype))
+    if "runs" in job:
+        return {**keys, "runs": results}
+    return {**keys, **results[0]}
 
 
 def add_cut_argument(ap: argparse.ArgumentParser) -> None:
@@ -450,13 +590,18 @@ def rank_launch(fn, layout, job: dict, args) -> list:
 def _serve_ranks(args) -> None:
     """The launcher's workload over dp x pp x tp ranks (`serve_rank`): one
     engine whose scheduler places each request in one of dp data
-    replicas."""
+    replicas; ``--async`` and ``--trace-out`` (at dp = 1) as at one
+    rank."""
     from repro_torch.launch.mesh import rank_layout
 
-    if args.spec or args.http is not None or args.replicas > 1 or \
-            args.trace_out or args.async_dispatch:
+    if args.spec or args.http is not None or args.replicas > 1:
         raise SystemExit("serving over ranks runs the launcher's synthetic "
-                         "workload on one engine, eager and sync")
+                         "workload on one engine: --spec, --http and "
+                         "--replicas over ranks are not yet ported (ROADMAP "
+                         "Queue 1 item 6.7)")
+    if args.trace_out and args.async_dispatch:
+        raise SystemExit("--trace-out records a synchronous engine: drop "
+                         "--async")
     dev = resolve_device(args.device)
     dtype = getattr(torch, args.dtype) if args.dtype else None
     cfg, dtype = serve_config(args.arch, reduced=args.reduced, dtype=dtype,
@@ -474,7 +619,8 @@ def _serve_ranks(args) -> None:
     job = dict(cfg=cfg, dims=dims, throttle=throttle, prompts=prompts,
                encs=encs, max_new=args.max_new, device=dev.type,
                dtype=str(dtype).split(".")[-1], seed=args.seed,
-               bucketed=args.bucketed)
+               bucketed=args.bucketed, async_dispatch=args.async_dispatch,
+               trace_out=args.trace_out)
     out = rank_launch(serve_rank, layout, job, args)
     if out is None:
         return

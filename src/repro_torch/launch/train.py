@@ -7,7 +7,10 @@ step with Adam on one device, async checkpointing and restart.
 ``--dp D --tp T`` trains over D x pp x T processes (`train_rank`,
 `launch.ranks`; gloo on the CPU and on a shared card; kimi-k2's and
 jamba's experts split over the D data ranks), and so does ``--pp`` alone
-when every stage has a card of its own (`mesh.use_ranks`):
+when every stage has a card of its own (`mesh.use_ranks`); ``--ckpt`` saves
+the whole tree across the ranks in the same files as one process, and
+``--resume`` restarts from one saved at any ``--dp``/``--tp`` (or in one
+process), at the same ``--pp``:
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --steps 4 --dp 2 --pp 2 --tp 2
@@ -44,9 +47,10 @@ from repro_torch.launch.serve import (
     ranks_asked,
     serve_config,
 )
-from repro_torch.models.transformer import abstract_params
+from repro_torch.models.transformer import abstract_params, tree_items
 from repro_torch.runtime.checkpoint import (
     AsyncCheckpointer,
+    leaf_digest,
     restore_checkpoint,
 )
 from repro_torch.runtime.engine import resolve_device
@@ -109,22 +113,28 @@ def train(cfg, *, steps: int, seq: int, lr: float = 1e-3,
 
 def train_rank(ranks, job: dict) -> dict:
     """One rank of a training run (`launch.ranks.spawn`'s `fn`).  `job`:
-    ``cfg`` (at pp = the layout's stages), ``steps``, ``batches`` (a list
-    of batches, taken in turn) or ``seq`` (then `data.tokens.batches` of
-    ``M`` micro-batches of ``mbg`` sequences, with zero frontend rows for
-    a vlm or audio config, as `train` makes them), ``lr``, optional
-    ``grad_compression``, ``aux_coef``, ``enc_width`` (an
-    encoder-decoder's encoder half), ``device``, ``dtype``, ``seed`` or
-    ``npz`` (`launch.serve.rank_params`), ``keep`` (a step count: return
-    the shard's leaves after that many steps, as numpy).  Returns the
-    per-step loss, gnorm and seconds, the seconds the shard took to
-    draw, the traffic, the kernels' launches over the steps and peak
+    ``cfg`` (at pp = the layout's stages), ``steps``, ``batches`` (a list of
+    batches, taken in turn) or ``seq`` (then `data.tokens.batches` of ``M``
+    micro-batches of ``mbg`` sequences, with zero frontend rows for a vlm or
+    audio config, as `train` makes them), ``lr``, optional
+    ``grad_compression``, ``aux_coef``, ``enc_width`` (an encoder-decoder's
+    encoder half), ``device``, ``dtype``, ``seed`` or ``npz``
+    (`launch.serve.rank_params`), ``keep`` (a step count: return the shard's
+    leaves after that many steps, as numpy), ``digest`` (a step count: their
+    `checkpoint.leaf_digest`s then), ``ckpt`` (a directory: the whole tree
+    is saved there across the ranks, `checkpoint.AsyncCheckpointer(ranks=)`,
+    every ``ckpt_every`` steps, by default after the last), ``resume``
+    (restart from ``ckpt``'s parameters, saved at any data or tensor
+    factoring, `elastic.rank_restore`, with fresh Adam moments, as `train`
+    does).  Returns the per-step loss, gnorm and seconds, the seconds the
+    shard took to draw (or to restore), whether it resumed, the seconds and
+    bytes of its checkpoint writes (``ckpt_s``, ``ckpt_bytes``: its own
+    blocks), the traffic, the kernels' launches over the steps and peak
     memory."""
     from repro_torch.distributed import collectives as coll
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import rank_device
     from repro_torch.launch.serve import rank_params
-    from repro_torch.models.transformer import tree_items
 
     cfg = job["cfg"]
     dtype = getattr(torch, job.get("dtype", cfg.dtype))
@@ -134,10 +144,18 @@ def train_rank(ranks, job: dict) -> dict:
         torch.cuda.device_count() if cuda else 0))
     if cuda:
         torch.cuda.set_device(dev)
+    ckpt = job.get("ckpt")
+    resumed = bool(job.get("resume") and ckpt and os.path.exists(
+        os.path.join(ckpt, "manifest.json")))
     t0 = time.perf_counter()
-    params = rank_params(cfg, ranks, dtype=dtype, device=dev,
-                         seed=job.get("seed", 0),
-                         npz=job.get("npz")).trainable()
+    if resumed:
+        from repro_torch.distributed.elastic import rank_restore
+        params = rank_restore(ckpt, cfg, ranks.layout, ranks.rank,
+                              device=dev, dtype=dtype)
+    else:
+        params = rank_params(cfg, ranks, dtype=dtype, device=dev,
+                             seed=job.get("seed", 0), npz=job.get("npz"))
+    params = params.trainable()
     params_s = time.perf_counter() - t0
     opt = adam_init(params)
     ew = job.get("enc_width", 0)
@@ -160,7 +178,10 @@ def train_rank(ranks, job: dict) -> dict:
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     out = {"rank": ranks.rank, "coords": ranks.coords, "loss": [],
-           "gnorm": [], "step_s": [], "params_s": params_s}
+           "gnorm": [], "step_s": [], "params_s": params_s,
+           "resumed": resumed, "ckpt_s": 0.0}
+    ck = AsyncCheckpointer(ranks=ranks, cfg=cfg) if ckpt else None
+    every = job.get("ckpt_every", job["steps"])
     for i in range(job["steps"]):
         t0 = time.perf_counter()
         params, opt, m = step(params, opt, next(data))
@@ -170,6 +191,19 @@ def train_rank(ranks, job: dict) -> dict:
         if job.get("keep") == i + 1:
             out["params"] = {k: t.detach().float().cpu().numpy().copy()
                              for k, t in tree_items(params)}
+        if job.get("digest") == i + 1:
+            out["digests"] = {k: leaf_digest(t)
+                              for k, t in tree_items(params)}
+        if ck and i % every == every - 1:
+            t0 = time.perf_counter()
+            ck.submit(ckpt, params, extra={"step": i})
+            out["ckpt_s"] += time.perf_counter() - t0
+    if ck:
+        t0 = time.perf_counter()
+        ck.wait()
+        ck.close()
+        out["ckpt_s"] += time.perf_counter() - t0
+        out["ckpt_bytes"] = _own_bytes(cfg, params, ranks)
     out["traffic"] = coll.TRAFFIC.snapshot()
     out["launches"] = {m.__name__.split(".")[-1]: m.launches
                        for m in ops.COUNTED}
@@ -180,6 +214,17 @@ def train_rank(ranks, job: dict) -> dict:
     return out
 
 
+def _own_bytes(cfg, params, ranks) -> int:
+    """The bytes of the blocks this rank writes to a checkpoint."""
+    from repro_torch.models.transformer import param_pspecs
+    from repro_torch.runtime.checkpoint import writes_block
+
+    specs = dict(tree_items(param_pspecs(cfg)))
+    return sum(t.numel() * t.element_size()
+               for k, t in tree_items(params)
+               if writes_block(specs[k], ranks.layout, ranks.rank))
+
+
 def _train_ranks(cfg, args) -> Optional[dict]:
     """The launcher's run over dp x pp x tp ranks (`train_rank`): M = 2
     micro-batches of dp sequences a step, one a data rank; an MoE model
@@ -187,25 +232,27 @@ def _train_ranks(cfg, args) -> Optional[dict]:
     over the dp ranks (expert parallelism)."""
     from repro_torch.launch.mesh import rank_layout
 
-    if args.ckpt or args.resume:
-        raise SystemExit("checkpoints at more than one rank are not yet "
-                         "ported (ROADMAP Queue 1 item 6.6)")
     dev = resolve_device(args.device)
     cfg = cfg.with_plan(tp=args.tp)
     layout = rank_layout(args.dp, args.pp, args.tp)
     job = dict(cfg=cfg, steps=args.steps, seq=args.seq, M=M, mbg=args.dp,
                lr=args.lr, grad_compression=args.grad_compression,
                enc_width=args.seq // 2 if cfg.is_encoder_decoder else 0,
-               device=dev.type)
+               device=dev.type, ckpt=args.ckpt, ckpt_every=args.ckpt_every,
+               resume=args.resume)
     out = rank_launch(train_rank, layout, job, args)
     if out is None:
         return None
     head = out[0]
+    if head["resumed"]:
+        print(f"resumed from {args.ckpt}")
     for i, (loss, gnorm) in enumerate(zip(head["loss"], head["gnorm"])):
         if i % 10 == 0 or i == args.steps - 1:
             print(f"step {i:4d} loss={loss:.4f} gnorm={gnorm:.3f}")
     print(f"[{cfg.name} | {dev.type} {cfg.dtype}] ranks={layout.world} "
           f"(dp={args.dp} pp={args.pp} tp={args.tp})", flush=True)
+    if args.ckpt:
+        print(f"checkpointed to {args.ckpt}")
     return head
 
 

@@ -41,7 +41,7 @@ which no request is ever handed (`init_caches` allocates both).
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -352,6 +352,47 @@ def init_caches(cfg: ArchConfig, dims: ServeDims,
         shape, dtype=torch.float32 if name in F32_STATE_LEAVES else dtype,
         device=device) for name, shape in grp.items()}
         for gk, grp in cache_defs(cfg, dims).items()}
+
+
+def cache_tensor_dims(cfg: ArchConfig, local: ArchConfig, dims: ServeDims
+                      ) -> Dict[str, Optional[int]]:
+    """For each cache leaf ``"{group}/{name}"``, the dim that a tensor
+    rank's pool splits (where `block_cache_defs` at the rank's widths,
+    `local` = `transformer.shard_config`, differs from `cfg`'s), counted
+    without the stage dim; None for a leaf each tensor rank holds whole
+    (MLA's latent, RWKV's shift states, encoder snapshots).  It is also
+    the dim of a migration row of the leaf: a KV leaf's [S, R, n, 2, KH,
+    hd], a slot leaf's slot [S, R, ...] or [S, Te, d]."""
+    out: Dict[str, Optional[int]] = {}
+    for i, bs in enumerate(cfg.pattern):
+        whole = block_cache_defs(cfg, bs.kind, dims, bs.repeat)
+        part = block_cache_defs(local, bs.kind, dims, bs.repeat)
+        for name, shape in whole.items():
+            diff = [d for d, (a, b) in enumerate(zip(shape, part[name]))
+                    if a != b]
+            out[f"{_block_key(i, bs)}/{name}"] = diff[0] if diff else None
+    return out
+
+
+def join_cache_rows(grid: Sequence[Sequence[torch.Tensor]],
+                    dim: Optional[int]) -> torch.Tensor:
+    """A whole migration row of one cache leaf from its rank blocks,
+    ``grid[stage][tensor]``: the tensor blocks side by side on `dim`
+    (`cache_tensor_dims`; tensor rank 0's block for a leaf held whole),
+    then the stages on dim 0, in the one-process pool's layout."""
+    return torch.cat([row[0] if dim is None else torch.cat(list(row), dim)
+                      for row in grid], 0)
+
+
+def split_cache_rows(whole: torch.Tensor, dim: Optional[int], stages: int,
+                     tp: int) -> List[List[torch.Tensor]]:
+    """`join_cache_rows`'s inverse: ``grid[stage][tensor]``, each stage's
+    block of dim 0 cut on `dim` into `tp` blocks (the whole stage block on
+    every tensor rank for a leaf held whole)."""
+    out = []
+    for st in whole.chunk(stages, 0):
+        out.append([st] * tp if dim is None else list(st.chunk(tp, dim)))
+    return out
 
 
 # ----------------------------------------------------------------------------

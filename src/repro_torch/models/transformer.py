@@ -25,7 +25,7 @@ import dataclasses
 import functools
 import itertools
 import math
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -340,6 +340,30 @@ def shard_block(t: torch.Tensor, spec: Spec, layout, rank: int,
     j = _parts_dim(spec, t.dim())
     return t.view(vshape)[shard_slices(vspec, vshape, layout, rank)] \
         .flatten(j, j + 1)
+
+
+def block_slices(spec: Spec, shape: Tuple[int, ...], layout, rank: int,
+                 parts: int = 1
+                 ) -> List[Tuple[Tuple[slice, ...], Tuple[slice, ...]]]:
+    """Where rank `rank`'s block (`shard_block`) lies in the whole leaf:
+    ``(whole slices, block slices)`` pairs, one per part of a leaf of
+    several parts (`PAIRED_LEAVES`), one pair of the whole block else."""
+    if parts == 1:
+        return [(shard_slices(spec, shape, layout, rank),
+                 (slice(None),) * len(shape))]
+    vspec, vshape = parted(spec, shape, parts)
+    j = _parts_dim(spec, len(shape))
+    vsl = shard_slices(vspec, vshape, layout, rank)
+    seg, own = shape[j] // parts, vsl[j + 1]
+    w = own.stop - own.start
+    out = []
+    for p in range(parts):
+        whole = vsl[:j] + (slice(p * seg + own.start, p * seg + own.stop),) \
+            + vsl[j + 2:]
+        block = [slice(None)] * len(shape)
+        block[j] = slice(p * w, (p + 1) * w)
+        out.append((whole, tuple(block)))
+    return out
 
 
 def check_shardable(cfg: ArchConfig, layout) -> None:

@@ -36,7 +36,8 @@ is queued behind every tick already replayed.
 Across ranks, `RankBackend` runs one stage at one tensor shard of one data
 replica a process: rank 0's backend drives the tick loop and sends every
 tick's input buffer (every replica's rows) to the other ranks, which run
-it in `RankBackend.serve_loop`.
+it in `RankBackend.serve_loop`; the migration hooks there gather a
+request's blocks from the ranks of its replica into the same wire format.
 
 With ``trace_path`` the engine logs every tick to a replayable JSONL trace
 (`runtime/trace.py`, the JAX package's schema): a `TraceRecorder` wraps the
@@ -775,9 +776,8 @@ class TorchBackend(ExecutionBackend):
         return p_tok, d_tok
 
 
-def _refuse_at_ranks(*, async_dispatch: bool, cuda_graphs: bool, device,
-                     enable_prefix_caching: bool,
-                     trace_path: Optional[str]) -> None:
+def _refuse_at_ranks(*, cuda_graphs: bool, device,
+                     trace_path: Optional[str], dp: int) -> None:
     """What the engine does not yet do at more than one rank raises, named
     by its ROADMAP item; nothing falls back to one rank."""
     dev = torch.device("cuda" if device is None else device)
@@ -787,15 +787,11 @@ def _refuse_at_ranks(*, async_dispatch: bool, cuda_graphs: bool, device,
             "Queue 1 item 6.5; gloo's collectives cannot be captured, "
             "NCCL's can once every rank has its card): pass "
             "cuda_graphs=False")
-    if async_dispatch:
-        raise ValueError("async dispatch at more than one rank is not yet "
-                         "ported (ROADMAP Queue 1 item 6.5)")
-    if enable_prefix_caching:
-        raise NotImplementedError("prefix caching at more than one rank is "
-                                  "not yet ported (ROADMAP Queue 1 item 6.6)")
-    if trace_path is not None:
-        raise NotImplementedError("tick traces at more than one rank are "
-                                  "not yet ported (ROADMAP Queue 1 item 6.6)")
+    if trace_path is not None and dp > 1:
+        raise NotImplementedError(
+            "tick traces over data replicas are not yet ported (ROADMAP "
+            "Queue 1 item 6.8): the trace header describes one KV pool, "
+            "not one a replica")
 
 
 @dataclass
@@ -846,10 +842,24 @@ class RankBackend(TorchBackend):
     bits; then an encoder-decoder's entering encoder input) to every rank,
     and runs its own stage.  Every other rank builds the same backend
     without a scheduler and runs `serve_loop` until the stop message
-    (`stop`).  Eager and sync: the tokens every rank gets from the head
-    (`vocab_argmax`) are read back on rank 0 as at one rank.  The buffers
-    travel as host tensors under gloo (the backend stages CUDA tensors
-    through host memory anyway) and as device tensors under nccl.
+    (`stop`).  Eager: the tokens every rank gets from the head
+    (`vocab_argmax`) are read back on rank 0 as at one rank, deferred to
+    the next step under async dispatch (each tick's exit rows are read off
+    its replica split when it runs, into one of the two token buffers).
+    The buffers travel as host tensors under gloo (the backend stages CUDA
+    tensors through host memory anyway) and as device tensors under nccl.
+
+    **State in and out.**  Four more commands move one request's KV pages
+    (3 export, 4 import: the page and offset lists follow the header) or
+    state slot (5 export, 6 import: the slot in the header) between rank 0
+    and every rank of the request's data replica, leaf by leaf
+    (`collectives.gather_rows` / `scatter_rows`, counted as ``state``):
+    each rank sends or takes its block (its stage, at its tensor rank's
+    heads or channels), and rank 0 joins or splits the rows
+    (`serve.join_cache_rows` / `split_cache_rows`) in the one-process
+    engine's layout, so a payload moves between a rank engine, a
+    one-process engine and the JAX package's.  A leaf each tensor rank
+    holds whole is taken from tensor rank 0 and given to each.
 
     **Data replicas.**  At dp > 1 the scheduler's KV manager is a
     `ReplicaKVManager` (a request lives in one replica's pool, with a
@@ -886,6 +896,7 @@ class RankBackend(TorchBackend):
                                         dtype=self.dtype, device=device)
             self._enc = self._enc_all[self.replica]
         self.world = ranks.world_axis()
+        self._tdims = serve_lib.cache_tensor_dims(cfg, self.local, dims)
         self.rank_stats = RankStats()
         self._exiting: Optional[int] = None
         self._temps: Optional[torch.Tensor] = None
@@ -989,11 +1000,12 @@ class RankBackend(TorchBackend):
 
     def _send(self, cmd: int, index: int = 0, body=None,
               temps: Optional[np.ndarray] = None, enc: bool = False) -> None:
-        """The header (command: 1 a tick, 2 reset the counters, 0 stop;
-        bucket index, buffer size, message size, 1 if an encoder input
-        follows), then a tick's message: the buffer, and the temperatures'
-        f32 bits; then, for an encoder-decoder whose entering batch holds
-        prefill rows, every replica's encoder input (`_enc_all`)."""
+        """The header (command: 1 a tick, 2 reset the counters, 0 stop, 3 to
+        6 a state move, `_send_move`; bucket index, buffer size, message
+        size, 1 if an encoder input follows), then a tick's message: the
+        buffer, and the temperatures' f32 bits; then, for an encoder-decoder
+        whose entering batch holds prefill rows, every replica's encoder
+        input (`_enc_all`)."""
         msg = None
         if cmd == 1:
             msg = body.clone() if temps is None else torch.cat(
@@ -1091,6 +1103,14 @@ class RankBackend(TorchBackend):
             if cmd == 2:
                 self.reset_counters()
                 continue
+            if cmd in (_EXPORT_KV, _IMPORT_KV):
+                idx = self._bcast(torch.empty(size, dtype=torch.int32)).to(
+                    device=self.device, dtype=torch.long)
+                self._kv_rows(cmd == _EXPORT_KV, index, idx[:n], idx[n:])
+                continue
+            if cmd in (_EXPORT_STATE, _IMPORT_STATE):
+                self._state_rows(cmd == _EXPORT_STATE, index, n)
+                continue
             msg = self._bcast(torch.empty(size, dtype=torch.int32))
             prog = self._program(self.ladder[index])
             prog.static.copy_(msg[:n])
@@ -1118,20 +1138,200 @@ class RankBackend(TorchBackend):
             torch.cuda.synchronize(self.device)
             torch.cuda.reset_peak_memory_stats(self.device)
 
-    def export_kv_pages(self, request_id, slots):
-        raise NotImplementedError("KV migration at more than one rank is "
-                                  "not yet ported (ROADMAP Queue 1 item 6.6)")
+    # ------------------------------------------------- state in and out
+    def _holders(self, replica: int) -> List[int]:
+        """The ranks of data replica `replica`, in rank order (stage by
+        stage, tensor ranks within)."""
+        lay = self.ranks.layout
+        return [r for r in range(lay.world)
+                if lay.coords(r)["data"] == replica]
 
-    def import_kv_pages(self, request_id, payload, slots):
-        self.export_kv_pages(request_id, slots)
+    def _gather(self, key: str, block: torch.Tensor, replica: int
+                ) -> Optional[torch.Tensor]:
+        """Rank 0: the whole row of leaf `key` from the replica's blocks;
+        None on the other ranks."""
+        got = coll.gather_rows(block, self.world, 0, self._holders(replica),
+                               kind="state")
+        if got is None:
+            return None
+        tp = self.ranks.size("tensor")
+        grid = [got[s * tp:(s + 1) * tp] for s in range(self.depth)]
+        return serve_lib.join_cache_rows(grid, self._tdims[key])
 
-    def export_request_state(self, req):
-        raise NotImplementedError("state migration at more than one rank "
-                                  "is not yet ported (ROADMAP Queue 1 item "
-                                  "6.6)")
+    def _scatter(self, key: str, whole: Optional[torch.Tensor],
+                 buf: torch.Tensor, replica: int) -> None:
+        """Rank 0 cuts the whole row `whole` of leaf `key` into the
+        replica's blocks; each rank of the replica takes its own in
+        `buf`."""
+        blocks = None
+        if whole is not None:
+            grid = serve_lib.split_cache_rows(whole, self._tdims[key],
+                                              self.depth,
+                                              self.ranks.size("tensor"))
+            blocks = [b for row in grid for b in row]
+        coll.scatter_rows(blocks, buf, self.world, 0, self._holders(replica),
+                          kind="state")
 
-    def import_request_state(self, req, state, resident=True):
-        self.export_request_state(req)
+    def _whole(self, key: str, block: Tuple[int, ...]) -> Tuple[int, ...]:
+        """The shape of leaf `key`'s whole row, from a rank's block."""
+        shape = [block[0] * self.depth] + list(block[1:])
+        if self._tdims[key] is not None:
+            shape[self._tdims[key]] *= self.ranks.size("tensor")
+        return tuple(shape)
+
+    def _kv_leaves(self) -> List[Tuple[str, torch.Tensor]]:
+        return [(f"{gk}/kv", grp["kv"]) for gk, grp in self.caches.items()
+                if "kv" in grp]
+
+    def _slot_leaves(self) -> List[Tuple[str, torch.Tensor, int]]:
+        return [(f"{gk}/{name}", arr, self._SLOT_LEAF_AXIS[name])
+                for gk, grp in self.caches.items()
+                for name, arr in grp.items() if name in self._SLOT_LEAF_AXIS]
+
+    @torch.inference_mode()
+    def _kv_rows(self, export: bool, replica: int, pg: torch.Tensor,
+                 off: torch.Tensor, payload: Optional[dict] = None
+                 ) -> Dict[str, torch.Tensor]:
+        """Every rank's part of one KV move (rank 0's `payload`, its whole
+        rows, on import): the replica's ranks gather their pools at (`pg`,
+        `off`) for rank 0, or write its rows there."""
+        mine = self.replica == replica
+        out = {}
+        for key, pool in self._kv_leaves():
+            shape = pool.shape[:2] + (len(pg),) + pool.shape[4:]
+            if export:
+                block = pool[:, :, pg, off] if mine else pool.new_empty(shape)
+                row = self._gather(key, block, replica)
+                if row is not None:
+                    out[key] = row
+            else:
+                buf = pool.new_empty(shape)
+                self._scatter(key, None if payload is None else payload[key],
+                              buf, replica)
+                if mine:
+                    pool[:, :, pg, off] = buf
+        return out
+
+    @torch.inference_mode()
+    def _state_rows(self, export: bool, replica: int, slot: int,
+                    leaves: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+        """Every rank's part of one state-slot move, as `_kv_rows`."""
+        mine = self.replica == replica
+        out = {}
+        for key, pool, ax in self._slot_leaves():
+            if export:
+                block = pool.select(ax, slot).clone()
+                row = self._gather(key, block, replica)
+                if row is not None:
+                    out[key] = row
+            else:
+                buf = pool.select(ax, slot).clone()
+                self._scatter(key, None if leaves is None else leaves[key],
+                              buf, replica)
+                if mine:
+                    pool.select(ax, slot).copy_(buf)
+        return out
+
+    def _send_move(self, cmd: int, replica: int, n: int,
+                   idx: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                   ) -> None:
+        """Rank 0: the header of a state move, then its page and offset
+        lists (a KV move's)."""
+        msg = None if idx is None else torch.cat(idx).to(
+            device="cpu", dtype=torch.int32)
+        self._bcast(torch.tensor(
+            [cmd, replica, n, 0 if msg is None else msg.numel(), 0],
+            dtype=torch.int32))
+        if msg is not None:
+            self._bcast(msg)
+
+    def _replica_of(self, request_id: str) -> int:
+        return self.kv.replica_of(request_id) or 0
+
+    @_pinned
+    def export_kv_pages(self, request_id: str,
+                        slots: Sequence[Tuple[int, int]]) -> dict:
+        """`TorchBackend.export_kv_pages` across ranks: the payload in the
+        one-process engine's keys, shapes and dtype (every stage's rows,
+        every KV head), gathered from the request's replica."""
+        pg, off = self._page_index(slots)
+        replica = self._replica_of(request_id)
+        self._send_move(_EXPORT_KV, replica, len(slots), (pg, off))
+        return self._kv_rows(True, replica, pg, off)
+
+    @_pinned
+    def import_kv_pages(self, request_id: str, payload: Optional[dict],
+                        slots: Sequence[Tuple[int, int]]) -> None:
+        """`TorchBackend.import_kv_pages` across ranks: the payload (from
+        any engine, or JAX's as numpy) checked whole on rank 0, then each
+        rank of the request's replica writes its block into its pools in
+        place."""
+        if payload is None:
+            return
+        pg, off = self._page_index(slots)
+        leaves = self._kv_leaves()
+        if set(payload) != {k for k, _ in leaves}:
+            raise ValueError(f"KV payload holds {sorted(payload)}, the pools "
+                             f"are {sorted(k for k, _ in leaves)}")
+        whole = {}
+        for key, pool in leaves:
+            block = pool.shape[:2] + (len(slots),) + pool.shape[4:]
+            whole[key] = self._landed(payload[key], pool,
+                                      self._whole(key, block), key)
+        replica = self._replica_of(request_id)
+        self._send_move(_IMPORT_KV, replica, len(slots), (pg, off))
+        self._kv_rows(False, replica, pg, off, whole)
+
+    @_pinned
+    def export_request_state(self, req: Request) -> dict:
+        """`TorchBackend.export_request_state` across ranks: the state
+        slot's rows gathered from the request's replica; its slot and
+        encoder input released here."""
+        rid = req.request_id
+        enc = self.enc_embeds.pop(rid, None)
+        state: Dict[str, Any] = {
+            "enc": None if enc is None else enc.numpy(), "slot_leaves": {}}
+        s = self.slots.owner.get(rid)
+        if s is not None:
+            if self._slot_leaves():
+                replica = self._replica_of(rid)
+                self._send_move(_EXPORT_STATE, replica, s)
+                state["slot_leaves"] = self._state_rows(True, replica, s)
+            self.slots.release(rid)
+        return state
+
+    @_pinned
+    def import_request_state(self, req: Request, state: Optional[dict],
+                             resident: bool = True) -> None:
+        """`TorchBackend.import_request_state` across ranks: the slot rows
+        checked whole on rank 0, a slot taken in the request's replica
+        (`MemoryError` when none is free), then written on each of its
+        ranks in place."""
+        if state is None:
+            return
+        if state.get("enc") is not None:
+            self.enc_embeds[req.request_id] = torch.as_tensor(
+                np.asarray(state["enc"], np.float32)).clone()
+        leaves = (state.get("slot_leaves") or {}) if resident else {}
+        if not leaves:
+            return
+        pools = self._slot_leaves()
+        if set(leaves) != {k for k, _, _ in pools}:
+            raise ValueError(f"state payload holds {sorted(leaves)}, the "
+                             f"pools are {sorted(k for k, _, _ in pools)}")
+        whole = {}
+        for key, pool, ax in pools:
+            block = pool.shape[:ax] + pool.shape[ax + 1:]
+            whole[key] = self._landed(leaves[key], pool,
+                                      self._whole(key, block), key)
+        s = self.slots.get(req.request_id)
+        replica = self._replica_of(req.request_id)
+        self._send_move(_IMPORT_STATE, replica, s)
+        self._state_rows(False, replica, s, whole)
+
+
+# `RankBackend`'s header commands beside 1 (a tick), 2 (reset) and 0 (stop)
+_EXPORT_KV, _IMPORT_KV, _EXPORT_STATE, _IMPORT_STATE = 3, 4, 5, 6
 
 
 class PipelineEngine:
@@ -1158,8 +1358,10 @@ class PipelineEngine:
     is its shard, the other ranks run `RankBackend.serve_loop`, and
     `backend.stop()` ends them.  Over dp > 1 data replicas the KV manager
     is a `ReplicaKVManager` of dp pools of `dims.pages` (`dims` are per
-    replica), and the scheduler's row limits hold for each replica.  Eager and sync only: graphs, async
-    dispatch, prefix caching and traces raise (`_refuse_at_ranks`)."""
+    replica), and the scheduler's row limits hold for each replica.  Async
+    dispatch, prefix caching (one prefix index a replica), traces (at dp =
+    1), migration and snapshots work as at one rank; CUDA graphs on CUDA
+    and traces over data replicas raise (`_refuse_at_ranks`)."""
 
     def __init__(
         self,
@@ -1180,10 +1382,8 @@ class PipelineEngine:
     ) -> None:
         multi = ranks is not None and ranks.layout.world > 1
         if multi:
-            _refuse_at_ranks(async_dispatch=async_dispatch,
-                             cuda_graphs=cuda_graphs, device=device,
-                             enable_prefix_caching=enable_prefix_caching,
-                             trace_path=trace_path)
+            _refuse_at_ranks(cuda_graphs=cuda_graphs, device=device,
+                             trace_path=trace_path, dp=ranks.size("data"))
         if trace_path is not None and async_dispatch:
             # the recorder writes each tick's exit tokens at execute time;
             # a deferred retire would interleave records out of order and
@@ -1211,7 +1411,9 @@ class PipelineEngine:
         self.dims = dims
         self.params = params
         dp = ranks.size("data") if multi else 1
-        self.kv = (ReplicaKVManager(dp, dims.pages, dims.page) if dp > 1
+        self.kv = (ReplicaKVManager(
+            dp, dims.pages, dims.page,
+            enable_prefix_caching=enable_prefix_caching) if dp > 1
                    else PagedKVManager(
                        dims.pages, dims.page,
                        enable_prefix_caching=enable_prefix_caching))

@@ -873,16 +873,13 @@ class ReplicaRouter:
         if now is None:
             now = self._clock()
         src = self.replicas[src_i]
-        # an async engine holds its last tick's requests in flight until its
-        # next step: settling retires that tick, so that they can move
-        _settle(src)
-        drained = src.scheduler.drain_request(rid)
-        if drained is None:
+        taken = take_out(src, rid)
+        if taken is None:
             return False
-        if not src.scheduler.kv.has_request(rid):
+        drained, export, payload, state = taken
+        if export is None:
             # nothing resident (a waiting request): this is just a steal
             dst = self.replicas[dst_i]
-            state = src.backend.export_request_state(drained)
             _record_move_out(src, rid, now, kind)
             dst.backend.import_request_state(drained, state, resident=False)
             dst.scheduler.adopt_request(drained)
@@ -890,11 +887,7 @@ class ReplicaRouter:
             _advance_replica_clock(dst, now)
             self.rebalance_stats.stolen += 1
             return True
-        export = src.scheduler.kv.export_kv(rid)
-        payload = src.backend.export_kv_pages(rid, export.slots)
-        state = src.backend.export_request_state(drained)
         delay = src.backend.migration_cost(export.num_tokens)
-        src.scheduler.kv.free(rid)
         _record_move_out(src, rid, now, kind)
         if kind == "handoff":
             self._handoffs_of[rid] = self._handoffs_of.get(rid, 0) + 1
@@ -951,21 +944,7 @@ class ReplicaRouter:
                  payload: Any, state: Any, now: float,
                  kind: str = "migrate") -> None:
         dst = self.replicas[dst_i]
-        kv = dst.scheduler.kv
-        rid = req.request_id
-        imported = False
-        if kv.can_allocate(rid, export.num_tokens):
-            dst_slots = kv.import_kv(export)
-            try:
-                dst.backend.import_kv_pages(rid, payload, dst_slots)
-                dst.backend.import_request_state(req, state)
-                imported = True
-            except MemoryError:
-                # destination ran out of per-request device state (e.g.
-                # recurrent-state slots, which the KV headroom checks don't
-                # cover): release the pages and degrade below
-                kv.free(rid)
-        if not imported:
+        if not put_in(dst, req, export, payload, state):
             # destination capacity shrank in transit: fall back to recompute
             # admission (correctness preserved — outputs fold into the
             # effective prompt exactly like a preemption).  resident=False:
@@ -1362,6 +1341,50 @@ def _abort_on_replica(replica, rid: str) -> bool:
         return False
     if req.is_finished:
         replica.backend.finish_request(req)
+    return True
+
+
+def take_out(src, rid: str) -> Optional[tuple]:
+    """The export half of moving request `rid` off engine `src` (the
+    router's migration and hand-off, and a move between processes): settle
+    an async engine (it holds its last tick's requests in flight until its
+    next step), drain the request and, when it holds KV, gather its pages
+    and state and free them.  Returns ``(request, export, payload,
+    state)``, export and payload None for a request with nothing resident
+    (a waiting one), or None when the request is in flight this tick."""
+    _settle(src)
+    req = src.scheduler.drain_request(rid)
+    if req is None:
+        return None
+    kv = src.scheduler.kv
+    if not kv.has_request(rid):
+        return req, None, None, src.backend.export_request_state(req)
+    export = kv.export_kv(rid)
+    payload = src.backend.export_kv_pages(rid, export.slots)
+    state = src.backend.export_request_state(req)
+    kv.free(rid)
+    return req, export, payload, state
+
+
+def put_in(dst, req: Request, export: KVExport, payload: Any,
+           state: Any) -> bool:
+    """The delivery half: allocate `req`'s tokens on engine `dst`
+    (`import_kv`) and write its pages and state in place.  False, holding
+    nothing, when `dst` has no room for them.  The caller adopts `req`."""
+    kv = dst.scheduler.kv
+    rid = req.request_id
+    if not kv.can_allocate(rid, export.num_tokens):
+        return False
+    slots = kv.import_kv(export)
+    try:
+        dst.backend.import_kv_pages(rid, payload, slots)
+        dst.backend.import_request_state(req, state)
+    except MemoryError:
+        # destination ran out of per-request device state (e.g.
+        # recurrent-state slots, which the KV headroom checks don't
+        # cover): release the pages
+        kv.free(rid)
+        return False
     return True
 
 

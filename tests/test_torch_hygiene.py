@@ -17,6 +17,13 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
 
+def _launcher_env() -> dict:
+    """A launcher subprocess's environment: the port on the path, and one
+    intra-op thread, since its tensors are tiny and other test processes
+    share the cores."""
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+
+
 def _imported_modules(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -105,7 +112,7 @@ def test_unported_arch_and_pp_raise():
 def test_train_launcher_runs_reduced_on_cpu_and_resumes(tmp_path):
     """`launch.train --device cpu` trains the reduced config; with --ckpt
     it checkpoints, and --resume restarts from the checkpoint."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = _launcher_env()
     ck = str(tmp_path / "ck")
     base = [sys.executable, "-m", "repro_torch.launch.train", "--device",
             "cpu", "--steps", "3"]
@@ -146,7 +153,7 @@ def test_train_launcher_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_launcher_runs_reduced_on_cpu():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = _launcher_env()
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
          "--device", "cpu", "--requests", "3", "--max-new", "4"],
@@ -159,7 +166,7 @@ def test_launcher_runs_reduced_on_cpu():
 def test_launchers_run_reduced_olmoe_on_cpu(launcher):
     """--arch olmoe-1b-7b (ATTN_MOE blocks) runs end to end in both
     launchers on the CPU."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = _launcher_env()
     res = subprocess.run(
         [sys.executable, "-m", f"repro_torch.launch.{launcher}", "--arch",
          "olmoe-1b-7b", "--reduced", "--device", "cpu", "--requests", "3",
@@ -179,7 +186,7 @@ def test_launchers_run_reduced_olmoe_on_cpu(launcher):
 def test_launchers_run_reduced_rwkv_on_cpu(launcher):
     """--arch rwkv6-3b (RWKV blocks, state slots, the WKV scan's plain
     version) runs end to end in both launchers on the CPU."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = _launcher_env()
     res = subprocess.run(
         [sys.executable, "-m", f"repro_torch.launch.{launcher}", "--arch",
          "rwkv6-3b", "--reduced", "--device", "cpu", "--requests", "3",
@@ -197,7 +204,7 @@ def test_launchers_run_reduced_rwkv_on_cpu(launcher):
 def test_profile_launcher_runs_reduced_on_cpu():
     """launch/profile.py (device time by kernel on the card) runs the same
     code on the CPU and prints one JSON line; the CPU has no device rows."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = _launcher_env()
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.profile", "--reduced",
          "--device", "cpu", "--requests", "2", "--max-new", "2"],
@@ -212,7 +219,7 @@ def test_profile_launcher_runs_reduced_on_cpu():
 def test_profile_launcher_profiles_jamba_cut_on_cpu():
     """launch/profile.py takes --cut as launch/serve.py does: the reduced
     jamba cut to one layer of each of its three block kinds."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = _launcher_env()
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.profile", "--arch",
          "jamba-1.5-large-398b", "--reduced", "--device", "cpu", "--cut",
@@ -253,29 +260,32 @@ def _fake_ranks(dp=1, pp=2, tp=2):
 
 
 def test_engine_at_ranks_refuses_what_it_does_not_do():
-    """At world > 1: CUDA graphs and async dispatch raise `ValueError`,
-    prefix caching, traces, KV and state migration `NotImplementedError`,
-    each naming its ROADMAP item; nothing falls back to one rank.  The
-    serve tick's data axis builds (dp=2)."""
+    """At world > 1: CUDA graphs on CUDA raise `ValueError` (item 6.5) and
+    traces over data replicas `NotImplementedError` (item 6.8), each naming
+    its ROADMAP item; nothing falls back to one rank.  Async dispatch,
+    prefix caching and a trace at dp = 1 pass the refusals.  The serve
+    tick's data axis builds (dp=2)."""
     from repro_torch.configs import get_config, make_reduced
     from repro_torch.core import ThrottleConfig
     from repro_torch.launch.serve import REDUCED_DIMS
-    from repro_torch.runtime.engine import PipelineEngine, RankBackend
+    from repro_torch.runtime.engine import (
+        PipelineEngine,
+        RankBackend,
+        _refuse_at_ranks,
+    )
 
     cfg = make_reduced(get_config("qwen1.5-0.5b")).with_plan(pp=2, tp=2)
     th = ThrottleConfig(pipeline_depth=2)
     ranks = _fake_ranks()
     with pytest.raises(ValueError, match="item 6.5"):
         PipelineEngine(cfg, REDUCED_DIMS, None, th, ranks=ranks)
-    with pytest.raises(ValueError, match="item 6.5"):
-        PipelineEngine(cfg, REDUCED_DIMS, None, th, ranks=ranks,
-                       device="cpu", async_dispatch=True)
-    with pytest.raises(NotImplementedError, match="item 6.6"):
-        PipelineEngine(cfg, REDUCED_DIMS, None, th, ranks=ranks,
-                       device="cpu", enable_prefix_caching=True)
-    with pytest.raises(NotImplementedError, match="item 6.6"):
-        PipelineEngine(cfg, REDUCED_DIMS, None, th, ranks=ranks,
+    with pytest.raises(NotImplementedError, match="item 6.8"):
+        PipelineEngine(cfg, REDUCED_DIMS, None, th, ranks=_fake_ranks(dp=2),
                        device="cpu", trace_path="/dev/null")
+    for dp in (1, 2):
+        _refuse_at_ranks(cuda_graphs=True, device="cpu", trace_path=None,
+                         dp=dp)
+    _refuse_at_ranks(cuda_graphs=False, device="cuda", trace_path="/x", dp=1)
     # the serve tick's data axis: a worker's backend at dp=2 builds, with
     # room for both replicas' tokens and both replicas' buffer blocks
     two = RankBackend(cfg, REDUCED_DIMS, None, None,
@@ -286,11 +296,9 @@ def test_engine_at_ranks_refuses_what_it_does_not_do():
                       device=torch.device("cpu"), ranks=_fake_ranks())
     assert two._program(REDUCED_DIMS).size == \
         2 * one._program(REDUCED_DIMS).size
-    backend = object.__new__(RankBackend)
-    with pytest.raises(NotImplementedError, match="item 6.6"):
-        backend.export_kv_pages("r", [(0, 0)])
-    with pytest.raises(NotImplementedError, match="item 6.6"):
-        backend.import_request_state(None, {})
+    # a state move names the replica's ranks: stage by stage, tensor
+    # ranks within
+    assert two._holders(1) == [4, 5, 6, 7] and one._holders(0) == [0, 1, 2, 3]
 
 
 def test_collectives_have_no_one_rank_guard():
