@@ -73,12 +73,13 @@ line; any failure raises and the script exits non-zero.
               expert FFN on the plain version) up to a near-tie; the MoE
               kernel ran once per layer a tick, paged attention once per
               layer and phase
-  serve-olmoe-bf16  full-width, full-depth olmoe-1b-7b in bf16 at the
-              config's capacity factor, the serve-bf16 batch on serve-bf16's
-              two engines: every request finishes with valid tokens,
-              launches = ticks x 16 (MoE) and 16 per phase a tick runs
-              (attention); tokens/s, host/device time, memory and the
-              device's idle share from a profiled rerun
+  serve-olmoe-bf16  full-width olmoe-1b-7b cut to 4 of its 16 layers (the
+              script's time) in bf16 at the config's capacity factor, the
+              serve-bf16 batch on serve-bf16's two engines: every request
+              finishes with valid tokens, launches = ticks x 4 (MoE) and 4
+              per phase a tick runs (attention); tokens/s, host/device
+              time, memory and the graph engine's idle share from a
+              profiled rerun
   rwkv-kernel the WKV6 kernel against its plain version at rwkv6-3b's
               serve shapes (32 decode rows over a pool of 64 slots; one
               512-token prefill chunk with 300 live tokens and a carried
@@ -103,12 +104,12 @@ line; any failure raises and the script exits non-zero.
               tokens, equal to the port's dense reference (its scan on the
               plain version) up to a near-tie; the kernel ran once per layer
               and phase
-  serve-rwkv-bf16  full-width rwkv6-3b cut to 8 of its 32 layers (to keep
+  serve-rwkv-bf16  full-width rwkv6-3b cut to 4 of its 32 layers (to keep
               the script inside its time), bf16, the serve-bf16 batch on
               serve-bf16's two engines: every request finishes with valid
-              tokens, launches = 8 per phase a tick runs;
-              tokens/s, host/device time, memory and the device's idle
-              share from a profiled rerun
+              tokens, launches = 4 per phase a tick runs;
+              tokens/s, host/device time, memory and the graph engine's
+              idle share from a profiled rerun
   mamba-kernel  the Mamba selective-scan kernel against its plain version
               at jamba-1.5-large-398b's serve shapes (di=16384, ds=16: 32
               decode rows over a pool of 64 slots, 28 live; one 512-token
@@ -139,9 +140,10 @@ line; any failure raises and the script exits non-zero.
               serve-bf16's two engines: every request finishes with valid
               tokens, launches = 2 per phase a tick runs (Mamba), ticks x 2
               (MoE) and 1 per phase (attention); tokens/s, host/device time,
-              memory and the device's idle share from a profiled rerun
+              memory and the graph engine's idle share from a profiled rerun
 
-  serve-router-f32  full-width, full-depth qwen1.5-0.5b in f32, two
+  serve-router-f32  full-width qwen1.5-0.5b cut to 8 of its 24 layers (the
+              script's time) in f32, two
               bucketed async graph replicas on the one card, built by
               `repro_torch.serving.build` behind the balanced router and
               served through `LLMServer`, three times from one seed: the
@@ -179,10 +181,10 @@ line; any failure raises and the script exits non-zero.
               holds, counted per replay; graph count, pool and carry
               addresses unchanged by serving
   serve-pp-bf16  qwen2.5-14b (the paper's model: d 5120, 40:8 heads of
-              128; 48 layers, 29.5 GB in bf16) at full width cut to 24
+              128; 48 layers, 29.5 GB in bf16) at full width cut to 8
               layers (to keep the script inside its time), the
               serve-bf16 batch on bucketed async graph engines at pp=1 and
-              at pp=4 (4 x 6 layers) from one set of weights (the pp=4
+              at pp=4 (4 x 2 layers) from one set of weights (the pp=4
               engine's are views of the pp=1 engine's): every request
               finishes with valid tokens, launches as `_launch_want` says;
               tokens/s, ms per tick, ticks, bubble stage-ticks (a stage
@@ -192,7 +194,8 @@ line; any failure raises and the script exits non-zero.
   serve-archs-f32  the archs this slice adds, at full width, f32, on
               serve-f32's three engines, two waves of 4 requests each (the
               second on the first's slots): minicpm3-4b (MLA) cut to 4 of
-              62 layers, whisper-small (encoder-decoder) at full depth with
+              62 layers, whisper-small (encoder-decoder) cut to its first
+              ENC_LAYER and DEC_LAYER (of 12 + 12; the script's time) with
               1,500 encoder frames and seeded encoder inputs (the second
               wave reuses the first's slots and encoder snapshots),
               qwen2-vl-7b (M-RoPE, 28:4 heads) and internlm2-1.8b (16:8
@@ -201,12 +204,12 @@ line; any failure raises and the script exits non-zero.
               once per layer and phase (none for MLA, which runs as plain
               PyTorch as it runs as jnp in the JAX package)
   serve-archs-bf16  serve-bf16's batch on a bucketed async graph engine in
-              bf16 for whisper-small (1,500 frames), qwen2-vl-7b and
-              internlm2-1.8b at full width and depth, minicpm3-4b at full
-              width cut to 8 of its 62 layers,
-              kimi-k2-1t-a32b cut to its first ATTN_MOE layer (384
-              experts, 38.9 GB) and llama3.1-100b cut to 16 of its 96
-              layers in four stages of 4 (~32 GB): every request finishes
+              bf16 for qwen2-vl-7b and internlm2-1.8b at full width and
+              depth, whisper-small (1,500 frames) cut to its first ENC_LAYER
+              and DEC_LAYER, minicpm3-4b at full width cut to 8 of its 62
+              layers, kimi-k2-1t-a32b cut to its first ATTN_MOE layer (384
+              experts, 38.9 GB) and llama3.1-100b cut to 8 of its 96
+              layers in four stages of 2 (~16 GB): every request finishes
               with valid tokens, launches as `_launch_want` says; tokens/s,
               ms per tick, padded rows and peak memory; busy time and
               idle share from a profiled rerun for minicpm3 and whisper
@@ -217,10 +220,10 @@ line; any failure raises and the script exits non-zero.
               cross-attention (decode tick, 512-token chunk): ms, bound,
               SDPA's ms (MLA's over K/V expanded ahead of the call)
   serve-32b-bf16  qwen2.5-32b (the paper's mid-size model: d 5120, 40:8
-              heads; 64 layers, 65.5 GB in bf16) at full width cut to 16
+              heads; 64 layers, 65.5 GB in bf16) at full width cut to 8
               layers (to keep the script inside its time), as
               serve-pp-bf16: pp=1,
-              then pp=4 (4 layers a stage) on views of the same
+              then pp=4 (2 layers a stage) on views of the same
               weights once the pp=1 engine's KV pool and graphs are freed;
               tokens/s, ms per tick, bubble stage-ticks, padded rows, peak
               memory, and busy time and idle share from a profiled rerun at
@@ -243,12 +246,13 @@ line; any failure raises and the script exits non-zero.
               the plain version's and the torch.bmm sequence's forward +
               backward
   train-bf16  `python -m repro_torch.launch.train --arch qwen1.5-0.5b --full
-              --seq 4096 --steps 30 --lr 1e-4` in process (full width and depth,
-              bf16, SyntheticLM, checkpointing at steps 15 and 30): the
-              loss at step 29 below step 0's; median ms a step over steps
-              5-29, tokens/s, peak GB, model TFLOP/s; then olmoe-1b-7b cut
-              to 4 of 16 layers (~1.9 B parameters), 10 steps, the same
-              report and the MoE kernel's launches: layers x M x 2 a step
+              --seq 4096 --steps 16 --lr 1e-4` in process (full width and depth,
+              bf16, SyntheticLM, checkpointing at steps 8 and 16; 16 steps,
+              not 30, for the script's time): the loss at step 15 below
+              step 0's; median ms a step over steps 5-15, tokens/s, peak
+              GB, model TFLOP/s; then olmoe-1b-7b cut to 4 of 16 layers
+              (~1.9 B parameters), 10 steps, the same report and the MoE
+              kernel's launches: layers x M x 2 a step
               (each forward again in the backward's recomputation)
   train-ckpt  the checkpoint train-bf16 wrote restores into a fresh tree bit
               for bit; `--resume` loads it and starts below the fresh
@@ -275,13 +279,14 @@ line; any failure raises and the script exits non-zero.
               keep the script inside its time), bf16, T = 4,096, 10 steps at
               lr 1e-4,
               then jamba-1.5-large-398b cut to two MAMBA_MLP layers at full
-              width (~3.1 B with the embedding and head), 8 steps, both
+              width (~3.1 B with the embedding and head), 4 steps (the
+              script's time), both
               through `launch.train.train`: finite, falling losses, the
               train-bf16 report, and the scan kernels launched 0 times
 
   serve-ranks-f32  qwen2.5-14b at full width cut to 4 layers, f32, served
               over pp=2 x tp=2 ranks: four processes on the one card under
-              gloo (`launch.ranks.spawn`, `launch.serve.serve_rank`), each
+              gloo (`launch.ranks.spawn`, `torch_rank_jobs.serve_rank`), each
               holding one stage at its tensor shard (20:4 heads, d_ff 6,912)
               drawn from the seed as the whole tree draws it; 8 requests:
               greedy tokens equal to the single-process pp=2 engine's on
@@ -294,15 +299,30 @@ line; any failure raises and the script exits non-zero.
               and equals the one-process engine's outside its timing
               fields), async dispatch, two requests moved out mid-decode
               and finished in the one-process engine and one moved in, all
-              with the one-process engine's tokens
-  serve-ranks-bf16  qwen2.5-14b at full width cut to 16 of its 48 layers
-              (8 a stage; the script's time), bf16, pp=2 x tp=2 ranks,
+              with the one-process engine's tokens; then the serving stack
+              on the same shard (`ranks_f32_rank`): a spec built by
+              `serving.build(spec, ranks=)` into `LLMServer` over one rank
+              engine serves the batch's r0, r2 and r3, 8 tokens each
+              (the one-process engine's tokens up to the dense reference's
+              near-ties), then through `HTTPFrontend` on 127.0.0.1 streams
+              one of 8 tokens
+              (TTFT and the gaps between its tokens), aborts one
+              mid-stream (its pages back in the pool), waits past the idle
+              command's interval and serves one more; the spec with two
+              engines on the layout behind the balanced router serves the
+              8 requests, 8 tokens each, with one live-migrated mid-decode
+              between them (its state bytes per rank, the routed counts);
+              ms a tick per engine, the idle commands
+              sent, and paged attention on every rank once per layer of its
+              stage for each phase a tick of each engine runs
+  serve-ranks-bf16  qwen2.5-14b at full width cut to 4 of its 48 layers
+              (2 a stage; the script's time), bf16, pp=2 x tp=2 ranks,
               bucketed, eager and sync:
               serve-bf16's batch of 32 (4 at temperature 0.8, drawn by
               Gumbel-max over the vocab slices); every request finishes
               with valid tokens, launches as in serve-ranks-f32; output
               tokens/s and ms a tick beside serve-pp-bf16's pp=1 and pp=4
-              rows (24 layers); per rank host, device and
+              rows (8 layers); per rank host, device and
               collective time, bytes a tick per hop and per TP all-reduce,
               bytes staged through host memory, peak memory.  It measures
               the protocol's cost on one shared card (the ranks' kernels
@@ -323,8 +343,8 @@ line; any failure raises and the script exits non-zero.
               and cut depth, f32, over ranks on the card: minicpm3-4b
               (MLA_MLP, 4 layers), rwkv6-3b (RWKV, 4 layers) and jamba's
               first MAMBA_MLP layer at tp=2 in one launch, olmoe-1b-7b
-              (ATTN_MOE, 4 layers) and whisper-small (ENC_LAYER and
-              DEC_LAYER, whole, 1,500 encoder frames) at tp=4 in another;
+              (ATTN_MOE, 4 layers) and whisper-small (its first ENC_LAYER and
+              DEC_LAYER, 1,500 encoder frames) at tp=4 in another;
               each model's one-process engine serves 4 requests first (and
               is freed), on the weights the ranks draw; the ranks' greedy
               tokens equal its tokens and the dense reference's up to a
@@ -355,7 +375,10 @@ line; any failure raises and the script exits non-zero.
               replicas' pools, every rank exchanged expert rows, and every
               rank launches each kernel as `_launch_want` says; a second
               run moves r0's KV and Mamba state out of its replica, checked
-              as serve-tp-f32's rwkv6-3b move
+              as serve-tp-f32's rwkv6-3b move; the first run is traced: the
+              trace (its header naming both replicas' pools) replays
+              strictly on this host with the run's batches, each row's
+              replica and its tokens
   serve-ep-bf16  the kimi-k2 cut (its first ATTN_MOE layer, 384 experts,
               38.9 GB in bf16) at its published tp=2 and dp=2 (192 experts
               and ff 1,024 a rank, ~11 GB), bucketed, one batch of 16 at the
@@ -428,9 +451,10 @@ ARCH = "qwen1.5-0.5b"
 LAYERS = 24
 MOE_ARCH = "olmoe-1b-7b"
 MOE_F32_LAYERS = 4          # depth cut of the f32 serve (full: 16)
+MOE_BF16_LAYERS = 4         # and of the bf16 serve (the script's time)
 RWKV_ARCH = "rwkv6-3b"
 RWKV_F32_LAYERS = 4         # depth cut of the f32 serve (full: 32)
-RWKV_BF16_LAYERS = 8        # and of the bf16 serve (the script's time)
+RWKV_BF16_LAYERS = 4        # and of the bf16 serve (the script's time)
 JAMBA_ARCH = "jamba-1.5-large-398b"
 # depth cuts of jamba (72 layers, 870 GB in bf16): the first layer of each
 # kind; the f32 serve drops the MAMBA_MOE layer to fit (47.7 GB)
@@ -438,7 +462,7 @@ JAMBA_KINDS = ("mamba_mlp", "mamba_moe", "attn_moe")
 JAMBA_F32_KINDS = ("mamba_mlp", "attn_moe")
 PP = 4                      # pipeline stages of the serve-pp phases
 PP_ARCH = "qwen2.5-14b"     # the paper's evaluation model, 29.5 GB in bf16
-PP_LAYERS = 24              # serve-pp-bf16's cut of its 48 (the script's time)
+PP_LAYERS = 8               # serve-pp-bf16's cut of its 48 (the script's time)
 MAX_NEW = 16
 NEAR_TIE = 1e-3
 # the engines each serve phase runs, one after the other on one set of
@@ -1121,7 +1145,10 @@ def _serve_bf16(make, counted: dict, phase: str, keep: bool = False):
         if name != "eager":
             spec, eng = _spec(eng), None
             eng, build_s = _sibling(spec, **kw)
-        out = _serve_measured(eng, prompts, counted, phase, name)
+        # the profiler slows the eager engine's host ~4.6x (16.6 s against
+        # 3.6 s for serve-bf16's batch): only the graph variant reruns
+        out = _serve_measured(eng, prompts, counted, phase, name,
+                              profiled=name != "eager")
         out["engine_build_s"] = build_s
         out["capacity_factor"] = eng.cfg.moe_capacity_factor
         out["kinds"] = [b.kind.value for b in eng.cfg.pattern]
@@ -1793,11 +1820,11 @@ def phase_serve_olmoe_f32(pa, mg, greedy_trace) -> dict:
     return out
 
 
-def phase_serve_olmoe_bf16(pa, mg, build_engine) -> dict:
-    """serve-bf16's batch on full-width, full-depth olmoe-1b-7b."""
+def phase_serve_olmoe_bf16(pa, mg) -> dict:
+    """serve-bf16's batch on full-width olmoe-1b-7b cut to
+    MOE_BF16_LAYERS of its 16 layers."""
     return _serve_bf16(
-        lambda: build_engine(MOE_ARCH, device=DEV, dtype=torch.bfloat16,
-                             cuda_graphs=False),
+        lambda: _cut_engine(MOE_ARCH, MOE_BF16_LAYERS, cuda_graphs=False),
         {"paged_flash_attention": pa, "fused_moe_ffn": mg},
         "serve-olmoe-bf16")
 
@@ -2274,12 +2301,15 @@ def phase_serve_jamba_bf16(pa, mg, s6, build_engine) -> dict:
 
 # ------------------------------------------------- the remaining archs
 
-# serve-archs-f32: (arch, depth cut; 0 = full depth)
-ARCHS_F32 = (("minicpm3-4b", 4), ("whisper-small", 0), ("qwen2-vl-7b", 4),
-             ("internlm2-1.8b", 4))
+# serve-archs-f32: (arch, layers, kinds): cut to its first `layers`, or to
+# the first layer of each of `kinds`; whisper-small to one ENC_LAYER and one
+# DEC_LAYER of its 12 + 12 (the script's time)
+WHISPER_KINDS = ("enc_layer", "dec_layer")
+ARCHS_F32 = (("minicpm3-4b", 4, ()), ("whisper-small", 0, WHISPER_KINDS),
+             ("qwen2-vl-7b", 4, ()), ("internlm2-1.8b", 4, ()))
 KIMI_ARCH = "kimi-k2-1t-a32b"
 LLAMA_ARCH = "llama3.1-100b"
-LLAMA_LAYERS = 16           # of 96: ~32 GB of bf16 weights, 4 a stage at PP
+LLAMA_LAYERS = 8            # of 96: ~16 GB of bf16 weights, 2 a stage at PP
 # minicpm3-4b, of 62: its plain f32 MLA makes it the slowest serve at full
 # depth (~70 s of ~880 in a full run of this script), cut to keep the
 # script inside its time limit on the slower hosts (full depth: PERF.md §5)
@@ -2288,7 +2318,7 @@ MINICPM_BF16_LAYERS = 8
 ARCHS_BF16 = ("minicpm3-4b", "whisper-small", "qwen2-vl-7b",
               "internlm2-1.8b", KIMI_ARCH, LLAMA_ARCH)
 BIG_ARCH = "qwen2.5-32b"    # the paper's mid-size model, 65.5 GB in bf16
-BIG_LAYERS = 16             # served cut to 16 of its 64 (the script's time)
+BIG_LAYERS = 8              # served cut to 8 of its 64 (the script's time)
 # the archs whose attention runs (partly) as plain PyTorch: their
 # serve-archs-bf16 line gets a profiled rerun for busy time and idle share
 PROFILED_ARCHS = ("minicpm3-4b", "whisper-small")
@@ -2302,10 +2332,10 @@ def phase_serve_archs_f32(pa, greedy_trace) -> dict:
     port's dense reference up to a near-tie; paged attention once per layer
     and phase (DEC_LAYER's self-attention; none for MLA)."""
     rows = {}
-    for arch, layers in ARCHS_F32:
+    for arch, layers, kinds in ARCHS_F32:
         t0 = time.perf_counter()
         runs, eng, last = _f32_variants(
-            "serve-archs-f32", lambda: _f32_engine(arch, layers),
+            "serve-archs-f32", lambda: _f32_engine(arch, layers, kinds),
             lambda e: _two_waves(e, 23, 8), {"paged_flash_attention": pa})
         serve_s = time.perf_counter() - t0
         compared, near_ties = _match_reference(
@@ -2452,6 +2482,9 @@ def _archs_engine(arch: str, build_engine):
               async_dispatch=True)
     if arch == KIMI_ARCH:
         return build_engine(arch, cut=[BlockKind.ATTN_MOE], **kw)
+    if arch == "whisper-small":
+        return build_engine(arch, cut=[BlockKind(k) for k in WHISPER_KINDS],
+                            **kw)
     cuts = {LLAMA_ARCH: (LLAMA_LAYERS, PP),
             MINICPM_ARCH: (MINICPM_BF16_LAYERS, 1)}
     if arch not in cuts:
@@ -2509,6 +2542,8 @@ def phase_serve_archs_bf16(pa, mg, build_engine) -> dict:
 # ------------------------------------------------------- router phases
 
 PREFIX_TOKENS = 1024          # the prefix-caching run's shared head: 64 pages
+ROUTER_LAYERS = 8             # serve-router-f32's cut of qwen's 24 (the
+                              # script's time)
 ROUTER_MIGRATIONS = 2         # forced mid-decode moves (and one mid-prefill)
 
 
@@ -2734,8 +2769,8 @@ def _http_stream_and_abort(srv, prompt, greedy_trace) -> dict:
 
 
 def phase_serve_router_f32(pa, greedy_trace) -> dict:
-    """Full-width, full-depth qwen1.5-0.5b in f32, two bucketed async graph
-    replicas on the card behind the balanced router, built by
+    """Full-width qwen1.5-0.5b cut to ROUTER_LAYERS, f32, two bucketed async
+    graph replicas on the card behind the balanced router, built by
     `repro_torch.serving.build`, three times from one seed: live migration,
     disaggregated hand-off, prefix caching with the HTTP frontend."""
     import dataclasses
@@ -2746,13 +2781,15 @@ def phase_serve_router_f32(pa, greedy_trace) -> dict:
     counted = {"paged_flash_attention": pa}
     engine = EngineSpec(arch=ARCH, reduced=False, bucketed=True,
                         dispatch="async")
-    out = {"phase": "serve-router-f32", "arch": ARCH, "layers": LAYERS,
+    out = {"phase": "serve-router-f32", "arch": ARCH,
+           "layers": ROUTER_LAYERS,
            "replicas": 2, "max_new_tokens": MAX_NEW}
 
     def run(name, spec, serve):
         t0 = time.perf_counter()
         _free()
-        srv = build(spec, device=DEV, dtype=torch.float32)
+        srv = build(spec, device=DEV, dtype=torch.float32,
+                    layers=ROUTER_LAYERS)
         build_s = time.perf_counter() - t0
         watch = _Replicas(srv.replicas, counted)
         t1 = time.perf_counter()
@@ -2987,7 +3024,7 @@ def phase_serve_router_bf16(pa) -> dict:
 # ---------------------------------------------------------- train phases
 
 TRAIN_SEQ = 4096            # tokens a sequence; M = 2 micro-batches of 1
-TRAIN_STEPS = 30
+TRAIN_STEPS = 16            # of qwen's bf16 run (30 until the script's time)
 # Adam's rate of the bf16 runs: at the launcher's default 1e-3 (the JAX
 # launcher's, sized for the reduced CPU models) full-depth qwen1.5-0.5b,
 # with no warmup, rises over 30 steps in f32 as in bf16 (12.14 to 12.18
@@ -3264,7 +3301,8 @@ def phase_train_bf16(mg, ckpt_dir: Path) -> dict:
     t0 = time.perf_counter()
     run = train_lib.main(["--arch", ARCH, "--full", "--seq", str(TRAIN_SEQ),
                           "--steps", str(TRAIN_STEPS), "--lr", str(TRAIN_LR),
-                          "--ckpt", str(ckpt_dir), "--ckpt-every", "15"])
+                          "--ckpt", str(ckpt_dir),
+                          "--ckpt-every", str(TRAIN_STEPS // 2)])
     launches = {m.__name__.split(".")[-1]: m.launches for m in ops.COUNTED}
     cfg = _train_cfg(ARCH, 24, "bfloat16")
     qwen = {"arch": ARCH, "layers": 24, "steps": TRAIN_STEPS,
@@ -3379,7 +3417,7 @@ RWKV_TRAIN_LAYERS = 4       # full-width rwkv6-3b's depth cut in f32
 RWKV_BF16_TRAIN_LAYERS = 8   # and in bf16 (of 32: the script's time)
 RWKV_TRAIN_STEPS = 10
 JAMBA_TRAIN_LAYERS = 2      # jamba cut to two MAMBA_MLP layers (of 36)
-JAMBA_TRAIN_STEPS = 8
+JAMBA_TRAIN_STEPS = 4       # (8 until the script's time)
 # the train forms' check: (B or S, T, H, D) for WKV6 (rwkv6-3b's head of
 # 64), (S, T, di, ds) for Mamba (jamba's d_state); T = 300: four 64-token
 # chunks and a partial one
@@ -3556,7 +3594,7 @@ RANK_TRAIN_SEQ = 1024       # tokens a sequence, one a data rank
 RANK_TRAIN_STEPS = 3
 # depth cuts that keep the script inside its time: serve-ranks-bf16's
 # qwen2.5-14b (of 48) and train-ranks' bf16 qwen1.5-0.5b (of 24)
-RANK_BF16_LAYERS = 16
+RANK_BF16_LAYERS = 4
 RANK_TRAIN_BF16_LAYERS = 12
 # the rank engine's state in and out (serve-ranks-f32's further runs): the
 # prefix run's sharing requests arrive at this step, after the first's
@@ -3569,6 +3607,24 @@ RANK_STATE_PROMPT = 200     # the async and migration runs' prompts, cut
 RANK_STATE_MAX_NEW = 8      # tokens a request in the state runs
 RANK_MOVE_STEP = 12
 MOVE_TOL = 1e-3
+# the serving stack over the ranks (serve-ranks-f32's spec runs, ~52 s on a
+# slow host at the batch's 8 prompts and 16 tokens, hence): the one-engine
+# run's first prompts (the 1,500-token one among them), the tokens a
+# request in its batch, the router run and the HTTP stream, and after the
+# idle wait;
+# the idle command's interval (well under the launch's group timeout,
+# which is its budget), the idle wait that outlasts it, the request the
+# router run migrates once it holds 2 tokens, the aborted HTTP stream's
+# token budget
+# the batch's prompts the spec's one engine serves: r0, r2 and r3, not the
+# 1,500-token r1, which the router run migrates
+RANK_SPEC_ONE = (0, 2, 3)
+RANK_SPEC_NEW = 8
+RANK_IDLE_NEW = 4
+RANK_IDLE_S = 1.0
+RANK_IDLE_WAIT_S = 2.5
+RANK_MIGRATE = "r1"
+RANK_VICTIM_TOKENS = 400
 # each launch's wall budget (spawn, rendezvous, weights, serving)
 RANK_BUDGET_S = {"serve-ranks-f32": 360, "serve-ranks-bf16": 420,
                  "train-ranks": 240, "serve-tp-f32": 240,
@@ -3743,6 +3799,222 @@ def _record_ticks(eng) -> list:
     return ticks
 
 
+def ranks_f32_rank(ranks, job: dict) -> dict:
+    """serve-ranks-f32's rank function (`launch.ranks.spawn` pickles it by
+    name): `torch_rank_jobs.serve_rank`'s runs, then the serving stack's two
+    runs (`_spec_rank`) on the same shard."""
+    from torch_rank_jobs import job_shard, serve_runs
+
+    dev, dtype, params, keys = job_shard(ranks, job)
+    runs = serve_runs(ranks, job, dev, dtype, params)
+    spec = [_spec_rank(ranks, job, name, params, dev)
+            for name in ("one", "router")]
+    return {**keys, "runs": runs, "spec": spec}
+
+
+def _counts_now() -> dict:
+    from repro_torch.kernels import ops
+    return {m.__name__.split(".")[-1]: m.launches for m in ops.COUNTED}
+
+
+def _spec_rank(ranks, job: dict, name: str, params, dev) -> dict:
+    """One spec run on this rank: rank 0 builds the server with
+    `serving.build(spec, ranks=)` on the rank's shard (its counters at 0
+    on every rank) and drives it (`_spec_one`, `_spec_router`); the others
+    serve through `serving.build.serve_worker`.  Every rank returns its
+    launches and, per engine, its rank stats."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.serving import ServeSpec
+    from repro_torch.serving.build import build, serve_worker
+
+    sj = job["spec_job"]
+    spec = ServeSpec.from_json(sj[name])
+    kw = dict(device=dev, dtype=torch.float32, layers=sj["layers"],
+              params=params)
+    if ranks.rank:
+        stats = serve_worker(spec, ranks, **kw)
+        return {"rank_stats": stats, "launches": _counts_now(),
+                "traffic": coll.TRAFFIC.snapshot()}
+    t0 = time.perf_counter()
+    srv = build(spec, ranks=ranks, cuda_graphs=False, idle_s=sj["idle_s"],
+                **kw)
+    with srv:
+        build_s = time.perf_counter() - t0
+        srv.replicas[0].backend.reset_counters()
+        out = (_spec_one if name == "one" else _spec_router)(srv, sj)
+        torch.cuda.synchronize(dev)
+        out.update(
+            build_s=build_s, cfg_equal=srv.cfg == job["cfg"],
+            idle_sent=srv.idle_sent,
+            engines=[{"ticks": e.stats.ticks,
+                      "prefill_ticks": e.stats.prefill_ticks,
+                      "decode_ticks": e.stats.decode_ticks,
+                      "rank_stats": e.backend.rank_stats.as_dict()}
+                     for e in srv.replicas])
+    out.update(launches=_counts_now(), traffic=coll.TRAFFIC.snapshot())
+    return out
+
+
+def _spec_batch(srv, prompts: list, max_new: int, which) -> list:
+    """Prompt ``i`` of `prompts` as request ``r{i}`` for each i of
+    `which`."""
+    from repro_torch.core import SamplingParams
+
+    return [srv.submit(prompts[i], SamplingParams(max_new_tokens=max_new),
+                       request_id=f"r{i}") for i in which]
+
+
+def _spec_one(srv, sj: dict) -> dict:
+    """The spec's one rank engine: the batch to the end; then through
+    `HTTPFrontend` on 127.0.0.1 one request streamed (TTFT and the gaps
+    between its tokens on the client's clock), one aborted mid-stream from
+    a second connection (its pages back in the pool), an idle wait past
+    the idle interval, and a request served after it."""
+    import threading
+    import urllib.request
+
+    from repro_torch.serving import HTTPFrontend
+
+    t0 = time.perf_counter()
+    rids = _spec_batch(srv, sj["prompts"], RANK_SPEC_NEW, RANK_SPEC_ONE)
+    srv.drain()
+    torch.cuda.synchronize()
+    out = {"wall_s": time.perf_counter() - t0,
+           "tokens": [o.token_ids for o in srv.outputs(rids)]}
+    eng, prompt = srv.replicas[0], sj["prompts"][0]
+    fe = HTTPFrontend(srv, host="127.0.0.1", port=0).start()
+    try:
+        url = fe.url + "/v1/generate"
+        t1 = time.perf_counter()
+        frames, at = [], []
+        for f in _sse(url + "?stream=1", {"prompt": prompt,
+                                          "max_new_tokens": RANK_SPEC_NEW}):
+            frames.append(f)
+            at.append(time.perf_counter())
+        out["http"] = {
+            "tokens": [f["token"] for f in frames if f["token"] is not None],
+            "end": frames[-1]["finish_reason"], "ttft_s": at[0] - t1,
+            "gaps_s": [b - a for a, b in zip(at, at[1:])]}
+        free = eng.kv.num_free_pages
+        victim = _sse(url + "?stream=1", {
+            "prompt": prompt, "max_new_tokens": RANK_VICTIM_TOKENS,
+            "request_id": "victim"})
+        first = next(victim)
+
+        def abort():
+            urllib.request.urlopen(urllib.request.Request(
+                fe.url + "/v1/requests/victim", method="DELETE"),
+                timeout=120).read()
+
+        aborter = threading.Thread(target=abort)
+        aborter.start()
+        rest = [first] + list(victim)
+        aborter.join(timeout=120)
+        out["abort"] = {"end": rest[-1]["finish_reason"],
+                        "frames": len(rest),
+                        "pages_back": eng.kv.num_free_pages == free
+                        and not eng.kv.has_request("victim")}
+        sent = srv.idle_sent
+        time.sleep(sj["idle_wait"])
+        out["idle"] = {"interval_s": sj["idle_s"], "wait_s": sj["idle_wait"],
+                       "sent_in_wait": srv.idle_sent - sent}
+        req = urllib.request.Request(url, method="POST", data=json.dumps(
+            {"prompt": prompt, "max_new_tokens": RANK_IDLE_NEW}).encode())
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            out["idle"]["tokens_after"] = json.loads(resp.read())["token_ids"]
+    finally:
+        fe.shutdown()
+    return out
+
+
+def _spec_router(srv, sj: dict) -> dict:
+    """The spec's two rank engines behind the balanced router: the batch,
+    `RANK_MIGRATE` live-migrated to the other engine once it holds 2
+    tokens, to the end."""
+    router = srv.router
+    t0 = time.perf_counter()
+    rids = _spec_batch(srv, sj["prompts"], RANK_SPEC_NEW,
+                       range(len(sj["prompts"])))
+    req = srv._requests[RANK_MIGRATE]
+    moved = None
+    for _ in range(100000):
+        if moved is None and req.num_output_tokens >= 2:
+            src = _where(router, RANK_MIGRATE)
+            t1 = time.perf_counter()
+            if router.migrate_request(RANK_MIGRATE, src, 1 - src):
+                moved = {"src": src, "dst": 1 - src,
+                         "tokens_at_move": req.num_output_tokens,
+                         "s": time.perf_counter() - t1}
+        if not srv.has_work:
+            break
+        srv.step()
+    torch.cuda.synchronize()
+    return {"wall_s": time.perf_counter() - t0,
+            "tokens": [o.token_ids for o in srv.outputs(rids)],
+            "routed": list(router.routed_counts), "moved": moved,
+            "migrated": router.rebalance_stats.migrated,
+            "finished_on": [sorted(r.request_id for r in e.finished)
+                            for e in router.replicas]}
+
+
+def _spec_checks(out: list, cfg, single: list, stops: list) -> dict:
+    """serve-ranks-f32's spec runs against the one-process engine's tokens
+    (up to each prompt's near-tie `stops`), and each rank's paged-attention
+    launches against `_launch_want` summed over the engines."""
+    runs = [o["spec"] for o in out]
+    one, router = runs[0]
+    row, bad = {}, []
+
+    def same(name, got, i, n):
+        k = min(stops[i], n)
+        if got[:k] != single[i][:k] or len(got) != n:
+            bad.append({"run": name, "request": i, "got": got,
+                        "single": single[i], "compared": k})
+
+    for k, (name, run, which) in enumerate((
+            ("one", one, RANK_SPEC_ONE),
+            ("router", router, range(len(single))))):
+        for i, t in zip(which, run["tokens"], strict=True):
+            same(name, t, i, RANK_SPEC_NEW)
+        # once per layer of the rank's stage for each phase a tick runs,
+        # summed over the engines
+        want = cfg.layers_per_stage * sum(
+            e["prefill_ticks"] + e["decode_ticks"] for e in run["engines"])
+        got = {o["rank"]: o["spec"][k]["launches"]["paged_attention"]
+               for o in out}
+        stats = [e["rank_stats"] for e in run["engines"]]
+        row[name] = {
+            "engines": len(run["engines"]), "wall_s": run["wall_s"],
+            "build_s": run["build_s"], "cfg_equal": run["cfg_equal"],
+            "ticks": [e["ticks"] for e in run["engines"]],
+            "ms_per_tick": [st["tick_s"] / max(st["ticks"], 1) * 1e3
+                            for st in stats],
+            "launches": {"want_per_rank": want, "per_rank": got,
+                         "ok": all(n == want for n in got.values())},
+            "idle_sent": run["idle_sent"]}
+    h, ab, idle = one["http"], one["abort"], one["idle"]
+    same("http", h["tokens"], 0, RANK_SPEC_NEW)
+    same("idle", idle["tokens_after"], 0, RANK_IDLE_NEW)
+    row["one"]["http"] = {"ttft_s": h["ttft_s"], "gaps_s": h["gaps_s"],
+                          "mean_gap_s": float(np.mean(h["gaps_s"])),
+                          "end": h["end"], "abort": ab}
+    row["one"]["idle"] = idle
+    row["router"].update(
+        routed=router["routed"], moved=router["moved"],
+        migrated=router["migrated"],
+        state_bytes_per_rank=[o["spec"][1]["traffic"]["bytes"].get(
+            "state", 0) for o in out])
+    ok = (not bad and h["end"] == "length" and ab["end"] == "abort"
+          and ab["pages_back"] and idle["sent_in_wait"] >= 1
+          and router["migrated"] == 1
+          and sum(router["routed"]) == len(router["tokens"]) == len(single)
+          and RANK_MIGRATE in router["finished_on"][router["moved"]["dst"]]
+          and all(row[n]["launches"]["ok"] and row[n]["cfg_equal"]
+                  for n in ("one", "router")))
+    row.update(ok=ok, bad=bad)
+    return row
+
+
 def phase_serve_ranks_f32(greedy_trace) -> dict:
     """serve-f32's batch on qwen2.5-14b cut to 4 layers in f32, over pp=2 x
     tp=2 ranks, against the single-process pp=2 engine on the same weights
@@ -3758,10 +4030,11 @@ def phase_serve_ranks_f32(greedy_trace) -> dict:
     equals that run's trace outside its timing fields."""
     from repro_torch.core import ThrottleConfig
     from repro_torch.launch.mesh import rank_layout
-    from repro_torch.launch.serve import FULL_DIMS, move_in, serve_rank
+    from repro_torch.launch.serve import FULL_DIMS, move_in
     from repro_torch.models.transformer import init_params
     from repro_torch.runtime.engine import PipelineEngine
     from repro_torch.runtime.trace import Trace, replay_trace
+    from repro_torch.serving import ClusterSpec, EngineSpec, ServeSpec
 
     phase = "serve-ranks-f32"
     t0 = time.perf_counter()
@@ -3814,8 +4087,18 @@ def phase_serve_ranks_f32(greedy_trace) -> dict:
     del eng
     _free()
     t1 = time.perf_counter()
+    # the serving stack's runs: the spec of one engine and of two behind
+    # the balanced router, built over the ranks on the same shard
+    engine_spec = EngineSpec(arch=RANK_ARCH, reduced=False)
+    spec_job = dict(
+        one=ServeSpec(engine=engine_spec).to_json(),
+        router=ServeSpec(engine=engine_spec,
+                         cluster=ClusterSpec(replicas=2)).to_json(),
+        prompts=prompts, layers=RANK_F32_LAYERS, idle_s=RANK_IDLE_S,
+        idle_wait=RANK_IDLE_WAIT_S)
     job = dict(cfg=cfg, dims=FULL_DIMS, throttle=throttle, prompts=prompts,
                max_new=MAX_NEW, device=DEV, dtype="float32", seed=0,
+               spec_job=spec_job,
                runs=[{},
                      dict(prompts=pre, arrive=arrive, max_new=n_new,
                           enable_prefix_caching=True, trace_out=rank_trace),
@@ -3824,9 +4107,9 @@ def phase_serve_ranks_f32(greedy_trace) -> dict:
                           export={"r1": RANK_MOVE_STEP,
                                   "r2": RANK_MOVE_STEP}),
                      dict(prompts=[], max_new=n_new, imports=[into])])
-    runs = _flat_runs(_spawn_ranks(serve_rank,
-                                   rank_layout(1, RANK_PP, RANK_TP), job,
-                                   phase))
+    raw = _spawn_ranks(ranks_f32_rank, rank_layout(1, RANK_PP, RANK_TP),
+                       job, phase)
+    runs = _flat_runs(raw)
     ranks_s = time.perf_counter() - t1
     out = runs[0]
     head = out[0]
@@ -3926,7 +4209,9 @@ def phase_serve_ranks_f32(greedy_trace) -> dict:
            "single_ticks": len(ticks), "single_s": single_s,
            "ranks_s": ranks_s, "wall_s": head["wall_s"],
            "per_rank": _rank_rows(out, head["stats"]["ticks"]),
-           "state": state}
+           "state": state,
+           "spec": _spec_checks(raw, cfg, single,
+                                [stop_of(g) for _, g in traces])}
     try:
         row["launches"] = _rank_launches_ok(out, cfg)
     finally:
@@ -3942,6 +4227,9 @@ def phase_serve_ranks_f32(greedy_trace) -> dict:
             and move_ok):
         raise AssertionError(f"{phase}: a state run disagrees with the "
                              f"one-process engine: {state}")
+    if not row["spec"]["ok"]:
+        raise AssertionError(f"{phase}: the serving stack over the ranks "
+                             f"disagrees: {row['spec']}")
     return row
 
 
@@ -3951,7 +4239,8 @@ def phase_serve_ranks_bf16(pp_rows: dict) -> dict:
     sync."""
     from repro_torch.core import ThrottleConfig
     from repro_torch.launch.mesh import rank_layout
-    from repro_torch.launch.serve import FULL_DIMS, serve_rank
+    from repro_torch.launch.serve import FULL_DIMS
+    from torch_rank_jobs import serve_rank
 
     phase = "serve-ranks-bf16"
     t0 = time.perf_counter()
@@ -4126,10 +4415,11 @@ def phase_train_ranks() -> dict:
 # serve-tp-f32's models, full width, f32: (arch, tp, layers, kinds), a
 # uniform pattern cut to its first `layers` layers, jamba to its first
 # MAMBA_MLP layer (`cut_to_kinds`; 8.3 GB with its embedding and head),
-# whisper-small whole (24 layers, 1.0 GB); olmoe's 4 layers are 7.5 GB
+# whisper-small to its first ENC_LAYER and DEC_LAYER; olmoe's 4 layers are
+# 7.5 GB
 TP_F32 = (("minicpm3-4b", 2, 4, ()), ("rwkv6-3b", 2, 4, ()),
           (JAMBA_ARCH, 2, 0, ("mamba_mlp",)),
-          (MOE_ARCH, 4, 4, ()), ("whisper-small", 4, 0, ()))
+          (MOE_ARCH, 4, 4, ()), ("whisper-small", 4, 0, WHISPER_KINDS))
 TP_MAX_NEW = 8
 # the request-state move of serve-tp-f32 (r0 taken off its rank engine
 # once it holds 3 tokens, in a second run of the same spawn)
@@ -4329,7 +4619,7 @@ def phase_tp(greedy_trace) -> dict:
     from repro_torch.data.tokens import batches
     from repro_torch.launch import ranks as rk
     from repro_torch.launch.mesh import rank_layout
-    from repro_torch.launch.serve import serve_rank
+    from torch_rank_jobs import serve_rank
     from repro_torch.launch.train import train_rank
     from repro_torch.models.reference import dense_forward
     from repro_torch.models.transformer import cross_entropy, init_params
@@ -4489,6 +4779,9 @@ def _idle_replica_ticks(homes) -> int:
                and len(set(h[0]) | set(h[1])) == 1)
 
 
+EP_TRACE = ROOT / "build" / "ranks" / "ep-f32.trace.jsonl"
+
+
 def _ep_f32_job(jamba: dict) -> dict:
     """serve-ep-f32's job: serve-jamba-f32's cut (MAMBA_MLP and ATTN_MOE,
     f32) on its weights (the rank draw is the slice of the whole tree's)
@@ -4501,11 +4794,36 @@ def _ep_f32_job(jamba: dict) -> dict:
     cfg = jamba["cfg"].with_plan(tp=EP_TP)
     cfg = dataclasses.replace(cfg,
                               moe_capacity_factor=ep_dropless_cf(cfg, EP_DP))
+    EP_TRACE.parent.mkdir(parents=True, exist_ok=True)
+    EP_TRACE.unlink(missing_ok=True)
     return dict(cfg=cfg, dims=jamba["dims"],
                 throttle=ThrottleConfig(pipeline_depth=1),
                 prompts=jamba["prompts"], max_new=jamba["max_new_tokens"],
                 device=DEV, dtype="float32", seed=0,
-                runs=[{}, dict(export={"r0": {"tokens": 3}})])
+                runs=[dict(trace_out=str(EP_TRACE)),
+                      dict(export={"r0": {"tokens": 3}})])
+
+
+def _ep_trace(head: dict) -> dict:
+    """The traced dp=2 run's trace, replayed strictly on this host: its
+    header's pools, its ticks' rows' replicas against the ones the run
+    recorded, the replay's tokens against the run's."""
+    from repro_torch.runtime.trace import Trace, replay_trace
+
+    trace = Trace.load(str(EP_TRACE))
+    t0 = time.perf_counter()
+    report = replay_trace(trace)
+    kv = trace.header["kv"]
+    out = {"ticks": len(trace.ticks), "bytes": EP_TRACE.stat().st_size,
+           "replicas": kv.get("replicas"), "pool_pages": kv.get("pool_pages"),
+           "replay_s": time.perf_counter() - t0,
+           "replicas_equal": [t.get("replicas") for t in trace.ticks]
+           == head["replicas"],
+           "tokens_equal": report.outputs() == {
+               f"r{i}": t for i, t in enumerate(head["tokens"])}}
+    out["ok"] = (out["replicas"] == EP_DP and out["replicas_equal"]
+                 and out["tokens_equal"])
+    return out
 
 
 def _ep_f32_row(job: dict, jamba: dict, out: list) -> dict:
@@ -4545,12 +4863,13 @@ def _ep_f32_row(job: dict, jamba: dict, out: list) -> dict:
            "peak_gb_per_rank": [_gb(o["peak_bytes"]) for o in out],
            "per_rank": _rank_rows(out, head["stats"]["ticks"])}
     try:
+        row["trace"] = _ep_trace(head)
         row["launches"] = _tp_launches(out, cfg)
     finally:
         emit(row)
     ran_ep = all(o["rank_stats"]["traffic"]["bytes"].get("ep", 0) > 0
                  for o in out)
-    if bad or not (row["ticks_equal_replay"]
+    if bad or not (row["ticks_equal_replay"] and row["trace"]["ok"]
                    and row["replicas_equal_replay"] and ran_ep):
         raise AssertionError(f"serve-ep-f32: tokens or ticks differ from "
                              f"the one-process engine's and the replay's, "
@@ -4654,7 +4973,7 @@ def phase_ep(jamba: dict) -> dict:
     with Adam's two f32 moments are ~3 x 38.9 GB over the four ranks."""
     from repro_torch.launch import ranks as rk
     from repro_torch.launch.mesh import rank_layout
-    from repro_torch.launch.serve import serve_rank
+    from torch_rank_jobs import serve_rank
     from repro_torch.launch.train import train_rank
     from repro_torch.models.reference import dense_forward
     from repro_torch.models.transformer import cross_entropy, init_params
@@ -4761,6 +5080,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False    # f32 means f32
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, str(ROOT / "src"))
+    # the rank phases' batch runs (`torch_rank_jobs.serve_rank`), which
+    # the CPU tests share; spawned ranks inherit this path
+    sys.path.insert(0, str(ROOT / "tests"))
     try:
         from repro_torch.kernels import build
         from repro_torch.kernels import mamba_scan as s6
@@ -4801,7 +5123,7 @@ def main() -> int:
     moe_shapes = phase_moe_kernel(mg, planted[MOE_PLANTED],
                                   planted[MOE_TF32_PLANTED])
     phase_serve_olmoe_f32(pa, mg, greedy_trace)
-    olmoe = phase_serve_olmoe_bf16(pa, mg, build_engine)
+    olmoe = phase_serve_olmoe_bf16(pa, mg)
     rwkv_shapes = phase_rwkv_kernel(wkv, planted)
     phase_serve_rwkv_f32(wkv, greedy_trace)
     rwkv = phase_serve_rwkv_bf16(wkv, build_engine)

@@ -11,6 +11,7 @@ from repro_torch.configs.base import (
     BlockKind,
     BlockSpec,
     ParallelPlan,
+    cut_to_depth,
     cut_to_kinds,
     make_reduced,
     single_stage,
@@ -50,6 +51,7 @@ __all__ = [
     "BlockKind",
     "BlockSpec",
     "ParallelPlan",
+    "cut_to_depth",
     "cut_to_kinds",
     "get_config",
     "list_archs",

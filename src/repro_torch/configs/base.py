@@ -297,6 +297,21 @@ def stage_config(cfg: ArchConfig, pp: int) -> ArchConfig:
     return replan(cfg, pp, 1)
 
 
+def cut_to_depth(cfg: ArchConfig, layers: int) -> ArchConfig:
+    """A depth cut: the first `layers` layers in the folded layer order, as
+    one stage (`single_stage`); widths stay.  qwen2.5-14b cut to 4 is
+    ``(ATTN_MLP, 4)``, ``num_layers=4``."""
+    order = _layer_kinds(cfg)
+    if not 0 < layers <= len(order):
+        raise ValueError(f"{cfg.name} has {len(order)} layers, not "
+                         f"{layers}")
+    return dataclasses.replace(cfg, pattern=_merged(order[:layers]),
+                               num_layers=layers,
+                               plan=ParallelPlan(
+                                   pp=1, tp=1,
+                                   ep_over_data=cfg.plan.ep_over_data))
+
+
 def cut_to_kinds(cfg: ArchConfig, kinds) -> ArchConfig:
     """A depth cut that fits one card: the first layer of each kind in
     `kinds`, in the folded layer order, as one stage (`single_stage`).

@@ -161,12 +161,15 @@ class AxisGroup:
 
 @dataclasses.dataclass
 class RankGroups:
-    """A rank's place in the layout and its groups, one per axis."""
+    """A rank's place in the layout and its groups, one per axis, and the
+    seconds a collective waits for its peers before it raises
+    (``timeout_s``; None: the backend's default)."""
 
     layout: Layout
     rank: int
     axes: Dict[str, AxisGroup]
     backend: str = "gloo"
+    timeout_s: Optional[float] = None
 
     @property
     def coords(self) -> Dict[str, int]:
@@ -207,4 +210,4 @@ def init_groups(layout: Layout, rank: int, backend: str = "gloo",
             if rank in line:
                 axes[name] = AxisGroup(name, tuple(line), line.index(rank),
                                        group)
-    return RankGroups(layout, rank, axes, backend)
+    return RankGroups(layout, rank, axes, backend, timeout_s)

@@ -54,11 +54,12 @@ def from_env(layout: Layout, backend: str,
     return init_groups(layout, rank, backend, group_timeout_s)
 
 
-def _entry(rank: int, fn: Callable, layout: Layout, store_dir: str,
-           backend: str, threads: Optional[int], group_timeout_s: float,
-           args: Sequence[Any]) -> None:
+def _entry(rank: int, layout: Layout, store_dir: str, backend: str,
+           threads: Optional[int], group_timeout_s: float) -> None:
     if threads:
         torch.set_num_threads(threads)
+    with open(os.path.join(store_dir, "call.pkl"), "rb") as f:
+        fn, args = pickle.load(f)
     ranks = init(rank, layout, os.path.join(store_dir, "store"), backend,
                  group_timeout_s)
     try:
@@ -81,9 +82,15 @@ def spawn(fn: Callable, layout: Layout, args: Sequence[Any] = (), *,
     own = store_dir is None
     store_dir = store_dir or tempfile.mkdtemp(prefix="ranks-")
     Path(store_dir).mkdir(parents=True, exist_ok=True)
+    # `fn` and `args` go through a file, not the pipe each process is
+    # started through: a start writes its arguments into that pipe, and
+    # once they outgrow the pipe's buffer the write waits until the child
+    # has imported its main module and reads them, which would start the
+    # ranks one after the other
+    with open(os.path.join(store_dir, "call.pkl"), "wb") as f:
+        pickle.dump((fn, tuple(args)), f)
     ctx = mp.start_processes(
-        _entry, args=(fn, layout, store_dir, backend, threads,
-                      group_timeout_s, tuple(args)),
+        _entry, args=(layout, store_dir, backend, threads, group_timeout_s),
         nprocs=layout.world, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout_s
     try:

@@ -43,6 +43,14 @@ serves the spec over HTTP instead of running the synthetic workload:
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
         --device cpu --http 0
 
+Over ranks (``--tp`` or ``--dp`` > 1, or ``--pp`` with a card a stage)
+the same spec is served by rank engines (`serving.build(spec, ranks=)`):
+``--replicas N`` puts N engines on the one layout of ranks behind the
+router, and ``--http`` serves them while the worker ranks wait:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --device cpu --pp 2 --tp 2 --replicas 2 --http 0
+
 ``--trace-out PATH`` records a replayable tick trace of the run (the JAX
 package's schema; per replica PATH.replicaN and PATH.router with
 ``--replicas N``; traced engines are synchronous, so it refuses
@@ -70,7 +78,6 @@ card refuses whole:
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import math
 import time
@@ -81,6 +88,7 @@ import torch
 
 from repro_torch.configs import (
     BlockKind,
+    cut_to_depth,
     cut_to_kinds,
     get_config,
     make_reduced,
@@ -161,12 +169,14 @@ def rank_weight_bytes(cfg, layout, rank: int, dtype: torch.dtype) -> int:
 def serve_config(arch: str = "qwen1.5-0.5b", *, reduced: bool = False,
                  dtype: Optional[torch.dtype] = None,
                  cut: Optional[Sequence[BlockKind]] = None,
-                 reduced_overrides: Optional[dict] = None, pp: int = 1):
+                 reduced_overrides: Optional[dict] = None, pp: int = 1,
+                 layers: int = 0):
     """(config, dtype) of the model `arch` serves: full width and depth in
     one stage (bf16 by default), or the reduced CPU-sized variant (f32,
     `make_reduced(**reduced_overrides)`).  `cut` names block kinds: the
     model is then cut in depth to the first layer of each
-    (`cut_to_kinds`).  `pp` > 1 stages the model again in `pp` stages
+    (`cut_to_kinds`); `layers` > 0 cuts it to its first `layers` layers
+    (`cut_to_depth`).  `pp` > 1 stages the model again in `pp` stages
     (`stage_config`): the folded depth for the published model, the
     reduced config's two stacked layers for the reduced one; a cut of
     several kinds, and a count that does not divide the stacked layers,
@@ -183,6 +193,8 @@ def serve_config(arch: str = "qwen1.5-0.5b", *, reduced: bool = False,
         cfg = single_stage(cfg)
     if cut:
         cfg = cut_to_kinds(cfg, cut)
+    if layers:
+        cfg = cut_to_depth(cfg, layers)
     if pp != cfg.plan.pp:
         cfg = stage_config(cfg, pp)
     dtype = dtype or getattr(torch, cfg.dtype)
@@ -317,200 +329,25 @@ def move_in(eng: PipelineEngine, moved: dict):
     return req
 
 
-def rank_shard(ranks, job: dict) -> tuple:
-    """This rank's device and dtype, its shard of the job's weights
-    (`rank_params`), and the keys every result of the rank carries:
-    ``(device, dtype, params, keys)``."""
+def rank_shard(ranks, cfg, *, device, dtype: torch.dtype, seed: int = 0,
+               npz: Optional[str] = None, params=None) -> tuple:
+    """This rank's device and its shard of `cfg`'s weights: on CUDA the
+    rank's own card (`mesh.rank_device`) unless `device` names one, made
+    the current device; `params` when given, else `rank_params`'s (drawn
+    from `seed`, or cut from the numpy tree at `npz`).  ``(device,
+    params)``."""
     from repro_torch.launch.mesh import rank_device
 
-    cfg = job["cfg"]
-    dtype = getattr(torch, job.get("dtype", cfg.dtype))
-    cuda = job.get("device", "cuda") == "cuda"
-    dev = torch.device(rank_device(
-        ranks.rank, "cuda" if cuda else "cpu",
-        torch.cuda.device_count() if cuda else 0))
-    if cuda:
-        torch.cuda.set_device(dev)
-    t0 = time.perf_counter()
-    params = rank_params(cfg, ranks, dtype=dtype, device=dev,
-                         seed=job.get("seed", 0), npz=job.get("npz"))
-    keys = {"rank": ranks.rank, "coords": ranks.coords,
-            "weight_bytes": sum(t.numel() * t.element_size()
-                                for t in params.parameters()),
-            "params_s": time.perf_counter() - t0}
-    return dev, dtype, params, keys
-
-
-def _device_counts(out: dict, dev: torch.device) -> dict:
-    """`out` with the kernels' launches and the run's peak memory."""
-    from repro_torch.kernels import ops
-
-    out["launches"] = {m.__name__.split(".")[-1]: m.launches
-                       for m in ops.COUNTED}
-    out["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
-                         if dev.type == "cuda" else None)
-    return out
-
-
-def follow_run(ranks, run: dict, params, dev: torch.device,
-               dtype: torch.dtype) -> dict:
-    """A rank other than 0's part of one run: it serves rank 0's commands
-    (`RankBackend.serve_loop`) until rank 0 stops it.  Its rank stats,
-    launches and peak memory."""
-    from repro_torch.runtime.engine import RankBackend
-
+    dev = torch.device(device)
     if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-    backend = RankBackend(run["cfg"], run["dims"], params, None, device=dev,
-                          dtype=dtype, seed=run.get("seed", 0),
-                          bucketed=run.get("bucketed", False), ranks=ranks)
-    return _device_counts({"rank_stats": backend.serve_loop().as_dict()},
-                          dev)
-
-
-@contextlib.contextmanager
-def leading(ranks, run: dict, params, dev: torch.device,
-            dtype: torch.dtype):
-    """Rank 0's `PipelineEngine(ranks=)` for one run, its counters at 0,
-    recording the entering batch of every tick (each prefill row's request,
-    start and length; each decode row's request) and each row's data
-    replica.  Yields ``(engine, requests, result)``: the caller drives the
-    engine and puts each of its requests in ``requests``.  On leaving, the
-    engine stops its ranks and closes its trace; on a clean exit
-    ``result`` then holds the tokens, whether each request finished, the
-    ticks and replicas, the engine's stats, its prefix hits and tokens,
-    the rank stats, the launches, the peak memory, the seconds to build the
-    engine and the wall time."""
-    cuda = dev.type == "cuda"
-    if cuda:
-        torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    eng = PipelineEngine(
-        run["cfg"], run["dims"], params, run["throttle"], device=dev,
-        dtype=dtype, seed=run.get("seed", 0),
-        bucketed=run.get("bucketed", False),
-        async_dispatch=run.get("async_dispatch", False),
-        enable_prefix_caching=run.get("enable_prefix_caching", False),
-        trace_path=run.get("trace_out"), cuda_graphs=False, ranks=ranks)
-    out = {"engine_s": time.perf_counter() - t0}
-    backend = eng.backend
-    ticks, homes = [], []
-    inner = backend.execute
-
-    def execute(ring, exiting_id, now):
-        b = (eng.scheduler.get_batch(ring[0][0])
-             if ring[0][0] is not None else None)
-        ticks.append(None if b is None else [
-            [[q.request.request_id, q.start_pos, q.num_tokens]
-             for q in b.prefill],
-            [q.request.request_id for q in b.decode]])
-        homes.append(None if b is None else [
-            [eng.kv.replica_of(q.request.request_id) for q in rows]
-            for rows in (b.prefill, b.decode)])
-        return inner(ring, exiting_id, now)
-
-    backend.execute = execute
-    backend.reset_counters()
-    reqs: list = [None] * len(run["prompts"])
-    t0 = time.perf_counter()
-    try:
-        yield eng, reqs, out
-    finally:
-        backend.stop()
-        if eng.recorder is not None:
-            eng.recorder.close()
-    if cuda:
-        torch.cuda.synchronize(dev)
-    out.update(
-        tokens=[r.output_token_ids for r in reqs],
-        finished=[r.is_finished for r in reqs], ticks=ticks,
-        replicas=homes, wall_s=time.perf_counter() - t0,
-        stats=dataclasses.asdict(eng.stats),
-        prefix=dict(hits=eng.scheduler.stats.prefix_hits,
-                    tokens=eng.scheduler.stats.prefix_tokens_avoided),
-        rank_stats=backend.rank_stats.as_dict())
-    _device_counts(out, dev)
-
-
-def _lead_run(ranks, run: dict, params, dev: torch.device,
-              dtype: torch.dtype) -> dict:
-    """Rank 0's part of one run of `serve_rank`."""
-    n = len(run["prompts"])
-    temps = run.get("temps") or [0.0] * n
-    encs = run.get("encs") or [None] * n
-    arrive = list(run.get("arrive") or [0] * n)
-    export = dict(run.get("export") or {})
-    moved, move_s, moved_in = [], [], []
-    with leading(ranks, run, params, dev, dtype) as (eng, reqs, out):
-        for m in run.get("imports") or ():
-            t1 = time.perf_counter()
-            moved_in.append(move_in(eng, m))
-            move_s.append(("in", time.perf_counter() - t1))
-        steps, limit = 0, run.get("max_ticks", 100000)
-        while steps < limit and (any(a is not None for a in arrive)
-                                 or eng.loop.has_work):
-            for i, a in enumerate(arrive):
-                if a is not None and steps >= a:
-                    reqs[i] = eng.add_request(
-                        run["prompts"][i], SamplingParams(
-                            max_new_tokens=run["max_new"],
-                            temperature=temps[i]),
-                        request_id=f"r{i}", **({} if encs[i] is None
-                                               else {"enc_embeds": encs[i]}))
-                    arrive[i] = None
-            for rid, at in list(export.items()):
-                req = reqs[int(rid[1:])]
-                if steps >= at if isinstance(at, int) else (
-                        req is not None
-                        and req.num_output_tokens >= at["tokens"]):
-                    t1 = time.perf_counter()
-                    m = move_out(eng, rid)
-                    if m is not None:
-                        if dev.type == "cuda":
-                            torch.cuda.synchronize(dev)
-                        move_s.append(("out", time.perf_counter() - t1))
-                        moved.append(m)
-                        del export[rid]
-            eng.step()
-            steps += 1
-    out.update(moved=moved, move_s=move_s,
-               moved_in={r.request_id: r.output_token_ids for r in moved_in})
-    return out
-
-
-def serve_rank(ranks, job: dict) -> dict:
-    """One rank of a served batch (`launch.ranks.spawn`'s `fn`).  `job`:
-    ``cfg`` (staged at pp = the layout's stages), ``dims``, ``throttle``,
-    ``prompts`` (request ``r{i}`` each), ``max_new``, optional ``temps``
-    (one per prompt), ``encs`` (an encoder-decoder's encoder input [Te, d]
-    per prompt) and ``arrive`` (the step each prompt is added at, default
-    0), ``device`` ("cuda" or "cpu"), ``dtype``, ``seed`` or ``npz``,
-    ``bucketed``, ``async_dispatch``, ``enable_prefix_caching``,
-    ``trace_out`` (rank 0's trace file), and moves: ``export`` ({request
-    id: step, or {"tokens": n}}: taken off the engine by `move_out` at the
-    first step from that step, or from when it holds n tokens, at which it
-    is not in flight) and ``imports`` (`move_out` moves, resumed by
-    `move_in` before the first step).  With ``runs``, a list of dicts of
-    those keys, each run overrides the job's keys and runs on the same
-    shard, one engine after the other.
-
-    Rank 0 drives a `PipelineEngine(ranks=)` over each run (`leading`) and
-    returns what `leading` records, the moves out (``moved``), the outputs
-    of the requests moved in (``moved_in``) and each move's seconds
-    (``move_s``); every other rank serves in `RankBackend.serve_loop`
-    (`follow_run`) and returns its rank stats, launches and peak memory.
-    Every rank also returns the seconds its shard took to draw
-    (`rank_shard`).  With ``runs``, each run's result is in ``runs``."""
-    dev, dtype, params, keys = rank_shard(ranks, job)
-    results = []
-    for over in job.get("runs") or [{}]:
-        run = {**job, **over}
-        results.append(follow_run(ranks, run, params, dev, dtype)
-                       if ranks.rank else
-                       _lead_run(ranks, run, params, dev, dtype))
-    if "runs" in job:
-        return {**keys, "runs": results}
-    return {**keys, **results[0]}
+        if dev.index is None:
+            dev = torch.device(rank_device(ranks.rank, "cuda",
+                                           torch.cuda.device_count()))
+        torch.cuda.set_device(dev)
+    if params is None:
+        params = rank_params(cfg, ranks, dtype=dtype, device=dev, seed=seed,
+                             npz=npz)
+    return dev, params
 
 
 def add_cut_argument(ap: argparse.ArgumentParser) -> None:
@@ -561,10 +398,12 @@ def ranks_asked(args, dp: int = 1) -> bool:
                      torch.cuda.device_count() if cuda else 0)
 
 
-def rank_launch(fn, layout, job: dict, args) -> list:
+def rank_launch(fn, layout, job: dict, args,
+                timeout_s: float = 600.0) -> list:
     """Run ``fn(ranks, job)`` on every rank of `layout`: under torchrun
     (``RANK`` set) as this process's rank, whose result alone is returned
-    (None on the other ranks), else one spawned process a rank."""
+    (None on the other ranks), else one spawned process a rank, which
+    `timeout_s` ends."""
     import os
 
     from repro_torch.launch import ranks as rk
@@ -583,55 +422,63 @@ def rank_launch(fn, layout, job: dict, args) -> list:
             dist.destroy_process_group()
         return [out] if ranks.rank == 0 else None
     return rk.spawn(fn, layout, (job,), backend=backend,
-                    store_dir=args.store,
-                    threads=None if cuda else 1)
+                    store_dir=args.store, threads=None if cuda else 1,
+                    timeout_s=timeout_s)
 
 
-def _serve_ranks(args) -> None:
-    """The launcher's workload over dp x pp x tp ranks (`serve_rank`): one
-    engine whose scheduler places each request in one of dp data
-    replicas; ``--async`` and ``--trace-out`` (at dp = 1) as at one
-    rank."""
+def serve_spec_rank(ranks, job: dict) -> dict:
+    """One rank of the launcher's spec over a layout of ranks
+    (`rank_launch`'s fn).  `job`: ``spec`` (its JSON), ``device``,
+    ``dtype`` (a name or None), ``cut`` (`--cut`'s text), ``pp``,
+    ``http`` (a port or None) and the synthetic workload's ``requests``,
+    ``max_new`` and ``seed``.  Rank 0 builds the server
+    (`serving.build(spec, ranks=)`, eager) and serves the workload
+    (`serve_workload`: its finished and submitted requests) or HTTP
+    (`serve_http`) and closes it, which ends the others, which serve
+    through `serving.serve_worker` (their rank stats)."""
+    from repro_torch.serving import ServeSpec, build
+    from repro_torch.serving.build import serve_worker
+
+    spec = ServeSpec.from_json(job["spec"])
+    kw = dict(device=job["device"], cut=parse_cut(job.get("cut")),
+              pp=job["pp"],
+              dtype=getattr(torch, job["dtype"]) if job.get("dtype")
+              else None)
+    if ranks.rank:
+        return {"rank_stats": serve_worker(spec, ranks, **kw)}
+    server = build(spec, ranks=ranks, cuda_graphs=False, **kw)
+    with server:
+        if job.get("http") is not None:
+            serve_http(server, spec, job["http"])
+            return {}
+        done, total = serve_workload(server, spec, job["requests"],
+                                     job["max_new"], job["seed"])
+    return {"done": done, "total": total}
+
+
+def _serve_ranks(args, spec) -> None:
+    """The launcher's spec over dp x pp x tp ranks (`serve_spec_rank`):
+    the synthetic workload or HTTP, as in one process, on rank engines;
+    ``--async`` with ``--trace-out`` is refused as there."""
     from repro_torch.launch.mesh import rank_layout
 
-    if args.spec or args.http is not None or args.replicas > 1:
-        raise SystemExit("serving over ranks runs the launcher's synthetic "
-                         "workload on one engine: --spec, --http and "
-                         "--replicas over ranks are not yet ported (ROADMAP "
-                         "Queue 1 item 6.7)")
     if args.trace_out and args.async_dispatch:
         raise SystemExit("--trace-out records a synchronous engine: drop "
                          "--async")
+    if spec.backend != "engine":
+        raise SystemExit(f"a {spec.backend!r} spec touches no device: "
+                         "serve it in one process (without --tp, --dp and "
+                         "--pp), not over ranks")
     dev = resolve_device(args.device)
-    dtype = getattr(torch, args.dtype) if args.dtype else None
-    cfg, dtype = serve_config(args.arch, reduced=args.reduced, dtype=dtype,
-                              cut=parse_cut(args.cut), pp=args.pp)
-    cfg = cfg.with_plan(tp=args.tp)
-    dims = serve_dims(cfg, args.reduced)
-    throttle = ThrottleConfig(pipeline_depth=args.pp, **(
-        REDUCED_THROTTLE if args.reduced else {}))
-    rng = np.random.default_rng(args.seed)
-    prompts = [[int(t) for t in rng.integers(
-        0, cfg.vocab_size, int(np.clip(rng.lognormal(3.0, 0.8), 4, 300)))]
-        for _ in range(args.requests)]
-    encs = [enc_inputs(cfg, dims, rng).get("enc_embeds") for _ in prompts]
     layout = rank_layout(args.dp, args.pp, args.tp)
-    job = dict(cfg=cfg, dims=dims, throttle=throttle, prompts=prompts,
-               encs=encs, max_new=args.max_new, device=dev.type,
-               dtype=str(dtype).split(".")[-1], seed=args.seed,
-               bucketed=args.bucketed, async_dispatch=args.async_dispatch,
-               trace_out=args.trace_out)
-    out = rank_launch(serve_rank, layout, job, args)
-    if out is None:
+    job = dict(spec=spec.to_json(), device=dev.type, dtype=args.dtype,
+               cut=args.cut, pp=args.pp, http=args.http,
+               requests=args.requests, max_new=args.max_new, seed=args.seed)
+    out = rank_launch(serve_spec_rank, layout, job, args,
+                      timeout_s=math.inf if args.http is not None else 600.0)
+    if out is None or args.http is not None:
         return
-    head = out[0]
-    done = sum(head["finished"])
-    toks = sum(len(t) for t in head["tokens"])
-    print(f"[{cfg.name} | {dev.type} {cfg.dtype}] {done}/{len(prompts)} "
-          f"requests, {toks} tokens in {head['wall_s']:.2f}s; "
-          f"ticks={head['stats']['ticks']} ranks={layout.world} "
-          f"(dp={args.dp} pp={args.pp} tp={args.tp})")
-    if done != len(prompts):
+    if out[0]["done"] != out[0]["total"]:
         raise SystemExit("not every request finished")
 
 
@@ -707,7 +554,8 @@ def main() -> None:
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="record a replayable tick trace of the run "
                     "(per-replica PATH.replicaN + PATH.router when N>1; "
-                    "synchronous engines only)")
+                    "synchronous engines only); with --spec it replaces "
+                    "the file's trace")
     ap.add_argument("--trace-replay", default=None, metavar="PATH",
                     help="strict-replay a recorded trace through the "
                     "scheduler instead of serving (builds no model)")
@@ -715,9 +563,6 @@ def main() -> None:
                     help="serve the spec over HTTP on PORT (0 = ephemeral) "
                     "instead of running the synthetic workload")
     args = ap.parse_args()
-    if ranks_asked(args, args.dp):
-        _serve_ranks(args)
-        return
 
     from repro_torch.serving import ServeSpec, TraceSpec, build
 
@@ -734,6 +579,9 @@ def main() -> None:
     if args.spec is not None:
         with open(args.spec) as fh:
             spec = ServeSpec.from_json(fh.read())
+        if args.trace_out is not None:
+            spec = dataclasses.replace(
+                spec, trace=TraceSpec(record=args.trace_out))
     else:
         spec = _spec(arch=args.arch, reduced=args.reduced,
                      policy=args.policy, seed=args.seed,
@@ -745,42 +593,64 @@ def main() -> None:
     if args.dump_spec:
         print(spec.to_json(indent=2))
         return
+    if ranks_asked(args, args.dp):
+        _serve_ranks(args, spec)
+        return
 
     dtype = getattr(torch, args.dtype) if args.dtype else None
     server = build(spec, device=args.device, dtype=dtype,
                    cuda_graphs=args.cuda_graphs, cut=parse_cut(args.cut),
                    pp=args.pp)
     if args.http is not None:
-        from repro_torch.serving.http import HTTPFrontend
-        frontend = HTTPFrontend(server, port=args.http)
-        where = getattr(server.replicas[0], "device", spec.backend)
-        print(f"[{spec.engine.arch} | {where}] serving "
-              f"on {frontend.url} — POST /v1/generate[?stream=1], "
-              f"DELETE /v1/requests/{{rid}}, GET /v1/stats  (Ctrl-C stops)",
-              flush=True)
-        try:
-            frontend.serve_forever()
-        except KeyboardInterrupt:
-            pass
-        finally:
-            frontend.shutdown()
+        serve_http(server, spec, args.http)
         return
+    done, total = serve_workload(server, spec, args.requests, args.max_new,
+                                 args.seed)
+    server.close()
+    if done != total:
+        raise SystemExit("not every request finished")
 
+
+def serve_http(server, spec, port: int) -> None:
+    """Serve `server` over HTTP on `port` (0: an ephemeral one) until
+    Ctrl-C; the front end's shutdown closes the server, also when serving
+    raises."""
+    from repro_torch.serving.http import HTTPFrontend
+
+    frontend = HTTPFrontend(server, port=port)
+    where = getattr(server.replicas[0], "device", spec.backend)
+    print(f"[{spec.engine.arch} | {where}] serving "
+          f"on {frontend.url} — POST /v1/generate[?stream=1], "
+          f"DELETE /v1/requests/{{rid}}, GET /v1/stats  (Ctrl-C stops)",
+          flush=True)
+    try:
+        frontend.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        frontend.shutdown()
+
+
+def serve_workload(server, spec, requests: int, max_new: int,
+                   seed: int) -> tuple:
+    """The launcher's synthetic workload on `server`: `requests` seeded
+    prompts (log-normal lengths), `max_new` tokens each, drained; prints
+    one summary line.  Returns (finished, submitted)."""
     cfg = server.cfg
-    rng = np.random.default_rng(args.seed)
+    rng = np.random.default_rng(seed)
     t0 = time.perf_counter()
     rids = []
     dims = getattr(server.replicas[0], "dims", None)
-    for _ in range(args.requests):
+    for _ in range(requests):
         n = int(np.clip(rng.lognormal(3.0, 0.8), 4, 300))
         prompt = [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
         rids.append(server.submit(
-            prompt, SamplingParams(max_new_tokens=args.max_new),
+            prompt, SamplingParams(max_new_tokens=max_new),
             **(enc_inputs(cfg, dims, rng) if dims is not None else {})))
     server.drain()
     engines = server.replicas
     if spec.backend == "engine" and engines[0].device.type == "cuda":
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(engines[0].device)
     wall = time.perf_counter() - t0
     outs = server.outputs(rids)
     toks = sum(len(o.token_ids) for o in outs)
@@ -801,15 +671,18 @@ def main() -> None:
                   f"buckets={len(engines[0].backend.ladder)} graphs="
                   f"{'/'.join(str(e.backend.graph_count()) for e in engines)}"
                   f" pp={cfg.plan.pp}")
+        lay = getattr(getattr(engines[0].backend, "ranks", None), "layout",
+                      None)
+        if lay is not None:
+            detail += (f" ranks={lay.world} (dp={lay.size('data')} "
+                       f"pp={lay.size('stage')} tp={lay.size('tensor')})")
     else:                           # the simulator's clock is virtual
         where = spec.backend
         detail = (f"ticks={sum(r.ticks for r in stats.replicas)} "
                   f"pp={'/'.join(str(e.pp) for e in engines)}")
     print(f"[{cfg.name} | {where}] {done}/{len(outs)} requests, {toks} "
-          f"tokens in {wall:.2f}s; {detail}{routed}")
-    server.close()
-    if done != len(outs):
-        raise SystemExit("not every request finished")
+          f"tokens in {wall:.2f}s; {detail}{routed}", flush=True)
+    return done, len(outs)
 
 
 if __name__ == "__main__":

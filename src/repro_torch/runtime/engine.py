@@ -36,8 +36,10 @@ is queued behind every tick already replayed.
 Across ranks, `RankBackend` runs one stage at one tensor shard of one data
 replica a process: rank 0's backend drives the tick loop and sends every
 tick's input buffer (every replica's rows) to the other ranks, which run
-it in `RankBackend.serve_loop`; the migration hooks there gather a
-request's blocks from the ranks of its replica into the same wire format.
+it in `RankLink.serve`; the migration hooks there gather a request's
+blocks from the ranks of its replica into the same wire format.  Several
+engines share one layout of ranks (`RankLink`: the router's replicas,
+each with its own pools on every rank), each command naming its engine.
 
 With ``trace_path`` the engine logs every tick to a replayable JSONL trace
 (`runtime/trace.py`, the JAX package's schema): a `TraceRecorder` wraps the
@@ -776,8 +778,7 @@ class TorchBackend(ExecutionBackend):
         return p_tok, d_tok
 
 
-def _refuse_at_ranks(*, cuda_graphs: bool, device,
-                     trace_path: Optional[str], dp: int) -> None:
+def _refuse_at_ranks(*, cuda_graphs: bool, device) -> None:
     """What the engine does not yet do at more than one rank raises, named
     by its ROADMAP item; nothing falls back to one rank."""
     dev = torch.device("cuda" if device is None else device)
@@ -787,11 +788,6 @@ def _refuse_at_ranks(*, cuda_graphs: bool, device,
             "Queue 1 item 6.5; gloo's collectives cannot be captured, "
             "NCCL's can once every rank has its card): pass "
             "cuda_graphs=False")
-    if trace_path is not None and dp > 1:
-        raise NotImplementedError(
-            "tick traces over data replicas are not yet ported (ROADMAP "
-            "Queue 1 item 6.8): the trace header describes one KV pool, "
-            "not one a replica")
 
 
 @dataclass
@@ -820,6 +816,144 @@ class RankStats:
                 "traffic": coll.TRAFFIC.snapshot()}
 
 
+# `RankLink`'s header: six int32s; its commands beside 1 (a tick), 2 (reset
+# the counters) and 0 (stop): 3-6 move state (`RankBackend._send_move`), 7
+# does nothing (`RankLink.idle`)
+_HEADER = 6
+_EXPORT_KV, _IMPORT_KV, _EXPORT_STATE, _IMPORT_STATE, _IDLE = 3, 4, 5, 6, 7
+
+
+class RankLink:
+    """The channel from rank 0 to the worker ranks, one a process, that
+    every engine built on one layout of ranks shares (`RankBackend(link=)`,
+    `PipelineEngine(link=)`): the engines share the worker processes and
+    each rank's weight shard, and each owns its pools, carry, slots and
+    `RankStats` on every rank.
+
+    Rank 0 broadcasts a header before every command: the command, the
+    bucket index (a tick's) or data replica (a move's), the buffer size or
+    count, the message size, the encoder flag, and the engine's index,
+    which is the order the engines were built on the link in, the same on
+    every rank.  A worker rank runs `serve` until command 0.  One engine's
+    command runs whole under `lock` (its header, its message and rank 0's
+    part of the collectives that follow), so that engines stepped or moved
+    from several threads never interleave their commands.
+
+    Every collective waits at most the group's timeout
+    (`RankGroups.timeout_s`) for its peers, the workers' wait for the next
+    header included: `idle` sends the idle command (nothing to do) when no
+    header went for `interval` seconds, which an idle server calls at a
+    fraction of that timeout (`LLMServer(idle_s=)`).  `stop` ends the
+    workers once; a command after it raises."""
+
+    def __init__(self, ranks, device) -> None:
+        self.ranks = ranks
+        self.device = torch.device(device)
+        self.world = ranks.world_axis()
+        self.backends: List["RankBackend"] = []
+        self.lock = threading.RLock()
+        self.last = time.monotonic()
+        self.idle_sent = 0
+        self.stopped = False
+
+    def attach(self, backend: "RankBackend") -> int:
+        """Number `backend` as the link's next engine."""
+        self.backends.append(backend)
+        return len(self.backends) - 1
+
+    def bcast(self, t: torch.Tensor) -> torch.Tensor:
+        """Host tensor `t` from rank 0 to every rank, in place."""
+        if self.ranks.backend == "nccl":
+            dev = t.to(self.device)
+            coll.broadcast(dev, self.world, 0, kind="meta")
+            t.copy_(dev.cpu())
+        else:
+            coll.broadcast(t, self.world, 0, kind="meta")
+        return t
+
+    def send(self, cmd: int, index: int = 0, n: int = 0, size: int = 0,
+             enc: int = 0, engine: int = 0) -> None:
+        """Rank 0: one header."""
+        if self.stopped:
+            raise RuntimeError("the worker ranks have stopped "
+                               "(RankLink.stop); build a new server")
+        self.bcast(torch.tensor([cmd, index, n, size, enc, engine],
+                                dtype=torch.int32))
+        self.last = time.monotonic()
+
+    def _on_device(self):
+        return (torch.cuda.device(self.device)
+                if self.device.type == "cuda" else contextlib.nullcontext())
+
+    def idle(self, interval: float) -> bool:
+        """Rank 0: the idle command, when no header went for `interval`
+        seconds and no engine is inside a command.  Whether it was sent."""
+        if not self.lock.acquire(blocking=False):
+            return False
+        try:
+            if self.stopped or time.monotonic() - self.last < interval:
+                return False
+            with self._on_device():
+                self.send(_IDLE)
+            self.idle_sent += 1
+            return True
+        finally:
+            self.lock.release()
+
+    def stop(self) -> None:
+        """Rank 0: end every worker's `serve`; a second call does
+        nothing."""
+        with self.lock:
+            if self.stopped:
+                return
+            with self._on_device():
+                self.send(0)
+            self.stopped = True
+
+    @torch.inference_mode()
+    def serve(self) -> List["RankStats"]:
+        """A worker rank's loop: run every command rank 0 sends on the
+        engine it names, until the stop command.  Returns each engine's
+        rank stats."""
+        if self.ranks.rank == 0:
+            raise ValueError("rank 0 drives the engines; serve is for the "
+                             "other ranks")
+        header = torch.zeros(_HEADER, dtype=torch.int32)
+        with self._on_device():
+            while True:
+                self.bcast(header)
+                cmd, index, n, size, enc, engine = (int(v) for v in header)
+                if not cmd:
+                    self.stopped = True
+                    return [b.rank_stats for b in self.backends]
+                if cmd != _IDLE:
+                    self.backends[engine]._serve(cmd, index, n, size, enc)
+
+
+def serve_engines(cfg: ArchConfig, dims: ServeDims, params, *, ranks,
+                  device: torch.device, dtype=None, engines: int = 1,
+                  seed: int = 0, bucketed: bool = False) -> List["RankStats"]:
+    """A worker rank's part of `engines` rank engines that rank 0 builds on
+    one `RankLink` with the same arguments: their backends on this rank's
+    shard `params`, in the same order, serving rank 0's commands until it
+    stops them (`RankLink.serve`).  Returns each engine's rank stats."""
+    link = RankLink(ranks, device)
+    for _ in range(engines):
+        RankBackend(cfg, dims, params, None, device=device, dtype=dtype,
+                    seed=seed, bucketed=bucketed, ranks=ranks, link=link)
+    return link.serve()
+
+
+def _commanded(method):
+    """Run a `RankBackend` method that sends commands whole under its
+    link's lock, on the backend's device and stream."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with self.link.lock, self._on_stream():
+            return method(self, *args, **kwargs)
+    return run
+
+
 class RankBackend(TorchBackend):
     """`TorchBackend` across ranks: every rank holds one stage of the model
     at its tensor shard (`params`: its `shard_params`; with expert
@@ -837,12 +971,11 @@ class RankBackend(TorchBackend):
     tick it picks the bucket and builds the static input buffer (every
     stage's metadata and
     the entering token ids, as at one rank), then broadcasts a header
-    (command, bucket index, buffer size, message size, encoder flag) and
-    the message (the buffer, then any exiting rows' temperatures as f32
-    bits; then an encoder-decoder's entering encoder input) to every rank,
-    and runs its own stage.  Every other rank builds the same backend
-    without a scheduler and runs `serve_loop` until the stop message
-    (`stop`).  Eager: the tokens every rank gets from the head
+    (`RankLink`) and the message (the buffer, then any exiting rows'
+    temperatures as f32 bits; then an encoder-decoder's entering encoder
+    input) to every rank, and runs its own stage.  Every other rank builds
+    the same backends without a scheduler and serves them
+    (`serve_engines`) until the stop message (`stop`).  Eager: the tokens every rank gets from the head
     (`vocab_argmax`) are read back on rank 0 as at one rank, deferred to
     the next step under async dispatch (each tick's exit rows are read off
     its replica split when it runs, into one of the two token buffers).
@@ -875,8 +1008,11 @@ class RankBackend(TorchBackend):
 
     def __init__(self, cfg: ArchConfig, dims: ServeDims, params, kv, *,
                  device: torch.device, ranks, dtype=None, seed: int = 0,
-                 bucketed: bool = False) -> None:
+                 bucketed: bool = False,
+                 link: Optional[RankLink] = None) -> None:
         self.ranks = ranks
+        self.link = link or RankLink(ranks, device)
+        self.engine = self.link.attach(self)
         self.replicas = ranks.size("data")
         self.replica = ranks.index("data")
         self.local = shard_config(cfg, ranks.size("tensor"),
@@ -988,34 +1124,23 @@ class RankBackend(TorchBackend):
                 + [at[id(seq)] for seq in exiting.decode])
 
     # ------------------------------------------------------------ messages
-    def _bcast(self, t: torch.Tensor) -> torch.Tensor:
-        """Host tensor `t` from rank 0 to every rank, in place."""
-        if self.ranks.backend == "nccl":
-            dev = t.to(self.device)
-            coll.broadcast(dev, self.world, 0, kind="meta")
-            t.copy_(dev.cpu())
-        else:
-            coll.broadcast(t, self.world, 0, kind="meta")
-        return t
-
     def _send(self, cmd: int, index: int = 0, body=None,
               temps: Optional[np.ndarray] = None, enc: bool = False) -> None:
-        """The header (command: 1 a tick, 2 reset the counters, 0 stop, 3 to
-        6 a state move, `_send_move`; bucket index, buffer size, message
-        size, 1 if an encoder input follows), then a tick's message: the
-        buffer, and the temperatures' f32 bits; then, for an encoder-decoder
-        whose entering batch holds prefill rows, every replica's encoder
-        input (`_enc_all`)."""
+        """This engine's header (`RankLink.send`; command 1 a tick, 2
+        reset the counters; bucket index, buffer size, message size, 1 if an
+        encoder input follows), then a tick's message: the buffer, and the
+        temperatures' f32 bits; then, for an encoder-decoder whose entering
+        batch holds prefill rows, every replica's encoder input
+        (`_enc_all`)."""
         msg = None
         if cmd == 1:
             msg = body.clone() if temps is None else torch.cat(
                 [body, torch.from_numpy(temps.view(np.int32))])
-        self._bcast(torch.tensor(
-            [cmd, index, 0 if body is None else body.numel(),
-             0 if msg is None else msg.numel(), int(enc)],
-            dtype=torch.int32))
+        self.link.send(cmd, index, 0 if body is None else body.numel(),
+                       0 if msg is None else msg.numel(), int(enc),
+                       self.engine)
         if msg is not None:
-            self._bcast(msg)
+            self.link.bcast(msg)
         if enc:
             coll.broadcast(self._enc_all, self.world, 0, kind="meta")
 
@@ -1061,6 +1186,7 @@ class RankBackend(TorchBackend):
     def _build_sampling(self, exiting_id, bucket: ServeDims):
         return None                     # the tick drew the hot rows
 
+    @_commanded
     def execute(self, ring, exiting_id, now):
         self._exiting = exiting_id
         return super().execute(ring, exiting_id, now)
@@ -1087,31 +1213,19 @@ class RankBackend(TorchBackend):
         return None, tokens
 
     # ------------------------------------------------------------- workers
-    @torch.inference_mode()
-    def serve_loop(self) -> RankStats:
-        """A worker rank's loop: run every tick rank 0 sends, until its
-        stop message.  Returns the rank's stats."""
-        if self.ranks.rank == 0:
-            raise ValueError("rank 0 drives the engine; serve_loop is for "
-                             "the other ranks")
-        header = torch.zeros(5, dtype=torch.int32)
-        while True:
-            self._bcast(header)
-            cmd, index, n, size, enc = (int(v) for v in header)
-            if not cmd:
-                return self.rank_stats
-            if cmd == 2:
-                self.reset_counters()
-                continue
-            if cmd in (_EXPORT_KV, _IMPORT_KV):
-                idx = self._bcast(torch.empty(size, dtype=torch.int32)).to(
-                    device=self.device, dtype=torch.long)
-                self._kv_rows(cmd == _EXPORT_KV, index, idx[:n], idx[n:])
-                continue
-            if cmd in (_EXPORT_STATE, _IMPORT_STATE):
-                self._state_rows(cmd == _EXPORT_STATE, index, n)
-                continue
-            msg = self._bcast(torch.empty(size, dtype=torch.int32))
+    def _serve(self, cmd: int, index: int, n: int, size: int,
+               enc: int) -> None:
+        """A worker rank's part of one of this engine's commands."""
+        if cmd == 2:
+            self.reset_counters()
+        elif cmd in (_EXPORT_KV, _IMPORT_KV):
+            idx = self.link.bcast(torch.empty(size, dtype=torch.int32)).to(
+                device=self.device, dtype=torch.long)
+            self._kv_rows(cmd == _EXPORT_KV, index, idx[:n], idx[n:])
+        elif cmd in (_EXPORT_STATE, _IMPORT_STATE):
+            self._state_rows(cmd == _EXPORT_STATE, index, n)
+        elif cmd == 1:
+            msg = self.link.bcast(torch.empty(size, dtype=torch.int32))
             prog = self._program(self.ladder[index])
             prog.static.copy_(msg[:n])
             self._temps = (msg[n:].view(torch.float32).to(self.device)
@@ -1119,17 +1233,21 @@ class RankBackend(TorchBackend):
             if enc:
                 coll.broadcast(self._enc_all, self.world, 0, kind="meta")
             self._run(prog)
+        else:
+            raise ValueError(f"unknown rank command {cmd}")
 
     def stop(self) -> None:
-        """Rank 0: end every worker's `serve_loop`."""
-        self._send(0)
+        """Rank 0: end every worker's loop (`RankLink.stop`, once for all
+        the link's engines)."""
+        self.link.stop()
 
     def reset_counters(self) -> None:
         """Zero this rank's stats, traffic, kernel launch counts and peak
         memory; on rank 0, every rank's (after warm-up, before the batch
         that is measured)."""
         if self.ranks.rank == 0:
-            self._send(2)
+            with self.link.lock:
+                self._send(2)
         self.rank_stats = RankStats()
         coll.TRAFFIC.reset()
         for mod in ops.COUNTED:
@@ -1239,16 +1357,15 @@ class RankBackend(TorchBackend):
         lists (a KV move's)."""
         msg = None if idx is None else torch.cat(idx).to(
             device="cpu", dtype=torch.int32)
-        self._bcast(torch.tensor(
-            [cmd, replica, n, 0 if msg is None else msg.numel(), 0],
-            dtype=torch.int32))
+        self.link.send(cmd, replica, n, 0 if msg is None else msg.numel(),
+                       0, self.engine)
         if msg is not None:
-            self._bcast(msg)
+            self.link.bcast(msg)
 
     def _replica_of(self, request_id: str) -> int:
         return self.kv.replica_of(request_id) or 0
 
-    @_pinned
+    @_commanded
     def export_kv_pages(self, request_id: str,
                         slots: Sequence[Tuple[int, int]]) -> dict:
         """`TorchBackend.export_kv_pages` across ranks: the payload in the
@@ -1259,7 +1376,7 @@ class RankBackend(TorchBackend):
         self._send_move(_EXPORT_KV, replica, len(slots), (pg, off))
         return self._kv_rows(True, replica, pg, off)
 
-    @_pinned
+    @_commanded
     def import_kv_pages(self, request_id: str, payload: Optional[dict],
                         slots: Sequence[Tuple[int, int]]) -> None:
         """`TorchBackend.import_kv_pages` across ranks: the payload (from
@@ -1282,7 +1399,7 @@ class RankBackend(TorchBackend):
         self._send_move(_IMPORT_KV, replica, len(slots), (pg, off))
         self._kv_rows(False, replica, pg, off, whole)
 
-    @_pinned
+    @_commanded
     def export_request_state(self, req: Request) -> dict:
         """`TorchBackend.export_request_state` across ranks: the state
         slot's rows gathered from the request's replica; its slot and
@@ -1300,7 +1417,7 @@ class RankBackend(TorchBackend):
             self.slots.release(rid)
         return state
 
-    @_pinned
+    @_commanded
     def import_request_state(self, req: Request, state: Optional[dict],
                              resident: bool = True) -> None:
         """`TorchBackend.import_request_state` across ranks: the slot rows
@@ -1330,9 +1447,6 @@ class RankBackend(TorchBackend):
         self._state_rows(False, replica, s, whole)
 
 
-# `RankBackend`'s header commands beside 1 (a tick), 2 (reset) and 0 (stop)
-_EXPORT_KV, _IMPORT_KV, _EXPORT_STATE, _IMPORT_STATE = 3, 4, 5, 6
-
 
 class PipelineEngine:
     """Single-device engine binding scheduler + KV + `TorchBackend` under
@@ -1355,13 +1469,16 @@ class PipelineEngine:
 
     With `ranks` (`launch.mesh.RankGroups` over more than one process),
     this is rank 0's engine over a layout of ranks (`RankBackend`): `params`
-    is its shard, the other ranks run `RankBackend.serve_loop`, and
-    `backend.stop()` ends them.  Over dp > 1 data replicas the KV manager
+    is its shard, the other ranks run `serve_engines`, and
+    `backend.stop()` ends them.  Engines built on one `link` share the
+    layout's processes and weight shards (the workers serve as many
+    backends).  Over dp > 1 data replicas the KV manager
     is a `ReplicaKVManager` of dp pools of `dims.pages` (`dims` are per
     replica), and the scheduler's row limits hold for each replica.  Async
-    dispatch, prefix caching (one prefix index a replica), traces (at dp =
-    1), migration and snapshots work as at one rank; CUDA graphs on CUDA
-    and traces over data replicas raise (`_refuse_at_ranks`)."""
+    dispatch, prefix caching (one prefix index a replica), traces (their
+    header and ticks name the replicas at dp > 1), migration and snapshots
+    work as at one rank; CUDA graphs on CUDA raise
+    (`_refuse_at_ranks`)."""
 
     def __init__(
         self,
@@ -1379,11 +1496,11 @@ class PipelineEngine:
         enable_prefix_caching: bool = False,
         trace_path: Optional[str] = None,
         ranks=None,
+        link: Optional[RankLink] = None,
     ) -> None:
         multi = ranks is not None and ranks.layout.world > 1
         if multi:
-            _refuse_at_ranks(cuda_graphs=cuda_graphs, device=device,
-                             trace_path=trace_path, dp=ranks.size("data"))
+            _refuse_at_ranks(cuda_graphs=cuda_graphs, device=device)
         if trace_path is not None and async_dispatch:
             # the recorder writes each tick's exit tokens at execute time;
             # a deferred retire would interleave records out of order and
@@ -1427,7 +1544,7 @@ class PipelineEngine:
             self.backend = RankBackend(cfg, dims, params, self.kv,
                                        device=self.device, dtype=dtype,
                                        seed=seed, bucketed=bucketed,
-                                       ranks=ranks)
+                                       ranks=ranks, link=link)
         else:
             self.backend = TorchBackend(cfg, dims, params, self.kv,
                                         device=self.device, dtype=dtype,

@@ -75,6 +75,7 @@ from repro_torch.core import (
     PagedKVManager,
     PipelineScheduler,
     PrefillPolicy,
+    ReplicaKVManager,
     Request,
     RequestState,
     SamplingParams,
@@ -104,7 +105,13 @@ SCHEMA_MINOR = 6    # 1.1: "abort" record kind; 1.2: req/migrate carry
                     # fleet lifecycle markers written by the autoscaler —
                     # no scheduler state change on replay, re-recorded
                     # verbatim so elastic traces stay byte-identical);
-                    # pre-1.6 traces carry none and keep their exact bytes
+                    # pre-1.6 traces carry none and keep their exact bytes.
+                    # An engine over dp > 1 data replicas (the port's
+                    # `ReplicaKVManager`) also writes the header's
+                    # kv.replicas / kv.pool_pages and each tick's
+                    # "replicas" (every row's replica, in batch order); at
+                    # one pool neither appears, so such a trace is 1.6 byte
+                    # for byte and loads in the JAX package
 
 
 class TraceSchemaError(ValueError):
@@ -244,10 +251,10 @@ class Trace:
 # (never mixed): "host_s" appears iff the backend reports host overhead,
 # "cached" iff the scheduler has prefix caching enabled — so earlier-schema
 # streams keep their exact bytes.
-TICK_FIELDS = ("now", "batch", "prefill_budget", "decode_budget", "kv_free",
-               "wp", "rd", "preempts", "stage_times", "cached", "host_s",
-               "exit")
-_OPTIONAL_TICK_FIELDS = ("cached", "host_s")
+TICK_FIELDS = ("now", "batch", "replicas", "prefill_budget",
+               "decode_budget", "kv_free", "wp", "rd", "preempts",
+               "stage_times", "cached", "host_s", "exit")
+_OPTIONAL_TICK_FIELDS = ("replicas", "cached", "host_s")
 _CANONICAL_TICK_KEYS = ["kind", "tick"] + list(TICK_FIELDS)
 # Every omit-in-place subset of the optional fields is a valid canonical
 # layout (a trace may carry any combination, each uniformly).
@@ -452,10 +459,33 @@ def _batch_summary(batch) -> Optional[Dict[str, Any]]:
     }
 
 
+def _pools(kv) -> int:
+    """Data replicas of a KV manager: a `ReplicaKVManager`'s pools, 1 for
+    one pool."""
+    return kv.replicas if isinstance(kv, ReplicaKVManager) else 1
+
+
+def _row_replicas(kv, batch) -> Optional[List[List[int]]]:
+    """Each row's data replica, prefill rows then decode rows (a tick
+    record's ``replicas``)."""
+    if batch is None:
+        return None
+    return [[kv.replica_of(s.request.request_id) for s in rows]
+            for rows in (batch.prefill, batch.decode)]
+
+
 def scheduler_header(scheduler: PipelineScheduler, depth: int
                      ) -> Dict[str, Any]:
+    """The trace's header: the scheduler's configuration.  Over data
+    replicas its ``kv`` also holds their count and each pool's pages
+    (``num_pages`` stays their total, the UT signal's denominator)."""
     cfg = scheduler.cfg
     kv = scheduler.kv
+    kvh = {"num_pages": kv.num_pages, "page_size": kv.page_size,
+           "prefix_caching": kv.enable_prefix_caching}
+    if _pools(kv) > 1:
+        kvh.update(replicas=kv.replicas,
+                   pool_pages=[p.num_pages for p in kv.pools])
     return {
         "kind": "header",
         "schema": SCHEMA,
@@ -469,11 +499,7 @@ def scheduler_header(scheduler: PipelineScheduler, depth: int
             "pipeline_depth": cfg.pipeline_depth,
             "policy": cfg.policy.value,
         },
-        "kv": {
-            "num_pages": kv.num_pages,
-            "page_size": kv.page_size,
-            "prefix_caching": kv.enable_prefix_caching,
-        },
+        "kv": kvh,
         "scheduler": {
             "max_model_len": scheduler.max_model_len,
             "max_batch_seqs": scheduler.max_batch_seqs,
@@ -496,8 +522,17 @@ def scheduler_from_header(header: Dict[str, Any]) -> PipelineScheduler:
         policy=PrefillPolicy(th["policy"]),
     )
     kvh = header["kv"]
-    kv = PagedKVManager(kvh["num_pages"], kvh["page_size"],
-                        enable_prefix_caching=kvh["prefix_caching"])
+    if kvh.get("replicas", 1) > 1:
+        pages = set(kvh["pool_pages"])
+        if len(pages) != 1 or len(kvh["pool_pages"]) != kvh["replicas"]:
+            raise TraceSchemaError(f"data replicas of unequal pools: "
+                                   f"{kvh['pool_pages']}")
+        kv = ReplicaKVManager(kvh["replicas"], pages.pop(),
+                              kvh["page_size"],
+                              enable_prefix_caching=kvh["prefix_caching"])
+    else:
+        kv = PagedKVManager(kvh["num_pages"], kvh["page_size"],
+                            enable_prefix_caching=kvh["prefix_caching"])
     sh = header["scheduler"]
     return PipelineScheduler(
         cfg, kv,
@@ -672,6 +707,10 @@ class TraceRecorder(ExecutionBackend):
             "tick": self._tick,
             "now": now,
             "batch": _batch_summary(batch),
+        }
+        if _pools(sched.kv) > 1:             # over data replicas, optional
+            rec["replicas"] = _row_replicas(sched.kv, batch)
+        rec.update({
             "prefill_budget": sched.stats.prefill_budgets[-1],
             "decode_budget": sched.stats.decode_budgets[-1],
             "kv_free": sched.kv.kv_free_rate,
@@ -679,7 +718,7 @@ class TraceRecorder(ExecutionBackend):
             "rd": sched.num_running_decode,
             "preempts": preempts - self._last_preempts,
             "stage_times": result.stage_times,
-        }
+        })
         if sched.kv.enable_prefix_caching:   # schema 1.4, optional
             rec["cached"] = sched.stats.cached_prefill_tokens[-1]
         if result.host_s is not None:        # schema 1.3, optional per-backend
@@ -797,8 +836,9 @@ class TraceBackend(ExecutionBackend):
                     exiting_id: Optional[int], n_produce: int) -> None:
         sched = self.scheduler
         entering_id = ring[0][0]
-        actual = _batch_summary(sched.get_batch(entering_id)
-                                if entering_id is not None else None)
+        entering = (sched.get_batch(entering_id)
+                    if entering_id is not None else None)
+        actual = _batch_summary(entering)
         preempts = sched.stats.preemptions
         diffs: List[Tuple[str, Any, Any]] = []
 
@@ -813,6 +853,9 @@ class TraceBackend(ExecutionBackend):
             cmp("batch.id", want_batch["id"], actual["id"])
             cmp("batch.prefill", want_batch["prefill"], actual["prefill"])
             cmp("batch.decode", want_batch["decode"], actual["decode"])
+        if "replicas" in rec:                # over data replicas
+            cmp("replicas", rec["replicas"],
+                _row_replicas(sched.kv, entering))
         cmp("prefill_budget", rec["prefill_budget"],
             sched.stats.prefill_budgets[-1])
         cmp("decode_budget", rec["decode_budget"],
@@ -965,6 +1008,9 @@ def replay_trace(trace: Trace, *, mode: str = TraceBackend.STRICT,
             else:
                 req = migrated_request_from_record(rec)
                 if req.num_prefilled:
+                    # placed as the live engine's `import_kv` places it
+                    sched.kv.place(req.request_id,
+                                   range(_pools(sched.kv)))
                     sched.kv.allocate(req.request_id, req.num_prefilled)
                 sched.adopt_request(req)
                 if recorder is not None:

@@ -16,9 +16,18 @@ The four shapes, one factory:
 The spec is the JAX package's, field for field, so that a spec dumped by
 either launcher serves in the other.  What the port builds but the spec
 does not say (the device, the dtype, graphs or eager ticks, a depth cut,
-the pipeline stages on the card) are arguments of `build`; they apply to
-engine builds.  Sim and trace-replay builds touch no tensor and no device,
-so they run on any box.
+the pipeline stages on the card, the layout of ranks) are arguments of
+`build`; they apply to engine builds.  Sim and trace-replay builds touch no
+tensor and no device, so they run on any box.
+
+Over a layout of ranks (``ranks=``, this process's
+`launch.mesh.RankGroups`, as JAX's `build` serves on a mesh) rank 0's
+`build` returns the server over rank engines (`PipelineEngine(ranks=)`):
+the spec's N replicas are N engines on the one layout, which share every
+rank's weight shard and the worker processes (one `RankLink`); each owns
+its pools, carry, slots, scheduler and `TickLoop`.  Every other rank calls
+`serve_worker` with the same spec and arguments: it builds the same N
+backends and serves rank 0's commands until the server closes.
 """
 
 from __future__ import annotations
@@ -35,22 +44,45 @@ from repro_torch.serving.spec import ServeSpec
 
 def build(spec: ServeSpec, *, device: Optional[torch.device | str] = None,
           dtype: Optional[torch.dtype] = None, cuda_graphs: bool = True,
-          cut: Optional[Sequence[Any]] = None, pp: int = 1) -> LLMServer:
+          cut: Optional[Sequence[Any]] = None, pp: int = 1, layers: int = 0,
+          ranks=None, params=None, npz: Optional[str] = None,
+          idle_s: Optional[float] = None) -> LLMServer:
     """The one public entry point: every serving scenario starts here.
     Engines run on CUDA unless `device` asks for the CPU; `dtype` defaults
     to f32 for a reduced spec and bf16 for the published config;
     `cuda_graphs=False` runs every tick eagerly; `cut` serves the first
-    layer of each named block kind (`configs.cut_to_kinds`); `pp` serves
-    each engine in that many pipeline stages on its card, with Token
-    Throttling at that depth (`configs.stage_config`).  A sim spec takes
-    its stages from `SimSpec.pp`."""
+    layer of each named block kind (`configs.cut_to_kinds`), `layers` the
+    first that many layers; `pp` serves each engine in that many pipeline
+    stages on its card, with Token Throttling at that depth
+    (`configs.stage_config`).  A sim spec takes its stages from
+    `SimSpec.pp`.
+
+    With `ranks` (rank 0's `RankGroups` of a layout of more than one rank)
+    the engines are rank engines over that layout, its stages the
+    pipeline's (`pp` must be 1 or equal them), on this rank's card and
+    shard of the weights (`launch.serve.rank_shard`): `params` when given,
+    else cut from the numpy tree at `npz`, else drawn from the spec's
+    seed.  CUDA graphs on CUDA raise (pass
+    `cuda_graphs=False`).  The server sends the idle command every
+    `idle_s` seconds of silence (default: a quarter of the group's
+    timeout, `LLMServer(idle_s=)`); its `close()` ends the workers, which
+    `serve_worker` runs on every other rank."""
+    if ranks is not None and ranks.layout.world > 1:
+        if ranks.rank != 0:
+            raise ValueError("rank 0 builds the server; the other ranks "
+                             "call serve_worker")
+        return _build_rank_server(
+            spec, ranks, device=device, dtype=dtype, cuda_graphs=cuda_graphs,
+            cut=cut, pp=pp, layers=layers, params=params, npz=npz,
+            idle_s=idle_s)
     if spec.backend == "trace":
         return _build_trace_server(spec)
     if spec.backend == "sim":
         engine, cfg = _build_sim(spec)
     else:
         engine, cfg = _build_engine(spec, device=device, dtype=dtype,
-                                    cuda_graphs=cuda_graphs, cut=cut, pp=pp)
+                                    cuda_graphs=cuda_graphs, cut=cut, pp=pp,
+                                    layers=layers)
     return LLMServer(engine, spec=spec, cfg=cfg)
 
 
@@ -69,41 +101,144 @@ def _throttle_config(spec: ServeSpec, pipeline_depth: int, *,
     return ThrottleConfig(**kw)
 
 
-def _build_engine(spec: ServeSpec, *, device, dtype, cuda_graphs: bool,
-                  cut, pp: int = 1) -> Tuple[Any, Any]:
-    from repro_torch.launch.serve import (build_params, serve_config,
-                                          serve_dims)
-    from repro_torch.runtime.engine import PipelineEngine, resolve_device
+def _engine_parts(spec: ServeSpec, *, device, dtype, cut, pp: int,
+                  layers: int = 0, tp: int = 1):
+    """(cfg, dims, throttle, device, dtype) of the spec's engines: the
+    config at `pp` stages planned at `tp`, the serve dims, the throttle."""
+    from repro_torch.launch.serve import serve_config, serve_dims
+    from repro_torch.runtime.engine import resolve_device
 
     es = spec.engine
     dev = resolve_device(device)
     cfg, dtype = serve_config(es.arch, reduced=es.reduced, dtype=dtype,
                               cut=cut,
-                              reduced_overrides=es.reduced_overrides, pp=pp)
+                              reduced_overrides=es.reduced_overrides, pp=pp,
+                              layers=layers)
     if es.reduced:
         # dropless, as the JAX builder makes the reduced MoE
         cfg = dataclasses.replace(
             cfg, moe_capacity_factor=float(max(cfg.num_experts, 1)))
+    if tp > 1:
+        cfg = cfg.with_plan(tp=tp)
     dims = serve_dims(cfg, es.reduced)     # Te = 16 reduced, as JAX's
     if es.dims:
         dims = dataclasses.replace(dims, **es.dims)
     th = _throttle_config(spec, cfg.plan.pp, reduced=es.reduced)
+    return cfg, dims, th, dev, dtype
 
-    n = spec.num_replicas
+
+def _engine_kwargs(spec: ServeSpec, i: int) -> dict:
+    """`PipelineEngine`'s options of the spec's engine `i`."""
+    es = spec.engine
     record = spec.trace.record if spec.trace is not None else None
+    return dict(seed=es.seed, bucketed=es.bucketed,
+                async_dispatch=es.dispatch == "async",
+                enable_prefix_caching=es.enable_prefix_caching,
+                trace_path=_replica_trace(record, i, spec.num_replicas))
+
+
+def _cluster(spec: ServeSpec, engines: List[Any], cfg) -> Tuple[Any, Any]:
+    """One engine, or the router over them."""
+    if spec.cluster is None and len(engines) == 1:
+        return engines[0], cfg
+    record = spec.trace.record if spec.trace is not None else None
+    return _wrap_router(spec, engines, record), cfg
+
+
+def _build_engine(spec: ServeSpec, *, device, dtype, cuda_graphs: bool,
+                  cut, pp: int = 1, layers: int = 0) -> Tuple[Any, Any]:
+    from repro_torch.launch.serve import build_params
+    from repro_torch.runtime.engine import PipelineEngine
+
+    cfg, dims, th, dev, dtype = _engine_parts(
+        spec, device=device, dtype=dtype, cut=cut, pp=pp, layers=layers)
     # replicas share the (read-only) parameters; each owns its KV pool,
     # state slots, scheduler, TickLoop and CUDA graphs
-    params = build_params(cfg, dtype, dev, es.seed)
+    params = build_params(cfg, dtype, dev, spec.engine.seed)
     engines = [PipelineEngine(cfg, dims, params, th, device=dev, dtype=dtype,
-                              seed=es.seed, bucketed=es.bucketed,
-                              async_dispatch=es.dispatch == "async",
                               cuda_graphs=cuda_graphs,
-                              enable_prefix_caching=es.enable_prefix_caching,
-                              trace_path=_replica_trace(record, i, n))
-               for i in range(n)]
-    if spec.cluster is None and n == 1:
-        return engines[0], cfg
-    return _wrap_router(spec, engines, record), cfg
+                              **_engine_kwargs(spec, i))
+               for i in range(spec.num_replicas)]
+    return _cluster(spec, engines, cfg)
+
+
+# ---------------------------------------------------------------------------
+# engines over a layout of ranks
+# ---------------------------------------------------------------------------
+
+def _rank_parts(spec: ServeSpec, ranks, *, device, dtype, cut, pp: int,
+                layers: int, params, npz: Optional[str]):
+    """`_engine_parts` at the layout's stages and tensor ranks, and this
+    rank's device and shard (`launch.serve.rank_shard`): (cfg, dims,
+    throttle, device, dtype, params)."""
+    from repro_torch.launch.serve import rank_shard
+
+    if spec.backend != "engine":
+        raise ValueError(f"a {spec.backend!r} spec touches no device: it "
+                         "serves in one process, not over ranks")
+    stages = ranks.size("stage")
+    if pp not in (1, stages):
+        raise ValueError(f"pp={pp}, but the layout has {stages} stages")
+    cfg, dims, th, dev, dtype = _engine_parts(
+        spec, device=device, dtype=dtype, cut=cut, pp=stages,
+        layers=layers, tp=ranks.size("tensor"))
+    dev, params = rank_shard(ranks, cfg, device=dev, dtype=dtype,
+                             seed=spec.engine.seed, npz=npz, params=params)
+    return cfg, dims, th, dev, dtype, params
+
+
+def _idle_interval(ranks, idle_s: Optional[float]) -> float:
+    if idle_s is not None:
+        return idle_s
+    return (ranks.timeout_s or 60.0) / 4
+
+
+def _build_rank_server(spec: ServeSpec, ranks, *, device, dtype,
+                       cuda_graphs: bool, cut, pp: int, layers: int, params,
+                       npz: Optional[str], idle_s: Optional[float]
+                       ) -> LLMServer:
+    from repro_torch.runtime.engine import PipelineEngine, RankLink
+
+    cfg, dims, th, dev, dtype, params = _rank_parts(
+        spec, ranks, device=device, dtype=dtype, cut=cut, pp=pp,
+        layers=layers, params=params, npz=npz)
+    link = RankLink(ranks, dev)
+    try:
+        engines = [PipelineEngine(cfg, dims, params, th, device=dev,
+                                  dtype=dtype, cuda_graphs=cuda_graphs,
+                                  ranks=ranks, link=link,
+                                  **_engine_kwargs(spec, i))
+                   for i in range(spec.num_replicas)]
+        engine, cfg = _cluster(spec, engines, cfg)
+    except BaseException:
+        link.stop()             # the workers wait for a command
+        raise
+    return LLMServer(engine, spec=spec, cfg=cfg,
+                     idle_s=_idle_interval(ranks, idle_s))
+
+
+def serve_worker(spec: ServeSpec, ranks, *,
+                 device: Optional[torch.device | str] = None,
+                 dtype: Optional[torch.dtype] = None, cut=None, pp: int = 1,
+                 layers: int = 0, params=None,
+                 npz: Optional[str] = None) -> List[dict]:
+    """A rank other than 0's part of `build(spec, ranks=)`, called with the
+    same spec and arguments: the same N engines' backends on this rank's
+    shard, serving rank 0's commands until its server closes
+    (`runtime.engine.serve_engines`).  Returns each engine's rank stats
+    (`RankStats.as_dict`)."""
+    from repro_torch.runtime.engine import serve_engines
+
+    if ranks.rank == 0:
+        raise ValueError("rank 0 builds the server (build(spec, ranks=))")
+    cfg, dims, _, dev, dtype, params = _rank_parts(
+        spec, ranks, device=device, dtype=dtype, cut=cut, pp=pp,
+        layers=layers, params=params, npz=npz)
+    stats = serve_engines(cfg, dims, params, ranks=ranks, device=dev,
+                          dtype=dtype, engines=spec.num_replicas,
+                          seed=spec.engine.seed,
+                          bucketed=spec.engine.bucketed)
+    return [st.as_dict() for st in stats]
 
 
 def _replica_trace(record: Optional[str], i: int, n: int) -> Optional[str]:

@@ -29,6 +29,15 @@ The server is synchronous at its core (`step()` advances the substrate one
 tick/event); `generate_stream` lazily spawns one asyncio runner task that
 steps the engine on a worker thread while any work is pending — the
 decoupled-frontend design of gLLM §3.3 without a separate class.
+
+Over a layout of ranks (engines built with `ranks=`, sharing one
+`runtime.engine.RankLink`) the server keeps the worker ranks alive while it
+waits: every collective, the workers' wait for rank 0's next command
+included, raises after the group's timeout, so a thread sends the idle
+command under the step lock whenever no command went for `idle_s` seconds.
+`close()` ends the workers (once; it also runs when `HTTPFrontend` shuts
+down).  The engines run their device work on the rank's device and stream
+whichever thread steps them (`RankBackend`).
 """
 
 from __future__ import annotations
@@ -204,7 +213,8 @@ class LLMServer:
     _rid_counter = itertools.count()    # process-wide: unique across servers
 
     def __init__(self, engine: Any, *, spec: Any = None, cfg: Any = None,
-                 replay: Any = None, replay_mode: str = "strict") -> None:
+                 replay: Any = None, replay_mode: str = "strict",
+                 idle_s: Optional[float] = None) -> None:
         self.engine = engine
         self.spec = spec
         self.cfg = cfg                  # ArchConfig for model-backed servers
@@ -227,6 +237,19 @@ class LLMServer:
                 # elastic fleets: replicas added later need the same wiring
                 router.add_replica_hook(
                     lambda replica, ordinal, now: self._wire_replica(replica))
+        # rank engines: the links to their worker ranks, each once
+        self.links: List[Any] = []
+        for replica in self.replicas:
+            link = getattr(getattr(replica, "backend", None), "link", None)
+            if link is not None and all(link is not k for k in self.links):
+                self.links.append(link)
+        self.idle_s = idle_s
+        self._idle_stop = threading.Event()
+        self._idle_thread: Optional[threading.Thread] = None
+        if self.links and idle_s is not None:
+            self._idle_thread = threading.Thread(
+                target=self._keep_alive, name="rank-idle", daemon=True)
+            self._idle_thread.start()
 
     def _wire_replica(self, replica: Any) -> None:
         replica.on_token = self._on_token
@@ -532,8 +555,13 @@ class LLMServer:
         return list(fin)
 
     def close(self) -> None:
-        """Flush and close any attached trace recorders/streams."""
+        """Flush and close any attached trace recorders/streams, and end
+        the worker ranks of rank engines.  A second call does nothing
+        more."""
         self._closed = True
+        self._idle_stop.set()
+        if self._idle_thread is not None:
+            self._idle_thread.join()
         router = self.router
         if router is not None and getattr(router, "_trace", None) is not None:
             router.close_trace()
@@ -541,6 +569,28 @@ class LLMServer:
             rec = getattr(replica, "recorder", None)
             if rec is not None:
                 rec.close()
+        if self.links:
+            with self._step_lock:
+                for link in self.links:
+                    link.stop()
+
+    @property
+    def idle_sent(self) -> int:
+        """Idle commands sent to the worker ranks so far."""
+        return sum(link.idle_sent for link in self.links)
+
+    def _keep_alive(self) -> None:
+        """The idle thread: every half `idle_s`, the idle command on each
+        link that sent nothing for `idle_s` seconds, unless a step holds
+        the lock (it sends commands itself)."""
+        while not self._idle_stop.wait(self.idle_s / 2):
+            if not self._step_lock.acquire(blocking=False):
+                continue
+            try:
+                for link in self.links:
+                    link.idle(self.idle_s)
+            finally:
+                self._step_lock.release()
 
     def __enter__(self) -> "LLMServer":
         return self

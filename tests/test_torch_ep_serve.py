@@ -60,10 +60,10 @@ from repro_torch.core import (
 from repro_torch.core.request import Request, SamplingParams
 from repro_torch.launch import ranks as rk
 from repro_torch.launch.mesh import rank_layout
-from repro_torch.launch.serve import serve_rank
 from repro_torch.models import serve as serve_lib
 from repro_torch.models.serve import ServeDims
 from test_torch_tp_serve import DIMS, THROTTLE, cfgs, jax_greedy, jax_params
+from torch_rank_jobs import serve_rank
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROMPT_LENS = (9, 21, 5, 30, 12)    # 21 and 30 exceed C=16

@@ -13,8 +13,10 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+# chip_smoke's rank phases run the tests' rank functions, so that module is
+# held to the port's rule as well
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_rank_jobs.py"]
 
 
 def _launcher_env() -> dict:
@@ -51,7 +53,8 @@ def test_port_files_found():
             "pipeline.py", "elastic.py", "trace.py", "simulator.py",
             "analysis.py", "optimizer.py", "collectives.py",
             "checkpoint.py", "train.py", "ssm_check.py",
-            "mesh.py", "ranks.py", "chip_smoke.py"} <= names
+            "mesh.py", "ranks.py", "chip_smoke.py",
+            "torch_rank_jobs.py"} <= names
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -260,17 +263,18 @@ def _fake_ranks(dp=1, pp=2, tp=2):
 
 
 def test_engine_at_ranks_refuses_what_it_does_not_do():
-    """At world > 1: CUDA graphs on CUDA raise `ValueError` (item 6.5) and
-    traces over data replicas `NotImplementedError` (item 6.8), each naming
-    its ROADMAP item; nothing falls back to one rank.  Async dispatch,
-    prefix caching and a trace at dp = 1 pass the refusals.  The serve
-    tick's data axis builds (dp=2)."""
+    """At world > 1: CUDA graphs on CUDA raise `ValueError` (item 6.5),
+    naming its ROADMAP item; nothing falls back to one rank.  Eager ticks
+    and the CPU pass the refusal.  The serve tick's data axis builds
+    (dp=2); engines built on one `RankLink` are numbered in order and share
+    it, and a command after its stop raises."""
     from repro_torch.configs import get_config, make_reduced
     from repro_torch.core import ThrottleConfig
     from repro_torch.launch.serve import REDUCED_DIMS
     from repro_torch.runtime.engine import (
         PipelineEngine,
         RankBackend,
+        RankLink,
         _refuse_at_ranks,
     )
 
@@ -279,13 +283,16 @@ def test_engine_at_ranks_refuses_what_it_does_not_do():
     ranks = _fake_ranks()
     with pytest.raises(ValueError, match="item 6.5"):
         PipelineEngine(cfg, REDUCED_DIMS, None, th, ranks=ranks)
-    with pytest.raises(NotImplementedError, match="item 6.8"):
-        PipelineEngine(cfg, REDUCED_DIMS, None, th, ranks=_fake_ranks(dp=2),
-                       device="cpu", trace_path="/dev/null")
-    for dp in (1, 2):
-        _refuse_at_ranks(cuda_graphs=True, device="cpu", trace_path=None,
-                         dp=dp)
-    _refuse_at_ranks(cuda_graphs=False, device="cuda", trace_path="/x", dp=1)
+    _refuse_at_ranks(cuda_graphs=True, device="cpu")
+    _refuse_at_ranks(cuda_graphs=False, device="cuda")
+    link = RankLink(ranks, "cpu")
+    pair = [RankBackend(cfg, REDUCED_DIMS, None, None,
+                        device=torch.device("cpu"), ranks=ranks, link=link)
+            for _ in range(2)]
+    assert [b.engine for b in pair] == [0, 1] and link.backends == pair
+    link.stopped = True
+    with pytest.raises(RuntimeError, match="stopped"):
+        link.send(1)
     # the serve tick's data axis: a worker's backend at dp=2 builds, with
     # room for both replicas' tokens and both replicas' buffer blocks
     two = RankBackend(cfg, REDUCED_DIMS, None, None,

@@ -69,7 +69,7 @@ from repro_torch.launch.mesh import (
     rank_layout,
     use_ranks,
 )
-from repro_torch.launch.serve import rank_weight_bytes, serve_rank
+from repro_torch.launch.serve import rank_weight_bytes
 from repro_torch.launch.train import train_rank
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.reference import greedy_generate
@@ -82,6 +82,7 @@ from repro_torch.models.transformer import (
     tree_items,
 )
 from repro_torch.runtime.engine import PipelineEngine
+from torch_rank_jobs import serve_rank
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DIMS = ServeDims(Sp=1, C=16, Sd=8, pages=256, page=8, Bp=32, Bd=32, slots=16)

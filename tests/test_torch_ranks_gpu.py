@@ -26,12 +26,12 @@ from repro_torch.core import SamplingParams, ThrottleConfig
 from repro_torch.data.tokens import batches
 from repro_torch.launch import ranks as rk
 from repro_torch.launch.mesh import rank_layout
-from repro_torch.launch.serve import serve_rank
 from repro_torch.launch.train import train_rank
 from repro_torch.models.reference import dense_forward
 from repro_torch.models.serve import ServeDims
 from repro_torch.models.transformer import cross_entropy, init_params
 from repro_torch.runtime.engine import PipelineEngine
+from torch_rank_jobs import serve_rank
 
 DIMS = ServeDims(Sp=1, C=32, Sd=8, pages=64, page=16, Bp=8, Bd=8, slots=16)
 LAYERS = 4

@@ -1,8 +1,8 @@
 """The rank engine's state in and out on the CPU (gloo), against the JAX
 package and the port's one-process engine: prefix caching, async dispatch,
 KV migration (directly through `export_*`/`import_*` and through the
-router's `migrate_request`), tick traces and snapshots of a
-`PipelineEngine(ranks=)`.
+router's `migrate_request`), tick traces (at dp = 1 and over dp = 2 data
+replicas) and snapshots of a `PipelineEngine(ranks=)`.
 
 The reduced qwen1.5-0.5b (two layers) at pp=2 x tp=2 (4 ranks) and at
 dp=2 (2 ranks),
@@ -40,7 +40,8 @@ from repro_torch.launch.mesh import rank_layout
 from repro_torch.launch.serve import _serve_ranks, move_in, move_out
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.runtime.engine import PipelineEngine
-from repro_torch.runtime.trace import Trace, replay_trace
+from repro_torch.runtime.trace import Trace, check_trace, replay_trace
+from repro_torch.serving import ServeSpec, TraceSpec, build
 from test_torch_hygiene import _fake_ranks
 from test_torch_ranks import _jax_cfg, _spawn
 from test_torch_ranks import _port_cfg as _staged_cfg
@@ -240,19 +241,21 @@ def pp2tp2(ref):
 
 @pytest.fixture(scope="module")
 def dp2(ref):
-    """One spawn of dp=2: plain sync; the prefix set, prefix-cached; plain
-    async; r1 and r2 moved out (one a replica); those into a fresh
-    engine."""
+    """One spawn of dp=2: plain sync, traced; the prefix set,
+    prefix-cached; plain async; r1 and r2 moved out (one a replica); those
+    into a fresh engine.  Returns the ranks' results and the trace's
+    path."""
     cfg = _port_cfg(QWEN, 1, 1)
     plain, shared, arrive = _prompts(cfg.vocab_size)
-    runs = [{},
+    trace = str(ref["dir"] / "dp2.trace.jsonl")
+    runs = [dict(trace_out=trace),
             dict(prompts=shared, arrive=arrive, enable_prefix_caching=True),
             dict(async_dispatch=True),
             dict(export={"r1": 6, "r2": 8}),
             dict(prompts=[], imports="previous")]
     out = _spawn(scenario_rank, rank_layout(2, 1, 1),
                  _job(ref, 2, 1, 1, runs), ref["dir"], "dp2")
-    return out
+    return out, trace
 
 
 # ----------------------------------------------------------------------------
@@ -382,7 +385,7 @@ def test_prefix_caching_at_dp2_places_in_the_replica_that_holds_it(
     """The requests that share the long first request's prefix go to its
     replica (the other one, by free pages alone) and adopt its pages;
     JAX's tokens."""
-    runs = dp2[0]["runs"]
+    runs = dp2[0][0]["runs"]
     assert runs[0]["tokens"] == ref["plain"]
     run = runs[1]
     assert run["tokens"] == ref["shared"]
@@ -405,7 +408,7 @@ def test_async_and_migration_at_dp2(ref, dp2):
     """Async tokens equal sync; r1 and r2, moved out of their replicas
     mid-decode, carry the one-process engine's payloads and finish with
     JAX's tokens in a fresh rank engine."""
-    runs = dp2[0]["runs"]
+    runs = dp2[0][0]["runs"]
     assert runs[2]["tokens"] == runs[0]["tokens"]
     moved = {m["request"].request_id: m for m in runs[3]["moved"]}
     assert sorted(moved) == ["r1", "r2"]
@@ -420,24 +423,66 @@ def test_async_and_migration_at_dp2(ref, dp2):
                                    "r2": ref["plain"][2]}
 
 
+def test_trace_over_data_replicas_records_both_pools(ref, dp2):
+    """The traced dp=2 run: its header records the two replicas and each
+    pool's pages (`num_pages` their total), and every tick each row's
+    replica, as the engine placed it."""
+    out, path = dp2
+    run = out[0]["runs"][0]
+    trace = Trace.load(path)
+    kv = trace.header["kv"]
+    assert kv["replicas"] == 2 and kv["pool_pages"] == [DIMS["pages"]] * 2
+    assert kv["num_pages"] == 2 * DIMS["pages"]
+    assert [t.get("replicas") for t in trace.ticks] == run["replicas"]
+    assert {r for t in run["replicas"] if t for rows in t for r in rows} \
+        == {0, 1}
+
+
+def test_trace_over_data_replicas_replays_strictly(ref, dp2):
+    """Strict replay of the dp=2 trace on a `ReplicaKVManager` rebuilt from
+    its header reproduces every batch, each row's replica and JAX's
+    tokens, and re-records it byte for byte."""
+    _, path = dp2
+    report = replay_trace(Trace.load(path))
+    assert report.outputs() == {f"r{i}": t for i, t in
+                                enumerate(ref["plain"])}
+    assert report.scheduler.kv.replicas == 2
+    assert check_trace(path).ticks == len(Trace.load(path).ticks)
+
+
+def test_trace_over_data_replicas_serves_timing_only(dp2):
+    """The dp=2 trace as a timing-only replay server
+    (`TraceReplayEngine`): new requests are served over the two pools at
+    the recorded costs."""
+    _, path = dp2
+    srv = build(ServeSpec(backend="trace",
+                          trace=TraceSpec(replay=path, timing_only=True)))
+    outs = [srv.generate([3, 1, 4, 1, 5][:n], SamplingParams(
+        max_new_tokens=4)) for n in (3, 5)]
+    assert [len(o.token_ids) for o in outs] == [4, 4]
+    assert all(o.finish_reason == "length" for o in outs)
+    assert srv.replicas[0].scheduler.kv.replicas == 2
+
+
 def test_trace_over_data_replicas_raises_and_graphs_refuse():
-    """What still raises at ranks: traces at dp > 1 (item 6.8), CUDA
-    graphs on CUDA (item 6.5), and the launcher's `--spec`, `--http` and
-    `--replicas` over ranks (item 6.7)."""
+    """What still raises at ranks: CUDA graphs on CUDA (item 6.5), a traced
+    async run, and a spec that touches no device (sim, trace) over ranks;
+    traces over data replicas and the launcher's spec, HTTP and replicas
+    over ranks are served (the tests above and
+    tests/test_torch_ranks_serving.py)."""
     cfg = _port_cfg(QWEN, 2, 2)
     th = ThrottleConfig(pipeline_depth=2, **THROTTLE)
-    with pytest.raises(NotImplementedError, match="item 6.8"):
-        PipelineEngine(cfg, _dims(), None, th, ranks=_fake_ranks(dp=2),
-                       device="cpu", cuda_graphs=False, trace_path="/x")
     with pytest.raises(ValueError, match="item 6.5"):
         PipelineEngine(cfg, _dims(), None, th, ranks=_fake_ranks(),
                        device="cuda")
-    # the serving stack over ranks (item 6.7) and a traced async run
-    base = argparse.Namespace(spec=None, http=None, replicas=1,
-                              trace_out=None, async_dispatch=False)
-    for over in (dict(spec="s.json"), dict(http=0), dict(replicas=2)):
-        with pytest.raises(SystemExit, match="item 6.7"):
-            _serve_ranks(argparse.Namespace(**{**vars(base), **over}))
+    base = argparse.Namespace(trace_out=None, async_dispatch=False)
+    engine = ServeSpec()
     with pytest.raises(SystemExit, match="--async"):
         _serve_ranks(argparse.Namespace(**{**vars(base), "trace_out": "t",
-                                           "async_dispatch": True}))
+                                           "async_dispatch": True}), engine)
+    for spec in (ServeSpec(backend="sim"), ServeSpec(
+            backend="trace", trace=TraceSpec(replay="t.jsonl"))):
+        with pytest.raises(SystemExit, match="touches no device"):
+            _serve_ranks(base, spec)
+        with pytest.raises(ValueError, match="touches no device"):
+            build(spec, ranks=_fake_ranks())

@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.core import SamplingParams, ThrottleConfig
 from repro_torch.launch.mesh import rank_layout
-from repro_torch.launch.serve import move_in, move_out, serve_rank
+from repro_torch.launch.serve import move_in, move_out
 from repro_torch.launch.train import train_rank
 from repro_torch.models.transformer import (
     TransformerParams,
@@ -37,6 +37,7 @@ from repro_torch.models.transformer import (
 from repro_torch.runtime import checkpoint as ckpt
 from repro_torch.runtime.engine import PipelineEngine
 from test_torch_ranks_gpu import DIMS, _cfg, _spawn
+from torch_rank_jobs import serve_rank
 
 MAX_NEW = 8
 F32_TOL = 1e-4

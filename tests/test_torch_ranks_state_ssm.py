@@ -21,13 +21,14 @@ import torch
 
 from repro_torch.core import SamplingParams, ThrottleConfig
 from repro_torch.launch.mesh import rank_layout
-from repro_torch.launch.serve import move_in, move_out, serve_rank
+from repro_torch.launch.serve import move_in, move_out
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.serve import ServeDims
 from repro_torch.runtime.engine import PipelineEngine
 from test_torch_hygiene import _fake_ranks
 from test_torch_ranks import _spawn
 from test_torch_tp_serve import DIMS, THROTTLE, cfgs, jax_greedy, jax_params
+from torch_rank_jobs import serve_rank
 
 MAX_NEW = 6
 STATE_TOL = 1e-4

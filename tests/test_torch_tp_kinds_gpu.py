@@ -25,11 +25,12 @@ from repro_torch.configs import BlockSpec, get_config, make_reduced
 from repro_torch.core import SamplingParams, ThrottleConfig
 from repro_torch.launch import ranks as rk
 from repro_torch.launch.mesh import rank_layout
-from repro_torch.launch.serve import enc_inputs, serve_rank
+from repro_torch.launch.serve import enc_inputs
 from repro_torch.models.reference import greedy_trace
 from repro_torch.models.serve import ServeDims
 from repro_torch.models.transformer import init_params
 from repro_torch.runtime.engine import PipelineEngine
+from torch_rank_jobs import serve_rank
 
 NEAR_TIE = 1e-3
 MAX_NEW = 6

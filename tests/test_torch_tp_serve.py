@@ -7,7 +7,7 @@ Each case runs f32 with JAX's ``init_params`` weights (carried across by
 `params_from_numpy`; every rank cuts its shard from the saved tree), dropless
 (capacity factor = the expert count, as tests/test_torch_archs.py builds
 the MoE archs), one stage's uniform pattern two layers deep at pp=1.  The
-ranks serve through `launch.serve.serve_rank` (`launch.ranks.spawn`: one
+ranks serve through `torch_rank_jobs.serve_rank` (`launch.ranks.spawn`: one
 process a rank, a ``FileStore`` under ``tmp_path``, one intra-op thread a
 rank, a 60-s group timeout and a launch timeout).  Their greedy tokens
 must equal the port's one-process engine's on the same weights and JAX's
@@ -34,10 +34,10 @@ from repro_torch.configs import BlockSpec, get_config, make_reduced
 from repro_torch.core import SamplingParams, ThrottleConfig
 from repro_torch.launch import ranks as rk
 from repro_torch.launch.mesh import rank_layout
-from repro_torch.launch.serve import serve_rank
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.serve import ServeDims
 from repro_torch.runtime.engine import PipelineEngine
+from torch_rank_jobs import serve_rank
 
 DIMS = dict(Sp=1, C=16, Sd=8, pages=256, page=8, Bp=32, Bd=32, slots=16)
 THROTTLE = dict(max_prefill_tokens=16, min_prefill_tokens=4, num_iters_T=2)
