@@ -22,7 +22,12 @@ line; any failure raises and the script exits non-zero.
               NaN-poisoned and one ctx=0 row, within the kernel module's
               TOLERANCE; a copy of the kernel built with a planted fault
               (an off-by-one causal mask) must fail the same check; kernel,
-              plain and library (SDPA) times and the card's bound
+              plain and library (SDPA) times and the card's bound; at
+              qwen1.5's 16:16 D=64 and jamba's 64:8 D=128 decode shapes
+              also the kernel's log-sum-exp output (`with_lse`, the
+              sequence-sharded decode's partials) against the plain
+              version's within LSE_TOL, and its time beside the plain
+              version's
   serve-f32   full-width, full-depth qwen1.5-0.5b (random weights from a
               seed) serves 8 requests on three engines from one set of
               weights: eager (sync, unbucketed, no graphs), bucketed with
@@ -250,10 +255,18 @@ line; any failure raises and the script exits non-zero.
               bf16, SyntheticLM, checkpointing at steps 8 and 16; 16 steps,
               not 30, for the script's time): the loss at step 15 below
               step 0's; median ms a step over steps 5-15, tokens/s, peak
-              GB, model TFLOP/s; then olmoe-1b-7b cut to 4 of 16 layers
+              GB, model TFLOP/s; 4 steps of the same at remat="dots"
+              (each layer's weight GEMMs saved, the rest recomputed): ms
+              a step and peak beside the "full" run's; then olmoe-1b-7b
+              cut to 4 of 16 layers
               (~1.9 B parameters), 10 steps, the same report and the MoE
               kernel's launches: layers x M x 2 a step
               (each forward again in the backward's recomputation)
+  dryrun      the dry run (`launch.dryrun`: one rank's program counted on
+              the meta device) of serve-bf16's qwen tick at FULL_DIMS on
+              one rank and of train-bf16's qwen step: predicted per-rank
+              bytes beside `max_memory_allocated` (within 0.5x-2x), the
+              bound's ms at the data sheet's rates beside the measured ms
   train-ckpt  the checkpoint train-bf16 wrote restores into a fresh tree bit
               for bit; `--resume` loads it and starts below the fresh
               run's first loss; an eager bf16 qwen engine's
@@ -378,7 +391,14 @@ line; any failure raises and the script exits non-zero.
               as serve-tp-f32's rwkv6-3b move; the first run is traced: the
               trace (its header naming both replicas' pools) replays
               strictly on this host with the run's batches, each row's
-              replica and its tokens
+              replica and its tokens; then, on the same shards,
+              sequence-sharded decode at `serve_cell_dims(jamba,
+              long_500k, data=2)` (one sequence's 524,288 keys, each data
+              replica every other page of them, ~1.1 GB of f32 KV a rank):
+              the pools filled with seeded K/V and Mamba state, 3 decode
+              ticks whose attention partials (the kernel's log-sum-exp)
+              merge over `data`, held to the same ticks over the whole
+              sequence on every replica, logits within SEQ_TOL
   serve-ep-bf16  the kimi-k2 cut (its first ATTN_MOE layer, 384 experts,
               38.9 GB in bf16) at its published tp=2 and dp=2 (192 experts
               and ff 1,024 a rank, ~11 GB), bucketed, one batch of 16 at the
@@ -808,6 +828,34 @@ def _library_fn(q, clean, tables, ctx, qpos, page):
     return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask)
 
 
+# the shapes at which the kernel's log-sum-exp output (`with_lse`, the
+# sequence-sharded decode's partials) is held to the plain version's
+LSE_SHAPES = ("qwen1.5 decode", "jamba decode")
+# |lse - plain lse| on rows with ctx > 0: both take m + log(l) in f32 over
+# the same scores (bf16 inputs are exact in f32), apart in summation order
+# only (~1e-6 of l, and of a score's ~D products); held at 1e-4
+LSE_TOL = 1e-4
+
+
+def _lse_check(pa, args, plain) -> dict:
+    """The kernel's output and log-sum-exp `with_lse` against the plain
+    version's on the same inputs, and both calls' times."""
+    out, lse = pa.paged_flash_attention(*args, with_lse=True)
+    _, want = pa.paged_flash_attention_ref(*plain, with_lse=True)
+    torch.cuda.synchronize()
+    live = plain[3] > 0
+    excess, _ = pa.excess(out, *plain)
+    err = float((lse[live] - want[live]).abs().max())
+    empty = bool(torch.all(lse[~live] == pa.NEG_INF))
+    return {"lse_excess": excess, "lse_max_abs_err": err,
+            "lse_tol": LSE_TOL, "lse_empty_rows": empty,
+            "lse_ok": excess <= 1.0 and err <= LSE_TOL and empty,
+            "lse_ms": time_ms(lambda: pa.paged_flash_attention(
+                *args, with_lse=True), 20),
+            "lse_plain_ms": time_ms(lambda: pa.paged_flash_attention_ref(
+                *plain, with_lse=True), 3, warmup=1)}
+
+
 def phase_kernel(pa, planted_src: str) -> list:
     rng_ctx = np.random.default_rng(7)
     decode_ctx = [int(c) for c in rng_ctx.integers(1, 2049, 32)]
@@ -886,6 +934,13 @@ def phase_kernel(pa, planted_src: str) -> list:
                                      f"off-by-one causal mask at {name} "
                                      f"{dtype}: {row}")
             args = (q, kv, tables, ctx_t, qpos)
+            if name in LSE_SHAPES:
+                row.update(_lse_check(pa, args, plain))
+                if not row["lse_ok"]:
+                    emit(row)
+                    raise AssertionError(f"the kernel's log-sum-exp "
+                                         f"disagrees with the plain "
+                                         f"version's at {name} {dtype}")
             row["kernel_ms"] = time_ms(
                 lambda: pa.paged_flash_attention(*args), 20)
             row["plain_ms"] = time_ms(
@@ -3031,6 +3086,7 @@ TRAIN_STEPS = 16            # of qwen's bf16 run (30 until the script's time)
 # and 12.22, `tools/train_lr_sweep.py`); at 1e-4 both fall, to 12.05
 # (PERF.md)
 TRAIN_LR = 1e-4
+DOTS_STEPS = 4              # qwen's bf16 steps at remat="dots"
 TRAIN_F32_LAYERS = 4        # qwen1.5-0.5b's depth cut of the f32 checks
 TRAIN_F32_SEQ = 1024
 MOE_TRAIN_LAYERS = 4        # olmoe-1b-7b cut to 4 of 16 layers (~1.9 B)
@@ -3317,6 +3373,24 @@ def phase_train_bf16(mg, ckpt_dir: Path) -> dict:
     final = run["params"]
     del run
     _free()
+
+    # remat="dots" beside qwen's "full" run above: the weight GEMMs'
+    # outputs saved, the rest recomputed
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train_lib.train(cfg, steps=DOTS_STEPS, seq=TRAIN_SEQ, lr=TRAIN_LR,
+                          device=DEV, remat="dots")
+    dots = {"remat": "dots", "steps": DOTS_STEPS,
+            "s": time.perf_counter() - t0,
+            **_train_report(run, cfg, TRAIN_SEQ, first=1)}
+    qwen["remat"] = "full"
+    out["qwen_dots"] = dots
+    del run
+    _free()
+    if not all(np.isfinite(dots["loss"])):
+        emit(out)
+        raise AssertionError(f"train-bf16: the dots run's loss is not "
+                             f"finite: {dots['loss']}")
 
     cfg = _train_cfg(MOE_ARCH, MOE_TRAIN_LAYERS, "bfloat16")
     for m in ops.COUNTED:
@@ -4780,6 +4854,147 @@ def _idle_replica_ticks(homes) -> int:
 
 
 EP_TRACE = ROOT / "build" / "ranks" / "ep-f32.trace.jsonl"
+SEQ_TICKS = 3               # sequence-sharded decode ticks, the last at
+SEQ_CONTEXT = 524288        # context 524,288 (long_500k's)
+SEQ_CHUNK = 2048            # pool pages drawn a generator seed
+# the sharded ticks' logits against the unsharded ones', of the latter's
+# largest magnitude: f32 throughout, the two differ in the attention's
+# summation order (the shard's keys, the merge) and what that moves
+SEQ_TOL = 1e-4
+
+
+def _seq_fill(caches, shard, dp: int, t: int, dev) -> None:
+    """Fill `caches` with seeded values for tensor index `t`: every KV
+    pool page from its chunk's generator (global pages ``[c * SEQ_CHUNK,
+    (c + 1) * SEQ_CHUNK)`` from seed ``1000 * t + c``), the whole
+    interleaved sequence (`shard` None) or shard `shard`'s pages of it
+    (local page b = global page b * dp + shard); the Mamba states from
+    seed ``t``, scaled by 0.1.  Every data replica of one tensor index
+    holds the same sequence."""
+    for gk, grp in caches.items():
+        for name, pool in grp.items():
+            if name != "kv":
+                g = torch.Generator(device=dev).manual_seed(t)
+                pool.copy_(0.1 * torch.randn(pool.shape, generator=g,
+                                             device=dev))
+                continue
+            per = SEQ_CHUNK if shard is None else SEQ_CHUNK // dp
+            pages = pool.shape[2] - 1           # the scratch page stays 0
+            shape = (pool.shape[1], SEQ_CHUNK) + tuple(pool.shape[3:])
+            for c in range(-(-pages // per)):
+                g = torch.Generator(device=dev).manual_seed(1000 * t + c)
+                chunk = torch.randn(shape, generator=g, device=dev)
+                if shard is not None:
+                    chunk = chunk[:, shard::dp]
+                n = min(per, pages - c * per)
+                pool[0, :, c * per:c * per + n] = chunk[:, :n]
+
+
+def _seq_ticks(ranks, cfg, dims, params, dev, tokens, shard) -> tuple:
+    """`SEQ_TICKS` decode ticks of one sequence on the rank tick at
+    `dims`, its pools filled by `_seq_fill`: the logits of this rank's
+    vocab slice each tick, the seconds a tick, the paged-attention
+    launches and the KV pools' bytes."""
+    from repro_torch.distributed.pipeline import build_rank_serve_tick
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import serve as serve_lib
+    from repro_torch.models import transformer as tfm
+
+    dp, r = ranks.size("data"), ranks.index("data")
+    local = tfm.shard_config(cfg, ranks.size("tensor"),
+                             tfm.expert_parts(cfg, dp))
+    caches = serve_lib.init_caches(local, dims, torch.float32, dev)
+    _seq_fill(caches, shard, dp, ranks.index("tensor"), dev)
+    tick = build_rank_serve_tick(cfg, dims, ranks)
+    table = np.arange(dims.Bd, dtype=np.int32)
+    seen, head = [], tfm.head_apply
+    tfm.head_apply = lambda *a: seen.append(
+        head(*a).float().clone()) or seen[-1]
+    launches, times = pa.launches, []
+    try:
+        for k, tok in enumerate(tokens):
+            pos = SEQ_CONTEXT - SEQ_TICKS + k
+            g = pos // dims.page
+            m = serve_lib.zero_meta(dims)
+            m["d_positions"][0] = pos
+            m["d_context_lens"][0] = pos + 1
+            m["d_block_tables"][0] = table
+            m["d_slot_pages"][0] = (g if shard is None else
+                                    g // dp if g % dp == r else -1)
+            m["d_slot_offsets"][0] = pos % dims.page
+            m["d_valid"][0] = 1
+            meta = {key: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                    for key, v in serve_lib.host_meta(m, dims).items()}
+            meta["p_tok"] = torch.zeros((0, 0), dtype=torch.int32,
+                                        device=dev)
+            meta["d_tok"] = torch.full((dims.Sd,), tok, dtype=torch.int32,
+                                       device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                caches, _ = tick(params, caches, meta, None)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        tfm.head_apply = head
+    kv = sum(t.numel() * t.element_size() for grp in caches.values()
+             for name, t in grp.items() if name == "kv")
+    del caches
+    return [x.cpu() for x in seen], times, pa.launches - launches, kv
+
+
+def _seq_shard_run(ranks, job: dict, params, dev) -> dict:
+    """Sequence-sharded decode at the `serve_cell_dims(jamba, long_500k,
+    data=2)` geometry on this rank's shard: `SEQ_TICKS` ticks over each
+    replica's interleaved half of one sequence's KV (the kernel's
+    log-sum-exp partials merged over `data`), then the same ticks over the
+    whole sequence on every replica (no shard); this rank's logits must
+    agree within `SEQ_TOL`."""
+    import dataclasses
+
+    from repro_torch.configs import ASSIGNED_SHAPES, get_config
+    from repro_torch.launch.shapes import serve_cell_dims
+
+    dp = ranks.size("data")
+    local = serve_cell_dims(get_config(JAMBA_ARCH),
+                            ASSIGNED_SHAPES["long_500k"], data=dp)
+    whole = dataclasses.replace(
+        local, pages=dp * local.Bd + local.pages - local.Bd,
+        Bd=dp * local.Bd, seq_shard=False)
+    tokens = [int(x) for x in np.random.default_rng(17).integers(
+        0, job["cfg"].vocab_size, SEQ_TICKS)]
+    got, t_shard, n_shard, kv_shard = _seq_ticks(
+        ranks, job["cfg"], local, params, dev, tokens, ranks.index("data"))
+    torch.cuda.empty_cache()
+    want, t_whole, n_whole, kv_whole = _seq_ticks(
+        ranks, job["cfg"], whole, params, dev, tokens, None)
+    errs = [float((a - b).abs().max()) / float(b.abs().max())
+            for a, b in zip(got, want)]
+    return {"rank": ranks.rank, "coords": ranks.coords,
+            "dims": dataclasses.asdict(local), "context": SEQ_CONTEXT,
+            "ticks": SEQ_TICKS, "rel_err": errs, "tol": SEQ_TOL,
+            "ok": len(errs) == SEQ_TICKS and max(errs) <= SEQ_TOL,
+            "kv_gb_shard": _gb(kv_shard), "kv_gb_whole": _gb(kv_whole),
+            "tick_ms_shard": [t * 1e3 for t in t_shard],
+            "tick_ms_whole": [t * 1e3 for t in t_whole],
+            "attention_launches_shard": n_shard,
+            "attention_launches_whole": n_whole}
+
+
+def ep_f32_rank(ranks, job: dict) -> dict:
+    """serve-ep-f32's rank function (`launch.ranks.spawn` pickles it by
+    name): `torch_rank_jobs.serve_rank`'s runs, then the sequence-sharded
+    decode (`_seq_shard_run`) on the same shard."""
+    import gc
+
+    from torch_rank_jobs import job_shard, serve_runs
+
+    dev, dtype, params, keys = job_shard(ranks, job)
+    runs = serve_runs(ranks, job, dev, dtype, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**keys, "runs": runs,
+            "seq_shard": _seq_shard_run(ranks, job, params, dev)}
 
 
 def _ep_f32_job(jamba: dict) -> dict:
@@ -4826,11 +5041,11 @@ def _ep_trace(head: dict) -> dict:
     return out
 
 
-def _ep_f32_row(job: dict, jamba: dict, out: list) -> dict:
+def _ep_f32_row(job: dict, jamba: dict, out: list, seq: list) -> dict:
     """serve-ep-f32's line: the ranks' tokens against serve-jamba-f32's
     one-process engine's up to the dense reference's first near-tie, the
     ticks and rows' replicas against the host replay, each rank's
-    launches."""
+    launches, and each rank's sequence-sharded decode (`seq`)."""
     head, cfg, max_new = out[0], job["cfg"], job["max_new"]
     stops = {t["request"]: t["step"] for t in jamba["near_ties"]}
     compared, bad = 0, []
@@ -4861,7 +5076,8 @@ def _ep_f32_row(job: dict, jamba: dict, out: list) -> dict:
            "wall_s": head["wall_s"],
            "weight_gb_per_rank": [_gb(o["weight_bytes"]) for o in out],
            "peak_gb_per_rank": [_gb(o["peak_bytes"]) for o in out],
-           "per_rank": _rank_rows(out, head["stats"]["ticks"])}
+           "per_rank": _rank_rows(out, head["stats"]["ticks"]),
+           "seq_shard": seq}
     try:
         row["trace"] = _ep_trace(head)
         row["launches"] = _tp_launches(out, cfg)
@@ -4874,6 +5090,14 @@ def _ep_f32_row(job: dict, jamba: dict, out: list) -> dict:
         raise AssertionError(f"serve-ep-f32: tokens or ticks differ from "
                              f"the one-process engine's and the replay's, "
                              f"or a rank exchanged no expert rows: {bad}")
+    # each tick launches the kernel once per attention layer on every rank
+    layers = sum(bs.repeat for bs in cfg.pattern
+                 if bs.kind.value.startswith("attn"))
+    if not all(r["ok"] and r["attention_launches_shard"] == SEQ_TICKS
+               * layers for r in seq):
+        raise AssertionError(f"serve-ep-f32: the sequence-sharded decode "
+                             f"disagrees with the unsharded ticks or did "
+                             f"not launch the kernel: {seq}")
     return row
 
 
@@ -4992,13 +5216,14 @@ def phase_ep(jamba: dict) -> dict:
                  lr=0.0, aux_coef=0.0, device=DEV, dtype="float32", seed=0)
     t1 = time.perf_counter()
     runs = _spawn_ranks(rk.run_each, rank_layout(EP_DP, 1, EP_TP),
-                        [(serve_rank, f32), (serve_rank, bf16),
+                        [(ep_f32_rank, f32), (serve_rank, bf16),
                          (train_rank, train)], "ep",
                         sum(RANK_BUDGET_S[p] for p in
                             ("serve-ep-f32", "serve-ep-bf16", "train-ep")))
     launch_s = time.perf_counter() - t1
     ep32, moved = _flat_runs([r[0] for r in runs])
-    rows = {"serve-ep-f32": _ep_f32_row(f32, jamba, ep32),
+    seq = [r[0]["seq_shard"] for r in runs]
+    rows = {"serve-ep-f32": _ep_f32_row(f32, jamba, ep32, seq),
             "serve-ep-bf16": _ep_bf16_row(bf16, [r[1] for r in runs])}
     last = [r[2] for r in runs]
     loss = last[0]["loss"][0]
@@ -5031,6 +5256,63 @@ def phase_ep(jamba: dict) -> dict:
         raise AssertionError(f"train-ep: the loss disagrees or the MoE "
                              f"kernel did not run under autograd: {row}")
     return rows
+
+
+# the dry run's predicted bytes against the card's peak: within these
+# factors of it
+DRYRUN_BYTES = (0.5, 2.0)
+
+
+def phase_dryrun(bf16: dict, train_bf16: dict) -> dict:
+    """The dry run (`launch.dryrun`) of two programs this script runs, on
+    the meta device: serve-bf16's qwen1.5-0.5b tick at `FULL_DIMS` on one
+    rank, and train-bf16's qwen step (M = 2 micro-batches of one 4,096-
+    token sequence, Adam): predicted per-rank bytes (arguments plus peak
+    temporaries) beside `max_memory_allocated`, and the bound's ms at the
+    data sheet's rates beside the measured ms a tick and a step."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import rank_layout
+    from repro_torch.launch.serve import FULL_DIMS, serve_config
+    from repro_torch.launch.shapes import TrainDims
+    from repro_torch.launch.train import M, MBG
+
+    one = rank_layout(1, 1, 1)
+    cfg, _ = serve_config(ARCH, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    serve = dryrun.count_serve(cfg, FULL_DIMS, one, 0)
+    t1 = time.perf_counter()
+    train = dryrun.count_train(_train_cfg(ARCH, 24, "bfloat16"),
+                               TrainDims(M=M, mbg=MBG, T=TRAIN_SEQ), one, 0)
+    t2 = time.perf_counter()
+    qwen = train_bf16["qwen"]
+    rows = {"serve-bf16 qwen1.5-0.5b tick at FULL_DIMS": (
+                serve, bf16["max_memory_allocated"], bf16["ms_per_tick"],
+                "measured ms a tick (the bucketed graph engine's mixed "
+                "ticks; the count is one full-dims tick)", t1 - t0),
+            "train-bf16 qwen1.5-0.5b step": (
+                train, qwen["peak_gb"] * 1e9, qwen["median_ms_per_step"],
+                "measured median ms a step", t2 - t1)}
+    out = {"phase": "dryrun", "rates": "predicted at the H100 SXM data "
+                                       "sheet's rates (989 TFLOP/s bf16, "
+                                       "3.35 TB/s)",
+           "bytes_within": DRYRUN_BYTES, "programs": {}}
+    ok = True
+    for name, (st, peak, ms, what, secs) in rows.items():
+        ratio = st["memory_bytes"] / peak
+        ok &= DRYRUN_BYTES[0] <= ratio <= DRYRUN_BYTES[1]
+        out["programs"][name] = {
+            "predicted_bytes": st["memory_bytes"],
+            "argument_bytes": st["argument_bytes"],
+            "peak_temporary_bytes": st["peak_live_bytes"],
+            "max_memory_allocated": peak, "predicted_over_measured": ratio,
+            "flops": st["flops"], "bytes_moved": st["bytes"],
+            "bound_ms_predicted": st["bound_s"] * 1e3, "measured_ms": ms,
+            "measured": what, "count_s": secs}
+    emit(out)
+    if not ok:
+        raise AssertionError(f"dryrun: predicted bytes outside "
+                             f"{DRYRUN_BYTES} of the measured peak")
+    return out
 
 
 def _launches(run: dict, name: str) -> list:
@@ -5068,7 +5350,9 @@ def _kernel_entry(name, source, replaces, launches, rows, main_row):
                                       "excess", "planted_excess",
                                       "planted_tf32_excess", "kernel_ms",
                                       "recurrent_ms", "plain_ms",
-                                      "library_ms", "bound_ms", "bound_by")
+                                      "library_ms", "bound_ms", "bound_by",
+                                      "lse_max_abs_err", "lse_ms",
+                                      "lse_plain_ms")
                     if k in r}
                    for r in rows]}
 
@@ -5143,6 +5427,7 @@ def main() -> int:
     ckpt_dir = ROOT / "build" / "train_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     train_bf16, final = phase_train_bf16(mg, ckpt_dir)
+    phase_dryrun(bf16, train_bf16)
     phase_train_ckpt(final, ckpt_dir, train_bf16["qwen"]["loss"][0],
                      build_engine)
     del final

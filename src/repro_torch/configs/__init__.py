@@ -7,10 +7,13 @@ import importlib
 from typing import Dict, List
 
 from repro_torch.configs.base import (
+    ASSIGNED_SHAPES,
     ArchConfig,
     BlockKind,
     BlockSpec,
     ParallelPlan,
+    ShapeSpec,
+    applicable_shapes,
     cut_to_depth,
     cut_to_kinds,
     make_reduced,
@@ -34,6 +37,10 @@ _MODULES: Dict[str, str] = {
     "llama3.1-100b": "llama3_1_100b",
 }
 
+# The archs of the assigned cells: the registry's first ten, as the JAX
+# package's ``ASSIGNED_ARCHS``.
+ASSIGNED_ARCHS: List[str] = list(_MODULES)[:10]
+
 
 def get_config(name: str) -> ArchConfig:
     if name not in _MODULES:
@@ -47,10 +54,14 @@ def list_archs() -> List[str]:
 
 
 __all__ = [
+    "ASSIGNED_ARCHS",
+    "ASSIGNED_SHAPES",
     "ArchConfig",
     "BlockKind",
     "BlockSpec",
     "ParallelPlan",
+    "ShapeSpec",
+    "applicable_shapes",
     "cut_to_depth",
     "cut_to_kinds",
     "get_config",

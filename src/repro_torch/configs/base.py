@@ -19,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 
 class BlockKind(enum.Enum):
@@ -219,6 +219,34 @@ class RankConfig(ArchConfig):
     @property
     def num_rwkv_heads(self) -> int:
         return self.d_model // self.rwkv_head_dim // self.tensor_parts
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """An assigned input shape: a cell's sequence length, global batch
+    and kind (the JAX package's ``ShapeSpec``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # train | prefill | decode
+
+
+ASSIGNED_SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def applicable_shapes(cfg: ArchConfig) -> List[ShapeSpec]:
+    """The assigned shape cells that run for this arch."""
+    out = [ASSIGNED_SHAPES["train_4k"], ASSIGNED_SHAPES["prefill_32k"],
+           ASSIGNED_SHAPES["decode_32k"]]
+    if cfg.supports_long_context:
+        out.append(ASSIGNED_SHAPES["long_500k"])
+    return out
 
 
 def make_reduced(cfg: ArchConfig, *, d_model: int = 64, d_ff: int = 128,

@@ -52,6 +52,18 @@ call's clock starts: a kind's seconds are its transport and the wait for
 its peers, and the wait for the rank's own device work is counted apart
 (``wait_s``).  `CLOCK`, when started, brackets the device work between
 collectives with CUDA events.
+
+**Counting.**  The dry run (`launch.dryrun`) runs one rank's program on
+``meta`` tensors over counting axes (`launch.mesh.counting_groups`: the
+layout's sizes, no process groups).  There every collective books its
+payload bytes under the HLO name ``roofline.analysis.collective_breakdown``
+keeps (`roofline.op_cost.book_collective`) and returns a ``meta`` result of
+its result's shape; it never calls ``torch.distributed``.  The names:
+`all_reduce` ``all-reduce``; `broadcast` ``all-reduce`` too (JAX
+broadcasts by a masked ``psum``); `all_gather` ``all-gather``;
+`all_to_all` ``all-to-all``; `exchange` ``collective-permute`` (JAX's
+``ppermute``), the bytes it sends (or receives, on a rank that only
+receives).
 """
 
 from __future__ import annotations
@@ -137,6 +149,13 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _booked(name: str, t: torch.Tensor) -> None:
+    """A collective on ``meta`` tensors: `t`'s bytes booked under `name`."""
+    from repro_torch.roofline import op_cost
+
+    op_cost.book_collective(name, _nbytes(t))
+
+
 def _staged(t: torch.Tensor) -> bool:
     return t.is_cuda and dist.get_backend() == "gloo"
 
@@ -182,6 +201,9 @@ def all_reduce(t: torch.Tensor, axis, op: str = "sum",
     axis."""
     if axis is None or axis.size == 1:
         return t
+    if t.is_meta:
+        _booked("all-reduce", t)
+        return t
     with _Timed(kind, _nbytes(t), t):
         if _staged(t):
             host = _host(t)
@@ -197,6 +219,9 @@ def all_gather(t: torch.Tensor, axis, kind: str = "gather"
     """Every rank's `t` along `axis`, in axis order."""
     if axis is None or axis.size == 1:
         return [t]
+    if t.is_meta:
+        _booked("all-gather", t)
+        return [torch.empty_like(t) for _ in range(axis.size)]
     with _Timed(kind, _nbytes(t), t):
         src = _host(t) if _staged(t) else t.contiguous()
         out = [torch.empty_like(src) for _ in range(axis.size)]
@@ -212,6 +237,9 @@ def broadcast(t: torch.Tensor, axis, src: int, kind: str = "broadcast"
     """`t` of the rank at index `src` of `axis`, in place on every rank of
     it."""
     if axis is None or axis.size == 1:
+        return t
+    if t.is_meta:
+        _booked("all-reduce", t)
         return t
     with _Timed(kind, _nbytes(t), t):
         if _staged(t):
@@ -233,6 +261,9 @@ def exchange(send: Optional[Tuple[torch.Tensor, int]] = None,
     together (``batch_isend_irecv``) so that a ring of such steps cannot
     deadlock.  Under gloo a CUDA tensor travels through a host copy."""
     if send is None and recv is None:
+        return
+    if (send or recv)[0].is_meta:
+        _booked("collective-permute", (send or recv)[0])
         return
     nbytes = (_nbytes(send[0]) if send else 0) + (
         _nbytes(recv[0]) if recv else 0)
@@ -267,6 +298,9 @@ def all_to_all(t: torch.Tensor, axis, kind: str = "ep") -> torch.Tensor:
     if t.shape[0] % axis.size:
         raise ValueError(f"all_to_all: {t.shape[0]} rows do not split over "
                          f"{axis.size} ranks")
+    if t.is_meta:
+        _booked("all-to-all", t)
+        return torch.empty_like(t)
     with _Timed(kind, _nbytes(t), t):
         src = _host(t) if _staged(t) else t.contiguous()
         out = torch.empty_like(src)

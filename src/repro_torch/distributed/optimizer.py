@@ -10,9 +10,10 @@ are f32 trees (nested dicts) mirroring the parameters.
 Where JAX returns new trees, this updates the parameters and the moments in
 place under ``torch.no_grad()`` (one f32 temporary per leaf), and returns
 them.  A gradient of None counts as zero (a leaf that no row reached),
-which is what JAX's autodiff gives there.  `adam_abstract` and
-`adam_pspecs`, the JAX module's sharding helpers for the dry-run, wait with
-the dry-run (ROADMAP Queue 1 item 8).
+which is what JAX's autodiff gives there.  The JAX module's
+dry-run helpers have no counterpart: `adam_init` of a rank's tree of meta
+tensors is the abstract state (`launch.dryrun`), and a rank's moments
+mirror its own shard, so they need no sharding specs.
 """
 
 from __future__ import annotations

@@ -88,7 +88,7 @@ def _stage_params(stages, s: int):
 
 
 def _pipeline_scan(cfg: ArchConfig, stages, h: torch.Tensor, *,
-                   enc_width: int = 0
+                   enc_width: int = 0, remat: str = "full"
                    ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """GPipe schedule over h [M, mb, T, d]: (the last stage's output of
     each micro-batch, aux summed over micro-batches and stages)."""
@@ -103,7 +103,7 @@ def _pipeline_scan(cfg: ArchConfig, stages, h: torch.Tensor, *,
                 continue
             y, a = tfm.stage_forward_train(
                 cfg, weights[s], h[t - s] if s == 0 else carry[s - 1],
-                enc_width=enc_width, stage=s)
+                enc_width=enc_width, stage=s, remat=remat)
             aux = aux + a
             if s == S - 1:
                 out[t - s] = y
@@ -148,7 +148,7 @@ def build_train_step(cfg: ArchConfig, *, adam: AdamConfig = AdamConfig(),
                      aux_coef: float = 0.01, enc_width: int = 0,
                      grad_compression: Optional[str] = None,
                      device: Optional[torch.device | str] = None,
-                     ranks=None):
+                     ranks=None, remat: str = "full"):
     """Returns step(params, opt, batch) -> (params, opt, metrics), which
     updates `params` (a `TransformerParams.trainable` tree on `device`)
     and `opt` (`optimizer.adam_init`) in place.
@@ -158,7 +158,8 @@ def build_train_step(cfg: ArchConfig, *, adam: AdamConfig = AdamConfig(),
     which replace the first Tv token embeddings}; numpy or tensors.
     metrics = {"loss", "aux", "total", "gnorm"}: f32 scalars on the device.
     The step runs at `cfg.plan.pp` stages on the one device; `device` is
-    CUDA unless the CPU is asked for.
+    CUDA unless the CPU is asked for.  `remat`: the recompute policy of
+    each layer (`transformer.stage_forward_train`: "full" or "dots").
 
     With `ranks` (`launch.mesh.RankGroups` over more than one process),
     each rank runs `_rank_train_step` on its shard (`shard_params` /
@@ -171,7 +172,8 @@ def build_train_step(cfg: ArchConfig, *, adam: AdamConfig = AdamConfig(),
     if ranks is not None and ranks.layout.world > 1:
         return _rank_train_step(cfg, ranks, adam=adam, aux_coef=aux_coef,
                                 enc_width=enc_width,
-                                grad_compression=grad_compression, dev=dev)
+                                grad_compression=grad_compression, dev=dev,
+                                remat=remat)
 
     def step(params, opt: AdamState, batch):
         leaves = list(tfm.tree_items(params))
@@ -190,7 +192,7 @@ def build_train_step(cfg: ArchConfig, *, adam: AdamConfig = AdamConfig(),
             emb = torch.as_tensor(batch["embeds"], device=dev).to(h.dtype)
             h = torch.cat([emb, h[:, :, emb.shape[2]:]], dim=2)
         hid, aux = _pipeline_scan(cfg, params["stages"], h,
-                                  enc_width=enc_width)
+                                  enc_width=enc_width, remat=remat)
         nll, cnt = _sharded_loss(cfg, params, hid, labels)
         loss = nll / torch.clamp(cnt, min=1.0)
         total = loss + aux_coef * aux
@@ -235,7 +237,7 @@ def grad_sync_axes(spec) -> Tuple[str, ...]:
 
 
 def _rank_loss(params, hn: Optional[torch.Tensor],
-               shape, labels: torch.Tensor, cnt: float, ranks,
+               shape, labels: torch.Tensor, cnt: torch.Tensor, ranks,
                dev: torch.device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """JAX's ``_sharded_loss`` for one micro-batch, its backward run here:
     the last stage's normed hidden state `hn` [mb, T, d] is broadcast in f32
@@ -276,7 +278,8 @@ def _rank_loss(params, hn: Optional[torch.Tensor],
 
 def _rank_train_step(cfg: ArchConfig, ranks, *, adam: AdamConfig,
                      aux_coef: float, enc_width: int,
-                     grad_compression: Optional[str], dev: torch.device):
+                     grad_compression: Optional[str], dev: torch.device,
+                     remat: str = "full"):
     """One rank's GPipe train step (see `build_train_step`)."""
     layout = ranks.layout
     tfm.check_shardable(cfg, layout)
@@ -306,7 +309,8 @@ def _rank_train_step(cfg: ArchConfig, ranks, *, adam: AdamConfig,
         if mbg % dp:
             raise ValueError(f"{mbg} sequences a micro-batch do not split "
                              f"over dp={dp}")
-        cnt = float((labels >= 0).sum())
+        # a 0-dim tensor, not a host read: the dry run runs on meta
+        cnt = (labels >= 0).sum().float()
         rows = slice(d * mbg // dp, (d + 1) * mbg // dp)
         tokens, labels = tokens[:, rows].to(dev), labels[:, rows].to(dev)
         for t in leaves.values():
@@ -333,7 +337,7 @@ def _rank_train_step(cfg: ArchConfig, ranks, *, adam: AdamConfig,
                 x.requires_grad_(True)
             y, a = tfm.stage_forward_train(local, weights, x,
                                            enc_width=enc_width, stage=s,
-                                           tp=tp, ep=ep)
+                                           tp=tp, ep=ep, remat=remat)
             if s < S - 1:
                 coll.exchange(send=(y.detach(), stage.peer(1)))
             xs.append(x)
@@ -376,7 +380,7 @@ def _rank_train_step(cfg: ArchConfig, ranks, *, adam: AdamConfig,
         coll.all_reduce(nll, ranks["data"], kind="metrics")
         for ax in (stage, ranks["data"]):
             coll.all_reduce(aux, ax, kind="metrics")
-        loss = nll / max(cnt, 1.0)
+        loss = nll / torch.clamp(cnt, min=1.0)
         aux = aux / dp
         total = loss + aux_coef * aux
 
@@ -586,8 +590,15 @@ def build_rank_serve_tick(cfg: ArchConfig, dims: ServeDims, ranks, *,
     its own rows at its own `dims` (its slots, pages and rows; JAX's
     ``ServeDims`` are per replica) and, where the experts are split over
     the replicas (`expert_group`), exchanges MoE rows with them in every
-    MoE layer, so that every replica runs every tick.  Stage 0 embeds the entering rows (the
-    width gathered over `tensor`); every stage applies its layers to its
+    MoE layer, so that every replica runs every tick.  At
+    ``dims.seq_shard`` (a decode cell of fewer sequences than replicas)
+    every replica runs the same decode rows over its shard of their KV,
+    local page b holding global page b·dp + r, and the attention partials
+    are merged over the data group (`attention.paged_attention`'s
+    ``merge_axis``); the metadata is each replica's own (its tables, and
+    its KV write, on the scratch page where another replica holds the
+    row's page).  Stage 0 embeds the entering rows (the width gathered
+    over `tensor`); every stage applies its layers to its
     micro-batch (its tensor group reducing the row-parallel products); the
     outputs hop one stage on (stage s-1's arrive in `carry` for the next
     tick); the last stage's sample rows are broadcast over the stage
@@ -608,6 +619,7 @@ def build_rank_serve_tick(cfg: ArchConfig, dims: ServeDims, ranks, *,
     stage, tensor, data = ranks["stage"], ranks["tensor"], ranks["data"]
     tp = tensor if tensor.size > 1 else None
     ep = expert_group(cfg, ranks)
+    seq = data if dims.seq_shard and data.size > 1 else None
     local = tfm.shard_config(cfg, tensor.size,
                              tfm.expert_parts(cfg, data.size))
     d = cfg.d_model
@@ -632,7 +644,7 @@ def build_rank_serve_tick(cfg: ArchConfig, dims: ServeDims, ranks, *,
             xd = carry["xd"][:Sd]
         xp2, xd2, caches = serve_lib.stage_forward_serve(
             local, params["stages"], caches, xp, xd, m, dims, stage=s,
-            index=0, tp=tp, ep=ep)
+            index=0, tp=tp, ep=ep, seq=seq)
         if S > 1:                       # the hop: JAX's ppermute
             n = Sp * W * d
             send = recv = None

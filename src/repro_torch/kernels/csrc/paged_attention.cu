@@ -17,8 +17,8 @@
 // page and is written as exact zeros.
 //
 // Entry points.  paged_attention_workspace_bytes(S, TQ, H, KH, D, page, B,
-// dtype) gives the bytes of f32 scratch that a launch with these shapes needs
-// (0 for none); the caller allocates it and passes it to
+// dtype, with_lse) gives the bytes of f32 scratch that a launch with these
+// shapes needs (0 for none); the caller allocates it and passes it to
 // paged_attention_launch.  Both derive the launch plan (`plan_for`) from these
 // shapes alone, never from the tensors' values: nothing is read back from the
 // card, so a launch never synchronises the stream and can be captured in a
@@ -77,6 +77,19 @@
 //    warpgroup to the consumers.
 // Every path masks keys at or past the block's key end and past each row's
 // q position, and never reads a dead page.
+//
+// The log-sum-exp.  With a non-null `lse` (f32 [S, TQ, H]) a launch also
+// writes each row's log(sum_k exp(score_k)) over its attended keys (kNegInf
+// for a row with none), so that the normalised outputs of attention over
+// disjoint key sets merge exactly: O = sum_r exp(lse_r - LSE) o_r.  Serving
+// at a sequence-sharded pool (each data rank holds every n-th page of a
+// sequence) calls it so.  The combine kernel already holds each row's max m
+// and sum l, and lse = m + log(l); such a launch therefore always writes
+// partials into the workspace and runs the combine, at one split too.  The
+// interleave stays on the host side: on a shard the keys that pass
+// kpos < ctx and kpos <= qpos are a prefix of the local keys, so the caller
+// hands the kernel the local ctx and q positions of that prefix, and the
+// kernel's masks and dead-page walk are those of any pool.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -316,7 +329,7 @@ paged_attention_decode_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   const Block b = block_of<PAGE>(ctx_lens, q_positions, TQ, G, B, kDecodeRows,
                                  nsplit, split_pages);
   // the combine reads no split that holds none of a row's keys
-  if (b.p_end <= b.p_lo && nsplit > 1) return;
+  if (b.p_end <= b.p_lo && ws_o != nullptr) return;
 
   // CUDA cores: q rows, scaled, in f32 in shared memory (rows past the tile
   // zero), and each row's q position.  Tensor cores: q as A fragments in
@@ -582,7 +595,7 @@ paged_attention_decode_kernel(const T* __restrict__ q, const T* __restrict__ kv,
         o[e] = fmaf(mo[(w * NR + r) * D + lane * DPL + e], a, o[e]);
     }
     const int m = b.m0 + r;
-    if (nsplit == 1) {
+    if (ws_o == nullptr) {
       T* orow = out + row_offset(b.s, m, TQ, H, G, b.kh, D);
       const float inv = 1.f / fmaxf(l, 1e-20f);
 #pragma unroll
@@ -656,7 +669,7 @@ paged_attention_f32_prefill_kernel(const float* __restrict__ q,
   const int G = H / KH, M = TQ * G;
   const Block b = block_of<PAGE>(ctx_lens, q_positions, TQ, G, B, kTileRows,
                                  nsplit, split_pages);
-  if (b.p_end <= b.p_lo && nsplit > 1) return;
+  if (b.p_end <= b.p_lo && ws_o != nullptr) return;
   const int* table = tables + (size_t)b.s * B;
   const int n_tiles = b.p_end > b.p_lo ? (b.p_end - b.p_lo + PPT - 1) / PPT : 0;
   const int kstop = min(b.kend, b.qmax + 1);
@@ -793,7 +806,7 @@ paged_attention_f32_prefill_kernel(const float* __restrict__ q,
     const int r = rg * 8 + i;
     if (r >= b.rows) continue;
     const int m = b.m0 + r;
-    if (nsplit == 1) {
+    if (ws_o == nullptr) {
       float* orow = out + row_offset(b.s, m, TQ, H, G, b.kh, D);
       const float inv = 1.f / fmaxf(l, 1e-20f);
 #pragma unroll
@@ -991,7 +1004,7 @@ paged_attention_wgmma_kernel(const __grid_constant__ CUtensorMap kv_map,
                                  nsplit, split_pages);
   const int n_tiles = b.p_end > b.p_lo ? (b.p_end - b.p_lo + PPT - 1) / PPT : 0;
   if (n_tiles == 0) {
-    if (nsplit > 1) return;   // the combine reads no split without keys
+    if (ws_o != nullptr) return;   // the combine reads no split without keys
     for (int i = threadIdx.x; i < b.rows * D; i += blockDim.x)
       out[row_offset(b.s, b.m0 + i / D, TQ, H, G, b.kh, D) + i % D] =
           __float2bfloat16(0.f);
@@ -1166,7 +1179,7 @@ paged_attention_wgmma_kernel(const __grid_constant__ CUtensorMap kv_map,
       const int r = warp * 16 + gid + 8 * h2;
       if (r >= b.rows) continue;
       const int m = b.m0 + r;
-      if (nsplit == 1) {
+      if (ws_o == nullptr) {
         __nv_bfloat16* orow = out + row_offset(b.s, m, TQ, H, G, b.kh, D);
         const float inv = 1.f / fmaxf(l, 1e-20f);
 #pragma unroll
@@ -1195,7 +1208,8 @@ paged_attention_wgmma_kernel(const __grid_constant__ CUtensorMap kv_map,
 
 // ---------------------------------------------------------------------------
 // Combine: one warp per output row (s, tq, h) merges the partials of the
-// splits that hold any of the row's keys.
+// splits that hold any of the row's keys, and with `lse` writes the row's
+// log-sum-exp of its scaled scores (kNegInf for a row with no key).
 
 template <typename T, int D>
 __global__ void __launch_bounds__(128)
@@ -1203,8 +1217,9 @@ paged_attention_combine_kernel(const float* __restrict__ ws_o,
                                const float* __restrict__ ws_ml,
                                const int* __restrict__ ctx_lens,
                                const int* __restrict__ q_positions,
-                               T* __restrict__ out, int S, int TQ, int H, int KH,
-                               int nsplit, int split_keys, int table_keys) {
+                               T* __restrict__ out, float* __restrict__ lse,
+                               int S, int TQ, int H, int KH, int nsplit,
+                               int split_keys, int table_keys) {
   constexpr int DPL = D / 32;
   const int row = blockIdx.x * 4 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= S * TQ * H) return;
@@ -1230,6 +1245,7 @@ paged_attention_combine_kernel(const float* __restrict__ ws_o,
   T* orow = out + (size_t)row * D;
 #pragma unroll
   for (int e = 0; e < DPL; ++e) orow[lane * DPL + e] = from_float<T>(o[e] * inv);
+  if (lse != nullptr && lane == 0) lse[row] = l > 0.f ? mg + logf(l) : kNegInf;
 }
 
 // ---------------------------------------------------------------------------
@@ -1319,8 +1335,8 @@ Plan plan_for(int S, int TQ, int H, int KH, int page, int B) {
 }
 
 template <typename T, int D>
-size_t workspace_bytes(const Plan& p, int S, int TQ, int H, int KH) {
-  if (p.nsplit == 1) return 0;
+size_t workspace_bytes(const Plan& p, int S, int TQ, int H, int KH, bool with_lse) {
+  if (p.nsplit == 1 && !with_lse) return 0;
   const size_t rows = (size_t)S * p.nsplit * KH * TQ * (H / KH);
   return rows * (D + 2) * sizeof(float);
 }
@@ -1452,12 +1468,15 @@ int launch_main(const Plan& p, const void* q, const void* kv, const int* tables,
 
 template <typename T, int D, int PAGE>
 int launch(const void* q, const void* kv, const void* tables, const void* ctx,
-           const void* qpos, void* out, void* workspace, int S, int TQ, int H,
-           int KH, int B, float scale, cudaStream_t stream) {
+           const void* qpos, void* out, float* lse, void* workspace, int S, int TQ,
+           int H, int KH, int B, float scale, cudaStream_t stream) {
   const Plan p = plan_for<T, D>(S, TQ, H, KH, PAGE, B);
+  // the log-sum-exp comes out of the combine, so a launch that asks for it
+  // writes partials even at one split
+  const bool partials = p.nsplit > 1 || lse != nullptr;
   float* ws_o = nullptr;
   float* ws_ml = nullptr;
-  if (p.nsplit > 1) {
+  if (partials) {
     if (workspace == nullptr) return (int)cudaErrorInvalidValue;
     ws_o = static_cast<float*>(workspace);
     ws_ml = ws_o + (size_t)S * p.nsplit * KH * TQ * (H / KH) * D;
@@ -1468,10 +1487,10 @@ int launch(const void* q, const void* kv, const void* tables, const void* ctx,
   T* out_t = static_cast<T*>(out);
   int err = launch_main<T, D, PAGE>(p, q, kv, tab, ctx_i, qpos_i, out_t, ws_o, ws_ml,
                                     S, TQ, H, KH, B, scale, stream);
-  if (err || p.nsplit == 1) return err;
+  if (err || !partials) return err;
   const int rows = S * TQ * H;
   paged_attention_combine_kernel<T, D><<<(rows + 3) / 4, 128, 0, stream>>>(
-      ws_o, ws_ml, ctx_i, qpos_i, out_t, S, TQ, H, KH, p.nsplit,
+      ws_o, ws_ml, ctx_i, qpos_i, out_t, lse, S, TQ, H, KH, p.nsplit,
       p.split_pages * PAGE, B * PAGE);
   return (int)cudaGetLastError();
 }
@@ -1485,19 +1504,21 @@ bool shapes_ok(int S, int TQ, int H, int KH, int B) {
 }  // namespace
 
 // Bytes of f32 workspace a launch with these shapes needs (0: none), or -1
-// for shapes the kernel does not take.  dtype: 0 = float32, 1 = bfloat16.
+// for shapes the kernel does not take.  dtype: 0 = float32, 1 = bfloat16;
+// with_lse: 1 when the launch writes the log-sum-exp.
 extern "C" long long paged_attention_workspace_bytes(int S, int TQ, int H, int KH,
                                                      int D, int page, int B,
-                                                     int dtype) {
+                                                     int dtype, int with_lse) {
   if (!shapes_ok(S, TQ, H, KH, B) || (dtype != 0 && dtype != 1)) return -1;
 #define REPRO_PA_WS(DD, PP)                                                    \
   if (D == DD && page == PP)                                                   \
     return dtype == 0                                                          \
                ? (long long)workspace_bytes<float, DD>(                        \
-                     plan_for<float, DD>(S, TQ, H, KH, PP, B), S, TQ, H, KH)   \
+                     plan_for<float, DD>(S, TQ, H, KH, PP, B), S, TQ, H, KH,   \
+                     with_lse != 0)                                            \
                : (long long)workspace_bytes<__nv_bfloat16, DD>(                \
                      plan_for<__nv_bfloat16, DD>(S, TQ, H, KH, PP, B), S, TQ,  \
-                     H, KH);
+                     H, KH, with_lse != 0);
   REPRO_PA_SHAPES(REPRO_PA_WS)
 #undef REPRO_PA_WS
   return -1;
@@ -1505,24 +1526,26 @@ extern "C" long long paged_attention_workspace_bytes(int S, int TQ, int H, int K
 
 // Launches on `stream` and does not synchronise; `workspace` holds at least
 // paged_attention_workspace_bytes(...) bytes (it may be null when that is 0).
+// `lse` (f32 [S, TQ, H], or null) receives each row's log-sum-exp.
 // Returns cudaGetLastError() after the launches (0 on success), or a CUDA
 // error code for a shape the kernel does not take or a set-up step that
 // failed.
 extern "C" int paged_attention_launch(
     const void* q, const void* kv, const void* tables, const void* ctx,
-    const void* qpos, void* out, void* workspace, int S, int TQ, int H, int KH,
-    int D, int page, int B, int dtype, float scale, void* stream) {
+    const void* qpos, void* out, void* lse, void* workspace, int S, int TQ, int H,
+    int KH, int D, int page, int B, int dtype, float scale, void* stream) {
+  float* lse_f = static_cast<float*>(lse);
   if (!shapes_ok(S, TQ, H, KH, B)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_PA_LAUNCH(DD, PP)                                                \
   if (D == DD && page == PP) {                                                 \
     if (dtype == 0)                                                            \
-      return launch<float, DD, PP>(q, kv, tables, ctx, qpos, out, workspace,  \
-                                   S, TQ, H, KH, B, scale, st);               \
+      return launch<float, DD, PP>(q, kv, tables, ctx, qpos, out, lse_f,      \
+                                   workspace, S, TQ, H, KH, B, scale, st);    \
     if (dtype == 1)                                                            \
       return launch<__nv_bfloat16, DD, PP>(q, kv, tables, ctx, qpos, out,      \
-                                           workspace, S, TQ, H, KH, B, scale,  \
-                                           st);                                \
+                                           lse_f, workspace, S, TQ, H, KH, B,  \
+                                           scale, st);                         \
   }
   REPRO_PA_SHAPES(REPRO_PA_LAUNCH)
 #undef REPRO_PA_LAUNCH

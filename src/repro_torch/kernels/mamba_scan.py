@@ -41,6 +41,11 @@ The kernel runs decode (T == 1) in the recurrent form and T > 1 in a
 segmented form (the source's header gives both).  `mamba_segmented_ref` is
 a plain PyTorch mirror of the segmented form's algebra, with the number of
 segments a parameter; only tests call it.
+
+`cost` gives a launch's flops and bytes from shapes at the full static
+geometry, and `booked` stands in for a launch on ``meta`` tensors: it books
+that cost with `roofline.op_cost` and returns an empty output, counting no
+launch (the dry run, `launch.dryrun`).
 """
 
 from __future__ import annotations
@@ -293,6 +298,30 @@ def launch(library: str, dt, x, B, C, A, state, slots, lens, fresh,
     if err != 0:
         raise RuntimeError(f"mamba_scan_launch failed: CUDA error {err}")
     return out
+
+
+def cost(dt, x, B, C, A, state, slots, lens, fresh) -> Tuple[float, float]:
+    """(flops, bytes) of one launch at the full static geometry (every
+    token of every row): dt, x, B, C, A and the indices read once, each
+    row's [di, ds] f32 state read and written back, the f32 output
+    written; 7 flops a token, channel and state (dt·A, dt·x·B, the update
+    dA·h + dBx and the read-out C·h; the exponential not counted)."""
+    S, T, di = dt.shape
+    ds = A.shape[1]
+    nbytes = (sum(t.numel() * t.element_size() for t in (dt, x, B, C, A))
+              + 2 * S * di * ds * 4 + 4 * dt.numel()
+              + 4 * (slots.numel() + lens.numel() + fresh.numel()))
+    return 7.0 * S * T * di * ds, float(nbytes)
+
+
+def booked(dt, x, B, C, A, state, slots, lens, fresh) -> torch.Tensor:
+    """A launch on ``meta`` tensors: its `cost` booked with
+    `roofline.op_cost`, an empty f32 output of the launch's shape."""
+    from repro_torch.roofline import op_cost
+
+    op_cost.book("mamba_scan", *cost(dt, x, B, C, A, state, slots, lens,
+                                     fresh))
+    return torch.empty(x.shape, dtype=torch.float32, device=x.device)
 
 
 def mamba_chunked_scan(

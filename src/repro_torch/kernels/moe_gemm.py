@@ -33,6 +33,11 @@ zero dx.  The JAX package has no backward kernel either (its gradient is
 what autodiff derives); a hand-written one is ROADMAP Queue 2 work.
 `GRAD_TOLERANCE` and `grad_excess` hold it to autograd through the plain
 version.
+
+`cost` gives a launch's flops and bytes from shapes at the full static
+geometry, and `booked` stands in for a launch on ``meta`` tensors: it books
+that cost with `roofline.op_cost` and returns an empty output, counting no
+launch (the dry run, `launch.dryrun`).
 """
 
 from __future__ import annotations
@@ -216,6 +221,29 @@ def fused_moe_ffn(
     return out
 
 
+def cost(x, w_gate, w_up, w_down, counts=None) -> Tuple[float, float]:
+    """(flops, bytes) of one launch at the full static geometry (every
+    capacity row of every expert): x, the three weights and `counts` read
+    once, the output written once; three products of 2·C·d·ff flops an
+    expert."""
+    E, C, d = x.shape
+    ff = w_gate.shape[-1]
+    nbytes = (2 * x.numel() * x.element_size()
+              + sum(w.numel() * w.element_size()
+                    for w in (w_gate, w_up, w_down))
+              + (4 * E if counts is not None else 0))
+    return 6.0 * E * C * d * ff, float(nbytes)
+
+
+def booked(x, w_gate, w_up, w_down, counts=None) -> torch.Tensor:
+    """A launch on ``meta`` tensors: its `cost` booked with
+    `roofline.op_cost`, an empty output of the launch's shape."""
+    from repro_torch.roofline import op_cost
+
+    op_cost.book("moe_ffn", *cost(x, w_gate, w_up, w_down, counts))
+    return torch.empty_like(x)
+
+
 def fused_moe_ffn_ref(x: torch.Tensor, w_gate: torch.Tensor,
                       w_up: torch.Tensor, w_down: torch.Tensor,
                       counts: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -273,13 +301,14 @@ def fused_moe_ffn_backward(x, w_gate, w_up, w_down, counts, dout, *,
 
 
 class FusedMoEFFN(torch.autograd.Function):
-    """The Hopper kernel forward (`fused_moe_ffn`, counted) and
-    `fused_moe_ffn_backward`."""
+    """The Hopper kernel forward (`fused_moe_ffn`, counted; `booked` on
+    ``meta`` tensors) and `fused_moe_ffn_backward`."""
 
     @staticmethod
     def forward(ctx, x, w_gate, w_up, w_down, counts):
         ctx.save_for_backward(x, w_gate, w_up, w_down, counts)
-        return fused_moe_ffn(x, w_gate, w_up, w_down, counts)
+        run = booked if x.is_meta else fused_moe_ffn
+        return run(x, w_gate, w_up, w_down, counts)
 
     @staticmethod
     def backward(ctx, dout):

@@ -11,6 +11,16 @@ entry point ``paged_attention_workspace_bytes`` how much f32 workspace the
 launch needs (computed from shapes alone) and allocates it with
 `torch.empty`.
 
+With ``with_lse`` the kernel also writes each row's log-sum-exp of its
+scaled scores (f32 [S, TQ, H]; -1e30 for a row that attends no key), so
+that the normalised outputs over disjoint key sets merge exactly
+(`models.attention.paged_attention`'s sequence-sharded decode).
+
+`cost` gives a launch's flops and bytes from shapes at the full static
+geometry (every table page), and `booked` stands in for a launch on
+``meta`` tensors: it books that cost with `roofline.op_cost` and returns
+empty results, counting no launch (the dry run, `launch.dryrun`).
+
 `paged_flash_attention_ref` is the plain PyTorch version, mirroring
 ``repro/kernels/ref.py::paged_flash_attention_ref``: gather every table page,
 masked softmax in f32.  The CPU path uses it; on the card only the checks
@@ -116,20 +126,21 @@ def _entry_points(lib: ctypes.CDLL):
     fn, ws = lib.paged_attention_launch, lib.paged_attention_workspace_bytes
     if fn.argtypes is None:
         ptr = ctypes.c_void_p
-        fn.argtypes = [ptr] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ptr]
+        fn.argtypes = [ptr] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
-        ws.argtypes = [ctypes.c_int] * 8
+        ws.argtypes = [ctypes.c_int] * 9
         ws.restype = ctypes.c_longlong
     return fn, ws
 
 
 def launch(library: str, q, kv_pages, block_tables, context_lens,
-           q_positions, source: Optional[str] = None) -> torch.Tensor:
+           q_positions, source: Optional[str] = None, with_lse: bool = False):
     """Check the inputs, then launch the entry point of kernel library
     `library` (built at first use from ``csrc/<library>.cu``, or from the
-    CUDA text `source`, see `build.load`) on the current stream.  Raises on
-    anything the kernel does not take or on a CUDA error.  Counts nothing:
-    `paged_flash_attention` is the counted path."""
+    CUDA text `source`, see `build.load`) on the current stream.  Returns
+    the output, or (output, log-sum-exp f32 [S, TQ, H]) `with_lse`.
+    Raises on anything the kernel does not take or on a CUDA error.  Counts
+    nothing: `paged_flash_attention` is the counted path."""
     from repro_torch.kernels import build
 
     _check(q, kv_pages, block_tables, context_lens, q_positions)
@@ -138,9 +149,11 @@ def launch(library: str, q, kv_pages, block_tables, context_lens,
     _, page, _, KH, _ = kv_pages.shape
     shape = (S, TQ, H, KH, D, page, block_tables.shape[1], _DTYPES[q.dtype])
     out = torch.empty_like(q)
+    lse = (torch.empty((S, TQ, H), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        nbytes = workspace_bytes(*shape)
+        nbytes = workspace_bytes(*shape, int(with_lse))
         if nbytes < 0:
             raise ValueError(f"paged_attention_workspace_bytes refuses the "
                              f"shapes {shape}")
@@ -148,11 +161,12 @@ def launch(library: str, q, kv_pages, block_tables, context_lens,
                 if nbytes else None)
         err = fn(q.data_ptr(), kv_pages.data_ptr(), block_tables.data_ptr(),
                  context_lens.data_ptr(), q_positions.data_ptr(),
-                 out.data_ptr(), work.data_ptr() if nbytes else None,
-                 *shape, D ** -0.5, stream)
+                 out.data_ptr(), lse.data_ptr() if with_lse else None,
+                 work.data_ptr() if nbytes else None, *shape, D ** -0.5,
+                 stream)
     if err != 0:
         raise RuntimeError(f"paged_attention_launch failed: CUDA error {err}")
-    return out
+    return (out, lse) if with_lse else out
 
 
 def paged_flash_attention(
@@ -161,14 +175,48 @@ def paged_flash_attention(
     block_tables: torch.Tensor,  # [S, B] int32
     context_lens: torch.Tensor,  # [S] int32
     q_positions: torch.Tensor,   # [S, TQ] int32
-) -> torch.Tensor:
+    with_lse: bool = False,
+):
     """Launch the Hopper kernel; raises on anything it does not take.
-    Block-table entries below the live page count must index the pool."""
+    Block-table entries below the live page count must index the pool.
+    Returns the output, or (output, log-sum-exp) `with_lse`."""
     global launches
     out = launch("paged_attention", q, kv_pages, block_tables, context_lens,
-                 q_positions)
+                 q_positions, with_lse=with_lse)
     launches += 1
     return out
+
+
+def cost(q, kv_pages, block_tables, context_lens, q_positions,
+         with_lse: bool = False) -> Tuple[float, float]:
+    """(flops, bytes) of one launch at the full static geometry: every
+    table page's K and V read once, q, the indices, the output (and the
+    log-sum-exp) written once; Q.K^T and P.V over every table key."""
+    S, TQ, H, D = q.shape
+    _, page, _, KH, _ = kv_pages.shape
+    keys = S * block_tables.shape[1] * page
+    nbytes = (2 * q.numel() * q.element_size()
+              + keys * 2 * KH * D * kv_pages.element_size()
+              + 4 * (block_tables.numel() + context_lens.numel()
+                     + q_positions.numel())
+              + (4 * S * TQ * H if with_lse else 0))
+    return 4.0 * TQ * H * D * keys, float(nbytes)
+
+
+def booked(q, kv_pages, block_tables, context_lens, q_positions,
+           with_lse: bool = False):
+    """A launch on ``meta`` tensors: its `cost` booked with
+    `roofline.op_cost`, empty results of the launch's shapes."""
+    from repro_torch.roofline import op_cost
+
+    op_cost.book("paged_attention", *cost(q, kv_pages, block_tables,
+                                          context_lens, q_positions,
+                                          with_lse))
+    out = torch.empty_like(q)
+    if not with_lse:
+        return out
+    return out, torch.empty(q.shape[:-1], dtype=torch.float32,
+                            device=q.device)
 
 
 def paged_flash_attention_ref(
@@ -177,8 +225,11 @@ def paged_flash_attention_ref(
     block_tables: torch.Tensor,  # [S, B]
     context_lens: torch.Tensor,  # [S]
     q_positions: torch.Tensor,   # [S, TQ]
-) -> torch.Tensor:
-    """Plain version: gather all B pages, masked softmax in f32."""
+    with_lse: bool = False,
+):
+    """Plain version: gather all B pages, masked softmax in f32.  With
+    `with_lse` also each row's log-sum-exp of its scaled scores, f32 [S,
+    TQ, H], NEG_INF for a row that attends no key (as the kernel)."""
     S, TQ, H, D = q.shape
     _, page, _, KH, _ = kv_pages.shape
     B = block_tables.shape[1]
@@ -195,7 +246,13 @@ def paged_flash_attention_ref(
                          torch.full_like(scores, NEG_INF))
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("sqhgk,skhd->sqhgd", p, v)
-    return out.reshape(S, TQ, H, D).to(q.dtype)
+    out = out.reshape(S, TQ, H, D).to(q.dtype)
+    if not with_lse:
+        return out
+    lse = torch.where(mask.any(-1)[:, :, None, None],
+                      torch.logsumexp(scores, dim=-1),
+                      torch.full_like(scores[..., 0], NEG_INF))
+    return out, lse.reshape(S, TQ, H)
 
 
 def paged_flash_attention_partials_ref(

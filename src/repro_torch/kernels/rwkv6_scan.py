@@ -34,6 +34,11 @@ The kernel runs decode (T == 1) in the recurrent form and T > 1 in a
 chunked, division-free form (the source's header gives both).
 `rwkv6_chunked_ref` is a plain PyTorch mirror of the chunked form's
 algebra, with the chunk length a parameter; only tests call it.
+
+`cost` gives a launch's flops and bytes from shapes at the full static
+geometry, and `booked` stands in for a launch on ``meta`` tensors: it books
+that cost with `roofline.op_cost` and returns an empty output, counting no
+launch (the dry run, `launch.dryrun`).
 """
 
 from __future__ import annotations
@@ -306,6 +311,30 @@ def launch(library: str, r, k, v, w, u, state, slots, lens, fresh,
     if err != 0:
         raise RuntimeError(f"rwkv6_scan_launch failed: CUDA error {err}")
     return out
+
+
+def cost(r, k, v, w, u, state, slots, lens, fresh) -> Tuple[float, float]:
+    """(flops, bytes) of one launch at the full static geometry (every
+    token of every row): r, k, v, w, u and the indices read once, each
+    row's [H, D, D] f32 state read and written back, the f32 output
+    written; 6·D² flops a token and head (the outer product k v^T, the
+    decayed update and the read-out r (S + u k v^T), a multiply-add
+    counted as two)."""
+    S, T, H, D = r.shape
+    nbytes = (sum(t.numel() * t.element_size() for t in (r, k, v, w, u))
+              + 2 * S * H * D * D * 4 + 4 * r.numel()
+              + 4 * (slots.numel() + lens.numel() + fresh.numel()))
+    return 6.0 * S * T * H * D * D, float(nbytes)
+
+
+def booked(r, k, v, w, u, state, slots, lens, fresh) -> torch.Tensor:
+    """A launch on ``meta`` tensors: its `cost` booked with
+    `roofline.op_cost`, an empty f32 output of the launch's shape."""
+    from repro_torch.roofline import op_cost
+
+    op_cost.book("rwkv6_scan", *cost(r, k, v, w, u, state, slots, lens,
+                                     fresh))
+    return torch.empty(r.shape, dtype=torch.float32, device=r.device)
 
 
 def rwkv6_chunked_scan(

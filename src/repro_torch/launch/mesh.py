@@ -190,6 +190,17 @@ class RankGroups:
                          self.rank)
 
 
+def counting_groups(layout: Layout, rank: int) -> RankGroups:
+    """`rank`'s groups for the dry run (`launch.dryrun`): every axis of the
+    layout's size, with no process group.  The program runs on ``meta``
+    tensors there, and each collective books its bytes instead of moving
+    them (`distributed.collectives`); nothing joins a process group."""
+    axes = {name: AxisGroup(name, tuple(layout.line(name, rank)),
+                            layout.coords(rank)[name])
+            for name in layout.names}
+    return RankGroups(layout, rank, axes, backend="count")
+
+
 def init_groups(layout: Layout, rank: int, backend: str = "gloo",
                 timeout_s: Optional[float] = None) -> RankGroups:
     """Create every line's group of every axis (collectively: all ranks

@@ -61,7 +61,8 @@ M, MBG = 2, 1          # micro-batches a step, sequences each
 def train(cfg, *, steps: int, seq: int, lr: float = 1e-3,
           ckpt: Optional[str] = None, ckpt_every: int = 25,
           resume: bool = False, grad_compression: Optional[str] = None,
-          device: Optional[torch.device | str] = None) -> dict:
+          device: Optional[torch.device | str] = None,
+          remat: str = "full") -> dict:
     """Train `cfg` for `steps` steps from random weights (seed 0) or the
     checkpoint.  Returns {"loss", "gnorm", "step_s" (per step, host wall
     time to the loss's readback), "params", "tokens_per_step",
@@ -70,7 +71,8 @@ def train(cfg, *, steps: int, seq: int, lr: float = 1e-3,
     dtype = getattr(torch, cfg.dtype)
     ew = seq // 2 if cfg.is_encoder_decoder else 0
     step = build_train_step(cfg, adam=AdamConfig(lr=lr), enc_width=ew,
-                            grad_compression=grad_compression, device=dev)
+                            grad_compression=grad_compression, device=dev,
+                            remat=remat)
     resumed = bool(resume and ckpt and os.path.exists(
         os.path.join(ckpt, "manifest.json")))
     if resumed:
@@ -117,7 +119,7 @@ def train_rank(ranks, job: dict) -> dict:
     batches, taken in turn) or ``seq`` (then `data.tokens.batches` of ``M``
     micro-batches of ``mbg`` sequences, with zero frontend rows for a vlm or
     audio config, as `train` makes them), ``lr``, optional
-    ``grad_compression``, ``aux_coef``, ``enc_width`` (an encoder-decoder's
+    ``grad_compression``, ``remat`` (`build_train_step`), ``aux_coef``, ``enc_width`` (an encoder-decoder's
     encoder half), ``device``, ``dtype``, ``seed`` or ``npz``
     (`launch.serve.rank_params`), ``keep`` (a step count: return the shard's
     leaves after that many steps, as numpy), ``digest`` (a step count: their
@@ -163,7 +165,7 @@ def train_rank(ranks, job: dict) -> dict:
         cfg, adam=AdamConfig(lr=job.get("lr", 1e-3)),
         aux_coef=job.get("aux_coef", 0.01), enc_width=ew,
         grad_compression=job.get("grad_compression"), device=dev,
-        ranks=ranks)
+        ranks=ranks, remat=job.get("remat", "full"))
     if "batches" in job:
         data = iter(job["batches"])
     else:
@@ -239,7 +241,7 @@ def _train_ranks(cfg, args) -> Optional[dict]:
                lr=args.lr, grad_compression=args.grad_compression,
                enc_width=args.seq // 2 if cfg.is_encoder_decoder else 0,
                device=dev.type, ckpt=args.ckpt, ckpt_every=args.ckpt_every,
-               resume=args.resume)
+               resume=args.resume, remat=args.remat)
     out = rank_launch(train_rank, layout, job, args)
     if out is None:
         return None
@@ -267,6 +269,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--grad-compression", default=None,
                     choices=[None, "int8", "ring8"])
+    ap.add_argument("--remat", default="full", choices=["full", "dots"],
+                    help="recompute in backward: every layer whole (full) "
+                    "or all but its weight GEMMs' outputs (dots)")
     ap.add_argument("--full", action="store_true",
                     help="the published config in its dtype (default: the "
                     "reduced f32 config)")
@@ -285,7 +290,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     return train(cfg, steps=args.steps, seq=args.seq, lr=args.lr,
                  ckpt=args.ckpt, ckpt_every=args.ckpt_every,
                  resume=args.resume, grad_compression=args.grad_compression,
-                 device=args.device)
+                 device=args.device, remat=args.remat)
 
 
 if __name__ == "__main__":

@@ -96,6 +96,7 @@ class ServeDims:
     Bd: int              # max pages per decode seq's block table
     slots: int           # recurrent-state / enc-cache sequence slots
     Te: int = 0          # whisper encoder bucket (0 for non-enc-dec)
+    seq_shard: bool = False   # decode KV sequence-sharded over `data`
 
     @property
     def prefill_width(self) -> int:
@@ -269,7 +270,10 @@ def host_meta(meta: Mapping[str, np.ndarray], dims: ServeDims,
     p_live = meta["p_chunk_lens"] > 0
     fields["p_write_slots"] = np.where(p_live, meta["p_state_slots"],
                                        dims.slots)
-    fields["p_fresh"] = p_live & (meta["p_positions"][:, 0] == 0)
+    # a decode-only cell (Sp = C = 0) has no first column to read
+    first = (meta["p_positions"][:, 0] if dims.C
+             else np.zeros(dims.Sp, np.int32))
+    fields["p_fresh"] = p_live & (first == 0)
     fields["d_write_slots"] = np.where(meta["d_valid"] > 0,
                                        meta["d_state_slots"], dims.slots)
     fields["d_fresh"] = np.zeros(dims.Sd, np.int32)
@@ -432,18 +436,28 @@ def _phase_rows(meta: Mapping[str, torch.Tensor], is_prefill: bool):
 
 def _paged_self_attention(cfg: ArchConfig, p, xs: torch.Tensor,
                           cache: torch.Tensor, meta: Mapping[str, torch.Tensor],
-                          is_prefill: bool, tp=None) -> torch.Tensor:
+                          is_prefill: bool, tp=None, seq=None) -> torch.Tensor:
     """Project, write pages (in place), attend.  Returns the attention
     output; at a tensor rank `tp` (the heads, the pool's KV heads and the
     out-projection's rows the rank's) the rank's partial sum of it, which
-    the caller reduces over the group (`_reduce_rows`)."""
+    the caller reduces over the group (`_reduce_rows`).  `seq`: the data
+    group over which a decode row's KV is sequence-sharded
+    (``ServeDims.seq_shard``; `attention.paged_attention`'s
+    ``merge_axis``): the pool and the tables are this replica's shard, and
+    the metadata sends the row's new K/V to the replica that holds its
+    page (the scratch page on the others).  Decode rows only: JAX shards
+    only decode cells, which have no prefill rows."""
+    if is_prefill and seq is not None:
+        raise ValueError("sequence-sharded KV is for decode rows only: a "
+                         "seq_shard cell has Sp = 0")
     positions, tables, ctx, pages, offs, rope = _phase_rows(meta,
                                                             is_prefill)
 
     q, k, v = _qkv_rows(cfg, p, coll.copy_to_tensor(xs, tp), rope)
     new_kv = torch.stack([k, v], dim=2)                   # [S, T, 2, KH, hd]
     attn.write_kv_pages(cache, new_kv, pages, offs)
-    o = attn.paged_attention(q, cache, tables, ctx, positions)
+    o = attn.paged_attention(q, cache, tables, ctx, positions,
+                             merge_axis=seq)
     return o.reshape(o.shape[:-2] + (-1,)) @ p["wo"]
 
 
@@ -626,7 +640,7 @@ def block_apply_serve(cfg: ArchConfig, kind: BlockKind, p,
                       cache: Optional[Dict[str, torch.Tensor]],
                       meta: Mapping[str, torch.Tensor], dims: ServeDims,
                       enc_h: Optional[torch.Tensor] = None, tp=None,
-                      ep=None):
+                      ep=None, seq=None):
     """One block over the stage's micro-batch: xp [Sp, W, d] prefill
     payload (W = Te + C for whisper, C otherwise), xd [Sd, 1, d] decode
     rows.  Both phases run whenever their bucket is non-empty
@@ -642,7 +656,9 @@ def block_apply_serve(cfg: ArchConfig, kind: BlockKind, p,
     `transformer.shard_config`): every mixer and FFN returns the rank's
     partial sums, and each sublayer's of both phases are reduced in one
     all-reduce (`_reduce_rows`; the FFN runs over both phases' rows at
-    once).  Returns (xp, xd, cache); the cache is updated in place."""
+    once).  `seq`: the data group of a sequence-sharded decode
+    (`_paged_self_attention`).  Returns (xp, xd, cache); the cache is
+    updated in place."""
     if tp is not None and tp.size == 1:
         tp = None
     if kind == BlockKind.RWKV:
@@ -674,15 +690,22 @@ def block_apply_serve(cfg: ArchConfig, kind: BlockKind, p,
         if Sd:
             outs.append(_mamba_serve(cfg, p, norm("ln1", xd), cache, meta,
                                      "d", tp))
-    else:
-        mixer = (_paged_mla_attention if kind == BlockKind.MLA_MLP
-                 else _paged_self_attention)
+    elif kind == BlockKind.MLA_MLP:
         if Sp:
-            outs.append(mixer(cfg, p, norm("ln1", xp), cache["kv"], meta,
-                              True, tp=tp))
+            outs.append(_paged_mla_attention(cfg, p, norm("ln1", xp),
+                                             cache["kv"], meta, True, tp=tp))
         if Sd:
-            outs.append(mixer(cfg, p, norm("ln1", xd), cache["kv"], meta,
-                              False, tp=tp))
+            outs.append(_paged_mla_attention(cfg, p, norm("ln1", xd),
+                                             cache["kv"], meta, False, tp=tp))
+    else:
+        if Sp:
+            outs.append(_paged_self_attention(cfg, p, norm("ln1", xp),
+                                              cache["kv"], meta, True, tp=tp,
+                                              seq=seq))
+        if Sd:
+            outs.append(_paged_self_attention(cfg, p, norm("ln1", xd),
+                                              cache["kv"], meta, False, tp=tp,
+                                              seq=seq))
     outs = list(_reduce_rows(tp, *outs))
     if Sp:
         xp = xp + outs.pop(0)
@@ -721,13 +744,15 @@ def _rope_for(cfg: ArchConfig, positions: torch.Tensor, dim: int):
 
 def stage_forward_serve(cfg: ArchConfig, stage_params, caches, xp, xd, meta,
                         dims: ServeDims, *, stage: int = 0,
-                        index: Optional[int] = None, tp=None, ep=None):
+                        index: Optional[int] = None, tp=None, ep=None,
+                        seq=None):
     """Apply one stage's blocks to its micro-batch, a Python loop over the
     repeats.  `stage_params` leaves are ``[S, R, ...]``; layer ``(stage, r)``
     uses the views ``p[i, r]`` and ``cache[i, r]``, the latter updated in
     place, at ``i = index`` (a rank that holds only its stage's leaves and
     caches passes 0), else ``i = stage``.  `tp`: the rank's tensor group,
-    `ep`: its data group when the experts are split over it
+    `ep`: its data group when the experts are split over it, `seq`: its
+    data group when the decode KV is sequence-sharded over it
     (`block_apply_serve`).  Padded layers (global index >= num_layers) are the
     identity, as the JAX mask makes them.  Returns (xp, xd, caches).
 
@@ -793,7 +818,7 @@ def stage_forward_serve(cfg: ArchConfig, stage_params, caches, xp, xd, meta,
             pr = {name: views[r] for name, views in layers.items()}
             cr = {name: views[r] for name, views in states.items()}
             xp, xd, _ = block_apply_serve(cfg, bs.kind, pr, xp, xd, cr,
-                                          meta, dims, enc_h, tp, ep)
+                                          meta, dims, enc_h, tp, ep, seq)
         off += bs.repeat
         if bs.kind == BlockKind.ENC_LAYER:
             enc_snapshot = caches[key]["h"][at]

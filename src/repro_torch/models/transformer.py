@@ -29,7 +29,11 @@ from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import (
     ArchConfig,
@@ -803,17 +807,40 @@ def block_apply_train(cfg: ArchConfig, kind: BlockKind, p,
     return x + mlp_apply(h, p, cfg.act, tp), aux
 
 
+_WEIGHT_GEMMS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+REMAT_POLICIES = ("full", "dots")
+
+
+def _save_weight_gemms(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the outputs of matrix products with no batch dimension (the weight
+    GEMMs, ``mm`` / ``addmm``), recompute the rest (the batched attention
+    products among them)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _WEIGHT_GEMMS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_save_weight_gemms)
+
+
 def stage_forward_train(cfg: ArchConfig, stage_params, x: torch.Tensor, *,
                         enc_width: int = 0, stage: int = 0,
-                        tp=None, ep=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                        tp=None, ep=None, remat: str = "full"
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pipeline stage `stage`'s layers over x [B, T, d] -> (x, aux).
     `stage_params` holds that stage's leaves, ``[R, ...]`` per block group
     (the JAX package's stage-local view).  A padded layer (global index >=
     ``num_layers``) is the identity and adds no aux.  RWKV and Mamba
     blocks run the train forms.  Each layer is recomputed in backward
-    (`torch.utils.checkpoint`, the JAX package's full ``jax.checkpoint``):
-    only the layer inputs stay live.  `tp`, `ep`: as
-    `block_apply_train`."""
+    (`torch.utils.checkpoint`): with ``remat="full"`` (the JAX package's
+    plain ``jax.checkpoint``) only the layer inputs stay live; with
+    ``"dots"`` (its ``REPRO_REMAT_POLICY=dots``, an argument here) the
+    weight GEMMs' outputs are saved too and only the rest is recomputed
+    (`_save_weight_gemms`).  `tp`, `ep`: as `block_apply_train`."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat {remat!r}: one of {REMAT_POLICIES}")
+    kw = {"context_fn": _dots_context} if remat == "dots" else {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     off = stage * cfg.layers_per_stage
     for i, bs in enumerate(cfg.pattern):
@@ -824,6 +851,7 @@ def stage_forward_train(cfg: ArchConfig, stage_params, x: torch.Tensor, *,
         for r in range(bs.repeat):
             if off + r < cfg.num_layers:
                 pl = {k: v[r] for k, v in p.items()}
-                x, aux = checkpoint(fn, pl, x, aux, use_reentrant=False)
+                x, aux = checkpoint(fn, pl, x, aux, use_reentrant=False,
+                                    **kw)
         off += bs.repeat
     return x, aux

@@ -1,2 +1,3 @@
-"""The card's roofline constants and the analytic parameter count the
-simulator's cost model takes (``repro.roofline``)."""
+"""The card's roofline constants, the analytic parameter and model flop
+counts, the roofline cell (``repro.roofline``), and the op count that
+stands in for the JAX package's HLO cost analysis (`op_cost`)."""

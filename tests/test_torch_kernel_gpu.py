@@ -102,3 +102,30 @@ def test_ops_sends_cuda_tensors_to_the_kernel(cuda_device):
     with pytest.raises(ValueError):                 # no silent fallback
         ops.paged_attention(q.double(), kv.double(), tables, ctx, qpos)
     assert pa.launches == 1
+
+
+# the log-sum-exp output: |lse - plain lse| on rows that attend a key
+LSE_TOL = 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_kernel_lse_matches_plain_on_card(cuda_device, shape, dtype):
+    """`with_lse` at every path and split: the output as without it, each
+    row's log-sum-exp the plain version's (-1e30 for a row with no key),
+    whether the launch splits the pages or not (one split writes partials
+    for the combine too)."""
+    tdtype = DTYPES[dtype]
+    q, kv, tables, ctx, qpos = _case(*shape, seed=sum(shape) + 1,
+                                     device=cuda_device)
+    q, kv = q.to(tdtype), kv.to(tdtype)
+    out, lse = ops.paged_attention(q, kv, tables, ctx, qpos, with_lse=True)
+    excess, err = pa.excess(out, q, kv, tables, ctx, qpos)
+    assert excess <= 1.0, f"max abs err {err}"
+    _, want = pa.paged_flash_attention_ref(q, kv, tables, ctx, qpos,
+                                           with_lse=True)
+    keys = torch.minimum(ctx[:, None], qpos + 1) > 0
+    assert float((lse[keys] - want[keys]).abs().max()) <= LSE_TOL
+    assert torch.all(lse[~keys] == pa.NEG_INF)
+    assert lse.dtype == torch.float32 and lse.shape == q.shape[:-1]
